@@ -1,0 +1,18 @@
+"""Zebra kernels of the port: CUDA for Hopper, each with a plain PyTorch
+version beside its wrapper (see ``build`` for how they are compiled)."""
+from .mask_pack import pack_blocks, zebra_bitmap, zebra_mask_pack  # noqa: F401
+from .pack import expand_payload, zebra_unpack  # noqa: F401
+from .schedule import consumer_schedule, slot_map  # noqa: F401
+
+
+def launch_counters() -> dict:
+    """The wrappers whose ``.launches`` count the CUDA kernel launches, by
+    kernel name."""
+    return {"zebra_bitmap_kernel": zebra_bitmap,
+            "zebra_pack_kernel": pack_blocks,
+            "zebra_unpack_kernel": zebra_unpack}
+
+
+def reset_launch_counts() -> None:
+    for wrapper in launch_counters().values():
+        wrapper.launches = 0

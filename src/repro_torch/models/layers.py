@@ -1,0 +1,105 @@
+"""Shared CNN layers (the port of ``repro.models.layers``), NCHW / OIHW.
+
+Plain functions on tensors, plus the small ``nn.Module``s that hold their
+parameters. Layouts follow the reference so parameters copy across:
+conv weights are OIHW on both sides; a dense weight is stored as torch's
+(out, in), the transpose of the reference's (in, out).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def he_normal(shape: tuple[int, ...], *, generator: torch.Generator | None = None,
+              dtype=torch.float32, fan_in: int | None = None) -> torch.Tensor:
+    if fan_in is None:
+        fan_in = math.prod(shape[1:]) if len(shape) > 1 else shape[0]
+    return torch.randn(shape, generator=generator, dtype=dtype) * math.sqrt(2.0 / fan_in)
+
+
+def same_padding(n: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's ``"SAME"`` padding of one spatial side: ``ceil(n / stride)``
+    outputs, the odd pixel of padding after the map. A stride-2 3x3 conv on
+    an even map pads (0, 1), not (1, 1)."""
+    out = -(-n // stride)
+    total = max((out - 1) * stride + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def conv_apply(w: torch.Tensor, x: torch.Tensor, stride: int = 1,
+               groups: int = 1) -> torch.Tensor:
+    """2-D convolution with ``"SAME"`` padding, NCHW input, OIHW weight."""
+    kh, kw = w.shape[-2:]
+    ph = same_padding(x.shape[-2], kh, stride)
+    pw = same_padding(x.shape[-1], kw, stride)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return F.conv2d(x, w.to(x.dtype), stride=stride, padding=(ph[0], pw[0]),
+                        groups=groups)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    return F.conv2d(x, w.to(x.dtype), stride=stride, groups=groups)
+
+
+def bn_apply(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
+             var: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Eval-mode BatchNorm over NCHW with running statistics, in the
+    reference's order: ``(x - mean) * rsqrt(var + eps) * scale + bias``."""
+    inv = torch.rsqrt(var.to(torch.float32) + eps)
+    c = (slice(None), None, None)
+    y = (x - mean[c].to(x.dtype)) * inv[c].to(x.dtype)
+    return y * scale[c].to(x.dtype) + bias[c].to(x.dtype)
+
+
+def dense_apply(w: torch.Tensor, b: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T + b`` with w stored (out, in)."""
+    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    return x.mean(dim=(2, 3))
+
+
+class Conv(nn.Module):
+    """Holds an OIHW conv weight, He-normal initialised."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, *, groups: int = 1,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.w = nn.Parameter(he_normal((c_out, c_in // groups, k, k),
+                                        generator=generator,
+                                        fan_in=(c_in // groups) * k * k))
+        self.groups = groups
+
+    def forward(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+        return conv_apply(self.w, x, stride, self.groups)
+
+
+class BatchNorm(nn.Module):
+    """Per-channel scale/bias parameters and mean/var running buffers."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer("mean", torch.zeros(c))
+        self.register_buffer("var", torch.ones(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return bn_apply(self.scale, self.bias, self.mean, self.var, x)
+
+
+class Dense(nn.Module):
+    """Dense layer with the weight stored (out, in) and a zero bias."""
+
+    def __init__(self, d_in: int, d_out: int, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.w = nn.Parameter(he_normal((d_out, d_in), generator=generator,
+                                        fan_in=d_in))
+        self.b = nn.Parameter(torch.zeros(d_out))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense_apply(self.w, self.b, x)

@@ -1,0 +1,112 @@
+"""The port's site engine against the reference's: ``zebra_site`` on the
+stream and reference backends, NCHW and token layouts, must give the same
+map bit for bit and the same ``SiteAux`` observables; ``LayerAux`` must
+sum bytes to the same exact integer."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import ZebraConfig as JZebraConfig
+from repro.core import backends as jbackends
+from repro.core.engine import LayerAux as JLayerAux
+from repro.core.engine import SiteAux as JSiteAux
+from repro.core.engine import zebra_site as jax_site
+from repro_torch.core import ZebraConfig, backends
+from repro_torch.core.engine import LayerAux, SiteAux, nchw_stream_dims, zebra_site
+
+from _torch_parity import bits
+
+MAPS = {
+    # name: (shape, layout, extra config)
+    "nchw-b4": ((2, 3, 8, 8), "nchw", {"block_hw": 4}),
+    "nchw-shrink-b3": ((2, 2, 6, 6), "nchw", {"block_hw": 4}),
+    "nchw-b8": ((2, 4, 16, 16), "nchw", {"block_hw": 8}),
+    "tokens-8x128": ((2, 16, 256), "tokens", {}),
+    "tokens-2d": ((16, 256), "tokens", {}),
+    "tokens-degenerate": ((2, 3, 256), "tokens", {}),
+}
+
+
+def make_map(shape, seed=0):
+    rng = np.random.default_rng(seed)
+    scale = rng.uniform(0.0, 2.0, size=shape[:-1] + (1,))
+    return (rng.normal(size=shape) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("backend", ["stream", "reference"])
+@pytest.mark.parametrize("name", list(MAPS))
+def test_zebra_site_matches_reference(name, backend):
+    shape, layout, extra = MAPS[name]
+    x = make_map(shape)
+    if layout == "nchw":
+        x = np.maximum(x, 0.0)                       # post-ReLU CNN map
+    kw = dict(mode="infer", backend=backend, t_obj=1.0, **extra)
+    y, aux = zebra_site(torch.from_numpy(x), ZebraConfig(**kw), site="s",
+                        layout=layout)
+    jy, jaux = jax_site(jnp.asarray(x), JZebraConfig(interpret=True, **kw),
+                        site="s", layout=layout)
+    np.testing.assert_array_equal(bits(y), bits(jy))
+    assert float(aux.zero_frac) == float(jaux.zero_frac)
+    assert int(aux.measured_bytes) == int(jaux.measured_bytes)
+    assert aux.n_blocks == jaux.n_blocks
+    assert aux.backend == jaux.backend
+    if name == "tokens-degenerate" and backend == "stream":
+        assert aux.backend == "reference(degenerate-rows)"
+
+
+def test_stream_equals_reference_map():
+    x = torch.from_numpy(np.maximum(make_map((2, 4, 16, 16), 3), 0.0))
+    cfg = ZebraConfig(mode="infer", t_obj=1.0, block_hw=8)
+    ys, auxs = zebra_site(x, cfg.replace(backend="stream"), layout="nchw")
+    yr, auxr = zebra_site(x, cfg, layout="nchw")
+    assert torch.equal(ys, yr) and float(auxs.zero_frac) == float(auxr.zero_frac)
+    assert int(auxs.measured_bytes) > 0 and int(auxr.measured_bytes) == 0
+
+
+def test_layer_aux_exact_bytes_past_2_24():
+    per_site = [16777215, 16777215, 5, 2 ** 24 + 3, 123456789]
+    zf = [0.25, 0.5, 0.0, 1.0, 0.75]
+    nb = [64, 32, 16, 8, 4]
+    acc, jacc = LayerAux.zero(), JLayerAux.zero()
+    for b, z, n in zip(per_site, zf, nb):
+        acc = acc + LayerAux.of_site(SiteAux(
+            reg=0.0, zero_frac=torch.tensor(z), n_blocks=n,
+            measured_bytes=torch.tensor(b, dtype=torch.int64)))
+        jacc = jacc + JLayerAux.of_site(JSiteAux(
+            reg=jnp.float32(0), zero_frac=jnp.float32(z), n_blocks=n,
+            measured_bytes=jnp.int32(b)))
+    assert acc.measured_bytes_exact() == jacc.measured_bytes_exact() == sum(per_site)
+    assert float(acc.zero_frac) == float(jacc.zero_frac)
+
+
+def test_registry_matches_reference():
+    assert backends.backend_names() == jbackends.backend_names()
+    for name in backends.backend_names():
+        assert (dataclasses.asdict(backends.backend_spec(name))
+                == dataclasses.asdict(jbackends.backend_spec(name)))
+
+
+def test_nchw_stream_dims():
+    assert nchw_stream_dims((128, 64, 64, 64), 8) == (524288, 64, 8)
+    assert nchw_stream_dims((2, 3, 6, 6), 4) == (36, 6, 3)
+    assert nchw_stream_dims((2, 3), 4) is None
+
+
+@pytest.mark.parametrize("case", ["train", "pallas", "fused", "validation", "typo"])
+def test_unported_paths_raise(case):
+    x = torch.ones(1, 1, 8, 8)
+    if case == "validation":
+        with pytest.raises(NotImplementedError):
+            ZebraConfig(validation="checksum")
+        return
+    if case == "typo":
+        with pytest.raises(ValueError):
+            ZebraConfig(backend="steam")
+        return
+    cfg = (ZebraConfig(mode="train", use_tnet=False) if case == "train"
+           else ZebraConfig(mode="infer", backend=case))
+    with pytest.raises(NotImplementedError):
+        zebra_site(x, cfg, layout="nchw")

@@ -1,0 +1,84 @@
+"""The port stands alone: it imports neither ``jax`` nor ``repro``, it
+imports with ``jax`` blocked, its entry points refuse to fall back to the
+CPU when no ``device`` is given, and a kernel's GPU branch never falls back
+to the plain version."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.kernels import build, mask_pack, pack
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    assert path.exists()
+    assert not _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax"}
+
+
+def test_imports_with_jax_blocked():
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'repro'):\n"
+            "    sys.modules[m] = None\n"
+            "import repro_torch.train, repro_torch.kernels, repro_torch.models.cnn.convert\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_trainer_without_device_needs_cuda():
+    from repro_torch.train import CNNTrainConfig, CNNTrainer
+    cfg = CNNTrainConfig(width_mult=0.125)
+    if torch.cuda.is_available():
+        assert CNNTrainer(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            CNNTrainer(cfg)
+
+
+@pytest.mark.parametrize("launch", ["bitmap", "pack", "unpack"])
+def test_gpu_branch_raises_without_cuda(launch):
+    """The CUDA branch of each wrapper, handed a tensor off the card,
+    raises instead of running the plain version."""
+    x = torch.ones(16, 16)
+    bitmap = torch.ones(2, 2, dtype=torch.int8)
+    slot = torch.arange(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        if launch == "bitmap":
+            mask_pack.bitmap_cuda(x, 0.5, 8, 8)
+        elif launch == "pack":
+            mask_pack.pack_cuda(x, bitmap, slot, torch.tensor(4, dtype=torch.int32), 8, 8)
+        else:
+            pack.unpack_cuda(x.reshape(4, 8, 8), bitmap, slot, 8, 8)
+
+
+def test_wrapper_on_other_device_raises():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mask_pack.zebra_mask_pack(torch.ones(16, 16, device="meta"), t_obj=0.5, bs=8, bc=8)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build.os.path, "isfile", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc_path()
