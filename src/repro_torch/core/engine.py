@@ -29,8 +29,8 @@ from typing import Any
 
 import torch
 
-from ..kernels.mask_pack import zebra_mask_pack
-from ..kernels.pack import zebra_unpack
+from ..kernels.mask_pack import mask_pack_with_slots
+from ..kernels.pack import unpack_with_slots
 from .backends import BackendSpec, backend_spec
 from .zebra import (ZebraConfig, effective_tnet, require_infer, zebra_cnn,
                     zebra_tokens, zero_fraction)
@@ -170,9 +170,11 @@ def stream_bytes(n_live: torch.Tensor, bs: int, bc: int, dtype,
 
 def _run_stream(x2: torch.Tensor, bs: int, bc: int, cfg: ZebraConfig, w=None):
     """mask_pack -> unpack with only the (payload, bitmap) stream between
-    producer and expander."""
-    payload, bitmap, n_live = zebra_mask_pack(x2, t_obj=cfg.t_obj, bs=bs, bc=bc)
-    y2 = zebra_unpack(payload, bitmap, bs=bs, bc=bc)
+    producer and expander; the expander reuses the producer's slot map
+    rather than scan the bitmap again."""
+    payload, bitmap, n_live, keep, slot = mask_pack_with_slots(
+        x2, t_obj=cfg.t_obj, bs=bs, bc=bc)
+    y2 = unpack_with_slots(payload, bitmap, keep, slot, bs=bs, bc=bc)
     return y2, bitmap, stream_bytes(n_live, bs, bc, x2.dtype, bitmap.numel())
 
 

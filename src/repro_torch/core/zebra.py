@@ -39,7 +39,9 @@ TRAIN_NOT_PORTED = ("train mode is not yet ported to repro_torch (ROADMAP.md, "
 class ZebraConfig:
     """Every field of ``repro.core.zebra.ZebraConfig`` that defines
     semantics. The TPU's ``interpret`` and ``vmem_budget_bytes`` have no
-    counterpart: the Hopper kernels size their own launches."""
+    counterpart: the Hopper kernels size their own launches.
+    ``zero_frac_hint`` (a plan hint of the fused path) comes with that
+    path."""
     enabled: bool = True
     t_obj: float = 0.1           # target threshold T_obj (Eq. 1)
     block_hw: int = 4            # spatial b for CNN maps (paper: 4 / 8 / 2)
@@ -53,7 +55,6 @@ class ZebraConfig:
     act_bits: int = 16           # B in Eq. 2
     backend: str = "reference"   # reference | pallas | stream | fused
     site_backends: tuple[tuple[str, str], ...] = ()  # per-site overrides
-    zero_frac_hint: float | None = None
     validation: str = "off"      # stream-integrity level ("off" only, so far)
 
     def __post_init__(self):

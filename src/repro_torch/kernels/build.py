@@ -1,11 +1,11 @@
-"""Build and load the port's CUDA kernels (``kernels/csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``kernels/csrc/zebra_stream.cu``).
 
-Each ``.cu`` source under ``csrc/`` is compiled by ``nvcc`` into its own
-shared library with a plain C interface, loaded with ``ctypes``. Nothing
-is built when a module is imported: the first launch builds. The build
-goes to ``build/repro_torch/<digest>/`` at the root of the checkout, keyed
-by a hash of the sources and flags, so an edited source never loads a
-stale library. All sources compile in parallel, one ``nvcc`` each.
+The source is compiled by ``nvcc`` into a shared library with a plain C
+interface, loaded with ``ctypes``. Nothing is built when a module is
+imported: the first launch builds. The build goes to
+``build/repro_torch/<digest>/`` at the root of the checkout, keyed by a
+hash of the sources and flags, so an edited source never loads a stale
+library.
 
 Without ``nvcc`` the build raises: a CUDA tensor never falls back to a
 plain PyTorch path.
@@ -23,12 +23,13 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
+SOURCE = CSRC / "zebra_stream.cu"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
+_lib: ctypes.CDLL | None = None
 
 
 def nvcc_path() -> str:
@@ -44,10 +45,6 @@ def nvcc_path() -> str:
                        "the repro_torch CUDA kernels cannot be built")
 
 
-def sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu"))
-
-
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.iterdir()):
@@ -56,38 +53,25 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build_all() -> dict[str, Path]:
-    """Compile every source whose library is missing, all at once; return
-    ``{name: library path}``. Compiler output (``-Xptxas -v``: registers,
-    shared memory, spills per kernel) is kept beside each library as
-    ``<name>.log``."""
+def build() -> Path:
+    """Compile the source unless its library exists; return the library's
+    path. Compiler output (``-Xptxas -v``: registers, shared memory and
+    spills per kernel) is kept beside it as ``<name>.log``."""
     out = build_dir()
+    lib = out / f"lib{SOURCE.stem}.so"
+    if lib.exists():
+        return lib
     out.mkdir(parents=True, exist_ok=True)
-    libs = {src.stem: out / f"lib{src.stem}.so" for src in sources()}
-    todo = [(src, libs[src.stem]) for src in sources()
-            if not libs[src.stem].exists()]
-    if not todo:
-        return libs
-    nvcc = nvcc_path()
-    procs = []
-    for src, lib in todo:
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        log = open(lib.parent / f"{src.stem}.log", "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-        procs.append((src, lib, tmp, log,
-                      subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
-    failed = []
-    for src, lib, tmp, log, proc in procs:
-        rc = proc.wait()
-        log.close()
-        if rc == 0:
-            os.replace(tmp, lib)        # atomic: a reader sees all or nothing
-        else:
-            failed.append(f"{src.name}: nvcc exit {rc}\n"
-                          f"{(lib.parent / f'{src.stem}.log').read_text()}")
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return libs
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    log = out / f"{SOURCE.stem}.log"
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(SOURCE)]
+    with open(log, "w") as f:
+        rc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT).returncode
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel build failed: {SOURCE.name}: nvcc exit "
+                           f"{rc}\n{log.read_text()}")
+    os.replace(tmp, lib)        # atomic: a reader sees all or nothing
+    return lib
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -100,21 +84,20 @@ def _declare(lib: ctypes.CDLL) -> None:
         "zebra_unpack_launch": [P, P, P, P, L, L, I, I, I, P],
     }
     for name, argtypes in sigs.items():
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
 
 
-def load_library(name: str = "zebra_stream") -> ctypes.CDLL:
-    """The loaded library built from ``csrc/<name>.cu`` (built on first use)."""
+def load_library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
     with _lock:
-        if name not in _libs:
-            path = build_all()[name]
-            lib = ctypes.CDLL(str(path))
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
             _declare(lib)
-            _libs[name] = lib
-        return _libs[name]
+            _lib = lib
+        return _lib
 
 
 def cuda_library(t: torch.Tensor, kernel: str) -> ctypes.CDLL:

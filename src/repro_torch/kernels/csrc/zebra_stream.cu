@@ -19,10 +19,11 @@
 // full 32-byte rows, so every DRAM sector fetched is used. All three
 // kernels are bound by device-memory bytes, not by arithmetic:
 //   comparator: the map read once + the int8 bitmap written;
-//   pack:       the live blocks read + bitmap and slot map read + the whole
-//               (nb, bs, bc) payload written, zero tail included;
-//   unpack:     the live payload blocks read + bitmap and slot map read +
-//               the (M, K) map written.
+//   pack:       the live blocks read + the bitmap and the live blocks' slot
+//               entries read + the whole (nb, bs, bc) payload written, zero
+//               tail included;
+//   unpack:     the live payload blocks read + the bitmap and the live
+//               blocks' slot entries read + the (M, K) map written.
 // Blocks run in no order on the card, so the TPU pack kernel's "live write
 // wins" ordering does not exist here: the pack kernel scatters each live
 // block to its own slot (live slots are a bijection onto [0, n_live)) and

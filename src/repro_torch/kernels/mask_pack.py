@@ -144,9 +144,16 @@ def zebra_mask_pack(x: torch.Tensor, *, t_obj: float, bs: int = 8, bc: int = 128
     Returns ``(payload (n_blocks, bs, bc) — live blocks first in consumer
     order, zero tail; bitmap (M//bs, K//bc) int8; n_live () int32)``, all
     on x's device (``n_live`` is never read back here)."""
+    payload, bitmap, n_live, _, _ = mask_pack_with_slots(x, t_obj=t_obj, bs=bs, bc=bc)
+    return payload, bitmap, n_live
+
+
+def mask_pack_with_slots(x: torch.Tensor, *, t_obj: float, bs: int, bc: int):
+    """``zebra_mask_pack`` that also returns the scan's ``(keep, slot)``,
+    so an expander on the same stream need not scan the bitmap again."""
     _check_map(x, bs, bc)
     bitmap = zebra_bitmap(x, t_obj=t_obj, bs=bs, bc=bc)
     keep, slot = slot_map(bitmap)
     n_live = keep.sum(dtype=torch.int32)
     payload = pack_blocks(x, bitmap, slot, n_live, bs=bs, bc=bc)
-    return payload, bitmap, n_live
+    return payload, bitmap, n_live, keep, slot

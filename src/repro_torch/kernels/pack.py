@@ -57,11 +57,19 @@ def unpack_cuda(payload: torch.Tensor, bitmap: torch.Tensor, slot: torch.Tensor,
 def zebra_unpack(payload: torch.Tensor, bitmap: torch.Tensor, *, bs: int = 8,
                  bc: int = 128) -> torch.Tensor:
     """Inverse of the producer: (n_blocks, bs, bc) payload -> dense (M, K)."""
+    keep, slot = slot_map(bitmap)
+    return unpack_with_slots(payload, bitmap, keep, slot, bs=bs, bc=bc)
+
+
+def unpack_with_slots(payload: torch.Tensor, bitmap: torch.Tensor,
+                      keep: torch.Tensor, slot: torch.Tensor, *, bs: int,
+                      bc: int) -> torch.Tensor:
+    """``zebra_unpack`` given the bitmap's ``slot_map`` (as the producer
+    computed it)."""
     nm, nk = bitmap.shape
     if tuple(payload.shape) != (nm * nk, bs, bc):
         raise ValueError(f"payload {tuple(payload.shape)} does not match "
                          f"bitmap {(nm, nk)} with block ({bs},{bc})")
-    keep, slot = slot_map(bitmap)
     if payload.device.type == "cpu":
         return expand_payload(payload, keep, slot, nm, nk, bs, bc)
     return unpack_cuda(payload, bitmap, slot, bs, bc)

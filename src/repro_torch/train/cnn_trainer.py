@@ -42,14 +42,11 @@ def _sum_bytes(auxes) -> LayerAux:
 
 @dataclasses.dataclass(frozen=True)
 class CNNTrainConfig:
+    """The fields evaluation reads; the training slice adds its own."""
     model: str = "resnet18"
     width_mult: float = 1.0
     dataset: ImageDatasetConfig = ImageDatasetConfig()
-    batch: int = 64
-    steps: int = 300
     zebra: ZebraConfig = ZebraConfig()
-    ns_rho: float = 0.0
-    grad_clip: float = 10.0
     seed: int = 0
 
 

@@ -17,9 +17,9 @@ from repro.kernels.schedule import consumer_schedule as jax_schedule
 from repro.kernels.schedule import slot_map as jax_slot_map
 from repro_torch.core.engine import stream_bytes
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.mask_pack import (bitmap_plain, pack_plain,
-                                           zebra_mask_pack)
-from repro_torch.kernels.pack import zebra_unpack
+from repro_torch.kernels.mask_pack import (bitmap_plain, mask_pack_with_slots,
+                                           pack_plain, zebra_mask_pack)
+from repro_torch.kernels.pack import unpack_with_slots, zebra_unpack
 from repro_torch.kernels.schedule import consumer_schedule, slot_map
 
 from _torch_parity import bits
@@ -99,6 +99,10 @@ def test_mask_pack_and_unpack_bitwise_vs_reference(case):
     y = zebra_unpack(payload, bitmap, bs=bs, bc=bc)
     jy = jax_unpack(jp, jb, bs=bs, bc=bc, interpret=True)
     np.testing.assert_array_equal(bits(y), bits(jy))
+    # the engine's form: the expander reuses the producer's slot map
+    _, _, _, keep, slot = mask_pack_with_slots(xt, t_obj=t_obj, bs=bs, bc=bc)
+    np.testing.assert_array_equal(
+        bits(unpack_with_slots(payload, bitmap, keep, slot, bs=bs, bc=bc)), bits(y))
     np.testing.assert_array_equal(bits(tref.zebra_unpack_ref(payload, bitmap, bs, bc)),
                                   bits(jref.zebra_unpack_ref(jp, jb, bs, bc)))
     assert int(stream_bytes(n_live, bs, bc, xt.dtype, bitmap.numel())) == int(

@@ -39,9 +39,26 @@ def _recording(monkeypatch, module, log):
 
     def site(x, cfg, **kw):
         y, aux = inner(x, cfg, **kw)
-        log.append((np.asarray(x), cfg.block_hw, aux))
+        log.append((x, cfg.block_hw, aux.measured_bytes, aux.zero_frac))
         return y, aux
     monkeypatch.setattr(module, "zebra_site", site)
+
+
+def _jax_forward(jmodel, jvars, images, monkeypatch):
+    """The reference's jitted forward, returning each site's input map and
+    stream bytes as outputs of the same program."""
+    blocks = []        # static, filled while tracing
+
+    def run(variables, x):
+        log = []
+        _recording(monkeypatch, jcommon, log)
+        logits, _, _ = jmodel.apply(variables, x, False,
+                                    JZebraConfig(interpret=True, **ZKW))
+        blocks[:] = [b for _, b, _, _ in log]
+        return logits, [(m, mb, zf) for m, _, mb, zf in log]
+    logits, sites = jax.jit(run)(jvars, jnp.asarray(images))
+    return np.asarray(logits), [(np.asarray(m), b, mb, zf)
+                                for (m, mb, zf), b in zip(sites, blocks)]
 
 
 def _blockmax(x, b):
@@ -52,26 +69,25 @@ def _blockmax(x, b):
 def test_logits_bitmaps_and_bytes_match(jax_model, monkeypatch):
     jmodel, jvars, vars_np = jax_model
     images, _ = image_batch(SYN_TINYIMAGENET, 2, 10_000)
-    jlog, tlog = [], []
-    _recording(monkeypatch, jcommon, jlog)
+    jlogits, jlog = _jax_forward(jmodel, jvars, images, monkeypatch)
+    tlog = []
     _recording(monkeypatch, tcommon, tlog)
-    jlogits, _, _ = jmodel.apply(jvars, jnp.asarray(images), False,
-                                 JZebraConfig(interpret=True, **ZKW))
     model = from_jax_variables(resnet18(200, 64, width_mult=0.125), vars_np).eval()
     with torch.inference_mode():
         logits, auxes = model(torch.from_numpy(images), ZebraConfig(**ZKW))
-    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(logits.numpy(), jlogits, rtol=1e-4, atol=1e-4)
     assert len(jlog) == len(tlog) == 17
     t_f32 = np.float32(T_OBJ)
-    for i, ((jx, jb, jaux), (tx, tb, taux)) in enumerate(zip(jlog, tlog)):
+    for i, ((jx, jb, jbytes, jzf), (tx, tb, tbytes, tzf)) in enumerate(zip(jlog, tlog)):
+        tx = tx.numpy()
         assert jb == tb == 8
         jmax = _blockmax(jx, jb)
         jkeep, tkeep = jmax >= t_f32, _blockmax(tx, tb) >= t_f32
         differ = jkeep != tkeep
         assert (np.abs(jmax[differ] - T_OBJ) < 1e-4).all(), f"site z{i}"
         if not differ.any():
-            assert int(taux.measured_bytes) == int(jaux.measured_bytes), f"site z{i}"
-            assert float(taux.zero_frac) == float(jaux.zero_frac), f"site z{i}"
+            assert int(tbytes) == int(jbytes), f"site z{i}"
+            assert float(tzf) == float(jzf), f"site z{i}"
 
 
 def test_evaluate_matches_reference(jax_model):
