@@ -3,18 +3,24 @@
 Model code calls :func:`zebra_site`; the engine picks the execution backend
 from ``ZebraConfig.backend`` (per-site overrides via ``site_backends``):
 
-``reference``  plain PyTorch masking (``core.zebra``).
+``reference``  plain PyTorch masking (``core.zebra``); threshold nets
+               live here.
+``pallas``     ``zebra_mask``: one kernel pass writes the masked map and
+               its keep bitmap.
 ``stream``     ``zebra_mask_pack`` -> ``zebra_unpack``: the two-phase
                producer hands only the compressed ``(payload, bitmap)``
                stream to the expander. ``SiteAux.measured_bytes`` reports
                the observed stream length (payload + packed index, the
-               Eq. 2/3 observable). Bitwise equal to reference.
-``pallas``, ``fused``  registered (their labels and capabilities are part
-               of the contract) but not yet ported: they raise.
+               Eq. 2/3 observable).
+``fused``      registered (its label and capabilities are part of the
+               contract) but not yet ported: it raises.
 
-Capability resolution (``_resolve_backend``) and its degrade labels
-``"reference(<reason>)"`` are those of the reference engine. Only infer
-mode is ported; train mode raises ``NotImplementedError``.
+The masked map is bitwise equal on reference, pallas and stream. Train
+mode runs on every backend but ``fused``: a pallas or stream site trains
+through ``kernels.grad.ZebraKernelTrainable``, whose forward is the same
+kernel pipeline infer dispatches. Capability resolution
+(``_resolve_backend``) and its degrade labels ``"reference(<reason>)"``
+are those of the reference engine.
 
 Layouts: ``tokens`` maps ``(..., S, D)`` tile into ``(block_seq,
 block_ch)`` blocks; ``nchw`` maps ``(B, C, H, W)`` are flattened onto the
@@ -29,17 +35,16 @@ from typing import Any
 
 import torch
 
-from ..kernels.mask_pack import mask_pack_with_slots
-from ..kernels.pack import unpack_with_slots
+from ..kernels.grad import KernelStatics, launch_forward, zebra_kernel_trainable
 from .backends import BackendSpec, backend_spec
-from .zebra import (ZebraConfig, effective_tnet, require_infer, zebra_cnn,
+from .zebra import (ZebraConfig, effective_tnet, require_tnet, zebra_cnn,
                     zebra_tokens, zero_fraction)
 
 _log = logging.getLogger("repro_torch.engine")
 _DEGRADE_LOGGED: set[tuple[str, str, str]] = set()
 
 NOT_PORTED = ("backend {!r} is not yet ported to repro_torch (ROADMAP.md, "
-              "module queue: pallas/fused engine paths)")
+              "module queue: the fused engine path)")
 
 
 @dataclasses.dataclass
@@ -165,30 +170,14 @@ def stream_bytes(n_live: torch.Tensor, bs: int, bc: int, dtype,
 
 
 # ---------------------------------------------------------------------------
-# Backend implementations — (x2 (M, K), bs, bc, cfg) -> (y2, bitmap, bytes)
+# Kernel backends
 # ---------------------------------------------------------------------------
 
-def _run_stream(x2: torch.Tensor, bs: int, bc: int, cfg: ZebraConfig, w=None):
-    """mask_pack -> unpack with only the (payload, bitmap) stream between
-    producer and expander; the expander reuses the producer's slot map
-    rather than scan the bitmap again."""
-    payload, bitmap, n_live, keep, slot = mask_pack_with_slots(
-        x2, t_obj=cfg.t_obj, bs=bs, bc=bc)
-    y2 = unpack_with_slots(payload, bitmap, keep, slot, bs=bs, bc=bc)
-    return y2, bitmap, stream_bytes(n_live, bs, bc, x2.dtype, bitmap.numel())
-
-
-def _not_ported(name: str):
-    def run(x2, bs, bc, cfg, w=None):
-        raise NotImplementedError(NOT_PORTED.format(name))
-    return run
-
-
-_INFER_IMPLS = {
-    "stream": _run_stream,
-    "pallas": _not_ported("pallas"),
-    "fused": _not_ported("fused"),
-}
+def _kernel_statics(variant: str, bs: int, bc: int, cfg: ZebraConfig) -> KernelStatics:
+    """Launch config of ``kernels.grad.launch_forward``, the one forward
+    pipeline of infer dispatch and of the trainable path."""
+    return KernelStatics(variant=variant, t_obj=cfg.t_obj, bs=bs, bc=bc,
+                         grad_mode=cfg.grad_mode, soft_temp=cfg.soft_temp)
 
 
 # ---------------------------------------------------------------------------
@@ -235,12 +224,14 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
     x       ``tokens``: (..., S, D) activation map (leading dims = batch);
             ``nchw``: (B, C, H, W) CNN map.
     site    name used for per-site backend overrides (cfg.site_backends).
+    tnet    threshold net (``core.zebra.ThresholdNet``); train-mode sites
+            with one resolve to reference.
     w       downstream weight (K, N), for backends that consume one: the
             site then returns ``mask(x) @ w``. Of those, only reference
             runs in the port so far.
 
     Returns ``(masked map, SiteAux)``; the map is bitwise identical on
-    reference and stream."""
+    reference, pallas and stream."""
     spec = backend_spec(cfg.backend_for(site))
     if w is not None and not spec.consumes_w:
         raise ValueError(
@@ -248,8 +239,8 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
             f"(site={site!r}); apply the matmul at the call site instead")
     if not cfg.enabled:
         return (x if w is None else x @ w), SiteAux.empty(device=x.device)
-    require_infer(cfg)
     tnet = effective_tnet(cfg, tnet)
+    require_tnet(cfg, tnet, site)
 
     if layout == "nchw":
         B, C, H, W = x.shape
@@ -288,9 +279,23 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
                           n_blocks=aux["n_blocks"],
                           thresholds=aux["thresholds"], backend=label)
 
+    if spec.grad_variant is None:       # fused: the payload GEMM is not ported
+        raise NotImplementedError(NOT_PORTED.format(backend))
+    # pallas: one masking pass ("mask"); stream: mask_pack -> unpack with
+    # only the (payload, bitmap) stream in between ("stream"). In train
+    # mode the same launches run under the configured gradient mode.
+    statics = _kernel_statics(spec.grad_variant, bs, bc, cfg)
+    launch = zebra_kernel_trainable if cfg.mode == "train" else launch_forward
     x2 = x.contiguous().reshape(dims)
-    y2, bitmap, measured = _INFER_IMPLS[backend](x2, bs, bc, cfg, w)
+    y2, bitmap, n_live = launch(x2, statics)
+    # the observables come from the launch's bitmap and n_live, which
+    # carry no gradient; a dense map moves no stream bytes
+    measured = (stream_bytes(n_live, bs, bc, x2.dtype, bitmap.numel()) if spec.emits_stream
+                else torch.zeros((), dtype=torch.int64, device=x.device))
+    zero_frac = zero_fraction(bitmap)
+    # train mode: the realised Eq. 1 observable under the constant threshold
+    reg = (zero_frac * nb_sample if cfg.mode == "train"
+           else torch.zeros((), dtype=torch.float32, device=x.device))
     return y2.reshape(x.shape), SiteAux(
-        reg=torch.zeros((), dtype=torch.float32, device=x.device),
-        zero_frac=zero_fraction(bitmap), measured_bytes=measured,
+        reg=reg, zero_frac=zero_frac, measured_bytes=measured,
         n_blocks=nb_sample, thresholds=None, backend=label)

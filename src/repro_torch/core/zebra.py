@@ -1,18 +1,29 @@
 """Zebra — Zero-Block Regularization of activation maps (Shih & Chang, ISCAS'20).
 
-The port of ``repro.core.zebra``: the config and the plain PyTorch
-masking path (the ``reference`` backend) for both activation layouts:
+The port of ``repro.core.zebra``: the config, the threshold nets and the
+plain PyTorch masking path (the ``reference`` backend) for both
+activation layouts:
 
 * **CNN maps** ``(B, C, H, W)`` — non-overlapping spatial ``b×b`` blocks
-  per channel, block importance = block max, compared with the constant
-  ``T_obj`` at inference (paper §II.B).
+  per channel, block importance = block max, one threshold per (layer,
+  channel) from a GAP+FC threshold net (training) or the constant
+  ``T_obj`` (inference). Paper §II.A/§II.B.
 * **Token maps** ``(B, S, D)`` — ``(block_seq × block_ch)`` tile blocks,
   importance ``max(|x|)`` (post-ReLU maps are non-negative, where
   ``max(|x|) == max(x)``, so the CNN path stays faithful).
 
-Only inference is ported: train mode (threshold nets, the Eq. 1
-regularizer, the hard/STE/soft gates) raises ``NotImplementedError``
-until the training slice of ROADMAP.md lands.
+Training-mode gradient semantics (paper default ``grad_mode="hard"``): the
+mask is a hard 0/1 gate without gradient; thresholds receive gradient only
+from the L2 regulariser pulling them to ``T_obj`` (Eq. 1), surviving
+blocks receive the task gradient. ``"ste"`` and ``"soft"`` are
+trainability variants beyond the paper.
+
+Constant-threshold training (``use_tnet=False``): the deployed ``T_obj``
+comparator is the forward gate for every gradient mode, which only picks
+the backward surrogate, so train-time gating matches inference masking
+exactly. The kernel backends reproduce this through
+``kernels.grad.ZebraKernelTrainable``; the reg slot reports the realised
+zero-block count.
 """
 from __future__ import annotations
 
@@ -30,10 +41,6 @@ Aux = dict[str, Any]
 # in the port until the stream codec (compress/) is ported.
 VALIDATION_LEVELS = ("off", "structural", "checksum")
 PORTED_VALIDATION_LEVELS = ("off",)
-
-TRAIN_NOT_PORTED = ("train mode is not yet ported to repro_torch (ROADMAP.md, "
-                    "module queue: training with torch.autograd.Function)")
-
 
 @dataclasses.dataclass(frozen=True)
 class ZebraConfig:
@@ -85,16 +92,24 @@ class ZebraConfig:
 # ---------------------------------------------------------------------------
 
 class ThresholdNet(nn.Module):
-    """One per Zebra site: an FC from GAP features to per-channel
-    thresholds. Held so that trained nets carry across; inference reads
-    the constant ``T_obj`` instead."""
+    """One per Zebra site: an FC from GAP features (``d_in``) to thresholds
+    (``d_out``, default ``d_in``: one per channel). ``w`` is stored
+    ``(d_in, d_out)`` and applied untransposed, ``gap @ w + b``, as the
+    reference stores and applies it. A token map's net emits one
+    threshold per channel block (``d_out = D // block_ch``). Inference
+    reads the constant ``T_obj`` instead."""
 
-    def __init__(self, channels: int, *, generator: torch.Generator | None = None,
-                 dtype=torch.float32):
+    def __init__(self, d_in: int, d_out: int | None = None, *,
+                 generator: torch.Generator | None = None, dtype=torch.float32):
         super().__init__()
-        w = torch.randn(channels, channels, generator=generator, dtype=dtype)
-        self.w = nn.Parameter(w * channels ** -0.5)
-        self.b = nn.Parameter(torch.zeros(channels, dtype=dtype))
+        d_out = d_in if d_out is None else d_out
+        w = torch.randn(d_in, d_out, generator=generator, dtype=dtype)
+        self.w = nn.Parameter(w * d_in ** -0.5)
+        self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype))
+
+    def forward(self, gap: torch.Tensor) -> torch.Tensor:
+        """gap (B, d_in) -> thresholds (B, d_out)."""
+        return gap @ self.w + self.b
 
 
 # ---------------------------------------------------------------------------
@@ -136,9 +151,49 @@ def effective_tnet(cfg: ZebraConfig, tnet):
     return tnet if cfg.use_tnet else None
 
 
-def require_infer(cfg: ZebraConfig) -> None:
-    if cfg.mode != "infer":
-        raise NotImplementedError(TRAIN_NOT_PORTED)
+def require_tnet(cfg: ZebraConfig, tnet, site: str = "") -> None:
+    """Train mode with ``use_tnet=True`` must receive a threshold net:
+    silently training the constant-T_obj gate instead would change the
+    objective. The one guard of ``zebra_cnn``, ``zebra_tokens`` and the
+    engine."""
+    if cfg.mode == "train" and tnet is None and cfg.use_tnet:
+        at = f" at site {site!r}" if site else ""
+        raise ValueError(
+            f"train mode expects a threshold net{at} (use_tnet=True); pass "
+            f"tnet, or set use_tnet=False for constant-threshold "
+            f"(kernel-trainable) training")
+
+
+def _apply_gate(x: torch.Tensor, keep: torch.Tensor, blockmax: torch.Tensor,
+                thr: torch.Tensor, cfg: ZebraConfig, expand,
+                surrogate_only: bool = False) -> torch.Tensor:
+    """Gate x by the block keep-mask under the configured gradient mode.
+
+    ``surrogate_only`` (constant-threshold training): the value is always
+    the deployed hard mask and the gradient mode only picks the backward
+    surrogate, exactly as ``kernels.grad.ZebraKernelTrainable`` computes
+    it. ``keep`` is a comparison and carries no gradient."""
+    train = cfg.mode == "train"
+    if cfg.grad_mode == "soft" and train:
+        gate = torch.sigmoid((blockmax - thr) / cfg.soft_temp)
+        if surrogate_only:
+            # value: hard mask; dy/dx: the sigmoid surrogate gate
+            mask = expand(keep).to(x.dtype)
+            ge = expand(gate.detach()).to(x.dtype)
+            return x * ge + (x * mask - x * ge).detach()
+        return x * expand(gate).to(x.dtype)
+    mask = expand(keep).to(x.dtype)
+    y = x * mask
+    if cfg.grad_mode == "ste" and train:
+        # value: masked; gradient wrt x: identity (lets pruned blocks recover)
+        y = y + (x - x.detach()) * (1.0 - mask)
+    return y
+
+
+def _reg_loss(thr: torch.Tensor, t_obj: float) -> torch.Tensor:
+    """Σ_c ||T_obj − T_c||², averaged over the batch dim (Eq. 1 second term)."""
+    per_sample = torch.square(t_obj - thr.to(torch.float32)).sum(dim=-1)
+    return per_sample.mean()
 
 
 def _disabled(x: torch.Tensor) -> tuple[torch.Tensor, Aux]:
@@ -147,45 +202,89 @@ def _disabled(x: torch.Tensor) -> tuple[torch.Tensor, Aux]:
 
 
 # ---------------------------------------------------------------------------
-# Public entry points (infer mode)
+# Public entry points
 # ---------------------------------------------------------------------------
 
 def zebra_cnn(x: torch.Tensor, cfg: ZebraConfig, tnet=None) -> tuple[torch.Tensor, Aux]:
     """Zebra over a (B, C, H, W) activation map. Returns (masked x, aux).
 
-    aux: reg (0 in infer mode), zero_frac, n_blocks (per sample),
-    thresholds (the constant per-channel T_obj)."""
+    aux: reg (Eq. 1 term with a net; the realised zero-block count in
+    constant-threshold training; 0 in infer mode), zero_frac, n_blocks
+    (per sample), thresholds ((B, C) from the net, else the constant
+    per-channel T_obj)."""
     if not cfg.enabled:
         return _disabled(x)
-    require_infer(cfg)
     B, C, H, W = x.shape
     b = cfg.block_hw
     if H % b or W % b:
         raise ValueError(f"map {H}x{W} not divisible by block {b}")
-    blockmax = _block_reduce_max_nchw(x, b)
-    keep = blockmax >= threshold_as(cfg.t_obj, blockmax.dtype)
-    y = x * _expand_mask_nchw(keep, b).to(x.dtype)
-    thr = torch.full((C,), cfg.t_obj, dtype=torch.float32, device=x.device)
-    return y, {"reg": torch.zeros((), dtype=torch.float32, device=x.device),
-               "zero_frac": zero_fraction(keep),
-               "n_blocks": C * (H // b) * (W // b), "thresholds": thr}
+    tnet = effective_tnet(cfg, tnet)
+    require_tnet(cfg, tnet)
+    blockmax = _block_reduce_max_nchw(x, b)                       # (B,C,Hb,Wb)
+    train = cfg.mode == "train"
+    if train and tnet is not None:
+        gap = x.mean(dim=(2, 3)).to(torch.float32)               # (B,C) GAP
+        thr = tnet(gap)                                           # (B,C)
+        reg = _reg_loss(thr, cfg.t_obj)
+        thr_b = thr[:, :, None, None].to(blockmax.dtype)
+    else:
+        # infer, or constant-threshold (deployment-matched) training: the
+        # deployed T_obj comparator is the gate (Fig. 3)
+        thr = torch.full((C,), cfg.t_obj, dtype=torch.float32, device=x.device)
+        reg = None if train else torch.zeros((), dtype=torch.float32, device=x.device)
+        thr_b = thr[None, :, None, None].to(blockmax.dtype)
+    keep = blockmax >= thr_b
+    y = _apply_gate(x, keep, blockmax, thr_b, cfg, lambda m: _expand_mask_nchw(m, b),
+                    surrogate_only=train and tnet is None)
+    zero_frac = zero_fraction(keep)
+    n_blocks = C * (H // b) * (W // b)
+    if reg is None:
+        reg = zero_frac.detach() * n_blocks
+    return y, {"reg": reg, "zero_frac": zero_frac, "n_blocks": n_blocks,
+               "thresholds": thr}
 
 
 def zebra_tokens(x: torch.Tensor, cfg: ZebraConfig, tnet=None) -> tuple[torch.Tensor, Aux]:
-    """Zebra over a (B, S, D) token activation map (tile blocks)."""
+    """Zebra over a (B, S, D) token activation map (tile blocks). With a
+    net, thresholds are per channel block, from the GAP of ``|x|`` over
+    the sequence."""
     if not cfg.enabled:
         return _disabled(x)
-    require_infer(cfg)
     B, S, D = x.shape
     bs, bc = cfg.block_seq, cfg.block_ch
     if S % bs or D % bc:
         raise ValueError(f"(S={S}, D={D}) not divisible by block ({bs},{bc})")
-    blockmax = _block_reduce_max_bsd(x, bs, bc)
-    keep = blockmax >= threshold_as(cfg.t_obj, blockmax.dtype)
-    y = x * _expand_mask_bsd(keep, bs, bc).to(x.dtype)
-    return y, {"reg": torch.zeros((), dtype=torch.float32, device=x.device),
-               "zero_frac": zero_fraction(keep),
-               "n_blocks": (S // bs) * (D // bc), "thresholds": None}
+    tnet = effective_tnet(cfg, tnet)
+    require_tnet(cfg, tnet)
+    blockmax = _block_reduce_max_bsd(x, bs, bc)                   # (B,Sb,Db)
+    train = cfg.mode == "train"
+    if train and tnet is not None:
+        gap = x.abs().mean(dim=1).to(torch.float32)              # (B,D) GAP
+        thr_ch = tnet(gap)                                        # (B,Db)
+        reg = _reg_loss(thr_ch, cfg.t_obj)
+        thr_b = thr_ch[:, None, :].to(blockmax.dtype)             # (B,1,Db)
+    else:
+        # infer, or constant-threshold (deployment-matched) training
+        reg = None if train else torch.zeros((), dtype=torch.float32, device=x.device)
+        thr_b = torch.tensor(threshold_as(cfg.t_obj, blockmax.dtype),
+                             dtype=blockmax.dtype, device=x.device)
+        thr_ch = None
+    keep = blockmax >= thr_b
+    y = _apply_gate(x, keep, blockmax, thr_b, cfg,
+                    lambda m: _expand_mask_bsd(m, bs, bc),
+                    surrogate_only=train and tnet is None)
+    zero_frac = zero_fraction(keep)
+    n_blocks = (S // bs) * (D // bc)
+    if reg is None:
+        reg = zero_frac.detach() * n_blocks
+    return y, {"reg": reg, "zero_frac": zero_frac, "n_blocks": n_blocks,
+               "thresholds": thr_ch}
+
+
+def collect_zebra_loss(auxes) -> torch.Tensor:
+    """Σ_l reg_l — the second term of Eq. 1 across all Zebra sites."""
+    regs = [a["reg"] for a in auxes if a.get("reg") is not None]
+    return torch.stack(regs).sum() if regs else torch.zeros((), dtype=torch.float32)
 
 
 def mean_zero_frac(auxes) -> torch.Tensor:

@@ -1,2 +1,2 @@
 from .synthetic import (SYN_CIFAR10, SYN_TINYIMAGENET,  # noqa: F401
-                        ImageDatasetConfig, image_batch)
+                        ImageDatasetConfig, StreamingLoader, image_batch)

@@ -1,6 +1,6 @@
 """Procedural image dataset — a numpy copy of the image half of
 ``repro.data.synthetic``, so the port draws the same images and labels as
-the reference for the same (seed, step).
+the reference for the same (seed, step), and its ``StreamingLoader``.
 
 Class-conditional oriented-stripe textures composited on low-amplitude
 background clutter: learnable, with real "background" pixels so Zebra's
@@ -54,3 +54,17 @@ def image_batch(cfg: ImageDatasetConfig, batch: int, step: int):
         left = rng.integers(0, hw - pw + 1)
         imgs[i, :, top:top + ph, left:left + pw] += tex[:, :ph, :pw].astype(np.float32)
     return imgs, labels.astype(np.int32)
+
+
+class StreamingLoader:
+    """Counter-indexed loader: batch ``step`` is ``make_fn(batch, step)``."""
+
+    def __init__(self, make_fn, batch: int):
+        self.make_fn = make_fn
+        self.batch = batch
+        self.step = 0
+
+    def __next__(self):
+        out = self.make_fn(self.batch, self.step)
+        self.step += 1
+        return out

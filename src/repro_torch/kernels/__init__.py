@@ -8,9 +8,12 @@ from .schedule import consumer_schedule, slot_map  # noqa: F401
 def launch_counters() -> dict:
     """The wrappers whose ``.launches`` count the CUDA kernel launches, by
     kernel name."""
+    # a local name: at package level it would hide the zebra_mask module
+    from .zebra_mask import zebra_mask
     return {"zebra_bitmap_kernel": zebra_bitmap,
             "zebra_pack_kernel": pack_blocks,
-            "zebra_unpack_kernel": zebra_unpack}
+            "zebra_unpack_kernel": zebra_unpack,
+            "zebra_mask_kernel": zebra_mask}
 
 
 def reset_launch_counts() -> None:

@@ -82,6 +82,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         "zebra_bitmap_launch": [P, P, L, L, I, I, ctypes.c_float, I, P],
         "zebra_pack_launch": [P, P, P, P, P, L, L, I, I, I, P],
         "zebra_unpack_launch": [P, P, P, P, L, L, I, I, I, P],
+        "zebra_mask_launch": [P, P, P, L, L, I, I, ctypes.c_float, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

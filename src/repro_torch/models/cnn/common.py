@@ -19,7 +19,10 @@ class ZebraSites:
     """Names the sites of one forward pass in order (``z0``, ``z1``, ...)
     and collects their auxes and map specs. Every site executes through
     the engine (``core.engine.zebra_site``), so ``zcfg.backend`` picks
-    reference or stream per forward."""
+    reference, pallas or stream per forward. ``tnets`` maps site names to
+    threshold nets; in train mode with ``use_tnet`` a site whose net is
+    missing passes its map through unmasked, as the reference does for
+    checkpoints saved without nets."""
 
     def __init__(self, zcfg: ZebraConfig, tnets=None):
         self.zcfg = zcfg

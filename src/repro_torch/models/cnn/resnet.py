@@ -33,16 +33,24 @@ class BasicBlock(nn.Module):
         else:
             self.proj = self.bnp = None
 
-    def forward(self, x: torch.Tensor, sites: ZebraSites) -> torch.Tensor:
-        h = relu(self.bn1(self.conv1(x, self.stride)))
-        h = sites(h)
-        h = self.bn2(self.conv2(h))
-        sc = x if self.proj is None else self.bnp(self.proj(x, self.stride))
-        return sites(relu(h + sc))
+    def forward(self, x: torch.Tensor, sites: ZebraSites, train: bool):
+        """-> (y, {bn name: (new mean, new var)})."""
+        stats = {}
+        h, stats["bn1"] = self.bn1(self.conv1(x, self.stride), train)
+        h = sites(relu(h))
+        h, stats["bn2"] = self.bn2(self.conv2(h), train)
+        if self.proj is None:
+            sc = x
+        else:
+            sc, stats["bnp"] = self.bnp(self.proj(x, self.stride), train)
+        return sites(relu(h + sc)), stats
 
 
 class ResNet(nn.Module):
-    """Eval-mode forward: ``model(x, zcfg) -> (logits, site auxes)``."""
+    """``model(x, zcfg, train) -> (logits, new BN statistics, site auxes)``,
+    the reference's ``apply``. The statistics are a dict of buffer name
+    (``"s0b0.bn1.mean"``, ...) to tensor: the batch-updated running
+    statistics when ``train``, the running buffers themselves otherwise."""
 
     def __init__(self, stage_sizes, stage_channels, num_classes: int = 10,
                  in_hw: int = 32, width_mult: float = 1.0, *,
@@ -76,12 +84,18 @@ class ResNet(nn.Module):
                 yield si, bi, c_in, c, 2 if (si > 0 and bi == 0) else 1
                 c_in = c
 
-    def forward(self, x: torch.Tensor, zcfg: ZebraConfig):
+    def forward(self, x: torch.Tensor, zcfg: ZebraConfig, train: bool = False):
         sites = ZebraSites(zcfg, self.zebra)
-        x = sites(relu(self.bn_stem(self.stem(x))))
+        stats = {}
+        x, stats["bn_stem"] = self.bn_stem(self.stem(x), train)
+        x = sites(relu(x))
         for name in self.block_names:
-            x = getattr(self, name)(x, sites)
-        return self.fc(global_avg_pool(x)), sites.auxes
+            x, block_stats = getattr(self, name)(x, sites, train)
+            stats.update({f"{name}.{bn}": s for bn, s in block_stats.items()})
+        new_state = {}
+        for bn, (mean, var) in stats.items():
+            new_state[f"{bn}.mean"], new_state[f"{bn}.var"] = mean, var
+        return self.fc(global_avg_pool(x)), new_state, sites.auxes
 
     def map_specs(self, in_hw: int | None = None,
                   zcfg: ZebraConfig = ZebraConfig()) -> list[MapSpec]:

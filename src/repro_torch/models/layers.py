@@ -43,14 +43,33 @@ def conv_apply(w: torch.Tensor, x: torch.Tensor, stride: int = 1,
     return F.conv2d(x, w.to(x.dtype), stride=stride, groups=groups)
 
 
+_BN_MOMENTUM = 0.9
+
+
 def bn_apply(scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
-             var: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Eval-mode BatchNorm over NCHW with running statistics, in the
-    reference's order: ``(x - mean) * rsqrt(var + eps) * scale + bias``."""
+             var: torch.Tensor, x: torch.Tensor, train: bool = False,
+             eps: float = 1e-5
+             ) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """BatchNorm over NCHW in the reference's order, ``(x - mean) *
+    rsqrt(var + eps) * scale + bias``. Returns ``(y, (new mean, new var))``.
+
+    ``train``: normalise with the batch mean and the biased variance, and
+    return the running statistics ``0.9·old + 0.1·batch`` in float32.
+    (``nn.BatchNorm2d`` defines momentum the other way round and keeps the
+    unbiased variance.) Otherwise normalise with the running
+    statistics, returned unchanged. Nothing is updated in place."""
+    if train:
+        bmean = x.mean(dim=(0, 2, 3))
+        bvar = x.var(dim=(0, 2, 3), correction=0)
+        new = (_BN_MOMENTUM * mean + (1 - _BN_MOMENTUM) * bmean.to(torch.float32),
+               _BN_MOMENTUM * var + (1 - _BN_MOMENTUM) * bvar.to(torch.float32))
+        mean, var = bmean, bvar
+    else:
+        new = (mean, var)
     inv = torch.rsqrt(var.to(torch.float32) + eps)
     c = (slice(None), None, None)
     y = (x - mean[c].to(x.dtype)) * inv[c].to(x.dtype)
-    return y * scale[c].to(x.dtype) + bias[c].to(x.dtype)
+    return y * scale[c].to(x.dtype) + bias[c].to(x.dtype), new
 
 
 def dense_apply(w: torch.Tensor, b: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor:
@@ -78,7 +97,10 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Per-channel scale/bias parameters and mean/var running buffers."""
+    """Per-channel scale/bias parameters and mean/var running buffers.
+    ``forward(x, train)`` returns ``(y, (new mean, new var))``: the new
+    statistics come back as values, so a ``functional_call`` never writes
+    its buffers."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -87,8 +109,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return bn_apply(self.scale, self.bias, self.mean, self.var, x)
+    def forward(self, x: torch.Tensor, train: bool = False):
+        return bn_apply(self.scale, self.bias, self.mean, self.var, x, train)
 
 
 class Dense(nn.Module):

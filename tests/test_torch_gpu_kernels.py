@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import mask_pack, pack
+from repro_torch.kernels import mask_pack, pack, zebra_mask
 from repro_torch.kernels.schedule import slot_map
 
 pytestmark = pytest.mark.gpu
@@ -91,6 +91,16 @@ def test_unpack_kernel_matches_plain(case, cuda):
         bits(got), bits(pack.expand_payload(payload, keep, slot, nm, nk, bs, bc)))
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_mask_kernel_matches_plain(case, cuda):
+    x, bs, bc, t_obj = make_map(case, cuda)
+    y, bitmap = zebra_mask.mask_cuda(x, t_obj, bs, bc)
+    torch.cuda.synchronize()
+    want_y, want_bitmap = zebra_mask.mask_plain(x, t_obj, bs, bc)
+    np.testing.assert_array_equal(bits(bitmap), bits(want_bitmap))
+    np.testing.assert_array_equal(bits(y), bits(want_y))
+
+
 def test_wrappers_launch_and_count(cuda):
     x, bs, bc, t_obj = make_map("site-k64", cuda)
     before = (mask_pack.zebra_bitmap.launches, mask_pack.pack_blocks.launches,
@@ -103,3 +113,7 @@ def test_wrappers_launch_and_count(cuda):
     ref_y = x * (mask_pack.bitmap_plain(x, t_obj, bs, bc).to(x.dtype)
                  .repeat_interleave(bs, 0).repeat_interleave(bc, 1))
     assert torch.equal(y, ref_y)
+    before = zebra_mask.zebra_mask.launches
+    ym, bitmap_m = zebra_mask.zebra_mask(x, t_obj=t_obj, bs=bs, bc=bc)
+    assert zebra_mask.zebra_mask.launches == before + 1
+    assert torch.equal(ym, ref_y) and torch.equal(bitmap_m, bitmap)

@@ -10,7 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.kernels import build, mask_pack, pack
+from repro_torch.kernels import build, mask_pack, pack, zebra_mask
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -55,7 +55,7 @@ def test_trainer_without_device_needs_cuda():
             CNNTrainer(cfg)
 
 
-@pytest.mark.parametrize("launch", ["bitmap", "pack", "unpack"])
+@pytest.mark.parametrize("launch", ["bitmap", "pack", "unpack", "mask"])
 def test_gpu_branch_raises_without_cuda(launch):
     """The CUDA branch of each wrapper, handed a tensor off the card,
     raises instead of running the plain version."""
@@ -67,6 +67,8 @@ def test_gpu_branch_raises_without_cuda(launch):
             mask_pack.bitmap_cuda(x, 0.5, 8, 8)
         elif launch == "pack":
             mask_pack.pack_cuda(x, bitmap, slot, torch.tensor(4, dtype=torch.int32), 8, 8)
+        elif launch == "mask":
+            zebra_mask.mask_cuda(x, 0.5, 8, 8)
         else:
             pack.unpack_cuda(x.reshape(4, 8, 8), bitmap, slot, 8, 8)
 
@@ -74,6 +76,11 @@ def test_gpu_branch_raises_without_cuda(launch):
 def test_wrapper_on_other_device_raises():
     with pytest.raises(ValueError, match="CUDA tensor"):
         mask_pack.zebra_mask_pack(torch.ones(16, 16, device="meta"), t_obj=0.5, bs=8, bc=8)
+
+
+def test_mask_wrapper_on_other_device_raises():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        zebra_mask.zebra_mask(torch.ones(16, 16, device="meta"), t_obj=0.5, bs=8, bc=8)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

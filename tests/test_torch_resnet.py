@@ -74,7 +74,7 @@ def test_logits_bitmaps_and_bytes_match(jax_model, monkeypatch):
     _recording(monkeypatch, tcommon, tlog)
     model = from_jax_variables(resnet18(200, 64, width_mult=0.125), vars_np).eval()
     with torch.inference_mode():
-        logits, auxes = model(torch.from_numpy(images), ZebraConfig(**ZKW))
+        logits, _, auxes = model(torch.from_numpy(images), ZebraConfig(**ZKW))
     np.testing.assert_allclose(logits.numpy(), jlogits, rtol=1e-4, atol=1e-4)
     assert len(jlog) == len(tlog) == 17
     t_f32 = np.float32(T_OBJ)
