@@ -37,7 +37,25 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
    path gives it (the stream kernels: the evaluate forward at batch 128;
    the masking kernel: B's train forward at batch 64) and times both with
    CUDA events, beside the kernel's byte bound at the card's memory rate;
-6. prints one JSON line listing the kernels, the card line again, and
+6. serves gemma3-4b at full width and depth (34 layers, random weights
+   from seed 0) through ``repro_torch.launch.serve.main`` on the ``fused``
+   backend: batch 2, prompt 2048 (the banded local and the chunked global
+   attention both run), 32 greedy tokens, T_obj 1.05. The launch counts at
+   the phase boundaries must be: prefill 34 payload GEMMs, 34 comparator
+   and 34 pack launches, 68 masking launches (the kv_cache sites); the
+   handoff one ``zebra_pack`` per compressible cache leaf; decode no GEMM.
+   The ffn_hidden zero fraction must lie in 0.5-0.8, every KV leaf must
+   round-trip losslessly inside the Eq. 2/3 band, and every ffn_hidden
+   map is replayed through the ``reference`` site and ``zebra_spmm``
+   (bitmap, n_live, bytes bitwise; ``zebra_spmm_cs == zebra_spmm``
+   bitwise; y allclose to the reference's). A ``reference``-backend run
+   gives the greedy tokens beside the fused ones (agreement recorded, not
+   asserted). The LM kernels are held against their plain versions on edge
+   cases (all dead, all live, one live block per column, NaN/Inf, 8x128
+   and 8x64 whole-width blocks, the skip rule for NaN/Inf in w) and timed
+   on the path's maps beside their bound, their plain version and, for the
+   GEMMs, ``torch.matmul`` of the keep-gated dense map;
+7. prints one JSON line listing the kernels, the card line again, and
    ``{"ok": true, "device": ...}`` as the last line.
 
 Any failed phase exits non-zero, and so does a host without CUDA or a
@@ -64,8 +82,18 @@ KERNELS = {
     "zebra_unpack_kernel": "src/repro/kernels/pack.py:46",
     "zebra_mask_kernel": "src/repro/kernels/zebra_mask.py:24",
 }
+# the LM phase's kernels: pack.zebra_pack (the codec's entry, which runs
+# zebra_pack_kernel under an external bitmap; _pack_kernel), and the GEMMs
+# (_dense_gemm_kernel, _spmm_cs_kernel)
+LM_KERNELS = {
+    "zebra_pack": "src/repro/kernels/pack.py:41",
+    "zebra_spmm_kernel": "src/repro/kernels/zebra_spmm.py:104",
+    "zebra_spmm_cs_kernel": "src/repro/kernels/spmm_cs.py:51",
+}
 STREAM_KERNELS = ("zebra_bitmap_kernel", "zebra_pack_kernel", "zebra_unpack_kernel")
 SOURCE = "src/repro_torch/kernels/csrc/zebra_stream.cu"
+GEMM_SOURCE = "src/repro_torch/kernels/csrc/zebra_gemm.cu"
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
 
 
 class SmokeFailure(Exception):
@@ -548,6 +576,450 @@ def time_kernels(groups, device) -> list[dict]:
              "bound_ms": rows[name]["bound_ms"], "bound_by": "bytes", "library_ms": None}
             for name in KERNELS]
 
+# ---------------------------------------------------------------------------
+# The LM serving slice: gemma3-4b on the fused backend
+# ---------------------------------------------------------------------------
+
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "gemma3-4b", 2, 2048, 32
+# ffn_hidden zero fraction mid-band (0.5-0.8) on these random weights: w_gate
+# and w_up are drawn with fan_in d_ff (as the reference draws them), so gate
+# and up are N(0, d/d_ff = 1/4) and the 8 x 128 block maxima of |silu(gate) *
+# up| sit near 1 (T_obj 1.15 gave 0.778, PERF.md); at 3.0 every block is dead
+LM_T_OBJ = 1.05
+GEMM_TOL = dict(rtol=1e-4, atol=1e-4)    # kernel vs plain float32 matmul: summation order
+Y_TOL = dict(rtol=2 ** -7, atol=1e-2)    # bf16 outputs: up to two bf16 ulps apart
+BS, BC = 8, 128                          # the LM's token blocks
+
+
+def gemm_pieces(x2, bitmap, bs, bc):
+    """The plain upstream of the GEMMs: keep flags, slot map, payload."""
+    import torch
+    from repro_torch.kernels import mask_pack
+    from repro_torch.kernels.schedule import slot_map
+    keep, slot = slot_map(bitmap)
+    n_live = keep.sum(dtype=torch.int32)
+    return keep, slot, mask_pack.pack_plain(x2, bitmap, slot, n_live, bs, bc), int(n_live)
+
+
+def close_err(got, want, tol, label: str) -> float:
+    import torch
+    ok = torch.allclose(got, want, equal_nan=True, **tol)
+    check(ok, f"{label}: differs from its plain version beyond {tol} "
+              f"(max abs err {max_abs_err(got, want)})")
+    return max_abs_err(got, want)
+
+
+def compare_gemms(x2, w, bitmap, bs, bc, label: str) -> dict[str, float]:
+    """Kernels 6 and 7 against their plain versions (GEMM_TOL) and against
+    each other (bitwise)."""
+    import torch
+    from repro_torch.kernels import spmm_cs, zebra_spmm
+    keep, slot, payload, _ = gemm_pieces(x2, bitmap, bs, bc)
+    y7 = spmm_cs.spmm_cs_cuda(payload, w, bitmap, slot, bs, bc)
+    y6 = zebra_spmm.spmm_cuda(x2, w, bitmap, bs, bc)
+    torch.cuda.synchronize()
+    check(same_bits(y6, y7), f"{label}: zebra_spmm != zebra_spmm_cs (bitwise)")
+    return {"zebra_spmm_cs_kernel": close_err(
+                y7, spmm_cs.spmm_cs_plain(payload, w, bitmap, keep, slot, bs, bc), GEMM_TOL,
+                f"zebra_spmm_cs on {label}"),
+            "zebra_spmm_kernel": close_err(
+                y6, zebra_spmm.spmm_plain(x2, w, bitmap, bs, bc), GEMM_TOL,
+                f"zebra_spmm on {label}")}
+
+
+def compare_zebra_pack(x2, bs, bc, label: str) -> float:
+    """The codec's pack (external nonzero-block bitmap), kernel vs plain,
+    bitwise."""
+    import torch
+    from repro_torch.compress import nonzero_bitmap
+    from repro_torch.kernels import mask_pack
+    bitmap = nonzero_bitmap(x2, bs, bc)
+    keep, slot, want, n_live = gemm_pieces(x2, bitmap, bs, bc)
+    got = mask_pack.pack_launch(x2, bitmap, slot, keep.sum(dtype=torch.int32), bs, bc,
+                                "zebra_pack")
+    torch.cuda.synchronize()
+    check(same_bits(got, want), f"zebra_pack differs from its plain version on {label}")
+    return 0.0
+
+
+def lm_edge_cases(device) -> dict[str, float]:
+    """The LM kernels against their plain versions on edge cases; returns
+    the worst error per kernel."""
+    import torch
+    cases = {
+        # label: (M, K, N, bs, bc, dtype, t_obj, kind)
+        "8x128 bf16": (1024, 2048, 640, 8, 128, torch.bfloat16, 0.5, "mixed"),
+        "8x128 f32": (512, 1024, 384, 8, 128, torch.float32, 0.5, "mixed"),
+        "8x64 whole width": (256, 64, 130, 8, 64, torch.float32, 0.5, "mixed"),
+        "all dead": (256, 1024, 256, 8, 128, torch.float32, 1e9, "mixed"),
+        "all live": (256, 1024, 256, 8, 128, torch.float32, 0.0, "mixed"),
+        "one live block per column": (256, 1024, 256, 8, 128, torch.float32, 0.5, "one"),
+        "NaN/Inf in the map": (256, 1024, 256, 8, 128, torch.float32, 0.5, "nan-inf"),
+    }
+    from repro_torch.kernels import mask_pack, zebra_mask
+    errs = {k: 0.0 for k in LM_KERNELS}
+    for i, (label, (M, K, N, bs, bc, dtype, t, kind)) in enumerate(cases.items()):
+        x = synthetic_map(M, K, bs, bc, torch.float32, True, 100 + i, device)
+        if kind == "one":
+            keep = torch.zeros(M // bs, K // bc, device=device)
+            keep[torch.randint(0, M // bs, (K // bc,), device=device),
+                 torch.arange(K // bc, device=device)] = 1.0
+            x = x * (0.01 + 10 * keep).repeat_interleave(bs, 0).repeat_interleave(bc, 1)
+        if kind == "nan-inf":
+            x[1, 2] = float("nan")
+            x[9, 200] = float("inf")
+        x = x.to(dtype)
+        g = torch.Generator(device=device).manual_seed(i)
+        w = (torch.randn(K, N, generator=g, device=device) / K ** 0.5).to(dtype)
+        bitmap = mask_pack.bitmap_plain(x, t, bs, bc)
+        for k, e in compare_gemms(x, w, bitmap, bs, bc, label).items():
+            errs[k] = max(errs[k], e)
+        compare_zebra_pack(zebra_mask.mask_plain(x, t, bs, bc)[0], bs, bc, label)
+        print(f"  GEMMs == plain ({GEMM_TOL}), 6 == 7 bitwise, zebra_pack == plain "
+              f"(bitwise): {label} ({M}x{K}x{N}, block {bs}x{bc}, {dtype})")
+    # the skip rule: Inf/NaN in the w rows of a dead block never reach its rows
+    from repro_torch.kernels import spmm_cs, zebra_spmm
+    x = synthetic_map(512, 1024, 8, 128, torch.float32, True, 7, device)
+    bitmap = mask_pack.bitmap_plain(x, 0.5, 8, 128)
+    w = torch.randn(1024, 256, device=device) / 32.0
+    col = int((bitmap == 0).any(0).nonzero()[0])
+    w_bad = w.clone()
+    w_bad[col * 128 + 3] = float("inf")
+    w_bad[col * 128 + 5, 7] = float("nan")
+    keep, slot, payload, _ = gemm_pieces(x, bitmap, 8, 128)
+    y7 = spmm_cs.spmm_cs_cuda(payload, w_bad, bitmap, slot, 8, 128)
+    y6 = zebra_spmm.spmm_cuda(x, w_bad, bitmap, 8, 128)
+    clean = spmm_cs.spmm_cs_cuda(payload, w, bitmap, slot, 8, 128)
+    dead = (bitmap[:, col] == 0).repeat_interleave(8)
+    check(same_bits(y6, y7), "skip rule: zebra_spmm != zebra_spmm_cs")
+    check(bool(torch.isfinite(y7[dead]).all()) and same_bits(y7[dead], clean[dead]),
+          "skip rule: Inf/NaN in a dead block's w rows reached its rows")
+    check(not bool(torch.isfinite(y7[~dead]).all()), "skip rule: live rows lost the Inf")
+    print("  skip rule: Inf/NaN in the w rows of a dead block stay out of its rows in "
+          "both GEMM kernels (the plain version, which multiplies, gives NaN there)")
+    return errs
+
+
+class LMSiteRecorder:
+    """Records the serving path's Zebra sites without launching anything:
+    every ``ffn_hidden`` site that consumes ``w_down`` (a copy of its input
+    map, the weight, its output and SiteAux), and every ``kv_cache``
+    site (a copy of its input map, its output and SiteAux)."""
+
+    def __init__(self):
+        self.ffn, self.ffn_decode, self.kv = [], [], []
+
+    def __enter__(self):
+        import repro_torch.core.engine as engine
+        import repro_torch.models.lm.ffn as ffn
+        self._mods = (engine, ffn)
+        self._inner = engine.zebra_site
+
+        def ffn_site(x, cfg, **kw):
+            y, aux = self._inner(x, cfg, **kw)
+            if kw.get("site") == "ffn_hidden" and kw.get("w") is not None:
+                if aux.backend == "fused":
+                    self.ffn.append((x.clone(), kw["w"], y, aux))
+                else:                       # one-token decode maps
+                    self.ffn_decode.append(aux.backend)
+            return y, aux
+
+        def engine_site(x, cfg, **kw):
+            y, aux = self._inner(x, cfg, **kw)
+            if kw.get("site") == "kv_cache":
+                self.kv.append((x.clone(), y, aux))
+            return y, aux
+        ffn.zebra_site, engine.zebra_site = ffn_site, engine_site
+        return self
+
+    def __exit__(self, *exc):
+        engine, ffn = self._mods
+        engine.zebra_site = ffn.zebra_site = self._inner
+
+
+class PhaseCounts:
+    """Launch counts read at the serving path's phase boundaries: before
+    the compressed handoff (prefill done) and before the decode loop
+    (handoff done). Wraps the two calls and launches nothing."""
+
+    def __init__(self, serve):
+        self.serve, self.at = serve, {}
+
+    def __enter__(self):
+        s = self.serve
+        self._handoff, self._generate = s.transport_state_compressed, s.generate
+
+        def handoff(*a, **k):
+            self.at["prefill"] = launch_counts()
+            return self._handoff(*a, **k)
+
+        def generate(*a, **k):
+            self.at["handoff"] = launch_counts()
+            return self._generate(*a, **k)
+        s.transport_state_compressed, s.generate = handoff, generate
+        return self
+
+    def __exit__(self, *exc):
+        self.serve.transport_state_compressed = self._handoff
+        self.serve.generate = self._generate
+
+
+def diff_counts(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def block_weighted(auxes) -> tuple[float, int]:
+    """Block-weighted zero fraction and the summed stream bytes of sites."""
+    nb = sum(int(a.n_blocks) for a in auxes)
+    zf = sum(float(a.zero_frac) * int(a.n_blocks) for a in auxes) / max(nb, 1)
+    return zf, sum(int(a.measured_bytes) for a in auxes)
+
+
+def run_lm(device) -> dict:
+    """Serve gemma3-4b through ``repro_torch.launch.serve.main`` on fused,
+    check launches per phase, the observables, the handoff and a replay of
+    every ffn_hidden site; then serve it on reference for the tokens."""
+    import torch
+    from repro_torch.compress import CompressedMap, decompress
+    from repro_torch.core.engine import stream_bytes, zebra_site
+    from repro_torch.core.zebra import zero_fraction
+    from repro_torch.kernels import (mask_pack, reset_launch_counts, spmm_cs, zebra_mask,
+                                     zebra_spmm)
+    from repro_torch.launch import serve, steps
+    from repro_torch.models.lm.ffn import zebra_cfg_for
+    from repro_torch.utils import map_tree
+
+    argv = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+            "--gen", str(LM_GEN), "--t-obj", str(LM_T_OBJ)]
+    cfg = serve.build_config(LM_ARCH, t_obj=LM_T_OBJ, backend="fused")
+    print(f"LM serving: python -m repro_torch.launch.serve {' '.join(argv)} --backend fused")
+    reset_launch_counts()
+    with LMSiteRecorder() as rec, PhaseCounts(serve) as phases:
+        out = serve.main([*argv, "--backend", "fused"])
+    torch.cuda.synchronize()
+    final = launch_counts()
+    n_layers = len(rec.ffn)
+    leaves = [r for r in out["meter"].records if r.compressed]
+    check(n_layers == cfg.n_layers, f"{n_layers} ffn_hidden sites ran fused, want "
+                                    f"{cfg.n_layers}")
+    check_launches(phases.at["prefill"], {"zebra_spmm_cs_kernel": n_layers,
+                                          "zebra_bitmap_kernel": n_layers,
+                                          "zebra_pack_kernel": n_layers,
+                                          "zebra_mask_kernel": 2 * n_layers}, "LM prefill")
+    # the handoff's lossless spot check expands its first compressed leaf
+    check_launches(diff_counts(phases.at["handoff"], phases.at["prefill"]),
+                   {"zebra_pack": len(leaves), "zebra_unpack_kernel": 1}, "LM handoff")
+    check_launches(diff_counts(final, phases.at["handoff"]),
+                   {"zebra_unpack_kernel": len(leaves)}, "LM decode (no GEMM)")
+    print(f"  prefill {out['prefill_ms']:.3f} ms, decode {out['decode_ms_per_token']:.3f} "
+          f"ms/token (host clock, synchronised)")
+    ffn_zf, ffn_bytes = block_weighted([a for *_, a in rec.ffn])
+    kv_zf, kv_bytes = block_weighted([a for *_, a in rec.kv])
+    dense_ffn = sum(h.numel() * h.element_size() for h, *_ in rec.ffn)
+    print(f"  ffn_hidden: {n_layers} sites, zero fraction {ffn_zf}, stream bytes {ffn_bytes} "
+          f"of {dense_ffn} dense (T_obj {LM_T_OBJ})")
+    print(f"  kv_cache: {len(rec.kv)} sites (the masking pass), zero fraction {kv_zf}, "
+          f"stream bytes {kv_bytes} (T_obj {LM_T_OBJ})")
+    check(0.5 <= ffn_zf <= 0.8, f"ffn_hidden zero fraction {ffn_zf} outside 0.5-0.8")
+    check(len(rec.kv) == 2 * n_layers, f"{len(rec.kv)} kv_cache sites, want {2 * n_layers}")
+    check(len(rec.ffn_decode) == n_layers * (LM_GEN - 1)
+          and set(rec.ffn_decode) == {"reference(degenerate-rows)"},
+          f"decode ffn_hidden sites: {len(rec.ffn_decode)} x {set(rec.ffn_decode)}")
+    print(f"  decode: {len(rec.ffn_decode)} ffn_hidden sites, all reference(degenerate-rows) "
+          f"(the masked dense matmul)")
+
+    # the handoff: every compressible leaf lossless and inside the band
+    rec_kv = out["reconcile"]
+    check(rec_kv["n_sites"] == len(leaves) > 0, "reconcile did not cover every leaf")
+    dense = []
+    map_tree(lambda _, l: dense.append(l), out["dense_state"][0])
+    comp = []
+    map_tree(lambda _, l: comp.append(l), out["handoff_state"][0])
+    checked = 0
+    for d, c in zip(dense, comp):
+        if isinstance(c, CompressedMap):
+            check(same_bits(decompress(c), d), "a KV leaf did not round-trip losslessly")
+            checked += 1
+    check(checked == len(leaves), f"{checked} compressed leaves checked, want {len(leaves)}")
+    print(f"  KV handoff: {len(leaves)} compressed leaves, every leaf lossless, "
+          f"max |measured - predicted| {rec_kv['max_abs_delta_bytes']} B; "
+          f"{out['meter'].measured_bytes()} of {out['meter'].dense_bytes()} B")
+
+    # replay every kv_cache input through the masking kernel and its plain
+    # version; the path's output must be the plain version's, bit for bit
+    reset_launch_counts()
+    for i, (x, y, aux) in enumerate(rec.kv):
+        x2 = x.reshape(-1, x.shape[-1])
+        bs = BS if x.shape[-2] % BS == 0 else 1
+        bc = BC if x2.shape[1] % BC == 0 else x2.shape[1]
+        y_plain, bm_plain = zebra_mask.mask_plain(x2, LM_T_OBJ, bs, bc)
+        y_k, bm_k = zebra_mask.mask_cuda(x2, LM_T_OBJ, bs, bc)
+        check(same_bits(y.reshape(x2.shape), y_plain), f"kv site {i}: the path's masked "
+                                                       f"map != mask_plain")
+        check(same_bits(y_k, y_plain) and same_bits(bm_k, bm_plain),
+              f"kv site {i}: zebra_mask != mask_plain (map or bitmap)")
+        check(same_bits(aux.zero_frac, zero_fraction(bm_plain))
+              and int(aux.measured_bytes) == 0, f"kv site {i}: zero_frac or bytes")
+    print(f"  replay of {len(rec.kv)} kv_cache maps {tuple(rec.kv[0][0].shape)}: the path's "
+          f"masked map, the kernel's map and bitmap == mask_plain (bitwise); zero fraction "
+          f"{kv_zf} at T_obj {LM_T_OBJ}{' (every block kept)' if kv_zf == 0 else ''}")
+
+    # replay every ffn_hidden input through the reference site and zebra_spmm
+    zc = zebra_cfg_for(cfg, "infer")
+    worst_y = 0.0
+    for i, (h, w, y, aux) in enumerate(rec.ffn):
+        h2 = h.reshape(-1, h.shape[-1])
+        payload, bitmap, n_live = mask_pack.zebra_mask_pack(h2, t_obj=LM_T_OBJ, bs=BS, bc=BC)
+        y_ref, aux_ref = zebra_site(h, zc.replace(backend="reference"), site="ffn_hidden",
+                                    w=w)
+        keep_ref = mask_pack.bitmap_plain(h2, LM_T_OBJ, BS, BC)
+        check(same_bits(bitmap, keep_ref), f"layer {i}: bitmap != the reference's")
+        check(int(n_live) == int(keep_ref.sum()), f"layer {i}: n_live != the reference's")
+        want_bytes = stream_bytes(keep_ref.sum(), BS, BC, h.dtype, keep_ref.numel())
+        check(int(aux.measured_bytes) == int(want_bytes), f"layer {i}: stream bytes")
+        check(same_bits(aux.zero_frac, aux_ref.zero_frac)
+              and same_bits(aux.zero_frac, zero_fraction(bitmap)), f"layer {i}: zero_frac")
+        y7 = spmm_cs.zebra_spmm_cs(payload, w, bitmap, bs=BS, bc=BC)
+        y6 = zebra_spmm.zebra_spmm(h2, w, bitmap, bs=BS, bc=BC)
+        check(same_bits(y6, y7), f"layer {i}: zebra_spmm != zebra_spmm_cs")
+        check(same_bits(y7.to(h.dtype).reshape(y.shape), y), f"layer {i}: fused output "
+                                                             f"!= the replayed kernel's")
+        worst_y = max(worst_y, close_err(y.float(), y_ref.float(), Y_TOL,
+                                         f"layer {i}: fused y vs the reference's mask(h) @ w"))
+    torch.cuda.synchronize()
+    replay = launch_counts()
+    print(f"  replay of {n_layers} ffn_hidden maps: bitmap, n_live, bytes and zero_frac == "
+          f"reference (bitwise); zebra_spmm_cs == zebra_spmm (bitwise); y vs reference "
+          f"max abs err {worst_y} ({Y_TOL})")
+
+    reset_launch_counts()
+    ref = serve.main([*argv, "--backend", "reference"])
+    check(not any(launch_counts().values()), "the reference run launched a kernel")
+    fused_t, ref_t = out["tokens"].cpu(), ref["tokens"].cpu()
+    agree = int((fused_t == ref_t).sum())
+    first = [int((fused_t[b] != ref_t[b]).nonzero()[0]) if (fused_t[b] != ref_t[b]).any()
+             else fused_t.shape[1] for b in range(fused_t.shape[0])]
+    for b in range(fused_t.shape[0]):
+        print(f"  tokens lane {b}: fused     {fused_t[b].tolist()}")
+        print(f"  tokens lane {b}: reference {ref_t[b].tolist()}")
+    print(f"  greedy tokens: {agree} of {fused_t.numel()} agree; first divergence per lane "
+          f"{first} (recorded, not asserted)")
+    print(f"  reference prefill {ref['prefill_ms']:.3f} ms, decode "
+          f"{ref['decode_ms_per_token']:.3f} ms/token")
+    del ref
+    # the first run paid the first calls' set-up (cuBLAS handles, allocator
+    # growth); serve the same prompts again on the warm model for its times
+    model, prompts = out["model"], out["prompts"]
+    again = serve.serve_one_shot(model, prompts, LM_GEN, log=lambda *_: None)
+    check(torch.equal(again["tokens"], out["tokens"]), "the second fused run's tokens differ")
+    print(f"  fused again (warm): prefill {again['prefill_ms']:.3f} ms, decode "
+          f"{again['decode_ms_per_token']:.3f} ms/token (host clock, synchronised)")
+    busy = profile_calls(lambda: steps.prefill(model, prompts), 2, "fused prefills", "prefill")
+    if busy is not None:
+        print(f"  fused prefill: device busy {100 * busy / again['prefill_ms']:.1f} % of an "
+              f"unprofiled prefill ({busy:.3f} of {again['prefill_ms']:.3f} ms)")
+    state = again["dense_state"]
+    tok = again["tokens"][:, :1]
+    busy = profile_calls(lambda: steps.generate(model, tok, state, LM_PROMPT, 4), 1,
+                         "4-token decodes", "4 tokens")
+    if busy is not None:
+        print(f"  decode: device busy {100 * busy / 4 / again['decode_ms_per_token']:.1f} % "
+              f"of an unprofiled token ({busy / 4:.3f} of "
+              f"{again['decode_ms_per_token']:.3f} ms)")
+    del again, state
+    check(bool(torch.isfinite(out["logits"]).all())
+          and tuple(out["logits"].shape) == (LM_BATCH, cfg.vocab),
+          f"prefill logits not finite of shape ({LM_BATCH}, {cfg.vocab})")
+    # launches from the served run alone; the dense twin is off the path (0
+    # there) and its replay launches are reported beside, under their own name
+    return {"maps": [(h, w) for h, w, *_ in rec.ffn], "kv": rec.kv[0][0], "dense": dense,
+            "comp": comp, "launches": {k: final[k] for k in LM_KERNELS},
+            "replay_launches": {"zebra_spmm_kernel": replay["zebra_spmm_kernel"]}}
+
+
+def time_lm_kernels(lm: dict, edge_errs: dict, device) -> list[dict]:
+    """The LM kernels on the path's inputs: the GEMMs on the ffn_hidden maps
+    of the prefill (summed per prefill), zebra_pack on the handoff's
+    compressible leaves (summed per handoff); each beside its plain
+    version, its bound and, for the GEMMs, torch.matmul of the keep-gated
+    dense bf16 map by w (TF32 off)."""
+    import torch
+    from repro_torch.compress import CompressedMap, nonzero_bitmap
+    from repro_torch.kernels import mask_pack, spmm_cs, zebra_spmm
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)   # 256 MB
+    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+                "max_abs_err": edge_errs[k], "bound_by": "bytes"} for k in LM_KERNELS}
+    terms = {k: [0.0, 0.0] for k in LM_KERNELS}      # summed bytes and operations times
+    for h, w in lm["maps"]:
+        x2 = h.reshape(-1, h.shape[-1])
+        M, K = x2.shape
+        N, item = w.shape[1], x2.element_size()
+        bitmap = mask_pack.bitmap_plain(x2, LM_T_OBJ, BS, BC)
+        keep, slot, payload, n_live = gemm_pieces(x2, bitmap, BS, BC)
+        for k, e in compare_gemms(x2, w, bitmap, BS, BC, f"ffn_hidden map {M}x{K}").items():
+            rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], e)
+        gated = zebra_spmm.gate_blocks(x2, bitmap, BS, BC)
+        lib = time_ms(lambda: torch.matmul(gated, w), flush, iters=5, warmup=1)
+        flops_ms = 2 * n_live * BS * BC * N / BF16_FLOPS * 1e3
+        common = n_live * BS * BC * item + bitmap.numel() + K * N * item + M * N * 4
+        calls = {
+            "zebra_spmm_cs_kernel": (
+                lambda: spmm_cs.spmm_cs_cuda(payload, w, bitmap, slot, BS, BC),
+                lambda: spmm_cs.spmm_cs_plain(payload, w, bitmap, keep, slot, BS, BC),
+                common + 4 * n_live),
+            "zebra_spmm_kernel": (lambda: zebra_spmm.spmm_cuda(x2, w, bitmap, BS, BC),
+                                  lambda: zebra_spmm.spmm_plain(x2, w, bitmap, BS, BC),
+                                  common)}
+        for k, (kern, plain, nbytes) in calls.items():
+            r = rows[k]
+            r["ms"] += time_ms(kern, flush, iters=5, warmup=1)
+            r["plain_ms"] += time_ms(plain, flush, iters=5, warmup=1)
+            r["library_ms"] += lib
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            r["bound_ms"] += max(bytes_ms, flops_ms)
+            terms[k][0] += bytes_ms
+            terms[k][1] += flops_ms
+    for k, (b, f) in terms.items():
+        rows[k]["bound_by"] = "operations" if f > b else "bytes"
+        if b or f:
+            print(f"  {k}: bound terms over the prefill: bytes {b:.4f} ms, operations "
+                  f"{f:.4f} ms")
+    r = rows["zebra_pack"]
+    r["library_ms"] = None
+    for d, c in zip(lm["dense"], lm["comp"]):
+        if not isinstance(c, CompressedMap):
+            continue
+        x2 = d.reshape(c.m, c.k)
+        compare_zebra_pack(x2, c.bs, c.bc, f"KV leaf {tuple(d.shape)}")
+        bitmap = nonzero_bitmap(x2, c.bs, c.bc)
+        keep, slot, _, n_live = gemm_pieces(x2, bitmap, c.bs, c.bc)
+        n_live_t = keep.sum(dtype=torch.int32)
+        r["ms"] += time_ms(lambda: mask_pack.pack_launch(x2, bitmap, slot, n_live_t, c.bs,
+                                                         c.bc, "zebra_pack"), flush)
+        r["plain_ms"] += time_ms(lambda: mask_pack.pack_plain(x2, bitmap, slot, n_live_t,
+                                                              c.bs, c.bc), flush)
+        r["bound_ms"] += bound_bytes("zebra_pack_kernel", c.m, c.k, c.bs, c.bc,
+                                     x2.element_size(), n_live) / HBM_BYTES_PER_S * 1e3
+    kv = lm["kv"].reshape(-1, lm["kv"].shape[-1])
+    bc = BC if kv.shape[1] % BC == 0 else kv.shape[1]
+    kv_label = f"one kv_cache map {tuple(kv.shape)}"
+    compare_kernels(kv, LM_T_OBJ, BS, bc, kv_label, names=("zebra_mask_kernel",))
+    (kern, plain), = kernel_calls(kv, LM_T_OBJ, BS, bc, ("zebra_mask_kernel",))[0].values()
+    print(f"  zebra_mask_kernel on {kv_label}: bitwise == plain, {time_ms(kern, flush):.4f} "
+          f"ms, plain {time_ms(plain, flush):.4f} ms (CUDA events, L2 flushed)")
+    print(f"LM kernel times (per prefill: {len(lm['maps'])} ffn_hidden maps; zebra_pack per "
+          f"handoff; CUDA events, L2 flushed):")
+    for k, r in rows.items():
+        print(f"  {k:22s} {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})  library {r['library_ms']}")
+    for k, n in lm["replay_launches"].items():
+        rows[k]["replay_launches"] = n
+    return [{"name": k, "route": "cuda",
+             "source": SOURCE if k == "zebra_pack" else GEMM_SOURCE,
+             "replaces": LM_KERNELS[k], "launches": lm["launches"][k], **rows[k]}
+            for k in LM_KERNELS]
+
+
 
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -578,13 +1050,27 @@ def main() -> int:
                     print(f"  ptxas: {line.strip()}")
 
         print("kernels vs plain versions on the card:")
+        t0 = time.perf_counter()
         edge_cases(device)
+        with torch.inference_mode():
+            lm_errs = lm_edge_cases(device)
+        t1 = time.perf_counter()
         trained, train_launches, mask_maps = run_training(device)
         launches, maps = run_slice(device, trained)
         kernels = time_kernels(
             [(STREAM_KERNELS, maps, launches),
              (("zebra_mask_kernel",), mask_maps, train_launches)],
             device)
+        del trained, mask_maps, maps
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        with torch.inference_mode():
+            lm = run_lm(device)
+            kernels += time_lm_kernels(lm, lm_errs, device)
+        del lm
+        t3 = time.perf_counter()
+        print(f"phase times: edge cases {t1 - t0:.1f} s, CNN {t2 - t1:.1f} s, "
+              f"LM {t3 - t2:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
         print(json.dumps({"ok": True, "device": {

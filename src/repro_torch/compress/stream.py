@@ -1,0 +1,177 @@
+"""Compressed activation stream (``repro.compress.stream``): the transport
+form of a Zebra-masked map, the bytes the paper's accelerator moves
+(Eq. 2/3): a payload of the surviving ``(bs, bc)`` blocks in consumer
+order plus a packed 1-bit-per-block keep index.
+
+``compress`` packs through ``kernels.pack.zebra_pack`` and ``decompress``
+expands through ``kernels.pack.zebra_unpack``, so on the card both run
+the CUDA kernels. Measured byte counts (``payload_bytes`` /
+``index_bytes``) are observed stream lengths, which
+``meter.BandwidthMeter`` reconciles against ``core.bandwidth.stored_bits``.
+The in-band checksum word waits for the integrity item (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from ..core.bandwidth import TokenMapSpec
+from ..kernels.pack import zebra_pack, zebra_unpack
+from ..utils import cdiv, map_tree
+
+CHECKSUM_NOT_PORTED = ("stream checksums are not yet ported to repro_torch "
+                       "(ROADMAP.md, module queue: integrity/validation)")
+
+
+# ---------------------------------------------------------------------------
+# 1-bit block index (Eq. 3): little-endian bit order, row-major block order
+# ---------------------------------------------------------------------------
+
+def pack_bitmap(bitmap: torch.Tensor) -> torch.Tensor:
+    """(Mb, Kb) keep flags -> (ceil(n_blocks/8),) uint8. Bit b of byte i is
+    block i*8 + b (little-endian within the byte)."""
+    flat = (bitmap.reshape(-1) != 0).to(torch.uint8)
+    n = flat.numel()
+    flat = torch.nn.functional.pad(flat, (0, cdiv(n, 8) * 8 - n))
+    weights = torch.tensor([1 << b for b in range(8)], dtype=torch.uint8,
+                           device=flat.device)
+    return (flat.reshape(-1, 8) * weights).sum(dim=1).to(torch.uint8)
+
+
+def unpack_bitmap(packed: torch.Tensor, nm: int, nk: int) -> torch.Tensor:
+    """Inverse of pack_bitmap -> (nm, nk) int8 keep flags."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[:, None] >> shifts) & 1
+    return bits.reshape(-1)[: nm * nk].reshape(nm, nk).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# The stream object
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class CompressedMap:
+    """One compressed activation map: worst-case payload buffer (live blocks
+    first, zero tail), packed index, and the measured live count."""
+    payload: torch.Tensor       # (n_blocks, bs, bc), activation dtype
+    index: torch.Tensor         # (ceil(n_blocks/8),) uint8
+    n_live: torch.Tensor        # () int32
+    shape: tuple[int, ...]      # original (pre-flatten) map shape
+    m: int                      # flattened rows
+    k: int                      # flattened cols
+    bs: int
+    bc: int
+
+    # --- measured stream accounting (host side: reads n_live back) ---
+    @property
+    def n_blocks(self) -> int:
+        return (self.m // self.bs) * (self.k // self.bc)
+
+    @property
+    def itemsize(self) -> int:
+        return self.payload.element_size()
+
+    def payload_bytes(self) -> int:
+        """Bytes of surviving-block data actually in the stream."""
+        return int(self.n_live) * self.bs * self.bc * self.itemsize
+
+    def index_bytes(self) -> int:
+        return int(self.index.numel())       # uint8
+
+    def measured_bytes(self) -> int:
+        return self.payload_bytes() + self.index_bytes()
+
+    def dense_bytes(self) -> int:
+        return self.m * self.k * self.itemsize
+
+    def zero_frac(self) -> float:
+        return 1.0 - int(self.n_live) / max(self.n_blocks, 1)
+
+    def spec(self) -> TokenMapSpec:
+        """The analytic map spec this stream instantiates (for Eq. 2/3)."""
+        return TokenMapSpec(s=self.m, d=self.k, bits=self.itemsize * 8,
+                            block_seq=self.bs, block_ch=self.bc)
+
+
+# ---------------------------------------------------------------------------
+# Codec entry points
+# ---------------------------------------------------------------------------
+
+def nonzero_bitmap(x: torch.Tensor, bs: int, bc: int) -> torch.Tensor:
+    """Keep flags for lossless transport of an already-masked map: keep any
+    block with at least one nonzero element."""
+    M, K = x.shape
+    xb = x.reshape(M // bs, bs, K // bc, bc)
+    return (xb.abs().amax(dim=(1, 3)) > 0).to(torch.int8)
+
+
+def compress(x: torch.Tensor, bitmap: torch.Tensor | None = None, *, bs: int = 8,
+             bc: int = 128, checksum: bool = False) -> CompressedMap:
+    """(..., K) map -> CompressedMap. Leading dims flatten onto M. With no
+    bitmap the nonzero-block bitmap is used (always lossless)."""
+    if checksum:
+        raise NotImplementedError(CHECKSUM_NOT_PORTED)
+    shape = tuple(x.shape)
+    x2 = x.reshape(-1, shape[-1])
+    M, K = x2.shape
+    if bitmap is None:
+        bitmap = nonzero_bitmap(x2, bs, bc)
+    payload, n_live = zebra_pack(x2, bitmap, bs=bs, bc=bc)
+    return CompressedMap(payload=payload, index=pack_bitmap(bitmap), n_live=n_live,
+                         shape=shape, m=M, k=K, bs=bs, bc=bc)
+
+
+def decompress(cm: CompressedMap) -> torch.Tensor:
+    bitmap = unpack_bitmap(cm.index, cm.m // cm.bs, cm.k // cm.bc)
+    return zebra_unpack(cm.payload, bitmap, bs=cm.bs, bc=cm.bc).reshape(cm.shape)
+
+
+# ---------------------------------------------------------------------------
+# Tree transport (the prefill -> decode KV-cache handoff)
+# ---------------------------------------------------------------------------
+
+def _leaf_dims(leaf, bs: int, bc: int) -> tuple[int, int] | None:
+    """The (m, k) flattening a leaf compresses under: the last axis, else
+    the last two, whichever first divides into (bs, bc) blocks."""
+    if not (isinstance(leaf, torch.Tensor) and leaf.dim() >= 2
+            and leaf.is_floating_point()):
+        return None
+    for nd in (1, 2):
+        k = math.prod(leaf.shape[-nd:])
+        m = math.prod(leaf.shape[:-nd]) if leaf.dim() > nd else 0
+        if m and k % bc == 0 and m % bs == 0:
+            return m, k
+    return None
+
+
+def compress_tree(tree: Any, *, bs: int = 8, bc: int = 128, meter=None,
+                  site: str = "acts", checksum: bool = False) -> Any:
+    """Compress every compatible floating leaf of a tree (lossless,
+    nonzero-block bitmap); incompatible leaves pass through dense. Each leaf
+    is recorded on ``meter`` under ``"<site>/<path>"``, so the index bytes
+    are counted per leaf, as the reference counts them."""
+    if checksum:
+        raise NotImplementedError(CHECKSUM_NOT_PORTED)
+
+    def one(path, leaf):
+        name = "/".join([site, *map(str, path)])
+        dims = _leaf_dims(leaf, bs, bc)
+        if dims is None:
+            if meter is not None:
+                meter.record_dense(name, leaf.numel() * leaf.element_size())
+            return leaf
+        cm = dataclasses.replace(compress(leaf.reshape(dims), bs=bs, bc=bc),
+                                 shape=tuple(leaf.shape))
+        if meter is not None:
+            meter.record(name, cm)
+        return cm
+
+    return map_tree(one, tree)
+
+
+def decompress_tree(tree: Any) -> Any:
+    return map_tree(lambda _, l: decompress(l) if isinstance(l, CompressedMap) else l,
+                     tree)

@@ -1,0 +1,39 @@
+"""Architecture registry of the port (``repro.configs``).
+
+``get(arch)`` -> LMConfig; ``reduced(arch)`` -> the smoke-test config.
+Only the dense gemma3-4b is ported so far; the reference's other
+architectures (MoE, SSM, RG-LRU, whisper) wait in ROADMAP.md's module
+queue and raise ``NotImplementedError`` here.
+"""
+from __future__ import annotations
+
+import importlib
+
+_ARCH_MODULES = {
+    "gemma3-4b": "gemma3_4b",
+}
+
+# registered in the reference, not yet ported
+_WAITING = ("chameleon-34b", "command-r-35b", "qwen2.5-14b", "starcoder2-15b",
+            "recurrentgemma-2b", "whisper-medium", "llama4-scout-17b-a16e",
+            "granite-moe-1b-a400m", "mamba2-2.7b")
+
+ARCHS = tuple(_ARCH_MODULES)
+
+
+def _mod(arch: str):
+    if arch in _WAITING:
+        raise NotImplementedError(
+            f"arch {arch!r} is not yet ported to repro_torch (ROADMAP.md, module "
+            f"queue: the LM stack's other architectures)")
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(f".{_ARCH_MODULES[arch]}", __package__)
+
+
+def get(arch: str):
+    return _mod(arch).CONFIG
+
+
+def reduced(arch: str):
+    return _mod(arch).reduced()

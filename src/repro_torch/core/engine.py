@@ -12,15 +12,19 @@ from ``ZebraConfig.backend`` (per-site overrides via ``site_backends``):
                stream to the expander. ``SiteAux.measured_bytes`` reports
                the observed stream length (payload + packed index, the
                Eq. 2/3 observable).
-``fused``      registered (its label and capabilities are part of the
-               contract) but not yet ported: it raises.
+``fused``      with a downstream weight ``w``: ``zebra_mask_pack`` ->
+               ``zebra_spmm_cs``, the payload GEMM that reads each live
+               block from its slot and skips dead ones, so the masked map
+               is never expanded; the site returns ``mask(x) @ w``. With
+               no ``w`` it is the ``pallas`` masking pass.
 
 The masked map is bitwise equal on reference, pallas and stream. Train
-mode runs on every backend but ``fused``: a pallas or stream site trains
-through ``kernels.grad.ZebraKernelTrainable``, whose forward is the same
-kernel pipeline infer dispatches. Capability resolution
-(``_resolve_backend``) and its degrade labels ``"reference(<reason>)"``
-are those of the reference engine.
+mode runs on every backend but ``fused`` (not trainable: it degrades to
+reference): a pallas or stream site trains through
+``kernels.grad.ZebraKernelTrainable``, whose forward is the same kernel
+pipeline infer dispatches. Capability resolution (``_resolve_backend``)
+and its degrade labels ``"reference(<reason>)"`` are those of the
+reference engine.
 
 Layouts: ``tokens`` maps ``(..., S, D)`` tile into ``(block_seq,
 block_ch)`` blocks; ``nchw`` maps ``(B, C, H, W)`` are flattened onto the
@@ -36,16 +40,14 @@ from typing import Any
 import torch
 
 from ..kernels.grad import KernelStatics, launch_forward, zebra_kernel_trainable
+from ..kernels.mask_pack import mask_pack_with_slots
+from ..kernels.spmm_cs import spmm_cs_with_slots
 from .backends import BackendSpec, backend_spec
 from .zebra import (ZebraConfig, effective_tnet, require_tnet, zebra_cnn,
                     zebra_tokens, zero_fraction)
 
 _log = logging.getLogger("repro_torch.engine")
 _DEGRADE_LOGGED: set[tuple[str, str, str]] = set()
-
-NOT_PORTED = ("backend {!r} is not yet ported to repro_torch (ROADMAP.md, "
-              "module queue: the fused engine path)")
-
 
 @dataclasses.dataclass
 class SiteAux:
@@ -180,6 +182,19 @@ def _kernel_statics(variant: str, bs: int, bc: int, cfg: ZebraConfig) -> KernelS
                          grad_mode=cfg.grad_mode, soft_temp=cfg.soft_temp)
 
 
+def _run_fused(x2: torch.Tensor, w: torch.Tensor, bs: int, bc: int,
+               cfg: ZebraConfig) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """mask_pack -> payload GEMM: the consumer reads each live block from
+    its consumer-order payload slot (the producer's slot map, reused) and
+    skips dead ones; the dense masked map is never expanded. Returns
+    ``(mask(x2) @ w in x2's dtype, bitmap, stream bytes)``."""
+    payload, bitmap, n_live, keep, slot = mask_pack_with_slots(
+        x2, t_obj=cfg.t_obj, bs=bs, bc=bc)
+    out = spmm_cs_with_slots(payload, w, bitmap, keep, slot, bs=bs, bc=bc)
+    measured = stream_bytes(n_live, bs, bc, x2.dtype, bitmap.numel())
+    return out.to(x2.dtype), bitmap, measured
+
+
 # ---------------------------------------------------------------------------
 # Capability resolution
 # ---------------------------------------------------------------------------
@@ -212,6 +227,20 @@ def _log_degrade(site: str, requested: str, reason: str) -> None:
                   site, requested, reason)
 
 
+def wants_fused(cfg: ZebraConfig, site: str = "") -> bool:
+    """True when this site should hand its downstream weight to the engine:
+    the configured backend consumes ``w`` and capability resolution keeps
+    it (a train-mode request on a non-trainable w-consumer degrades, so the
+    caller keeps its dense matmul)."""
+    if not cfg.enabled:
+        return False
+    spec = backend_spec(cfg.backend_for(site))
+    if not spec.consumes_w or spec.name == "reference":
+        return False
+    final, _ = _resolve_backend(spec, mode=cfg.mode, tnet=None, degenerate=False)
+    return final == spec.name
+
+
 # ---------------------------------------------------------------------------
 # The engine entry point
 # ---------------------------------------------------------------------------
@@ -226,12 +255,12 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
     site    name used for per-site backend overrides (cfg.site_backends).
     tnet    threshold net (``core.zebra.ThresholdNet``); train-mode sites
             with one resolve to reference.
-    w       downstream weight (K, N), for backends that consume one: the
-            site then returns ``mask(x) @ w``. Of those, only reference
-            runs in the port so far.
+    w       downstream weight (K, N), for backends that consume one
+            (reference, fused): the site then returns ``mask(x) @ w``.
 
-    Returns ``(masked map, SiteAux)``; the map is bitwise identical on
-    reference, pallas and stream."""
+    Returns ``(y, SiteAux)``. Without ``w``, y is the masked map (bitwise
+    identical on reference, pallas and stream); with ``w``, the product,
+    dead blocks skipped on fused."""
     spec = backend_spec(cfg.backend_for(site))
     if w is not None and not spec.consumes_w:
         raise ValueError(
@@ -252,7 +281,8 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
         degenerate = False
     elif layout == "tokens":
         if x.dim() == 2:                # bare (M, K) map: one-sample batch
-            y, aux = zebra_site(x[None], cfg, site=site, layout=layout, tnet=tnet)
+            y, aux = zebra_site(x[None], cfg, site=site, layout=layout, tnet=tnet,
+                                w=w)
             return y[0], aux
         bs, bc, degenerate = _tokens_blocks(x, cfg)
         cfg = cfg.replace(block_seq=bs, block_ch=bc)
@@ -279,19 +309,30 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
                           n_blocks=aux["n_blocks"],
                           thresholds=aux["thresholds"], backend=label)
 
-    if spec.grad_variant is None:       # fused: the payload GEMM is not ported
-        raise NotImplementedError(NOT_PORTED.format(backend))
+    x2 = x.contiguous().reshape(dims)
+    no_bytes = torch.zeros((), dtype=torch.int64, device=x.device)
+    if backend == "fused":
+        # infer only (fused is not trainable). With w: the payload GEMM;
+        # without: the pallas masking pass, which moves no stream bytes
+        if w is not None:
+            y2, bitmap, measured = _run_fused(x2, w, bs, bc, cfg)
+            y = y2.reshape(*x.shape[:-1], w.shape[-1])
+        else:
+            y2, bitmap, _ = launch_forward(x2, _kernel_statics("mask", bs, bc, cfg))
+            y, measured = y2.reshape(x.shape), no_bytes
+        return y, SiteAux(reg=torch.zeros((), dtype=torch.float32, device=x.device),
+                          zero_frac=zero_fraction(bitmap), measured_bytes=measured,
+                          n_blocks=nb_sample, thresholds=None, backend=label)
     # pallas: one masking pass ("mask"); stream: mask_pack -> unpack with
     # only the (payload, bitmap) stream in between ("stream"). In train
     # mode the same launches run under the configured gradient mode.
     statics = _kernel_statics(spec.grad_variant, bs, bc, cfg)
     launch = zebra_kernel_trainable if cfg.mode == "train" else launch_forward
-    x2 = x.contiguous().reshape(dims)
     y2, bitmap, n_live = launch(x2, statics)
     # the observables come from the launch's bitmap and n_live, which
     # carry no gradient; a dense map moves no stream bytes
     measured = (stream_bytes(n_live, bs, bc, x2.dtype, bitmap.numel()) if spec.emits_stream
-                else torch.zeros((), dtype=torch.int64, device=x.device))
+                else no_bytes)
     zero_frac = zero_fraction(bitmap)
     # train mode: the realised Eq. 1 observable under the constant threshold
     reg = (zero_frac * nb_sample if cfg.mode == "train"

@@ -100,12 +100,13 @@ class ThresholdNet(nn.Module):
     reads the constant ``T_obj`` instead."""
 
     def __init__(self, d_in: int, d_out: int | None = None, *,
-                 generator: torch.Generator | None = None, dtype=torch.float32):
+                 generator: torch.Generator | None = None, dtype=torch.float32,
+                 device=None):
         super().__init__()
         d_out = d_in if d_out is None else d_out
-        w = torch.randn(d_in, d_out, generator=generator, dtype=dtype)
+        w = torch.randn(d_in, d_out, generator=generator, dtype=dtype, device=device)
         self.w = nn.Parameter(w * d_in ** -0.5)
-        self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype))
+        self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype, device=device))
 
     def forward(self, gap: torch.Tensor) -> torch.Tensor:
         """gap (B, d_in) -> thresholds (B, d_out)."""

@@ -1,2 +1,3 @@
 from .synthetic import (SYN_CIFAR10, SYN_TINYIMAGENET,  # noqa: F401
-                        ImageDatasetConfig, StreamingLoader, image_batch)
+                        ImageDatasetConfig, LMDatasetConfig, StreamingLoader,
+                        image_batch, lm_batch)

@@ -1,6 +1,7 @@
-"""Procedural image dataset — a numpy copy of the image half of
-``repro.data.synthetic``, so the port draws the same images and labels as
-the reference for the same (seed, step), and its ``StreamingLoader``.
+"""Procedural datasets — a numpy copy of ``repro.data.synthetic``'s image
+and token generators, so the port draws the same images, labels and token
+sequences as the reference for the same (seed, step), and its
+``StreamingLoader``.
 
 Class-conditional oriented-stripe textures composited on low-amplitude
 background clutter: learnable, with real "background" pixels so Zebra's
@@ -54,6 +55,31 @@ def image_batch(cfg: ImageDatasetConfig, batch: int, step: int):
         left = rng.integers(0, hw - pw + 1)
         imgs[i, :, top:top + ph, left:left + pw] += tex[:, :ph, :pw].astype(np.float32)
     return imgs, labels.astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMDatasetConfig:
+    vocab: int = 32000
+    effective_vocab: int = 509    # prime < vocab: structure lives here
+    seed: int = 0
+    noise_p: float = 0.05
+
+
+def lm_batch(cfg: LMDatasetConfig, batch: int, seq: int, step: int) -> np.ndarray:
+    """-> tokens (B, S+1) int32: per-row affine recurrences mod a prime with
+    noise; inputs = [:, :-1], labels = [:, 1:]."""
+    rng = np.random.default_rng((cfg.seed << 32) ^ (0x5BCD ^ step))
+    V = cfg.effective_vocab
+    a = 5 + 2 * rng.integers(0, 20, size=(batch, 1))
+    b = rng.integers(0, V, size=(batch, 1))
+    x = np.empty((batch, seq + 1), dtype=np.int64)
+    x[:, 0] = rng.integers(0, V, size=batch)
+    for t in range(seq):
+        nxt = (a[:, 0] * x[:, t] + b[:, 0]) % V
+        flip = rng.random(batch) < cfg.noise_p
+        nxt = np.where(flip, rng.integers(0, V, size=batch), nxt)
+        x[:, t + 1] = nxt
+    return (x % cfg.vocab).astype(np.int32)
 
 
 class StreamingLoader:

@@ -1,11 +1,11 @@
-"""Build and load the port's CUDA kernels (``kernels/csrc/zebra_stream.cu``).
+"""Build and load the port's CUDA kernels (``kernels/csrc/*.cu``).
 
-The source is compiled by ``nvcc`` into a shared library with a plain C
-interface, loaded with ``ctypes``. Nothing is built when a module is
-imported: the first launch builds. The build goes to
-``build/repro_torch/<digest>/`` at the root of the checkout, keyed by a
-hash of the sources and flags, so an edited source never loads a stale
-library.
+One ``nvcc`` run compiles every source into one shared library with a
+plain C interface, loaded with ``ctypes``. Nothing is built when a
+module is imported: the first launch builds. The
+build goes to ``build/repro_torch/<digest>/`` at the root of the
+checkout, keyed by a hash of the sources and flags, so an edited source
+never loads a stale library.
 
 Without ``nvcc`` the build raises: a CUDA tensor never falls back to a
 plain PyTorch path.
@@ -23,13 +23,27 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
-SOURCE = CSRC / "zebra_stream.cu"
+# the C entry points of each source, with their argument types (pointers
+# and the stream as c_void_p, so ctypes never truncates them to 32 bits)
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+SOURCES = {
+    "zebra_stream.cu": {
+        "zebra_bitmap_launch": [_P, _P, _L, _L, _I, _I, _F, _I, _P],
+        "zebra_pack_launch": [_P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _P],
+        "zebra_unpack_launch": [_P, _P, _P, _P, _L, _L, _I, _I, _I, _P],
+        "zebra_mask_launch": [_P, _P, _P, _L, _L, _I, _I, _F, _I, _P],
+    },
+    "zebra_gemm.cu": {
+        "zebra_spmm_launch": [_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _P],
+        "zebra_spmm_cs_launch": [_P, _P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _P],
+    },
+}
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_lib: "KernelLibrary | None" = None
 
 
 def nvcc_path() -> str:
@@ -54,54 +68,50 @@ def build_dir() -> Path:
 
 
 def build() -> Path:
-    """Compile the source unless its library exists; return the library's
-    path. Compiler output (``-Xptxas -v``: registers, shared memory and
-    spills per kernel) is kept beside it as ``<name>.log``."""
+    """Compile every source unless the library exists; return the
+    library's path. Compiler output (``-Xptxas -v``: registers, shared
+    memory and spills per kernel) is kept beside it as ``libzebra.log``."""
     out = build_dir()
-    lib = out / f"lib{SOURCE.stem}.so"
+    lib = out / "libzebra.so"
     if lib.exists():
         return lib
     out.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    log = out / f"{SOURCE.stem}.log"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(SOURCE)]
+    log = lib.with_suffix(".log")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *(str(CSRC / src) for src in SOURCES)]
     with open(log, "w") as f:
         rc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT).returncode
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel build failed: {SOURCE.name}: nvcc exit "
-                           f"{rc}\n{log.read_text()}")
+        raise RuntimeError(f"CUDA kernel build failed: nvcc exit {rc}\n"
+                           f"{log.read_text()}")
     os.replace(tmp, lib)        # atomic: a reader sees all or nothing
     return lib
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    """Argument types of the C entry points (pointers and the stream as
-    ``c_void_p``, so ctypes never truncates them to 32 bits)."""
-    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    sigs = {
-        "zebra_bitmap_launch": [P, P, L, L, I, I, ctypes.c_float, I, P],
-        "zebra_pack_launch": [P, P, P, P, P, L, L, I, I, I, P],
-        "zebra_unpack_launch": [P, P, P, P, L, L, I, I, I, P],
-        "zebra_mask_launch": [P, P, P, L, L, I, I, ctypes.c_float, I, P],
-    }
-    for name, argtypes in sigs.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+class KernelLibrary:
+    """The C entry points of every source, as attributes."""
+
+    def __init__(self, path: Path):
+        lib = ctypes.CDLL(str(path))
+        for entries in SOURCES.values():
+            for name, argtypes in entries.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                setattr(self, name, fn)
 
 
-def load_library() -> ctypes.CDLL:
+def load_library() -> KernelLibrary:
     """The loaded kernel library (built on first use)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            _declare(lib)
-            _lib = lib
+            _lib = KernelLibrary(build())
         return _lib
 
 
-def cuda_library(t: torch.Tensor, kernel: str) -> ctypes.CDLL:
+def cuda_library(t: torch.Tensor, kernel: str) -> KernelLibrary:
     """The GPU branch's entry: the tensor must lie on a CUDA device."""
     if t.device.type != "cuda":
         raise ValueError(f"{kernel}: the CUDA kernel needs a CUDA tensor, got "

@@ -100,15 +100,18 @@ def pack_plain(x: torch.Tensor, bitmap: torch.Tensor, slot: torch.Tensor,
     return payload[:nb]
 
 
-def pack_cuda(x: torch.Tensor, bitmap: torch.Tensor, slot: torch.Tensor,
-              n_live: torch.Tensor, bs: int, bc: int) -> torch.Tensor:
-    lib = cuda_library(x, "zebra_pack")
+def pack_launch(x: torch.Tensor, bitmap: torch.Tensor, slot: torch.Tensor,
+                n_live: torch.Tensor, bs: int, bc: int, kernel: str) -> torch.Tensor:
+    """One launch of ``zebra_pack_kernel``, counted by the caller (the
+    producer's ``pack_blocks`` and the codec's ``pack.zebra_pack`` keep a
+    count each)."""
+    lib = cuda_library(x, kernel)
     nm, nk = _check_map(x, bs, bc)
-    _check_cuda_map(x, "zebra_pack")
+    _check_cuda_map(x, kernel)
     if (bitmap.dtype != torch.int8 or tuple(bitmap.shape) != (nm, nk)
             or slot.dtype != torch.int32 or slot.numel() != nm * nk
             or n_live.dtype != torch.int32 or n_live.numel() != 1):
-        raise ValueError("zebra_pack: expected an int8 (nm, nk) bitmap, an "
+        raise ValueError(f"{kernel}: expected an int8 (nm, nk) bitmap, an "
                          "int32 slot map of nm*nk entries and an int32 n_live")
     bitmap, slot = bitmap.contiguous(), slot.contiguous()
     payload = torch.empty((nm * nk, bs, bc), dtype=x.dtype, device=x.device)
@@ -116,7 +119,13 @@ def pack_cuda(x: torch.Tensor, bitmap: torch.Tensor, slot: torch.Tensor,
                                n_live.data_ptr(), payload.data_ptr(),
                                x.shape[0], x.shape[1], bs, bc,
                                x.element_size(), stream_of(x))
-    check_launch(rc, "zebra_pack")
+    check_launch(rc, kernel)
+    return payload
+
+
+def pack_cuda(x: torch.Tensor, bitmap: torch.Tensor, slot: torch.Tensor,
+              n_live: torch.Tensor, bs: int, bc: int) -> torch.Tensor:
+    payload = pack_launch(x, bitmap, slot, n_live, bs, bc, "zebra_pack")
     pack_blocks.launches += 1
     return payload
 

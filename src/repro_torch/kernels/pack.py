@@ -1,21 +1,49 @@
-"""The compressed-stream expander (``repro.kernels.pack``).
+"""Compressed activation transport: pack and unpack (``repro.kernels.pack``).
 
-``zebra_unpack`` is the inverse of the producer: the consumer-order
-payload ``(n_blocks, bs, bc)`` and the keep bitmap back to the dense
-``(M, K)`` map, dead blocks as exact +0. For a CUDA tensor it launches
-``zebra_unpack_kernel`` (``csrc/zebra_stream.cu``) and counts the launch
-in ``zebra_unpack.launches``; for a CPU tensor it runs the plain version,
-``expand_payload``.
+``zebra_pack`` compacts the live ``(bs, bc)`` blocks of an already-masked
+``(M, K)`` map under a bitmap given from outside (the codec's lossless
+nonzero-block bitmap, say) into the consumer-order payload, zero tail. It
+replaces the Pallas ``_pack_kernel``: the scan ``schedule.slot_map`` and
+then the producer's pack kernel ``zebra_pack_kernel``
+(``csrc/zebra_stream.cu``), whose launches this entry counts in
+``zebra_pack.launches``.
 
-``zebra_pack`` (compacting an already-masked map under a given bitmap)
-is not ported yet: see ROADMAP.md, kernel queue.
+``zebra_unpack`` is the inverse: the consumer-order payload ``(n_blocks,
+bs, bc)`` and the keep bitmap back to the dense ``(M, K)`` map, dead
+blocks as exact +0. For a CUDA tensor it launches ``zebra_unpack_kernel``
+and counts the launch in ``zebra_unpack.launches``.
+
+For a CPU tensor each runs its plain version (``mask_pack.pack_plain``,
+``expand_payload``).
 """
 from __future__ import annotations
 
 import torch
 
 from .build import check_launch, cuda_library, stream_of
+from .mask_pack import _check_map, pack_launch, pack_plain
 from .schedule import slot_map
+
+
+def zebra_pack(x: torch.Tensor, bitmap: torch.Tensor, *, bs: int = 8,
+               bc: int = 128) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compact the live blocks of a masked (M, K) map under ``bitmap``
+    ``(M//bs, K//bc)``: returns (payload ``(n_blocks, bs, bc)``, live blocks
+    first in consumer order, zero tail; ``n_live`` () int32)."""
+    nm, nk = _check_map(x, bs, bc)
+    if tuple(bitmap.shape) != (nm, nk):
+        raise ValueError(f"bitmap {tuple(bitmap.shape)} != {(nm, nk)}")
+    bitmap = (bitmap != 0).to(torch.int8)
+    keep, slot = slot_map(bitmap)
+    n_live = keep.sum(dtype=torch.int32)
+    if x.device.type == "cpu":
+        return pack_plain(x, bitmap, slot, n_live, bs, bc), n_live
+    payload = pack_launch(x.contiguous(), bitmap, slot, n_live, bs, bc, "zebra_pack")
+    zebra_pack.launches += 1
+    return payload, n_live
+
+
+zebra_pack.launches = 0
 
 
 def expand_payload(payload: torch.Tensor, keep: torch.Tensor, smap: torch.Tensor,

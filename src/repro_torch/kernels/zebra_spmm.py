@@ -1,0 +1,98 @@
+"""Block-sparse activation x dense weight GEMM from a dense operand
+(``repro.kernels.zebra_spmm``)::
+
+    y[M, N] (float32) = (x ⊙ blockmask)[M, K] @ w[K, N]
+
+``zebra_spmm`` takes the dense ``(M, K)`` map and its ``(M//bs, K//bc)``
+keep bitmap; a dead block is skipped, not multiplied. For a CUDA tensor it
+launches ``zebra_spmm_kernel`` (``csrc/zebra_gemm.cu``), which is the same
+device body as the payload consumer ``spmm_cs.zebra_spmm_cs`` with only
+the block accessor changed, so on the card the two are equal bit for bit;
+it counts its launches in ``zebra_spmm.launches``. For a CPU tensor it
+runs the plain version, ``spmm_plain``: the keep-gated map (a select, so
+dead blocks are exact +0 whatever x holds) as float32 times ``w`` as
+float32.
+
+The TPU realizations' tile machinery (``gemm_plan`` supertiles, the
+scheduled capacity ladder) has no counterpart: a tile choice never
+changes an observable, and the kernel sums every output in ascending K.
+"""
+from __future__ import annotations
+
+import torch
+
+from .build import check_launch, cuda_library, stream_of
+from .mask_pack import _DTYPE_CODES
+
+MAX_BS = 8          # block rows the CUDA kernel holds in registers
+
+
+def check_gemm(bitmap: torch.Tensor, w: torch.Tensor, bs: int, bc: int,
+               dtype: torch.dtype) -> tuple[int, int, int]:
+    """(nm, nk, N) of a block GEMM; raises on shapes that do not fit."""
+    if bitmap.dim() != 2 or w.dim() != 2:
+        raise ValueError("expected a 2-D bitmap and a 2-D (K, N) weight")
+    nm, nk = bitmap.shape
+    K, N = w.shape
+    if K != nk * bc:
+        raise ValueError(f"w rows {K} != bitmap cols {nk} * bc {bc}")
+    if w.dtype != dtype:
+        raise TypeError(f"w is {w.dtype}, the activations {dtype}")
+    return nm, nk, N
+
+
+def check_cuda_gemm(w: torch.Tensor, bitmap: torch.Tensor, bs: int,
+                    kernel: str) -> None:
+    if w.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{kernel}: CUDA kernel takes float32 or bfloat16, "
+                        f"got {w.dtype}")
+    if not 1 <= bs <= MAX_BS:
+        raise ValueError(f"{kernel}: CUDA kernel takes 1 <= bs <= {MAX_BS}, got {bs}")
+    if bitmap.dtype != torch.int8:
+        raise ValueError(f"{kernel}: expected an int8 bitmap")
+
+
+def gate_blocks(x: torch.Tensor, bitmap: torch.Tensor, bs: int, bc: int) -> torch.Tensor:
+    """x with every dead (bs, bc) block replaced by exact +0 (a select)."""
+    nm, nk = bitmap.shape
+    keep = (bitmap != 0)[:, None, :, None]
+    xb = x.reshape(nm, bs, nk, bc)
+    return torch.where(keep, xb, torch.zeros((), dtype=x.dtype, device=x.device)
+                       ).reshape(x.shape)
+
+
+def spmm_plain(x: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor, bs: int,
+               bc: int) -> torch.Tensor:
+    """Plain version of ``zebra_spmm_kernel``: keep-gated x @ w in float32."""
+    return gate_blocks(x, bitmap, bs, bc).float() @ w.float()
+
+
+def spmm_cuda(x: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor, bs: int,
+              bc: int) -> torch.Tensor:
+    lib = cuda_library(x, "zebra_spmm")
+    check_cuda_gemm(w, bitmap, bs, "zebra_spmm")
+    M, K = x.shape
+    N = w.shape[1]
+    x, w, bitmap = x.contiguous(), w.contiguous(), bitmap.contiguous()
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    rc = lib.zebra_spmm_launch(x.data_ptr(), w.data_ptr(), bitmap.data_ptr(),
+                               y.data_ptr(), M, K, N, bs, bc, _DTYPE_CODES[x.dtype],
+                               stream_of(x))
+    check_launch(rc, "zebra_spmm")
+    zebra_spmm.launches += 1
+    return y
+
+
+def zebra_spmm(x: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor, *,
+               bs: int = 8, bc: int = 128) -> torch.Tensor:
+    """(M, K) x (K, N) with an (M//bs, K//bc) keep bitmap -> (M, N) float32."""
+    nm, nk, _ = check_gemm(bitmap, w, bs, bc, x.dtype)
+    if tuple(x.shape) != (nm * bs, nk * bc):
+        raise ValueError(f"x {tuple(x.shape)} does not match bitmap {(nm, nk)} "
+                         f"with block ({bs},{bc})")
+    if x.device.type == "cpu":
+        return spmm_plain(x, w, bitmap, bs, bc)
+    return spmm_cuda(x, w, bitmap, bs, bc)
+
+
+zebra_spmm.launches = 0

@@ -1,0 +1,217 @@
+"""LM serving, one-shot batch (``repro.launch.serve``): prefill a batch of
+prompts, hand the KV caches to decode in compressed form (on the
+``stream`` and ``fused`` backends), decode, and report the Zebra
+observables and the bytes the handoff moved.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
+        --backend fused --batch 2 --prompt-len 2048 --gen 32 --t-obj 1.05
+
+It runs on the card; ``--device cpu`` runs it on the CPU (the kernels'
+plain versions). Weights are random from seed 0, prompts come from
+``data.lm_batch``. Continuous batching (``--requests``), stream
+validation (``--validate`` other than off) and model parallelism wait
+(ROADMAP.md, module queue) and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from .. import configs
+from ..compress import BandwidthMeter, CompressedMap, compress_tree, decompress
+from ..data import LMDatasetConfig, lm_batch
+from ..models.lm import LM, LMConfig
+from ..serve.bucket import pow2_bucket
+from ..utils import map_tree, resolve_device
+from .steps import _next_token, generate, prefill
+
+COMPRESSED_BACKENDS = ("stream", "fused")
+
+
+def build_config(arch: str, *, reduced: bool = False, t_obj: float = 0.1,
+                 backend: str = "reference", validation: str = "off") -> LMConfig:
+    """The served config: bf16 weights and the ``kv_cache`` site on top of
+    the architecture's Zebra sites, as the reference server sets them."""
+    cfg = configs.reduced(arch) if reduced else configs.get(arch)
+    return cfg.replace(param_dtype="bfloat16",
+                       zebra_sites=tuple(cfg.zebra_sites) + ("kv_cache",),
+                       zebra_t_obj=t_obj, zebra_backend=backend,
+                       zebra_validation=validation)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.inference_mode()
+def serve_one_shot(model: LM, prompts: torch.Tensor, gen: int, *,
+                   temperature: float = 0.0, seed: int = 0, log=print) -> dict:
+    """Prefill ``prompts`` (B, S), hand the caches over (compressed on the
+    stream/fused backends), decode ``gen`` tokens in all. Returns the
+    tokens, the prefill's first logits and LayerAux, the handoff's meter
+    and reconcile result, the caches before the handoff (dense) and as
+    handed over (``CompressedMap`` leaves where compressed, which decode
+    expands into new tensors; a leaf handed over dense is updated in place
+    by decode), and the host-clock times (synchronised on the card)."""
+    cfg = model.cfg
+    device = prompts.device
+    backend = cfg.zebra_backend
+    generator = torch.Generator(device=device).manual_seed(seed)
+    B, S = prompts.shape
+
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, state, aux = model_prefill_pad(lambda t: prefill(model, t), prompts, S + gen)
+    _sync(device)
+    t_pref = time.perf_counter() - t0
+    dense_state = handoff = state
+    meter, rec = None, None
+    if backend in COMPRESSED_BACKENDS:
+        meter = BandwidthMeter()
+        handoff, rec = transport_state_compressed(state, cfg, meter=meter, log=log)
+    tok = _next_token(logits, temperature, generator)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    toks, _ = generate(model, tok, handoff, S, max(gen - 1, 0), temperature, generator)
+    _sync(device)
+    t_dec = time.perf_counter() - t0
+    tokens = torch.cat([tok, toks], dim=1)[:, :gen]
+    return {"tokens": tokens, "logits": logits, "aux": aux, "meter": meter,
+            "reconcile": rec, "dense_state": dense_state, "handoff_state": handoff,
+            "prefill_ms": t_pref * 1e3,
+            "decode_ms_per_token": t_dec / max(gen - 1, 1) * 1e3}
+
+
+def main(argv=None) -> dict:
+    """The CLI; returns ``serve_one_shot``'s result with the model and the
+    prompts."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma3-4b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--t-obj", type=float, default=0.1)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy argmax; > 0 samples from the softmax at this "
+                         "temperature (seeded by --seed)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--backend", default="reference",
+                    choices=["reference", "pallas", "stream", "fused"],
+                    help="Zebra site-engine backend for every activation site; "
+                         "stream/fused also hand the prefill->decode KV caches "
+                         "over compressed")
+    ap.add_argument("--validate", default="off",
+                    choices=["off", "structural", "checksum"])
+    ap.add_argument("--requests", type=int, default=0,
+                    help="continuous batching (not yet ported)")
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card (no fallback); 'cpu' runs the "
+                         "kernels' plain versions on the CPU")
+    args = ap.parse_args(argv)
+    if args.requests:
+        raise NotImplementedError("continuous batching (--requests) is not yet ported "
+                                  "to repro_torch (ROADMAP.md, module queue: serving)")
+    if args.validate != "off":
+        raise NotImplementedError("stream validation (--validate) is not yet ported to "
+                                  "repro_torch (ROADMAP.md, module queue: "
+                                  "integrity/validation)")
+    if args.model_parallel != 1:
+        raise NotImplementedError("--model-parallel > 1 is not yet ported to "
+                                  "repro_torch (ROADMAP.md, module queue: distributed)")
+
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        # full float32 for every float32 matmul, as the reference computes it
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = build_config(args.arch, reduced=args.reduced, t_obj=args.t_obj,
+                       backend=args.backend, validation=args.validate)
+    model = LM(cfg, generator=torch.Generator(device=device).manual_seed(0),
+               device=device).requires_grad_(False)
+
+    B, S = args.batch, args.prompt_len
+    prompts = torch.from_numpy(lm_batch(LMDatasetConfig(vocab=cfg.vocab), B, S, 0)[:, :S])
+    prompts = prompts.to(device=device, dtype=torch.int64)
+    out = serve_one_shot(model, prompts, args.gen, temperature=args.temperature,
+                         seed=args.seed)
+    aux = out["aux"]
+    n_blocks = float(aux.n_blocks)
+    print(f"[serve] {cfg.name} batch={B} prompt={S} gen={args.gen} on {device}")
+    print(f"  prefill: {out['prefill_ms']:.1f} ms  decode: "
+          f"{out['decode_ms_per_token']:.2f} ms/token")
+    if n_blocks > 0:
+        print(f"  zebra zero-block fraction, all prefill sites: {float(aux.zero_frac):.3f}")
+    else:
+        print("  zebra: no block-divisible site this shape — zero-block fraction n/a")
+    measured = aux.measured_bytes_exact()
+    if measured > 0:
+        print(f"  zebra in-model transport: {measured / 1e6:.3f} MB measured "
+              f"compressed stream bytes (prefill sites)")
+    print("  sample continuation:", out["tokens"][0, :16].tolist())
+    out["model"], out["prompts"] = model, prompts
+    return out
+
+
+def transport_state_compressed(state, cfg: LMConfig, meter: BandwidthMeter | None = None,
+                               log=print):
+    """The prefill -> decode handoff in compressed form: pack every
+    compatible cache leaf (lossless nonzero-block bitmap, ``zebra_pack``),
+    count the bytes moved on ``meter``, reconcile each leaf against Eq. 2/3
+    (raises on the first leaf outside the band), and return the caches in
+    payload form with the reconcile result. The first compressed leaf is
+    spot-checked lossless."""
+    caches, enc_out = state
+    meter = BandwidthMeter() if meter is None else meter
+    ccaches = compress_tree(caches, bs=cfg.zebra_block_seq, bc=cfg.zebra_block_ch,
+                            meter=meter, site="kv")
+    sampled = [(a, c) for a, c in zip(_leaves(caches), _leaves(ccaches))
+               if isinstance(c, CompressedMap)]
+    ok = not sampled or bool(torch.equal(sampled[0][0], decompress(sampled[0][1])))
+    rec = meter.reconcile(tol_bytes_per_map=1.0)
+    log("[serve] compressed KV-cache transport (prefill -> decode, payload form):")
+    log(meter.report())
+    log(f"  lossless (leaf 1 of {len(sampled)} checked): {ok}"
+        f"  reconcile: {rec['n_sites']} sites, every leaf within the "
+        f"index-padding bound, max |measured - predicted| = "
+        f"{rec['max_abs_delta_bytes']:.2f} B")
+    if rec["n_sites"] == 0:
+        log("  WARNING: no cache leaf was block-divisible — every leaf moved dense; "
+            "pick batch/prompt-len/gen so that batch*(prompt+gen) divides by "
+            "zebra_block_seq")
+    return (ccaches, enc_out), rec
+
+
+def _leaves(tree) -> list:
+    out = []
+    map_tree(lambda _, leaf: out.append(leaf), tree)
+    return out
+
+
+def model_prefill_pad(prefill_fn, prompts: torch.Tensor, cache_len: int):
+    """Prefill builds caches sized to the prompt; pad every attention cache
+    (a leaf whose third axis from the end is the prompt length) to
+    ``cache_len`` bucketed up the power-of-two ladder
+    (``serve.bucket.pow2_bucket``), as the reference does, so decode can
+    run. End padding is position-correct: decode never attends past its
+    position."""
+    logits, (caches, enc_out), aux = prefill_fn(prompts)
+    S = prompts.shape[1]
+    pad = pow2_bucket(max(cache_len, S), lo=8) - S
+
+    def padk(_, x):
+        if x.dim() >= 4 and x.shape[-3] == S:      # (.., B, T, H, hd) attention caches
+            widths = [0, 0] * x.dim()
+            widths[2 * 2 + 1] = pad                 # the -3 axis, after
+            return torch.nn.functional.pad(x, widths)
+        return x
+    return logits, (map_tree(padk, caches), enc_out), aux
+
+
+if __name__ == "__main__":
+    main()

@@ -1,1 +1,1 @@
-"""Models of the port (``repro.models``): the CNN zoo so far."""
+"""Models of the port (``repro.models``): the CNN zoo and the dense LM stack."""

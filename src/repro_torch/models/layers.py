@@ -1,9 +1,10 @@
-"""Shared CNN layers (the port of ``repro.models.layers``), NCHW / OIHW.
+"""Shared layers (the port of ``repro.models.layers``): the CNN side in
+NCHW / OIHW, the LM side's norms over (B, S, D).
 
 Plain functions on tensors, plus the small ``nn.Module``s that hold their
 parameters. Layouts follow the reference so parameters copy across:
-conv weights are OIHW on both sides; a dense weight is stored as torch's
-(out, in), the transpose of the reference's (in, out).
+conv weights are OIHW on both sides; a CNN dense weight is stored as
+torch's (out, in), the transpose of the reference's (in, out).
 """
 from __future__ import annotations
 
@@ -19,6 +20,17 @@ def he_normal(shape: tuple[int, ...], *, generator: torch.Generator | None = Non
     if fan_in is None:
         fan_in = math.prod(shape[1:]) if len(shape) > 1 else shape[0]
     return torch.randn(shape, generator=generator, dtype=dtype) * math.sqrt(2.0 / fan_in)
+
+
+def lecun_normal(shape: tuple[int, ...], *, generator: torch.Generator | None = None,
+                 dtype=torch.float32, fan_in: int | None = None,
+                 device=None) -> torch.Tensor:
+    """N(0, 1/fan_in) in ``dtype``: drawn in float32 on ``device`` (the
+    generator's), cast, then scaled in ``dtype`` as the reference does."""
+    if fan_in is None:
+        fan_in = math.prod(shape[1:]) if len(shape) > 1 else shape[0]
+    x = torch.randn(shape, generator=generator, device=device).to(dtype)
+    return x * math.sqrt(1.0 / fan_in)
 
 
 def same_padding(n: int, k: int, stride: int) -> tuple[int, int]:
@@ -125,3 +137,45 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense_apply(self.w, self.b, x)
+
+
+# ----------------------------------------------------------------------------
+# Norms for the LM side
+# ----------------------------------------------------------------------------
+
+def rmsnorm_apply(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm over the last axis in float32, back to x's dtype."""
+    xf = x.to(torch.float32)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32)).to(x.dtype)
+
+
+def layernorm_apply(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the last axis (biased variance) in float32."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
+class Norm(nn.Module):
+    """``rmsnorm`` (a ``scale``) or ``layernorm`` (``scale`` and ``bias``),
+    initialised to the identity."""
+
+    def __init__(self, d: int, kind: str = "rmsnorm", *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        if kind not in ("rmsnorm", "layernorm"):
+            raise ValueError(f"unknown norm {kind!r}")
+        self.kind = kind
+        self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
+        if kind == "layernorm":
+            self.bias = nn.Parameter(torch.zeros(d, dtype=dtype, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == "rmsnorm":
+            return rmsnorm_apply(self.scale, x)
+        return layernorm_apply(self.scale, self.bias, x)

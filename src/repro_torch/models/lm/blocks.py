@@ -1,0 +1,182 @@
+"""Layer assembly for the LM stack (``repro.models.lm.blocks``): one
+attention layer ("global" or "local") followed by its FFN, in three
+forms: the full-sequence forward, the prefill that also emits the decode
+cache, and the one-token decode step against that cache.
+
+Every layer returns a ``core.engine.LayerAux`` accumulated over its Zebra
+sites (``kv_cache`` in prefill, ``ffn_hidden``, ``layer_out``), which all
+run through the site engine. ``Layer`` is the counterpart of the
+reference's ``init_layer``. "rglru" and "ssm" layers, cross-attention
+(the non-causal encoder path) and MoE FFNs wait (ROADMAP.md, module
+queue).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...core.engine import LayerAux, zebra_site
+from ...core.zebra import ThresholdNet
+from ..layers import Norm, lecun_normal
+from . import attention as attn
+from .config import LMConfig
+from .ffn import FFN, eff_block_ch, ffn_apply, zebra_cfg_for
+
+LAYER_TYPES = ("global", "local")
+NOT_PORTED = ("layer type {!r} is not yet ported to repro_torch (ROADMAP.md, "
+              "module queue: the LM stack's other architectures)")
+
+
+class Attention(nn.Module):
+    """Head-major projections as the reference stores them: ``wq`` (d, Hq,
+    hd), ``wk``/``wv`` (d, Hkv, hd), ``wo`` (Hq, hd, d)."""
+
+    def __init__(self, cfg: LMConfig, *, generator=None, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        d, hd, nq, nkv = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        kw = dict(generator=generator, dtype=dtype, device=device)
+        self.wq = nn.Parameter(lecun_normal((d, nq, hd), fan_in=d, **kw))
+        self.wk = nn.Parameter(lecun_normal((d, nkv, hd), fan_in=d, **kw))
+        self.wv = nn.Parameter(lecun_normal((d, nkv, hd), fan_in=d, **kw))
+        self.wo = nn.Parameter(lecun_normal((nq, hd, d), fan_in=nq * hd, **kw))
+
+
+class Layer(nn.Module):
+    """``norm1``, ``attn``, ``norm2``, ``ffn`` (and ``zebra_out_tnet``, the
+    layer-output site's threshold net, when that site trains one)."""
+
+    def __init__(self, typ: str, cfg: LMConfig, *, generator=None,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        if typ not in LAYER_TYPES:
+            raise NotImplementedError(NOT_PORTED.format(typ))
+        self.typ = typ
+        self.norm1 = Norm(cfg.d_model, cfg.norm, device=device)
+        self.attn = Attention(cfg, generator=generator, dtype=dtype, device=device)
+        self.norm2 = Norm(cfg.d_model, cfg.norm, device=device)
+        self.ffn = FFN(cfg, generator=generator, dtype=dtype, device=device)
+        if cfg.zebra_enabled and "layer_out" in cfg.zebra_sites and cfg.zebra_tnet:
+            nblk = cfg.d_model // eff_block_ch(cfg.d_model, cfg)
+            self.zebra_out_tnet = ThresholdNet(cfg.d_model, nblk, generator=generator,
+                                               device=device)
+
+
+# ---------------------------------------------------------------------------
+# Per-layer forward (full sequence)
+# ---------------------------------------------------------------------------
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("bsd,dhk->bshk", x, w)`` as one matmul in x's dtype."""
+    d, h, k = w.shape
+    return (x @ w.to(x.dtype).reshape(d, h * k)).reshape(*x.shape[:-1], h, k)
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``einsum("bshk,hkd->bsd", o, wo)``."""
+    h, k, d = wo.shape
+    return o.reshape(*o.shape[:-2], h * k) @ wo.to(o.dtype).reshape(h * k, d)
+
+
+def _qkv(p: Attention, x: torch.Tensor, cfg: LMConfig, rope):
+    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    cos, sin = rope
+    return attn.apply_rope(q, cos, sin), attn.apply_rope(k, cos, sin), v
+
+
+def _attend(q, k, v, typ: str, cfg: LMConfig):
+    """The reference's choice of causal attention path for a full sequence."""
+    S = q.shape[1]
+    if typ == "local" and S > cfg.window:
+        return attn.attend_local(q, k, v, window=cfg.window)
+    if S <= cfg.attn_chunk:
+        return attn.attend_full(q, k, v, window=cfg.window if typ == "local" else 0)
+    return attn.attend_chunked(q, k, v, chunk=cfg.attn_chunk)
+
+
+def _layer_out_zebra(p: Layer, x: torch.Tensor, cfg: LMConfig, mode: str):
+    zc = zebra_cfg_for(cfg, mode)
+    if "layer_out" not in cfg.zebra_sites:
+        zc = zc.replace(enabled=False)
+    return zebra_site(x, zc, site="layer_out", tnet=getattr(p, "zebra_out_tnet", None))
+
+
+def _ffn_residual(p: Layer, x: torch.Tensor, cfg: LMConfig, mode: str, aux: LayerAux):
+    y, zaux = ffn_apply(p.ffn, p.norm2(x), cfg, mode)
+    return x + y, aux + LayerAux.of_site(zaux)
+
+
+def apply_layer(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, mode: str, rope
+                ) -> tuple[torch.Tensor, LayerAux]:
+    aux = LayerAux.zero(x.device)
+    h = p.norm1(x)
+    q, k, v = _qkv(p.attn, h, cfg, rope)
+    x = x + _out_proj(_attend(q, k, v, typ, cfg), p.attn.wo)
+    x, aux = _ffn_residual(p, x, cfg, mode, aux)
+    x, zo = _layer_out_zebra(p, x, cfg, mode)
+    return x, aux + LayerAux.of_site(zo)
+
+
+# ---------------------------------------------------------------------------
+# Caches + prefill / decode per layer
+# ---------------------------------------------------------------------------
+
+def init_layer_cache(typ: str, cfg: LMConfig, batch: int, cache_len: int, dtype,
+                     device=None) -> dict:
+    if typ not in LAYER_TYPES:
+        raise NotImplementedError(NOT_PORTED.format(typ))
+    T = min(cfg.window, cache_len) if typ == "local" else cache_len
+    shape = (batch, T, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _cache_write(cache: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Tensor:
+    """Write one token's K or V (B, 1, Hkv, hd) at position ``slot`` of
+    every lane, in place (the reference's ``dynamic_update_slice``
+    returns a new cache; the port updates the one it has)."""
+    cache[:, slot:slot + 1] = new.to(cache.dtype)
+    return cache
+
+
+def apply_layer_decode(p: Layer, x: torch.Tensor, cache: dict, typ: str, cfg: LMConfig,
+                       pos: int, rope1) -> tuple[torch.Tensor, dict]:
+    """x (B, 1, d) at position ``pos``. Returns (x, cache), the cache
+    updated in place."""
+    h = p.norm1(x)
+    q, k, v = _qkv(p.attn, h, cfg, rope1)
+    T = cache["k"].shape[1]
+    slot = pos % T if typ == "local" else pos
+    kc = _cache_write(cache["k"], k, slot)
+    vc = _cache_write(cache["v"], v, slot)
+    o = attn.attend_decode(q, kc, vc, pos, window=cfg.window if typ == "local" else 0)
+    x = x + _out_proj(o, p.attn.wo)
+    y, _ = ffn_apply(p.ffn, p.norm2(x), cfg, "infer")
+    return x + y, {"k": kc, "v": vc}
+
+
+def apply_layer_prefill(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, rope,
+                        cache_len: int) -> tuple[torch.Tensor, dict, LayerAux]:
+    """Forward + the decode cache. Returns (x, cache, aux)."""
+    B, S, _ = x.shape
+    aux = LayerAux.zero(x.device)
+    h = p.norm1(x)
+    q, k, v = _qkv(p.attn, h, cfg, rope)
+    x = x + _out_proj(_attend(q, k, v, typ, cfg), p.attn.wo)
+    if cfg.zebra_enabled and "kv_cache" in cfg.zebra_sites:
+        # Zebra block-compress the cache at its write
+        k, v, kv_auxes = attn.zebra_kv_site(k, v, zebra_cfg_for(cfg, "infer"))
+        for a in kv_auxes:
+            aux = aux + LayerAux.of_site(a)
+    if typ == "local":
+        T = min(cfg.window, cache_len)
+        cache = {"k": k[:, -T:].to(x.dtype), "v": v[:, -T:].to(x.dtype)}
+        if T > S:
+            cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, T - S))
+                     for n, c in cache.items()}
+    else:
+        cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, cache_len - S)).to(x.dtype)
+                 for n, c in (("k", k), ("v", v))}
+    x, aux = _ffn_residual(p, x, cfg, "infer", aux)
+    x, zo = _layer_out_zebra(p, x, cfg, "infer")
+    return x, cache, aux + LayerAux.of_site(zo)

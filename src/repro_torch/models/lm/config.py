@@ -1,0 +1,51 @@
+"""LM architecture config (``repro.models.lm.config``): one frozen dataclass
+drives the whole stack.
+
+``layer_pattern`` is cycled over ``n_layers``. The port runs the dense
+attention layers: "global" (full causal self-attention) and "local"
+(banded sliding window of ``window``), each followed by its SwiGLU FFN,
+with tied embeddings. The reference's fields for the other architectures
+("rglru"/"ssm" layers, MoE and GELU FFNs, untied heads, the whisper
+encoder, the scanned local path) come with the code that reads them
+(ROADMAP.md, module queue), and so do its TPU knobs (remat, scan
+unrolling, sharding profiles, gradient accumulation).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str = "lm"
+    n_layers: int = 4
+    d_model: int = 512
+    n_heads: int = 8
+    n_kv_heads: int = 8
+    d_ff: int = 2048
+    vocab: int = 32000
+    head_dim: int = 0                # 0 => d_model // n_heads
+    layer_pattern: tuple[str, ...] = ("global",)
+    window: int = 1024               # sliding-window size for "local"
+    rope_theta: float = 10_000.0
+    norm: str = "rmsnorm"            # rmsnorm | layernorm
+    attn_chunk: int = 1024           # q/kv chunk for chunked attention
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    # --- Zebra integration (the paper's technique) ---
+    zebra_enabled: bool = True
+    zebra_t_obj: float = 0.1
+    zebra_block_seq: int = 8
+    zebra_block_ch: int = 128
+    zebra_sites: tuple[str, ...] = ("ffn_hidden",)  # +"layer_out", +"kv_cache"
+    zebra_backend: str = "reference"  # reference | pallas | stream | fused
+    zebra_site_backends: tuple[tuple[str, str], ...] = ()
+    zebra_tnet: bool = True          # learned threshold nets at Zebra sites
+    zebra_validation: str = "off"    # stream-integrity level ("off" only)
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // max(self.n_heads, 1))
+
+    def replace(self, **kw) -> "LMConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,141 @@
+"""The LM (``repro.models.lm.model``): embedding, pattern runs of layers,
+the tied vocabulary head.
+
+``cfg.layer_pattern`` is a superlayer (gemma-3: 5 local + 1 global);
+``layer_runs`` groups the layers into runs of repeated superlayers, as the
+reference does. The reference stacks a run's parameters on a leading axis
+and scans over it; the port keeps one module per layer (``run{ri}[c]
+["sub{j}"]``) and loops, and ``convert.from_jax_params`` unstacks. The
+caches keep the reference's grouping: run -> ``sub{j}`` -> k/v, stacked
+over the run's count when it is above one, so a cache tree has the same
+leaves as the reference's (the codec's index bytes are counted per leaf).
+
+API (``forward``, ``prefill``, ``decode_step``, ``init_cache``) mirrors the
+reference's pure functions of params, on an ``nn.Module`` that holds
+them. Parameters are drawn from an explicit ``torch.Generator`` on
+``device``.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...core.engine import LayerAux
+from ..layers import Norm
+from .attention import rope_frequencies
+from .blocks import (Layer, apply_layer, apply_layer_decode, apply_layer_prefill,
+                     init_layer_cache)
+from .config import LMConfig
+
+
+def layer_runs(cfg: LMConfig) -> list[tuple[tuple[str, ...], int]]:
+    """[(superlayer pattern, repeat count)] covering all n_layers."""
+    P = len(cfg.layer_pattern)
+    runs = []
+    g, r = divmod(cfg.n_layers, P)
+    if g:
+        runs.append((tuple(cfg.layer_pattern), g))
+    if r:
+        runs.append((tuple(cfg.layer_pattern[:r]), 1))
+    return runs
+
+
+class LM(nn.Module):
+    def __init__(self, cfg: LMConfig, *, generator: torch.Generator | None = None,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.runs = layer_runs(cfg)
+        self.pdt = getattr(torch, cfg.param_dtype)
+        self.cdt = getattr(torch, cfg.compute_dtype)
+        device = torch.device(device) if device is not None else (
+            generator.device if generator is not None else torch.device("cpu"))
+        d = cfg.d_model
+        emb = torch.randn(cfg.vocab, d, generator=generator, device=device)
+        self.embed = nn.Parameter(emb.to(self.pdt) * d ** -0.5)
+        del emb
+        self.final_norm = Norm(d, cfg.norm, device=device)
+        for ri, (pattern, count) in enumerate(self.runs):
+            setattr(self, f"run{ri}", nn.ModuleList(
+                nn.ModuleDict({f"sub{j}": Layer(t, cfg, generator=generator,
+                                                dtype=self.pdt, device=device)
+                               for j, t in enumerate(pattern)})
+                for _ in range(count)))
+
+    # ------------------------------------------------------------------
+    def _layers(self):
+        """(run index, repeat, sub index, layer type, layer) in order."""
+        for ri, (pattern, count) in enumerate(self.runs):
+            run = getattr(self, f"run{ri}")
+            for c in range(count):
+                for j, t in enumerate(pattern):
+                    yield ri, c, j, t, run[c][f"sub{j}"]
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = self.embed[tokens].to(self.cdt)
+        return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.cdt, device=x.device)
+
+    def _rope(self, positions: torch.Tensor):
+        return rope_frequencies(self.cfg.head_dim, self.cfg.rope_theta, positions)
+
+    def _project_vocab(self, x: torch.Tensor) -> torch.Tensor:
+        return x @ self.embed.t().to(self.cdt)
+
+    # ------------------------------------------------------------------
+    def forward(self, tokens: torch.Tensor, mode: str = "train"):
+        """tokens (B, S) -> (logits (B, S, V), LayerAux)."""
+        x = self._embed(tokens)
+        rope = self._rope(torch.arange(x.shape[1], device=x.device))
+        aux = LayerAux.zero(x.device)
+        for *_, t, layer in self._layers():
+            x, a = apply_layer(layer, x, t, self.cfg, mode, rope)
+            aux = aux + a
+        return self._project_vocab(self.final_norm(x)), aux
+
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, cache_len: int) -> list[dict]:
+        caches = []
+        for pattern, count in self.runs:
+            sub = {f"sub{j}": init_layer_cache(t, self.cfg, batch, cache_len, self.cdt,
+                                               self.embed.device)
+                   for j, t in enumerate(pattern)}
+            if count > 1:
+                sub = {s: {n: c[None].expand(count, *c.shape).clone() for n, c in kv.items()}
+                       for s, kv in sub.items()}
+            caches.append(sub)
+        return caches
+
+    def prefill(self, tokens: torch.Tensor, cache_len: int):
+        """tokens (B, S) -> (last logits (B, V), (caches, None), LayerAux)."""
+        x = self._embed(tokens)
+        rope = self._rope(torch.arange(x.shape[1], device=x.device))
+        aux = LayerAux.zero(x.device)
+        per_layer: dict[tuple[int, int], dict] = {}
+        for ri, c, j, t, layer in self._layers():
+            x, cache, a = apply_layer_prefill(layer, x, t, self.cfg, rope, cache_len)
+            per_layer[(ri, c, j)] = cache
+            aux = aux + a
+        caches = []
+        for ri, (pattern, count) in enumerate(self.runs):
+            run = {}
+            for j in range(len(pattern)):
+                cs = [per_layer.pop((ri, c, j)) for c in range(count)]
+                run[f"sub{j}"] = (cs[0] if count == 1 else
+                                  {n: torch.stack([cc[n] for cc in cs]) for n in ("k", "v")})
+            caches.append(run)
+        logits = self._project_vocab(self.final_norm(x[:, -1:]))
+        return logits[:, 0], (caches, None), aux
+
+    def decode_step(self, token: torch.Tensor, state, pos: int):
+        """token (B, 1) int; ``pos`` the position of that token (one for the
+        whole batch). Returns (logits (B, V), state), the caches updated in
+        place."""
+        caches, enc_out = state
+        x = self._embed(token)
+        rope1 = self._rope(torch.tensor([pos], device=x.device))
+        for ri, c, j, t, layer in self._layers():
+            kv = caches[ri][f"sub{j}"]
+            lc = kv if self.runs[ri][1] == 1 else {n: kv[n][c] for n in ("k", "v")}
+            x, _ = apply_layer_decode(layer, x, lc, t, self.cfg, pos, rope1)
+        logits = self._project_vocab(self.final_norm(x))[:, 0]
+        return logits, (caches, enc_out)

@@ -30,20 +30,9 @@ from ..data import ImageDatasetConfig, StreamingLoader, image_batch
 from ..models.cnn import build as build_cnn
 from ..models.cnn.common import accuracy, cross_entropy, topk_accuracy
 from ..optim import Optimizer, apply_updates, clip_by_global_norm
+from ..utils import resolve_device
 
 ZEBRA_PREFIX = "zebra."         # threshold nets: trainable, not model params
-
-
-def resolve_device(device=None) -> torch.device:
-    """Entry points run on the card: with no ``device`` given, a host
-    without CUDA raises rather than run on the CPU. The CPU must be asked
-    for (``device="cpu"``)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device available: repro_torch runs on "
-                               "the card; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _sum_bytes(auxes) -> LayerAux:

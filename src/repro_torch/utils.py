@@ -1,4 +1,4 @@
-"""Shape math and tensor-collection helpers shared by the port
+"""Shape math, tensor-collection and formatting helpers shared by the port
 (``repro.utils`` keeps the rest)."""
 from __future__ import annotations
 
@@ -38,3 +38,37 @@ def quantile(x: torch.Tensor, q: float) -> torch.Tensor:
     # hi·w of two float32 values is exact in float64: one rounding, like an FMA
     out = (hi.double() * float(high_w) + (lo * float(np.float32(1) - high_w)).double()).float()
     return torch.where(torch.isnan(a).any(), torch.full_like(out, float("nan")), out)
+
+
+def human_bytes(n: float) -> str:
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024.0:
+            return f"{n:.2f} {unit}"
+        n /= 1024.0
+    return f"{n:.2f} PiB"
+
+
+def resolve_device(device=None) -> torch.device:
+    """Entry points run on the card: with no ``device`` given, a host
+    without CUDA raises rather than run on the CPU. The CPU must be asked
+    for (``device="cpu"``)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available: repro_torch runs on "
+                               "the card; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def map_tree(fn, tree, path=()):
+    """Apply ``fn(path, leaf)`` to every leaf of nested dicts, lists and
+    tuples in the reference's pytree order (dict keys sorted), keeping the
+    structure; None stays None. ``path`` holds the dict keys and list
+    indices down to the leaf."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, tree[k], path + (k,)) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v, path + (i,)) for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(path, tree)

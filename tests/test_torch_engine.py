@@ -106,8 +106,11 @@ def test_unported_paths_raise(case):
         with pytest.raises(ValueError):
             ZebraConfig(backend="steam")
         return
-    with pytest.raises(NotImplementedError, match="fused"):
-        zebra_site(x, ZebraConfig(mode="infer", backend=case), layout="nchw")
+    # the fused path runs; its validated ingest waits for the integrity item
+    with pytest.raises(NotImplementedError, match="validation"):
+        ZebraConfig(mode="infer", backend=case, validation="structural")
+    y, aux = zebra_site(x, ZebraConfig(mode="infer", backend=case), layout="nchw")
+    assert aux.backend == "fused" and torch.equal(y, x)
 
 
 @pytest.mark.parametrize("backend", ["pallas", "stream"])

@@ -10,7 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.kernels import build, mask_pack, pack, zebra_mask
+from repro_torch.kernels import build, mask_pack, pack, spmm_cs, zebra_mask, zebra_spmm
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -37,6 +37,8 @@ def test_imports_with_jax_blocked():
             "for m in ('jax', 'jaxlib', 'repro'):\n"
             "    sys.modules[m] = None\n"
             "import repro_torch.train, repro_torch.kernels, repro_torch.models.cnn.convert\n"
+            "import repro_torch.models.lm.convert, repro_torch.compress, repro_torch.serve\n"
+            "import repro_torch.launch.serve, repro_torch.configs\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
@@ -55,7 +57,16 @@ def test_trainer_without_device_needs_cuda():
             CNNTrainer(cfg)
 
 
-@pytest.mark.parametrize("launch", ["bitmap", "pack", "unpack", "mask"])
+def test_serve_without_device_needs_cuda():
+    from repro_torch.launch import serve
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the server would run on it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--reduced"])
+
+
+@pytest.mark.parametrize("launch", ["bitmap", "pack", "unpack", "mask", "zebra_pack",
+                                    "spmm", "spmm_cs"])
 def test_gpu_branch_raises_without_cuda(launch):
     """The CUDA branch of each wrapper, handed a tensor off the card,
     raises instead of running the plain version."""
@@ -69,6 +80,12 @@ def test_gpu_branch_raises_without_cuda(launch):
             mask_pack.pack_cuda(x, bitmap, slot, torch.tensor(4, dtype=torch.int32), 8, 8)
         elif launch == "mask":
             zebra_mask.mask_cuda(x, 0.5, 8, 8)
+        elif launch == "zebra_pack":
+            pack.zebra_pack(x.to("meta"), bitmap.to("meta"), bs=8, bc=8)
+        elif launch == "spmm":
+            zebra_spmm.spmm_cuda(x, x, bitmap, 8, 8)
+        elif launch == "spmm_cs":
+            spmm_cs.spmm_cs_cuda(x.reshape(4, 8, 8), x, bitmap, slot, 8, 8)
         else:
             pack.unpack_cuda(x.reshape(4, 8, 8), bitmap, slot, 8, 8)
 

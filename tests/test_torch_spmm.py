@@ -1,0 +1,178 @@
+"""The port's payload GEMM (``zebra_spmm_cs``), its dense twin
+(``zebra_spmm``) and the engine's ``fused`` site, on the CPU (the plain
+versions), against the reference package's realizations: the scheduled
+XLA form and the Pallas kernel forms in interpret mode.
+
+Tolerance: the reference's forms and the port sum the fp32 products in
+different orders, so GEMM outputs are allclose at rtol 1e-5 / atol 1e-5
+(fp32 accumulate of values of order 1 over K <= 1024; bf16 inputs are
+exact in fp32, so the same bound holds). The bitmap, ``n_live``, the
+payload and the stream bytes are bitwise. Within the port, plain
+spmm_cs == plain zebra_spmm bit for bit (one float32 operand, one matmul).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.engine import zebra_site as jax_site
+from repro.core.zebra import ZebraConfig as JZebraConfig
+from repro.kernels.mask_pack import zebra_mask_pack as jax_mask_pack
+from repro.kernels.spmm_cs import zebra_spmm_cs as jax_spmm_cs
+from repro.kernels.zebra_spmm import zebra_spmm as jax_spmm
+from repro_torch.core.engine import wants_fused, zebra_site
+from repro_torch.core.zebra import ZebraConfig
+from repro_torch.kernels.mask_pack import zebra_mask_pack
+from repro_torch.kernels.schedule import slot_map
+from repro_torch.kernels.spmm_cs import spmm_cs_plain, zebra_spmm_cs
+from repro_torch.kernels.zebra_spmm import spmm_plain, zebra_spmm
+
+from _torch_parity import bits
+
+RTOL = ATOL = 1e-5
+DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
+
+
+def token_map(M, K, bs, bc, seed, kind="mixed"):
+    """A signed (M, K) map whose blocks are scaled so some fall under T_obj
+    1.0; ``kind`` forces all blocks dead or live, or one live block per
+    K-block column."""
+    rng = np.random.default_rng(seed)
+    nm, nk = M // bs, K // bc
+    scale = rng.uniform(0.0, 2.0, size=(nm, 1, nk, 1))
+    if kind == "all-dead":
+        scale[:] = 0.1
+    elif kind == "all-live":
+        scale[:] = 3.0
+    elif kind == "one-per-column":
+        scale[:] = 0.1
+        scale[rng.integers(0, nm, size=nk), 0, np.arange(nk), 0] = 3.0
+    x = rng.normal(size=(nm, bs, nk, bc)) * scale
+    return x.reshape(M, K).astype(np.float32)
+
+
+def weight(K, N, seed):
+    return (np.random.default_rng(seed).normal(size=(K, N)) / np.sqrt(K)).astype(np.float32)
+
+
+CASES = {
+    # label: (M, K, N, bs, bc, kind)
+    "8x128": (64, 512, 96, 8, 128, "mixed"),
+    "8x64-whole-width": (64, 64, 40, 8, 64, "mixed"),
+    "all-dead": (32, 256, 64, 8, 128, "all-dead"),
+    "all-live": (32, 256, 64, 8, 128, "all-live"),
+    "one-per-column": (64, 512, 64, 8, 128, "one-per-column"),
+}
+
+
+# every case in float32, the two block shapes in bfloat16 too
+CASE_DTYPES = [(c, "f32") for c in CASES] + [("8x128", "bf16"), ("8x64-whole-width", "bf16")]
+
+
+def _stream(case, dt):
+    M, K, N, bs, bc, kind = CASES[case]
+    tdt, jdt = DTYPES[dt]
+    x = token_map(M, K, bs, bc, len(case), kind)
+    w = weight(K, N, 7)
+    xt, wt = torch.from_numpy(x).to(tdt), torch.from_numpy(w).to(tdt)
+    xj, wj = jnp.asarray(x, jdt), jnp.asarray(w, jdt)
+    payload, bitmap, n_live = zebra_mask_pack(xt, t_obj=1.0, bs=bs, bc=bc)
+    jp, jb, jn = jax_mask_pack(xj, t_obj=1.0, bs=bs, bc=bc)
+    assert np.array_equal(bits(payload), bits(jp)) and np.array_equal(bits(bitmap), bits(jb))
+    assert int(n_live) == int(jn)
+    return (xt, wt, payload, bitmap), (xj, wj, jp, jb), (bs, bc)
+
+
+@pytest.mark.parametrize("case,dt", CASE_DTYPES)
+def test_spmm_cs_matches_both_jax_realizations(case, dt):
+    (xt, wt, payload, bitmap), (xj, wj, jp, jb), (bs, bc) = _stream(case, dt)
+    got = zebra_spmm_cs(payload, wt, bitmap, bs=bs, bc=bc)
+    assert got.dtype == torch.float32
+    for form in ({"scheduled": True}, {"scheduled": False, "payload_windows": True}):
+        want = np.asarray(jax_spmm_cs(jp, wj, jb, bs=bs, bc=bc, **form))
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL, err_msg=str(form))
+    if case == "all-dead":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("case,dt", CASE_DTYPES)
+def test_zebra_spmm_matches_jax_and_plain_spmm_cs_bitwise(case, dt):
+    (xt, wt, payload, bitmap), (xj, wj, jp, jb), (bs, bc) = _stream(case, dt)
+    got = zebra_spmm(xt, wt, bitmap, bs=bs, bc=bc)
+    for scheduled in (True, False):
+        want = np.asarray(jax_spmm(xj, wj, jb, bs=bs, bc=bc, scheduled=scheduled))
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+    keep, slot = slot_map(bitmap)
+    assert torch.equal(bits_t(got), bits_t(spmm_cs_plain(payload, wt, bitmap, keep, slot, bs, bc)))
+    assert torch.equal(bits_t(got), bits_t(spmm_plain(xt, wt, bitmap, bs, bc)))
+
+
+def bits_t(t):
+    return t.view(torch.int32)
+
+
+def test_dead_blocks_never_leak_from_the_map_or_an_aliased_slot():
+    """Dead blocks are exact zeros in both consumers whatever x holds (NaN,
+    Inf), and a dead block's slot, which aliases a live one, is never used."""
+    M, K, N, bs, bc = 32, 256, 16, 8, 128
+    x = torch.from_numpy(token_map(M, K, bs, bc, 3))
+    payload, bitmap, _ = zebra_mask_pack(x, t_obj=1.0, bs=bs, bc=bc)
+    w = torch.from_numpy(weight(K, N, 1))
+    poisoned = x.clone()
+    dead = (bitmap == 0).nonzero()[0]
+    poisoned[dead[0] * bs, dead[1] * bc] = float("nan")
+    poisoned[dead[0] * bs + 1, dead[1] * bc] = float("inf")
+    clean = zebra_spmm(x, w, bitmap, bs=bs, bc=bc)
+    assert torch.equal(zebra_spmm(poisoned, w, bitmap, bs=bs, bc=bc), clean)
+    assert torch.equal(zebra_spmm_cs(payload, w, bitmap, bs=bs, bc=bc), clean)
+
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_fused_site_matches_reference_engine(dt):
+    """The engine's fused site with w (mask_pack -> payload GEMM) against
+    the reference package's: y allclose, bitmap-derived observables exact;
+    the bare 2-D map passes w through; train mode degrades."""
+    tdt, jdt = DTYPES[dt]
+    B, S, D, N = 2, 16, 512, 64
+    h = token_map(B * S, D, 8, 128, 11).reshape(B, S, D)
+    w = weight(D, N, 5)
+    cfg = ZebraConfig(mode="infer", backend="fused", t_obj=1.0)
+    jcfg = JZebraConfig(mode="infer", backend="fused", t_obj=1.0)
+    ht, wt = torch.from_numpy(h).to(tdt), torch.from_numpy(w).to(tdt)
+    hj, wj = jnp.asarray(h, jdt), jnp.asarray(w, jdt)
+    y, aux = zebra_site(ht, cfg, site="ffn_hidden", w=wt)
+    jy, jaux = jax_site(hj, jcfg, site="ffn_hidden", w=wj)
+    assert y.dtype == tdt and tuple(y.shape) == (B, S, N)
+    tol = 1e-5 if dt == "f32" else 1e-2        # y is rounded to the map's dtype
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(jy, np.float32), rtol=tol, atol=tol)
+    assert aux.backend == jaux.backend == "fused"
+    assert int(aux.measured_bytes) == int(jaux.measured_bytes) > 0
+    assert np.array_equal(bits(aux.zero_frac), bits(jaux.zero_frac))
+    assert 0.0 < float(aux.zero_frac) < 1.0
+    y2, aux2 = zebra_site(ht[0], cfg, site="ffn_hidden", w=wt)
+    jy2, _ = jax_site(hj[0], jcfg, site="ffn_hidden", w=wj)
+    np.testing.assert_allclose(y2.float().numpy(), np.asarray(jy2, np.float32), rtol=tol, atol=tol)
+    # the w-less fused site is the pallas masking pass: the masked map, no bytes
+    ym, auxm = zebra_site(ht, cfg, site="kv_cache")
+    jym, jauxm = jax_site(hj, jcfg, site="kv_cache")
+    assert np.array_equal(bits(ym), bits(jym)) and int(auxm.measured_bytes) == 0
+    assert wants_fused(cfg, "ffn_hidden")
+    assert not wants_fused(cfg.replace(mode="train", use_tnet=False), "ffn_hidden")
+    yt, auxt = zebra_site(ht, cfg.replace(mode="train", use_tnet=False), w=wt)
+    assert auxt.backend == "reference(not-trainable)" and tuple(yt.shape) == (B, S, N)
+
+
+def test_fused_degenerate_rows_take_the_masked_dense_matmul():
+    """A one-token map (decode) has S % block_seq != 0: the site degrades
+    to reference with ``y @ w`` and launches no GEMM."""
+    h = torch.from_numpy(token_map(8, 256, 8, 128, 2))[:2].reshape(2, 1, 256)
+    w = torch.from_numpy(weight(256, 32, 3))
+    cfg = ZebraConfig(mode="infer", backend="fused", t_obj=1.0)
+    before = (zebra_spmm.launches, zebra_spmm_cs.launches)
+    y, aux = zebra_site(h, cfg, site="ffn_hidden", w=w)
+    jy, jaux = jax_site(jnp.asarray(h.numpy()), JZebraConfig(mode="infer", backend="fused",
+                                                           t_obj=1.0), site="ffn_hidden",
+                        w=jnp.asarray(w.numpy()))
+    assert aux.backend == jaux.backend == "reference(degenerate-rows)"
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=RTOL, atol=ATOL)
+    assert (zebra_spmm.launches, zebra_spmm_cs.launches) == before
