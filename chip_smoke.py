@@ -50,13 +50,17 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
    (bitmap, n_live, bytes bitwise; ``zebra_spmm_cs == zebra_spmm``
    bitwise; y allclose to the reference's). A ``reference``-backend run
    gives the greedy tokens beside the fused ones (agreement recorded, not
-   asserted). The LM kernels are held against their plain versions on edge
-   cases (all dead, all live, one live block per column, NaN/Inf, 8x128
-   and 8x64 whole-width blocks, the skip rule for NaN/Inf in w) and timed
-   on the path's maps beside their bound, their plain version and, for the
-   GEMMs, ``torch.matmul`` of the keep-gated dense map;
-7. prints one JSON line listing the kernels, the card line again, and
-   ``{"ok": true, "device": ...}`` as the last line.
+   asserted); the fused warm prefill is printed beside the one recorded with
+   the GEMMs' earlier fmaf body. The LM kernels are held against their
+   plain versions on edge cases (all dead, all live, one live block per
+   column, NaN/Inf, 8x128 and 8x64 whole-width blocks, each in float32 and
+   bfloat16, a 4x128 and an 8x24 block in bfloat16, and the skip rule for
+   NaN/Inf in w in both) and timed on the path's maps beside their bound,
+   their plain version and, for the GEMMs, ``torch.matmul`` of the
+   keep-gated dense map;
+7. prints one JSON line listing the kernels (the GEMM rows also carry ms
+   per launch, TFLOP/s of live work and the device body that ran), the
+   card line again, and ``{"ok": true, "device": ...}`` as the last line.
 
 Any failed phase exits non-zero, and so does a host without CUDA or a
 directory without the port beside this script. Imports nothing of JAX.
@@ -587,6 +591,12 @@ LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "gemma3-4b", 2, 2048, 32
 # up| sit near 1 (T_obj 1.15 gave 0.778, PERF.md); at 3.0 every block is dead
 LM_T_OBJ = 1.05
 GEMM_TOL = dict(rtol=1e-4, atol=1e-4)    # kernel vs plain float32 matmul: summation order
+# the GEMMs' device body per operand dtype (csrc/zebra_gemm.cu)
+GEMM_BODY = {"torch.bfloat16": "mma_block_rows: mma.sync m16n8k16 bf16 -> fp32, tensor cores",
+             "torch.float32": "fma_block_rows: fmaf fp32, CUDA cores"}
+# the fused warm prefill of this cell with the GEMMs' earlier fmaf body,
+# as PERF.md records it (same card type, 700 W)
+FMAF_WARM_PREFILL_MS = (404.5, 418.0)
 Y_TOL = dict(rtol=2 ** -7, atol=1e-2)    # bf16 outputs: up to two bf16 ulps apart
 BS, BC = 8, 128                          # the LM's token blocks
 
@@ -646,15 +656,25 @@ def lm_edge_cases(device) -> dict[str, float]:
     """The LM kernels against their plain versions on edge cases; returns
     the worst error per kernel."""
     import torch
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = {
-        # label: (M, K, N, bs, bc, dtype, t_obj, kind)
-        "8x128 bf16": (1024, 2048, 640, 8, 128, torch.bfloat16, 0.5, "mixed"),
-        "8x128 f32": (512, 1024, 384, 8, 128, torch.float32, 0.5, "mixed"),
-        "8x64 whole width": (256, 64, 130, 8, 64, torch.float32, 0.5, "mixed"),
-        "all dead": (256, 1024, 256, 8, 128, torch.float32, 1e9, "mixed"),
-        "all live": (256, 1024, 256, 8, 128, torch.float32, 0.0, "mixed"),
-        "one live block per column": (256, 1024, 256, 8, 128, torch.float32, 0.5, "one"),
-        "NaN/Inf in the map": (256, 1024, 256, 8, 128, torch.float32, 0.5, "nan-inf"),
+        # label: (M, K, N, bs, bc, dtype, t_obj, kind); float32 runs the GEMMs'
+        # CUDA-core body, bfloat16 their tensor-core body (N % 8 != 0 takes its
+        # element-wise w staging, bs < 8 zero rows, bc % 16 == 8 a half step)
+        "8x128 bf16": (1024, 2048, 640, 8, 128, bf16, 0.5, "mixed"),
+        "8x128 f32": (512, 1024, 384, 8, 128, f32, 0.5, "mixed"),
+        "8x64 whole width": (256, 64, 130, 8, 64, f32, 0.5, "mixed"),
+        "all dead": (256, 1024, 256, 8, 128, f32, 1e9, "mixed"),
+        "all live": (256, 1024, 256, 8, 128, f32, 0.0, "mixed"),
+        "one live block per column": (256, 1024, 256, 8, 128, f32, 0.5, "one"),
+        "NaN/Inf in the map": (256, 1024, 256, 8, 128, f32, 0.5, "nan-inf"),
+        "8x64 whole width bf16": (256, 64, 130, 8, 64, bf16, 0.5, "mixed"),
+        "all dead bf16": (256, 1024, 256, 8, 128, bf16, 1e9, "mixed"),
+        "all live bf16": (256, 1024, 256, 8, 128, bf16, 0.0, "mixed"),
+        "one live block per column bf16": (256, 1024, 256, 8, 128, bf16, 0.5, "one"),
+        "NaN/Inf in the map bf16": (256, 1024, 256, 8, 128, bf16, 0.5, "nan-inf"),
+        "4x128 bf16 (bs < 8)": (512, 1024, 256, 4, 128, bf16, 0.5, "mixed"),
+        "8x24 bf16 (bc % 16 == 8)": (256, 480, 200, 8, 24, bf16, 0.5, "mixed"),
     }
     from repro_torch.kernels import mask_pack, zebra_mask
     errs = {k: 0.0 for k in LM_KERNELS}
@@ -677,26 +697,30 @@ def lm_edge_cases(device) -> dict[str, float]:
         compare_zebra_pack(zebra_mask.mask_plain(x, t, bs, bc)[0], bs, bc, label)
         print(f"  GEMMs == plain ({GEMM_TOL}), 6 == 7 bitwise, zebra_pack == plain "
               f"(bitwise): {label} ({M}x{K}x{N}, block {bs}x{bc}, {dtype})")
-    # the skip rule: Inf/NaN in the w rows of a dead block never reach its rows
+    # the skip rule, in both bodies: Inf/NaN in the w rows of a dead block
+    # never reach its rows
     from repro_torch.kernels import spmm_cs, zebra_spmm
-    x = synthetic_map(512, 1024, 8, 128, torch.float32, True, 7, device)
-    bitmap = mask_pack.bitmap_plain(x, 0.5, 8, 128)
-    w = torch.randn(1024, 256, device=device) / 32.0
-    col = int((bitmap == 0).any(0).nonzero()[0])
-    w_bad = w.clone()
-    w_bad[col * 128 + 3] = float("inf")
-    w_bad[col * 128 + 5, 7] = float("nan")
-    keep, slot, payload, _ = gemm_pieces(x, bitmap, 8, 128)
-    y7 = spmm_cs.spmm_cs_cuda(payload, w_bad, bitmap, slot, 8, 128)
-    y6 = zebra_spmm.spmm_cuda(x, w_bad, bitmap, 8, 128)
-    clean = spmm_cs.spmm_cs_cuda(payload, w, bitmap, slot, 8, 128)
-    dead = (bitmap[:, col] == 0).repeat_interleave(8)
-    check(same_bits(y6, y7), "skip rule: zebra_spmm != zebra_spmm_cs")
-    check(bool(torch.isfinite(y7[dead]).all()) and same_bits(y7[dead], clean[dead]),
-          "skip rule: Inf/NaN in a dead block's w rows reached its rows")
-    check(not bool(torch.isfinite(y7[~dead]).all()), "skip rule: live rows lost the Inf")
-    print("  skip rule: Inf/NaN in the w rows of a dead block stay out of its rows in "
-          "both GEMM kernels (the plain version, which multiplies, gives NaN there)")
+    for dtype in (f32, bf16):
+        x = synthetic_map(512, 1024, 8, 128, torch.float32, True, 7, device).to(dtype)
+        bitmap = mask_pack.bitmap_plain(x, 0.5, 8, 128)
+        w = (torch.randn(1024, 256, device=device) / 32.0).to(dtype)
+        col = int((bitmap == 0).any(0).nonzero()[0])
+        w_bad = w.clone()
+        w_bad[col * 128 + 3] = float("inf")
+        w_bad[col * 128 + 5, 7] = float("nan")
+        keep, slot, payload, _ = gemm_pieces(x, bitmap, 8, 128)
+        y7 = spmm_cs.spmm_cs_cuda(payload, w_bad, bitmap, slot, 8, 128)
+        y6 = zebra_spmm.spmm_cuda(x, w_bad, bitmap, 8, 128)
+        clean = spmm_cs.spmm_cs_cuda(payload, w, bitmap, slot, 8, 128)
+        dead = (bitmap[:, col] == 0).repeat_interleave(8)
+        check(same_bits(y6, y7), f"skip rule ({dtype}): zebra_spmm != zebra_spmm_cs")
+        check(bool(torch.isfinite(y7[dead]).all()) and same_bits(y7[dead], clean[dead]),
+              f"skip rule ({dtype}): Inf/NaN in a dead block's w rows reached its rows")
+        check(not bool(torch.isfinite(y7[~dead]).all()),
+              f"skip rule ({dtype}): live rows lost the Inf")
+        print(f"  skip rule ({dtype}): Inf/NaN in the w rows of a dead block stay out of "
+              f"its rows in both GEMM kernels (the plain version, which multiplies, gives "
+              f"NaN there)")
     return errs
 
 
@@ -914,6 +938,9 @@ def run_lm(device) -> dict:
     check(torch.equal(again["tokens"], out["tokens"]), "the second fused run's tokens differ")
     print(f"  fused again (warm): prefill {again['prefill_ms']:.3f} ms, decode "
           f"{again['decode_ms_per_token']:.3f} ms/token (host clock, synchronised)")
+    lo, hi = FMAF_WARM_PREFILL_MS
+    print(f"  fused warm prefill {again['prefill_ms']:.3f} ms beside {lo}-{hi} ms recorded "
+          f"with the GEMMs' fmaf body (PERF.md)")
     busy = profile_calls(lambda: steps.prefill(model, prompts), 2, "fused prefills", "prefill")
     if busy is not None:
         print(f"  fused prefill: device busy {100 * busy / again['prefill_ms']:.1f} % of an "
@@ -950,6 +977,7 @@ def time_lm_kernels(lm: dict, edge_errs: dict, device) -> list[dict]:
     rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                 "max_abs_err": edge_errs[k], "bound_by": "bytes"} for k in LM_KERNELS}
     terms = {k: [0.0, 0.0] for k in LM_KERNELS}      # summed bytes and operations times
+    live_flops = 0                                   # 2 n_live bs bc N, summed per prefill
     for h, w in lm["maps"]:
         x2 = h.reshape(-1, h.shape[-1])
         M, K = x2.shape
@@ -960,6 +988,7 @@ def time_lm_kernels(lm: dict, edge_errs: dict, device) -> list[dict]:
             rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], e)
         gated = zebra_spmm.gate_blocks(x2, bitmap, BS, BC)
         lib = time_ms(lambda: torch.matmul(gated, w), flush, iters=5, warmup=1)
+        live_flops += 2 * n_live * BS * BC * N
         flops_ms = 2 * n_live * BS * BC * N / BF16_FLOPS * 1e3
         common = n_live * BS * BC * item + bitmap.numel() + K * N * item + M * N * 4
         calls = {
@@ -979,6 +1008,14 @@ def time_lm_kernels(lm: dict, edge_errs: dict, device) -> list[dict]:
             r["bound_ms"] += max(bytes_ms, flops_ms)
             terms[k][0] += bytes_ms
             terms[k][1] += flops_ms
+    n_maps = len(lm["maps"])
+    for k in ("zebra_spmm_kernel", "zebra_spmm_cs_kernel"):
+        r = rows[k]
+        r["ms_per_launch"] = r["ms"] / n_maps
+        r["tflops_live"] = live_flops / (r["ms"] * 1e-3) / 1e12
+        r["body"] = GEMM_BODY[str(lm["maps"][0][1].dtype)]
+        print(f"  {k}: {r['ms_per_launch']:.4f} ms per launch, {r['tflops_live']:.2f} "
+              f"TFLOP/s of live work ({r['body']})")
     for k, (b, f) in terms.items():
         rows[k]["bound_by"] = "operations" if f > b else "bytes"
         if b or f:

@@ -21,7 +21,7 @@ from .build import check_launch, cuda_library, stream_of
 from .mask_pack import _DTYPE_CODES
 from .pack import expand_payload
 from .schedule import slot_map
-from .zebra_spmm import check_cuda_gemm, check_gemm
+from .zebra_spmm import aligned16, check_cuda_gemm, check_gemm
 
 
 def spmm_cs_plain(payload: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor,
@@ -35,12 +35,12 @@ def spmm_cs_plain(payload: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor,
 def spmm_cs_cuda(payload: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor,
                  slot: torch.Tensor, bs: int, bc: int) -> torch.Tensor:
     lib = cuda_library(payload, "zebra_spmm_cs")
-    check_cuda_gemm(w, bitmap, bs, "zebra_spmm_cs")
+    check_cuda_gemm(w, bitmap, bs, bc, "zebra_spmm_cs")
     if slot.dtype != torch.int32 or slot.numel() != bitmap.numel():
         raise ValueError("zebra_spmm_cs: expected an int32 slot map of nm*nk entries")
     nm, nk = bitmap.shape
     N = w.shape[1]
-    payload, w = payload.contiguous(), w.contiguous()
+    payload, w = aligned16(payload), aligned16(w)
     bitmap, slot = bitmap.contiguous(), slot.contiguous()
     y = torch.empty((nm * bs, N), dtype=torch.float32, device=payload.device)
     rc = lib.zebra_spmm_cs_launch(payload.data_ptr(), slot.data_ptr(), w.data_ptr(),

@@ -8,7 +8,9 @@ keep bitmap; a dead block is skipped, not multiplied. For a CUDA tensor it
 launches ``zebra_spmm_kernel`` (``csrc/zebra_gemm.cu``), which is the same
 device body as the payload consumer ``spmm_cs.zebra_spmm_cs`` with only
 the block accessor changed, so on the card the two are equal bit for bit;
-it counts its launches in ``zebra_spmm.launches``. For a CPU tensor it
+it counts its launches in ``zebra_spmm.launches``. The dtype picks the
+body: bfloat16 runs on the tensor cores (``mma.sync``), float32 on the
+CUDA cores (``fmaf``), the same for both kernels. For a CPU tensor it
 runs the plain version, ``spmm_plain``: the keep-gated map (a select, so
 dead blocks are exact +0 whatever x holds) as float32 times ``w`` as
 float32.
@@ -25,6 +27,10 @@ from .build import check_launch, cuda_library, stream_of
 from .mask_pack import _DTYPE_CODES
 
 MAX_BS = 8          # block rows the CUDA kernel holds in registers
+# bfloat16 (the tensor-core body): the CTA's keep map, 4 bytes per K-block
+# column, sits beside the 96 KiB ring in the 227 KiB of shared memory a CTA
+# may have (csrc/zebra_gemm.cu, tc_smem_bytes)
+MAX_BF16_NK = (232448 - 98304) // 4
 
 
 def check_gemm(bitmap: torch.Tensor, w: torch.Tensor, bs: int, bc: int,
@@ -41,8 +47,9 @@ def check_gemm(bitmap: torch.Tensor, w: torch.Tensor, bs: int, bc: int,
     return nm, nk, N
 
 
-def check_cuda_gemm(w: torch.Tensor, bitmap: torch.Tensor, bs: int,
+def check_cuda_gemm(w: torch.Tensor, bitmap: torch.Tensor, bs: int, bc: int,
                     kernel: str) -> None:
+    """Raises on what the CUDA GEMM kernels do not take."""
     if w.dtype not in _DTYPE_CODES:
         raise TypeError(f"{kernel}: CUDA kernel takes float32 or bfloat16, "
                         f"got {w.dtype}")
@@ -50,6 +57,20 @@ def check_cuda_gemm(w: torch.Tensor, bitmap: torch.Tensor, bs: int,
         raise ValueError(f"{kernel}: CUDA kernel takes 1 <= bs <= {MAX_BS}, got {bs}")
     if bitmap.dtype != torch.int8:
         raise ValueError(f"{kernel}: expected an int8 bitmap")
+    if w.dtype == torch.bfloat16:
+        if bc % 8:
+            raise ValueError(f"{kernel}: the bfloat16 kernel stages 16-byte block rows, "
+                             f"so bc must be a multiple of 8, got {bc}")
+        if bitmap.shape[1] > MAX_BF16_NK:
+            raise ValueError(f"{kernel}: the bfloat16 kernel keeps at most {MAX_BF16_NK} "
+                             f"K-block columns in shared memory, got {bitmap.shape[1]}")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous ``t`` whose data starts on 16 bytes (cp.async's copy
+    size): ``t`` itself, or a fresh copy if its storage offset breaks that."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def gate_blocks(x: torch.Tensor, bitmap: torch.Tensor, bs: int, bc: int) -> torch.Tensor:
@@ -70,10 +91,10 @@ def spmm_plain(x: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor, bs: int,
 def spmm_cuda(x: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor, bs: int,
               bc: int) -> torch.Tensor:
     lib = cuda_library(x, "zebra_spmm")
-    check_cuda_gemm(w, bitmap, bs, "zebra_spmm")
+    check_cuda_gemm(w, bitmap, bs, bc, "zebra_spmm")
     M, K = x.shape
     N = w.shape[1]
-    x, w, bitmap = x.contiguous(), w.contiguous(), bitmap.contiguous()
+    x, w, bitmap = aligned16(x), aligned16(w), bitmap.contiguous()
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     rc = lib.zebra_spmm_launch(x.data_ptr(), w.data_ptr(), bitmap.data_ptr(),
                                y.data_ptr(), M, K, N, bs, bc, _DTYPE_CODES[x.dtype],

@@ -128,17 +128,31 @@ def test_wrappers_launch_and_count(cuda):
 from repro_torch.kernels import spmm_cs, zebra_spmm  # noqa: E402
 
 # GEMM tolerance: the kernel and the plain float32 matmul (TF32 off) sum the
-# same products in different orders
+# same products in different orders (bf16 products are exact in float32;
+# the tensor cores sum each k16 step in their own order)
 GEMM_TOL = dict(rtol=1e-4, atol=1e-4, equal_nan=True)
-# (M, K, N, bs, bc, dtype, t_obj, kind)
+# (M, K, N, bs, bc, dtype, t_obj, kind); float32 runs the CUDA-core body,
+# bfloat16 the tensor-core body. N = 300 and 130 take the bf16 body's
+# element-wise w staging (rows not 16-byte aligned), N % 8 == 0 its cp.async
+# staging; 4x128 has block rows r >= bs zero-filled in the MMA; 8x24 ends
+# each block with a half k16 step (bc % 16 == 8)
+_F32, _BF16 = torch.float32, torch.bfloat16
 GEMM_CASES = {
-    "8x128-f32": (256, 1024, 384, 8, 128, torch.float32, 0.5, "signed"),
-    "8x128-bf16": (256, 1024, 300, 8, 128, torch.bfloat16, 0.5, "signed"),
-    "8x64-whole-width": (64, 64, 130, 8, 64, torch.float32, 0.5, "signed"),
-    "all-dead": (128, 512, 128, 8, 128, torch.float32, 100.0, "signed"),
-    "all-live": (128, 512, 128, 8, 128, torch.float32, 0.0, "signed"),
-    "one-live-per-column": (128, 512, 128, 8, 128, torch.float32, 0.5, "one"),
-    "nan-inf-map": (128, 512, 128, 8, 128, torch.float32, 0.5, "nan-inf"),
+    "8x128-f32": (256, 1024, 384, 8, 128, _F32, 0.5, "signed"),
+    "8x128-bf16": (256, 1024, 300, 8, 128, _BF16, 0.5, "signed"),
+    "8x64-whole-width": (64, 64, 130, 8, 64, _F32, 0.5, "signed"),
+    "all-dead": (128, 512, 128, 8, 128, _F32, 100.0, "signed"),
+    "all-live": (128, 512, 128, 8, 128, _F32, 0.0, "signed"),
+    "one-live-per-column": (128, 512, 128, 8, 128, _F32, 0.5, "one"),
+    "nan-inf-map": (128, 512, 128, 8, 128, _F32, 0.5, "nan-inf"),
+    "8x64-whole-width-bf16": (64, 64, 130, 8, 64, _BF16, 0.5, "signed"),
+    "all-dead-bf16": (128, 512, 128, 8, 128, _BF16, 100.0, "signed"),
+    "all-live-bf16": (128, 512, 128, 8, 128, _BF16, 0.0, "signed"),
+    "one-live-per-column-bf16": (128, 512, 128, 8, 128, _BF16, 0.5, "one"),
+    "nan-inf-map-bf16": (128, 512, 128, 8, 128, _BF16, 0.5, "nan-inf"),
+    "4x128-bf16": (512, 1024, 256, 4, 128, _BF16, 0.5, "signed"),
+    "8x24-bf16": (256, 480, 200, 8, 24, _BF16, 0.5, "signed"),
+    "8x8-bf16": (256, 64, 136, 8, 8, _BF16, 0.5, "signed"),
 }
 
 
@@ -175,16 +189,18 @@ def test_gemm_kernels_match_plain_and_each_other(case, cuda):
     want = spmm_cs.spmm_cs_plain(payload, w, bitmap, keep, slot, bs, bc)
     torch.testing.assert_close(y7, want, **GEMM_TOL)
     torch.testing.assert_close(y6, zebra_spmm.spmm_plain(x, w, bitmap, bs, bc), **GEMM_TOL)
-    if case == "all-dead":
+    if case.startswith("all-dead"):
         assert not y7.any()
 
 
-def test_gemm_skips_dead_blocks_whatever_w_holds(cuda):
-    """The skip rule: a dead block forms no product with its w panel, so
-    Inf/NaN in the w rows of a dead block do not reach that block's rows
-    in either kernel (the plain version, which multiplies the zeroed
-    block, gives NaN there); rows whose block is live see them."""
-    x, w, bitmap, keep, slot, payload, bs, bc = gemm_operands("8x128-f32", cuda)
+@pytest.mark.parametrize("case", ["8x128-f32", "8x128-bf16"])
+def test_gemm_skips_dead_blocks_whatever_w_holds(case, cuda):
+    """The skip rule, in both bodies: a dead block forms no product with
+    its w panel, so Inf/NaN in the w rows of a dead block do not reach
+    that block's rows in either kernel (the plain version, which
+    multiplies the zeroed block, gives NaN there); rows whose block is
+    live see them."""
+    x, w, bitmap, keep, slot, payload, bs, bc = gemm_operands(case, cuda)
     col = int((bitmap == 0).any(0).nonzero()[0])        # a column with a dead block
     w_bad = w.clone()
     w_bad[col * bc + 3, :] = float("inf")

@@ -25,7 +25,8 @@ from repro_torch.core.zebra import ZebraConfig
 from repro_torch.kernels.mask_pack import zebra_mask_pack
 from repro_torch.kernels.schedule import slot_map
 from repro_torch.kernels.spmm_cs import spmm_cs_plain, zebra_spmm_cs
-from repro_torch.kernels.zebra_spmm import spmm_plain, zebra_spmm
+from repro_torch.kernels.zebra_spmm import (MAX_BF16_NK, aligned16, check_cuda_gemm,
+                                            spmm_plain, zebra_spmm)
 
 from _torch_parity import bits
 
@@ -176,3 +177,55 @@ def test_fused_degenerate_rows_take_the_masked_dense_matmul():
     assert aux.backend == jaux.backend == "reference(degenerate-rows)"
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=RTOL, atol=ATOL)
     assert (zebra_spmm.launches, zebra_spmm_cs.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The CUDA GEMM wrappers' rules (checked before a launch; no card needed)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dt", list(DTYPES))
+def test_cuda_gemm_rules_take_every_bs_up_to_8(dt):
+    tdt = DTYPES[dt][0]
+    bitmap = torch.ones(4, 2, dtype=torch.int8)
+    w = torch.zeros(2 * 128, 16, dtype=tdt)
+    for bs in range(1, 9):
+        check_cuda_gemm(w, bitmap, bs, 128, "zebra_spmm")
+    for bs in (0, 9, 16):
+        with pytest.raises(ValueError, match="1 <= bs <= 8"):
+            check_cuda_gemm(w, bitmap, bs, 128, "zebra_spmm")
+
+
+@pytest.mark.parametrize("bc", [4, 12, 20, 100, 130])
+def test_cuda_gemm_rules_refuse_bf16_blocks_not_a_multiple_of_8(bc):
+    """The bfloat16 kernel stages a block column as 16-byte rows; float32
+    (the CUDA-core body) takes any bc."""
+    bitmap = torch.ones(4, 2, dtype=torch.int8)
+    w = torch.zeros(2 * bc, 16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        check_cuda_gemm(w.to(torch.bfloat16), bitmap, 8, bc, "zebra_spmm_cs")
+    check_cuda_gemm(w, bitmap, 8, bc, "zebra_spmm_cs")
+    check_cuda_gemm(torch.zeros(2 * 24, 16, dtype=torch.bfloat16), bitmap, 8, 24,
+                    "zebra_spmm_cs")
+
+
+def test_cuda_gemm_rules_bound_the_bf16_keep_map_table():
+    w = torch.zeros(8 * (MAX_BF16_NK + 1), 8, dtype=torch.bfloat16)
+    check_cuda_gemm(w[:8 * MAX_BF16_NK], torch.ones(1, MAX_BF16_NK, dtype=torch.int8), 8, 8,
+                    "zebra_spmm")
+    with pytest.raises(ValueError, match="K-block columns"):
+        check_cuda_gemm(w, torch.ones(1, MAX_BF16_NK + 1, dtype=torch.int8), 8, 8,
+                        "zebra_spmm")
+    check_cuda_gemm(w.float(), torch.ones(1, MAX_BF16_NK + 1, dtype=torch.int8), 8, 8,
+                    "zebra_spmm")
+
+
+def test_aligned16_copies_only_a_misaligned_start():
+    """cp.async moves 16 bytes: a tensor whose data starts off a 16-byte
+    boundary is copied (same values), any other is passed through."""
+    base = torch.arange(40, dtype=torch.bfloat16)
+    assert aligned16(base).data_ptr() == base.data_ptr()
+    view = base[8:]                             # 16 bytes in: still aligned
+    assert aligned16(view).data_ptr() == view.data_ptr()
+    odd = base[1:]
+    got = aligned16(odd)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, odd)
