@@ -9,8 +9,9 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. holds each kernel bit for bit against its plain PyTorch version on the
-   card: bf16, signed 8x128 token blocks, 2x2 and 4x4 blocks, an all-dead
-   map and NaN/Inf inputs;
+   card: bf16 and float16, signed 8x128 token blocks, 2x2 and 4x4 blocks,
+   bf16 8x24 and 8x256 blocks, rows of 24 bytes, a map whose data starts
+   off 16 bytes, the kv_cache shape, an all-dead map and NaN/Inf inputs;
 3. trains (``CNNTrainer.train``): ResNet-18 at full width on Tiny-ImageNet
    shapes (3x64x64, 200 classes), random weights from seed 0, batch 64,
    block 8, SGD with step decay from 0.05 and gradient clipping at 10,
@@ -36,7 +37,10 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
 5. checks each kernel against its plain version on the 17 site maps its
    path gives it (the stream kernels: the evaluate forward at batch 128;
    the masking kernel: B's train forward at batch 64) and times both with
-   CUDA events, beside the kernel's byte bound at the card's memory rate;
+   CUDA events, beside the kernel's byte bound at the card's memory rate
+   and, for the comparator and the masking kernel, beside ``torch.amax``
+   of the same map over its blocks (a tuned library read of the same
+   bytes, as a yardstick: it does not compute either kernel's function);
 6. serves gemma3-4b at full width and depth (34 layers, random weights
    from seed 0) through ``repro_torch.launch.serve.main`` on the ``fused``
    backend: batch 2, prompt 2048 (the banded local and the chunked global
@@ -57,7 +61,8 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
    bfloat16, a 4x128 and an 8x24 block in bfloat16, and the skip rule for
    NaN/Inf in w in both) and timed on the path's maps beside their bound,
    their plain version and, for the GEMMs, ``torch.matmul`` of the
-   keep-gated dense map;
+   keep-gated dense map; the comparator and the masking kernel are timed
+   per prefill too, on the 34 ffn_hidden and the 68 kv_cache maps;
 7. prints one JSON line listing the kernels (the GEMM rows also carry ms
    per launch, TFLOP/s of live work and the device body that ran), the
    card line again, and ``{"ok": true, "device": ...}`` as the last line.
@@ -95,9 +100,16 @@ LM_KERNELS = {
     "zebra_spmm_cs_kernel": "src/repro/kernels/spmm_cs.py:51",
 }
 STREAM_KERNELS = ("zebra_bitmap_kernel", "zebra_pack_kernel", "zebra_unpack_kernel")
+# kernels timed beside torch.amax of their map (the reducing ones)
+AMAX_YARDSTICK = ("zebra_bitmap_kernel", "zebra_mask_kernel")
+# the LM prefill's rows of the comparator and the masking kernel in the
+# kernels line: (kernel, the served maps it runs on)
+LM_STREAM_ROWS = {"zebra_bitmap_kernel (gemma3-4b prefill)": ("zebra_bitmap_kernel", "ffn"),
+                  "zebra_mask_kernel (gemma3-4b prefill)": ("zebra_mask_kernel", "kv")}
 SOURCE = "src/repro_torch/kernels/csrc/zebra_stream.cu"
 GEMM_SOURCE = "src/repro_torch/kernels/csrc/zebra_gemm.cu"
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
+ENQUEUE_SLACK_CYCLES = 200_000  # device spin before each timed call, ~0.1 ms
 
 
 class SmokeFailure(Exception):
@@ -204,8 +216,19 @@ def synthetic_map(M, K, bs, bc, dtype, signed, seed, device):
 def edge_cases(device) -> None:
     import torch
     cases = {
-        # label: (M, K, bs, bc, dtype, signed, t_obj)
+        # label: (M, K, bs, bc, dtype, signed, t_obj); the comparator and the
+        # masking kernel load 16-byte vectors where bc*item, K*item and the
+        # data pointer allow, else 8, 4 or 2 bytes
         "bf16 8x8": (65536, 64, 8, 8, torch.bfloat16, False, T_OBJ),
+        "float16 8x8": (65536, 64, 8, 8, torch.float16, False, T_OBJ),
+        "float16 8x128": (4096, 2048, 8, 128, torch.float16, True, 0.5),
+        "bf16 8x24 blocks (3 vectors a block row)": (4096, 480, 8, 24, torch.bfloat16,
+                                                     True, 0.5),
+        "bf16 8x256 blocks (32 vectors)": (4096, 2048, 8, 256, torch.bfloat16, True, 0.5),
+        "f32 8x256 blocks (64 vectors)": (2048, 2048, 8, 256, torch.float32, True, 0.5),
+        "rows of 24 bytes (2x2, K 6)": (65536, 6, 2, 2, torch.float32, False, 1.0),
+        "bs 16": (4096, 1024, 16, 128, torch.bfloat16, True, 0.5),
+        "kv_cache shape": (4096, 1280, 8, 128, torch.bfloat16, True, 1.05),
         "8x128 token blocks f32": (4096, 2048, 8, 128, torch.float32, True, 0.5),
         "8x128 token blocks bf16": (4096, 2048, 8, 128, torch.bfloat16, True, 0.5),
         "2x2 blocks (b=2)": (65536, 8, 2, 2, torch.float32, False, 1.0),
@@ -215,7 +238,13 @@ def edge_cases(device) -> None:
     for i, (label, (M, K, bs, bc, dtype, signed, t)) in enumerate(cases.items()):
         compare_kernels(synthetic_map(M, K, bs, bc, dtype, signed, i, device), t, bs, bc,
                         label)
-        print(f"  kernels == plain (bitwise): {label} ({M}x{K}, block {bs}x{bc})")
+        print(f"  kernels == plain (bitwise): {label} ({M}x{K}, block {bs}x{bc}, {dtype})")
+    # a contiguous map whose data starts 8 bytes off a 16-byte boundary
+    x = synthetic_map(65536, 64, 8, 8, torch.bfloat16, True, 98, device)
+    x = torch.cat([x.new_zeros(4), x.reshape(-1)])[4:].view(x.shape)
+    check(x.data_ptr() % 16 == 8, "the offset map starts on 16 bytes")
+    compare_kernels(x, T_OBJ, 8, 8, "offset map")
+    print("  kernels == plain (bitwise): bf16 map starting 8 B off 16 B (65536x64, block 8x8)")
     x = synthetic_map(65536, 64, 8, 8, torch.float32, False, 99, device)
     x[1, 2] = float("nan")          # a block holding NaN is dead
     x[9, 17] = float("inf")         # a block holding Inf is live
@@ -241,13 +270,17 @@ def edge_cases(device) -> None:
 def time_ms(fn, flush, iters: int = 10, warmup: int = 2) -> float:
     """Mean device time of one call, by CUDA events around each call, with
     the 50 MB L2 cache flushed before each (the site's map was written by
-    the layer before it, and most maps exceed L2)."""
+    the layer before it, and most maps exceed L2). The device then spins
+    for ~0.1 ms, so the host has enqueued the call before the start event
+    runs: a slow host (a Python wrapper takes ~30 µs) cannot put idle time
+    between the events."""
     import torch
     for _ in range(warmup):
         fn()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(ENQUEUE_SLACK_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -558,6 +591,8 @@ def time_kernels(groups, device) -> list[dict]:
             x = x4.reshape(B * C * H, W)
             errs = compare_kernels(x, T_OBJ, b, b, f"site map {tuple(x4.shape)}", names)
             calls, n_live = kernel_calls(x, T_OBJ, b, b, names)
+            blocks = x.view(x.shape[0] // b, b, x.shape[1] // b, b)
+            amax = time_ms(lambda: torch.amax(blocks, dim=(1, 3)), flush)
             for name, (kern, plain) in calls.items():
                 ms, pms = time_ms(kern, flush), time_ms(plain, flush)
                 bound = bound_bytes(name, *x.shape, b, b, x.element_size(), n_live) \
@@ -567,13 +602,15 @@ def time_kernels(groups, device) -> list[dict]:
                 r["plain_ms"] += pms
                 r["bound_ms"] += bound
                 r["max_abs_err"] = max(r["max_abs_err"], errs[name])
-                by_shape.setdefault((name, tuple(x.shape)), []).append((ms, pms, bound))
-    print("kernel times per site shape (mean over sites; CUDA events, L2 flushed):")
+                by_shape.setdefault((name, tuple(x.shape)), []).append((ms, pms, bound, amax))
+    print("kernel times per site shape (mean over sites; CUDA events, L2 flushed; amax: "
+          "torch.amax of the map over its blocks, a yardstick read of the same bytes):")
     for (name, shape), vals in sorted(by_shape.items()):
         n = len(vals)
-        ms, pms, bound = (sum(v[i] for v in vals) / n for i in range(3))
+        ms, pms, bound, amax = (sum(v[i] for v in vals) / n for i in range(4))
+        yard = f"  amax {amax:.4f} ms" if name in AMAX_YARDSTICK else ""
         print(f"  {name:22s} M,K={shape}: {ms:.4f} ms  plain {pms:.4f} ms  "
-              f"bound {bound:.4f} ms  ({n} sites)")
+              f"bound {bound:.4f} ms{yard}  ({n} sites)")
     return [{"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
              "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
              "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
@@ -959,8 +996,9 @@ def run_lm(device) -> dict:
           f"prefill logits not finite of shape ({LM_BATCH}, {cfg.vocab})")
     # launches from the served run alone; the dense twin is off the path (0
     # there) and its replay launches are reported beside, under their own name
-    return {"maps": [(h, w) for h, w, *_ in rec.ffn], "kv": rec.kv[0][0], "dense": dense,
-            "comp": comp, "launches": {k: final[k] for k in LM_KERNELS},
+    return {"maps": [(h, w) for h, w, *_ in rec.ffn], "kv": [x for x, *_ in rec.kv],
+            "dense": dense, "comp": comp,
+            "launches": {k: final[k] for k in (*LM_KERNELS, *AMAX_YARDSTICK)},
             "replay_launches": {"zebra_spmm_kernel": replay["zebra_spmm_kernel"]}}
 
 
@@ -1037,13 +1075,6 @@ def time_lm_kernels(lm: dict, edge_errs: dict, device) -> list[dict]:
                                                               c.bs, c.bc), flush)
         r["bound_ms"] += bound_bytes("zebra_pack_kernel", c.m, c.k, c.bs, c.bc,
                                      x2.element_size(), n_live) / HBM_BYTES_PER_S * 1e3
-    kv = lm["kv"].reshape(-1, lm["kv"].shape[-1])
-    bc = BC if kv.shape[1] % BC == 0 else kv.shape[1]
-    kv_label = f"one kv_cache map {tuple(kv.shape)}"
-    compare_kernels(kv, LM_T_OBJ, BS, bc, kv_label, names=("zebra_mask_kernel",))
-    (kern, plain), = kernel_calls(kv, LM_T_OBJ, BS, bc, ("zebra_mask_kernel",))[0].values()
-    print(f"  zebra_mask_kernel on {kv_label}: bitwise == plain, {time_ms(kern, flush):.4f} "
-          f"ms, plain {time_ms(plain, flush):.4f} ms (CUDA events, L2 flushed)")
     print(f"LM kernel times (per prefill: {len(lm['maps'])} ffn_hidden maps; zebra_pack per "
           f"handoff; CUDA events, L2 flushed):")
     for k, r in rows.items():
@@ -1054,7 +1085,41 @@ def time_lm_kernels(lm: dict, edge_errs: dict, device) -> list[dict]:
     return [{"name": k, "route": "cuda",
              "source": SOURCE if k == "zebra_pack" else GEMM_SOURCE,
              "replaces": LM_KERNELS[k], "launches": lm["launches"][k], **rows[k]}
-            for k in LM_KERNELS]
+            for k in LM_KERNELS] + time_lm_stream_kernels(lm, flush)
+
+
+def time_lm_stream_kernels(lm: dict, flush) -> list[dict]:
+    """The comparator on the prefill's ffn_hidden maps and the masking
+    kernel on its kv_cache maps, each held against its plain version and
+    summed per prefill, beside the byte bound and torch.amax of each map."""
+    import torch
+    out = []
+    for row, (name, src) in LM_STREAM_ROWS.items():
+        maps = [h for h, _ in lm["maps"]] if src == "ffn" else lm["kv"]
+        r = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "amax_ms": 0.0, "max_abs_err": 0.0}
+        for x in maps:
+            x2 = x.reshape(-1, x.shape[-1])
+            bs = BS if x.shape[-2] % BS == 0 else 1
+            bc = BC if x2.shape[1] % BC == 0 else x2.shape[1]
+            errs = compare_kernels(x2, LM_T_OBJ, bs, bc, f"{row} map {tuple(x2.shape)}",
+                                   (name,))
+            (kern, plain), = kernel_calls(x2, LM_T_OBJ, bs, bc, (name,))[0].values()
+            blocks = x2.view(x2.shape[0] // bs, bs, x2.shape[1] // bc, bc)
+            r["ms"] += time_ms(kern, flush, iters=5, warmup=1)
+            r["plain_ms"] += time_ms(plain, flush, iters=5, warmup=1)
+            r["amax_ms"] += time_ms(lambda: torch.amax(blocks, dim=(1, 3)), flush, iters=5,
+                                    warmup=1)
+            r["bound_ms"] += bound_bytes(name, *x2.shape, bs, bc, x2.element_size(), 0) \
+                / HBM_BYTES_PER_S * 1e3
+            r["max_abs_err"] = max(r["max_abs_err"], errs[name])
+        print(f"  {row}: {len(maps)} maps {tuple(x2.shape)}, bitwise == plain; "
+              f"{r['ms']:.4f} ms per prefill, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms, amax {r['amax_ms']:.4f} ms (CUDA events, L2 flushed)")
+        out.append({"name": row, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
+                    "launches": lm["launches"][name], "max_abs_err": r["max_abs_err"],
+                    "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": "bytes", "library_ms": None, "amax_ms": r["amax_ms"]})
+    return out
 
 
 

@@ -182,15 +182,26 @@ def _kernel_statics(variant: str, bs: int, bc: int, cfg: ZebraConfig) -> KernelS
                          grad_mode=cfg.grad_mode, soft_temp=cfg.soft_temp)
 
 
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in the promoted dtype of the two, as the reference's
+    ``jnp`` matmul promotes mixed operands (torch's refuses them)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
 def _run_fused(x2: torch.Tensor, w: torch.Tensor, bs: int, bc: int,
                cfg: ZebraConfig) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """mask_pack -> payload GEMM: the consumer reads each live block from
     its consumer-order payload slot (the producer's slot map, reused) and
-    skips dead ones; the dense masked map is never expanded. Returns
+    skips dead ones; the dense masked map is never expanded. A weight of
+    another dtype promotes both operands. Returns
     ``(mask(x2) @ w in x2's dtype, bitmap, stream bytes)``."""
     payload, bitmap, n_live, keep, slot = mask_pack_with_slots(
         x2, t_obj=cfg.t_obj, bs=bs, bc=bc)
-    out = spmm_cs_with_slots(payload, w, bitmap, keep, slot, bs=bs, bc=bc)
+    # operands promoted as jnp.dot promotes them (bf16 map, f32 w: products
+    # in f32); the stream bytes stay the map's
+    dt = torch.promote_types(x2.dtype, w.dtype)
+    out = spmm_cs_with_slots(payload.to(dt), w.to(dt), bitmap, keep, slot, bs=bs, bc=bc)
     measured = stream_bytes(n_live, bs, bc, x2.dtype, bitmap.numel())
     return out.to(x2.dtype), bitmap, measured
 
@@ -267,7 +278,7 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
             f"backend {spec.name!r} does not consume a downstream weight "
             f"(site={site!r}); apply the matmul at the call site instead")
     if not cfg.enabled:
-        return (x if w is None else x @ w), SiteAux.empty(device=x.device)
+        return (x if w is None else _matmul(x, w)), SiteAux.empty(device=x.device)
     tnet = effective_tnet(cfg, tnet)
     require_tnet(cfg, tnet, site)
 
@@ -302,7 +313,7 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
         fn = zebra_cnn if layout == "nchw" else zebra_tokens
         y, aux = fn(x, cfg, tnet)
         if w is not None:               # w-consuming request served dense
-            y = y @ w
+            y = _matmul(y, w)
         return y, SiteAux(reg=aux["reg"], zero_frac=aux["zero_frac"],
                           measured_bytes=torch.zeros((), dtype=torch.int64,
                                                      device=x.device),

@@ -26,7 +26,9 @@ from .build import check_launch, cuda_library, stream_of
 from .ref import threshold_as
 from .schedule import slot_map
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the map dtypes of the comparator, the masking kernel and pack (the C
+# entry points' dtype codes; pack and unpack move bits by item size)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _check_map(x: torch.Tensor, bs: int, bc: int) -> tuple[int, int]:
@@ -40,8 +42,8 @@ def _check_map(x: torch.Tensor, bs: int, bc: int) -> tuple[int, int]:
 
 def _check_cuda_map(x: torch.Tensor, kernel: str) -> None:
     if x.dtype not in _DTYPE_CODES:
-        raise TypeError(f"{kernel}: CUDA kernel takes float32 or bfloat16, "
-                        f"got {x.dtype}")
+        raise TypeError(f"{kernel}: CUDA kernel takes float32, bfloat16 or "
+                        f"float16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{kernel}: CUDA kernel needs a contiguous map")
 

@@ -18,10 +18,9 @@ from __future__ import annotations
 import torch
 
 from .build import check_launch, cuda_library, stream_of
-from .mask_pack import _DTYPE_CODES
 from .pack import expand_payload
 from .schedule import slot_map
-from .zebra_spmm import aligned16, check_cuda_gemm, check_gemm
+from .zebra_spmm import GEMM_DTYPES, MAX_BS, aligned16, check_cuda_gemm, check_gemm, split_rows
 
 
 def spmm_cs_plain(payload: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor,
@@ -38,6 +37,12 @@ def spmm_cs_cuda(payload: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor,
     check_cuda_gemm(w, bitmap, bs, bc, "zebra_spmm_cs")
     if slot.dtype != torch.int32 or slot.numel() != bitmap.numel():
         raise ValueError("zebra_spmm_cs: expected an int32 slot map of nm*nk entries")
+    if tuple(payload.shape) != (bitmap.numel(), bs, bc):
+        raise ValueError(f"zebra_spmm_cs: payload {tuple(payload.shape)} does not match "
+                         f"bitmap {tuple(bitmap.shape)} with block bs={bs}, bc={bc}")
+    if bs > MAX_BS:             # (8, bc) sub-blocks of the same memory
+        bitmap, slot = split_rows(bitmap, slot.reshape(-1), bs)
+        payload, bs = payload.reshape(-1, MAX_BS, bc), MAX_BS
     nm, nk = bitmap.shape
     N = w.shape[1]
     payload, w = aligned16(payload), aligned16(w)
@@ -45,7 +50,7 @@ def spmm_cs_cuda(payload: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor,
     y = torch.empty((nm * bs, N), dtype=torch.float32, device=payload.device)
     rc = lib.zebra_spmm_cs_launch(payload.data_ptr(), slot.data_ptr(), w.data_ptr(),
                                   bitmap.data_ptr(), y.data_ptr(), nm, nk, N, bs, bc,
-                                  _DTYPE_CODES[payload.dtype], stream_of(payload))
+                                  GEMM_DTYPES[payload.dtype], stream_of(payload))
     check_launch(rc, "zebra_spmm_cs")
     zebra_spmm_cs.launches += 1
     return y

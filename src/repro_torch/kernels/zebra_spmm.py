@@ -15,6 +15,11 @@ runs the plain version, ``spmm_plain``: the keep-gated map (a select, so
 dead blocks are exact +0 whatever x holds) as float32 times ``w`` as
 float32.
 
+The kernel holds 8 block rows in registers. A block of ``bs = 8·j`` rows
+runs as j (8, bc) sub-blocks that share its keep bit (``split_rows``):
+the bitmap row-repeats j times and the payload is viewed as ``(j·nb, 8,
+bc)``, so neither the memory nor the ascending-K order changes.
+
 The TPU realizations' tile machinery (``gemm_plan`` supertiles, the
 scheduled capacity ladder) has no counterpart: a tile choice never
 changes an observable, and the kernel sums every output in ascending K.
@@ -24,8 +29,8 @@ from __future__ import annotations
 import torch
 
 from .build import check_launch, cuda_library, stream_of
-from .mask_pack import _DTYPE_CODES
-
+# the operand dtypes of the GEMM bodies (csrc/zebra_gemm.cu's dtype codes)
+GEMM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_BS = 8          # block rows the CUDA kernel holds in registers
 # bfloat16 (the tensor-core body): the CTA's keep map, 4 bytes per K-block
 # column, sits beside the 96 KiB ring in the 227 KiB of shared memory a CTA
@@ -50,11 +55,12 @@ def check_gemm(bitmap: torch.Tensor, w: torch.Tensor, bs: int, bc: int,
 def check_cuda_gemm(w: torch.Tensor, bitmap: torch.Tensor, bs: int, bc: int,
                     kernel: str) -> None:
     """Raises on what the CUDA GEMM kernels do not take."""
-    if w.dtype not in _DTYPE_CODES:
+    if w.dtype not in GEMM_DTYPES:
         raise TypeError(f"{kernel}: CUDA kernel takes float32 or bfloat16, "
                         f"got {w.dtype}")
-    if not 1 <= bs <= MAX_BS:
-        raise ValueError(f"{kernel}: CUDA kernel takes 1 <= bs <= {MAX_BS}, got {bs}")
+    if bs < 1 or (bs > MAX_BS and bs % MAX_BS):
+        raise ValueError(f"{kernel}: CUDA kernel takes 1 <= bs <= {MAX_BS} or bs a "
+                         f"multiple of {MAX_BS}, got bs={bs}")
     if bitmap.dtype != torch.int8:
         raise ValueError(f"{kernel}: expected an int8 bitmap")
     if w.dtype == torch.bfloat16:
@@ -64,6 +70,24 @@ def check_cuda_gemm(w: torch.Tensor, bitmap: torch.Tensor, bs: int, bc: int,
         if bitmap.shape[1] > MAX_BF16_NK:
             raise ValueError(f"{kernel}: the bfloat16 kernel keeps at most {MAX_BF16_NK} "
                              f"K-block columns in shared memory, got {bitmap.shape[1]}")
+
+
+def split_rows(bitmap: torch.Tensor, slot: torch.Tensor | None, bs: int
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The ``(bitmap, slot)`` of a GEMM with ``bs = 8·j`` row blocks, cut
+    into (8, bc) sub-blocks: sub-block row ``j·r + h`` keeps block row r's
+    bits, and its slot is ``j·slot + h`` into the payload viewed as ``(j·nb,
+    8, bc)`` (a dead block's slot aliases a live one and is never read).
+    ``slot`` is the flat (nm·nk) map of ``slot_map``, or None (the dense
+    form needs no slots)."""
+    j = bs // MAX_BS
+    nm, nk = bitmap.shape
+    bitmap8 = bitmap.repeat_interleave(j, dim=0)
+    if slot is None:
+        return bitmap8, None
+    h = torch.arange(j, dtype=slot.dtype, device=slot.device)
+    slot8 = slot.reshape(nm, 1, nk) * j + h[None, :, None]
+    return bitmap8, slot8.reshape(-1)
 
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -94,10 +118,16 @@ def spmm_cuda(x: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor, bs: int,
     check_cuda_gemm(w, bitmap, bs, bc, "zebra_spmm")
     M, K = x.shape
     N = w.shape[1]
+    if (M, K) != (bitmap.shape[0] * bs, bitmap.shape[1] * bc):
+        raise ValueError(f"zebra_spmm: x {(M, K)} does not match bitmap "
+                         f"{tuple(bitmap.shape)} with block bs={bs}, bc={bc}")
+    if bs > MAX_BS:
+        bitmap, _ = split_rows(bitmap, None, bs)
+        bs = MAX_BS
     x, w, bitmap = aligned16(x), aligned16(w), bitmap.contiguous()
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     rc = lib.zebra_spmm_launch(x.data_ptr(), w.data_ptr(), bitmap.data_ptr(),
-                               y.data_ptr(), M, K, N, bs, bc, _DTYPE_CODES[x.dtype],
+                               y.data_ptr(), M, K, N, bs, bc, GEMM_DTYPES[x.dtype],
                                stream_of(x))
     check_launch(rc, "zebra_spmm")
     zebra_spmm.launches += 1

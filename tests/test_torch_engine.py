@@ -141,3 +141,23 @@ def test_pallas_infer_site_equals_reference():
     assert float(auxp.zero_frac) == float(auxr.zero_frac)
     assert 0.0 < float(auxp.zero_frac) < 1.0 and auxp.backend == "pallas"
     assert int(auxp.measured_bytes) == 0
+
+
+@pytest.mark.parametrize("mode,t_obj", [("train", 0.0), ("train", 0.5), ("infer", 0.0),
+                                        ("infer", 0.5)])
+def test_stream_site_with_a_nan_block_counts_the_stream_it_moved(mode, t_obj):
+    """One NaN in a (1, 16, 256) float32 map of 8x128 blocks: its block is
+    dead (a NaN max compares false), so the stream holds 3 of 4 blocks,
+    12289 bytes. The port reports that stream in both modes. The
+    reference's train branch recomputes keep from the expanded output,
+    where the dropped block came back as +0, and at T_obj 0 counts it
+    live: 0.0 and 16385 bytes, against its own infer branch's 0.25 and
+    12289. Both figures are pinned here."""
+    x = make_map((1, 16, 256), 11)
+    x[0, 3, 5] = np.nan
+    kw = dict(mode=mode, backend="stream", t_obj=t_obj, use_tnet=False)
+    _, aux = zebra_site(torch.from_numpy(x), ZebraConfig(**kw), site="s")
+    _, jaux = jax_site(jnp.asarray(x), JZebraConfig(interpret=True, **kw), site="s")
+    assert (float(aux.zero_frac), int(aux.measured_bytes)) == (0.25, 12289)
+    want_ref = (0.0, 16385) if (mode, t_obj) == ("train", 0.0) else (0.25, 12289)
+    assert (float(jaux.zero_frac), int(jaux.measured_bytes)) == want_ref

@@ -15,7 +15,16 @@ from repro_torch.kernels.schedule import slot_map
 
 pytestmark = pytest.mark.gpu
 
-# (M, K, bs, bc, dtype, t_obj, kind)
+# (M, K, bs, bc, dtype, t_obj, kind). The comparator and the masking kernel
+# load 16-byte vectors where bc*item, K*item and the data pointers allow,
+# else 8, 4 or 2 bytes: "k6-b2", "k12-bf16" and "k36-bf16-8x12" have rows of
+# 24 and 72 bytes, "offset-*" and "row-slice" start off 16 bytes (kinds
+# ending in "+offN" start N elements into their storage, "+row1" one row
+# into a map one row taller). "bf16-8x24" and "k36-bf16-8x12" give a block
+# 3 vectors wide (a group of 4 lanes, one idle), "f32-8x256" 64 (two passes
+# per lane), "bs16" more rows than a lane holds, "bf16-3x5" 2-byte vectors;
+# "grid-stride" has more blocks than the grid has lanes for
+_F16 = torch.float16
 CASES = {
     "site-k64": (8192, 64, 8, 8, torch.float32, 1.5, "relu"),
     "site-k8": (8192, 8, 8, 8, torch.float32, 1.5, "relu"),
@@ -27,6 +36,24 @@ CASES = {
     "all-dead": (1024, 64, 8, 8, torch.float32, 100.0, "relu"),
     "all-live": (1024, 64, 8, 8, torch.float32, 0.0, "relu"),
     "nan-inf": (1024, 64, 8, 8, torch.float32, 1.5, "nan-inf"),
+    "f16": (4096, 64, 8, 8, _F16, 1.5, "relu"),
+    "f16-tokens": (256, 1024, 8, 128, _F16, 0.5, "signed"),
+    "f16-nan-inf": (1024, 64, 8, 8, _F16, 1.5, "nan-inf"),
+    "k24-f32": (1024, 24, 8, 8, torch.float32, 1.5, "relu"),
+    "k40-bf16": (1024, 40, 8, 8, torch.bfloat16, 1.5, "relu"),
+    "k6-b2": (2048, 6, 2, 2, torch.float32, 1.0, "relu"),
+    "k12-bf16": (1024, 12, 8, 4, torch.bfloat16, 1.0, "signed"),
+    "k36-bf16-8x12": (1024, 36, 8, 12, torch.bfloat16, 1.0, "signed"),
+    "offset-f32": (1024, 64, 8, 8, torch.float32, 1.5, "relu+off1"),
+    "offset-bf16": (1024, 64, 8, 8, torch.bfloat16, 1.5, "signed+off4"),
+    "row-slice": (1024, 36, 4, 12, torch.bfloat16, 1.0, "signed+row1"),
+    "bf16-8x24": (512, 480, 8, 24, torch.bfloat16, 0.5, "signed"),
+    "bf16-8x256": (256, 2048, 8, 256, torch.bfloat16, 0.5, "signed"),
+    "f32-8x256": (256, 1024, 8, 256, torch.float32, 0.5, "signed"),
+    "bs16": (1024, 256, 16, 128, torch.bfloat16, 0.5, "signed"),
+    "bf16-3x5": (96, 25, 3, 5, torch.bfloat16, 1.0, "signed"),
+    "grid-stride": (262144, 64, 8, 8, torch.float32, 1.5, "relu"),
+    "kv-cache": (4096, 1280, 8, 128, torch.bfloat16, 1.05, "signed"),
 }
 
 
@@ -43,13 +70,31 @@ def make_map(case, device):
     x = torch.randn(M, K, generator=g)
     scale = torch.rand(M // bs, 1, K // bc, 1, generator=g) * 3.0
     x = (x.reshape(M // bs, bs, K // bc, bc) * scale).reshape(M, K)
+    kind, _, place = kind.partition("+")
     if kind != "signed":
         x = x.clamp_min(0.0)
     if kind == "nan-inf":
         x[1, 2] = float("nan")
         x[9, 17] = float("inf")
         x[17, 40] = float("-inf")
-    return x.to(dtype).to(device), bs, bc, t_obj
+    x = x.to(dtype).to(device)
+    if place.startswith("off"):         # a contiguous view N elements into its storage
+        n = int(place[3:])
+        x = torch.cat([x.new_zeros(n), x.reshape(-1)])[n:].view(M, K)
+    elif place == "row1":               # rows 1.. of a map one row taller
+        x = torch.cat([x.new_zeros(1, K), x])[1:]
+    assert x.is_contiguous() and (not place or x.data_ptr() % 16)
+    return x, bs, bc, t_obj
+
+
+def assert_bits(got, want):
+    """Bit for bit; a 16-bit NaN only as NaN (the kernel and PyTorch's
+    float16/bfloat16 multiply may round NaN to different payloads)."""
+    if got.is_floating_point() and got.element_size() == 2:
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        got, want = got[~nan], want[~nan]
+    np.testing.assert_array_equal(bits(got), bits(want))
 
 
 def bits(t):
@@ -100,7 +145,7 @@ def test_mask_kernel_matches_plain(case, cuda):
     torch.cuda.synchronize()
     want_y, want_bitmap = zebra_mask.mask_plain(x, t_obj, bs, bc)
     np.testing.assert_array_equal(bits(bitmap), bits(want_bitmap))
-    np.testing.assert_array_equal(bits(y), bits(want_y))
+    assert_bits(y, want_y)
 
 
 def test_wrappers_launch_and_count(cuda):
@@ -119,6 +164,27 @@ def test_wrappers_launch_and_count(cuda):
     ym, bitmap_m = zebra_mask.zebra_mask(x, t_obj=t_obj, bs=bs, bc=bc)
     assert zebra_mask.zebra_mask.launches == before + 1
     assert torch.equal(ym, ref_y) and torch.equal(bitmap_m, bitmap)
+
+
+def test_stream_wrappers_refuse_and_never_fall_back(cuda, monkeypatch):
+    """A CUDA map the comparator or the masking kernel does not take raises
+    from its wrapper, uncounted; no CUDA tensor reaches a plain version."""
+    def no_plain(*a, **k):
+        raise AssertionError("a CUDA tensor took the plain version")
+    monkeypatch.setattr(mask_pack, "bitmap_plain", no_plain)
+    monkeypatch.setattr(zebra_mask, "mask_plain", no_plain)
+    before = (mask_pack.zebra_bitmap.launches, zebra_mask.zebra_mask.launches)
+    x = torch.rand(64, 64, device=cuda)
+    for bad, err in ((x.double(), TypeError), (x.t(), ValueError)):
+        with pytest.raises(err):
+            mask_pack.zebra_bitmap(bad, t_obj=0.5, bs=8, bc=8)
+        with pytest.raises(err):
+            zebra_mask.zebra_mask(bad, t_obj=0.5, bs=8, bc=8)
+    assert (mask_pack.zebra_bitmap.launches, zebra_mask.zebra_mask.launches) == before
+    zebra_mask.zebra_mask(x.half(), t_obj=0.5, bs=8, bc=8)
+    mask_pack.zebra_bitmap(x.half(), t_obj=0.5, bs=8, bc=8)
+    assert (mask_pack.zebra_bitmap.launches, zebra_mask.zebra_mask.launches) == \
+        (before[0] + 1, before[1] + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +219,9 @@ GEMM_CASES = {
     "4x128-bf16": (512, 1024, 256, 4, 128, _BF16, 0.5, "signed"),
     "8x24-bf16": (256, 480, 200, 8, 24, _BF16, 0.5, "signed"),
     "8x8-bf16": (256, 64, 136, 8, 8, _BF16, 0.5, "signed"),
+    "16x128-bf16": (512, 1024, 256, 16, 128, _BF16, 0.5, "signed"),
+    "16x128-f32": (256, 512, 128, 16, 128, _F32, 0.5, "signed"),
+    "24x64-bf16": (384, 512, 136, 24, 64, _BF16, 0.5, "one"),
 }
 
 
@@ -250,4 +319,8 @@ def test_gemm_wrappers_launch_count_and_never_fall_back(cuda, monkeypatch):
         (before[0] + 1, before[1] + 1)
     assert torch.equal(y6.view(torch.int32), y7.view(torch.int32))
     with pytest.raises(ValueError, match="bs"):            # refused, not run
-        zebra_spmm.spmm_cuda(x, w, bitmap, 16, bc)
+        zebra_spmm.spmm_cuda(x, w, bitmap, 12, bc)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        zebra_spmm.spmm_cuda(x.half(), w.half(), bitmap, bs, bc)
+    assert (zebra_spmm.zebra_spmm.launches, spmm_cs.zebra_spmm_cs.launches) == \
+        (before[0] + 1, before[1] + 1)

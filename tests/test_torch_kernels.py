@@ -80,6 +80,36 @@ def both(case):
             bs, bc, t_obj)
 
 
+@pytest.mark.parametrize("case", ["bench-f32", "nchw-b2", "nchw-b4", "nchw-b8",
+                                  "nan-live-inf-dead"])
+def test_float16_maps_bitwise_vs_reference(case):
+    """A float16 map through the comparator, the masking pass and the
+    producer + expander, against the JAX package on the same numpy input:
+    bitmap, masked map (NaN as NaN), payload, n_live and the expanded map
+    bit for bit."""
+    from repro.kernels.zebra_mask import zebra_mask as jax_mask
+    from repro_torch.kernels.mask_pack import zebra_bitmap
+    from repro_torch.kernels.zebra_mask import zebra_mask
+    x_np, _, bs, bc, t_obj = CASES[case]()
+    xt, xj = torch.from_numpy(x_np).half(), jnp.asarray(x_np, jnp.float16)
+    bitmap = zebra_bitmap(xt, t_obj=t_obj, bs=bs, bc=bc)
+    payload, bm, n_live = zebra_mask_pack(xt, t_obj=t_obj, bs=bs, bc=bc)
+    jp, jb, jn = jax_mask_pack(xj, t_obj=t_obj, bs=bs, bc=bc, interpret=True)
+    np.testing.assert_array_equal(bits(bitmap), bits(jb))
+    np.testing.assert_array_equal(bits(bm), bits(jb))
+    assert payload.dtype == torch.float16 and int(n_live) == int(jn)
+    np.testing.assert_array_equal(bits(payload), bits(jp))
+    np.testing.assert_array_equal(bits(zebra_unpack(payload, bitmap, bs=bs, bc=bc)),
+                                  bits(jax_unpack(jp, jb, bs=bs, bc=bc, interpret=True)))
+    y, bm2 = zebra_mask(xt, t_obj=t_obj, bs=bs, bc=bc)
+    jy, jb2 = jax_mask(xj, t_obj=t_obj, bs=bs, bc=bc, interpret=True)
+    np.testing.assert_array_equal(bits(bm2), bits(jb2))
+    nan = np.isnan(np.asarray(jy, np.float32))
+    assert np.array_equal(torch.isnan(y).numpy(), nan)
+    np.testing.assert_array_equal(bits(y)[~nan], bits(jy)[~nan])
+    assert 0 < int(n_live) < bitmap.numel()
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_mask_pack_and_unpack_bitwise_vs_reference(case):
     xt, xj, bs, bc, t_obj = both(case)
@@ -156,3 +186,15 @@ def test_pack_plain_ignores_dead_block_values():
     ref_payload, _ = jref.zebra_pack_ref(jref.zebra_mask_ref(xj, t_obj, bs, bc)[0],
                                          jnp.asarray(bitmap.numpy()), bs, bc)
     np.testing.assert_array_equal(bits(payload), bits(ref_payload))
+
+
+def test_stream_timing_refuses_to_time_without_a_card():
+    """The comparator/masking-kernel timing script imports on the CPU and
+    refuses to run there: it reports device times only."""
+    from repro_torch.kernels import stream_timing
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the script would time it")
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        stream_timing.main([])
+    assert sum(n for _, shapes, *_ in stream_timing.ROWS.values()
+               for *_, n in shapes) == 17 + 17 + 34 + 68

@@ -26,7 +26,7 @@ from repro_torch.kernels.mask_pack import zebra_mask_pack
 from repro_torch.kernels.schedule import slot_map
 from repro_torch.kernels.spmm_cs import spmm_cs_plain, zebra_spmm_cs
 from repro_torch.kernels.zebra_spmm import (MAX_BF16_NK, aligned16, check_cuda_gemm,
-                                            spmm_plain, zebra_spmm)
+                                            spmm_plain, split_rows, zebra_spmm)
 
 from _torch_parity import bits
 
@@ -185,14 +185,83 @@ def test_fused_degenerate_rows_take_the_masked_dense_matmul():
 
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_cuda_gemm_rules_take_every_bs_up_to_8(dt):
+    """Every bs up to 8, and multiples of 8 (run as (8, bc) sub-blocks);
+    any other bs is refused before a launch."""
     tdt = DTYPES[dt][0]
     bitmap = torch.ones(4, 2, dtype=torch.int8)
     w = torch.zeros(2 * 128, 16, dtype=tdt)
-    for bs in range(1, 9):
+    for bs in (*range(1, 9), 16, 24, 64):
         check_cuda_gemm(w, bitmap, bs, 128, "zebra_spmm")
-    for bs in (0, 9, 16):
-        with pytest.raises(ValueError, match="1 <= bs <= 8"):
+    for bs in (0, 9, 12, 20):
+        with pytest.raises(ValueError, match="1 <= bs <= 8 or bs a multiple of 8"):
             check_cuda_gemm(w, bitmap, bs, 128, "zebra_spmm")
+
+
+def test_cuda_gemm_rules_refuse_float16():
+    """float16 has no GEMM body (the stream kernels take it)."""
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        check_cuda_gemm(torch.zeros(256, 16, dtype=torch.float16),
+                        torch.ones(4, 2, dtype=torch.int8), 8, 128, "zebra_spmm")
+
+
+@pytest.mark.parametrize("bs,dt", [(16, "f32"), (16, "bf16"), (24, "f32")])
+def test_split_rows_runs_bs_8j_as_8_row_sub_blocks(bs, dt):
+    """The pieces ``split_rows`` derives for bs = 8j give, through the bs-8
+    plain version on the payload viewed as (j*nb, 8, bc), the bs GEMM bit
+    for bit, in both forms; the sub-block slots address the same memory."""
+    tdt = DTYPES[dt][0]
+    M, K, N, bc = 4 * bs, 512, 48, 128
+    x = torch.from_numpy(token_map(M, K, bs, bc, bs)).to(tdt)
+    w = torch.from_numpy(weight(K, N, 2)).to(tdt)
+    payload, bitmap, _ = zebra_mask_pack(x, t_obj=1.0, bs=bs, bc=bc)
+    keep, slot = slot_map(bitmap)
+    assert 0 < int(keep.sum()) < keep.numel()
+    bitmap8, slot8 = split_rows(bitmap, slot, bs)
+    keep8, _ = slot_map(bitmap8)
+    assert tuple(bitmap8.shape) == (M // 8, K // bc) and slot8.dtype == slot.dtype
+    payload8 = payload.reshape(-1, 8, bc)
+    want = spmm_cs_plain(payload, w, bitmap, keep, slot, bs, bc)
+    got = spmm_cs_plain(payload8, w, bitmap8, keep8, slot8, 8, bc)
+    assert torch.equal(bits_t(got), bits_t(want))
+    assert torch.equal(bits_t(spmm_plain(x, w, split_rows(bitmap, None, bs)[0], 8, bc)),
+                       bits_t(spmm_plain(x, w, bitmap, bs, bc)))
+    live = keep8 != 0                   # each live sub-block's slot holds its rows
+    xb = x.reshape(M // 8, 8, K // bc, bc).permute(0, 2, 1, 3).reshape(-1, 8, bc)
+    assert torch.equal(payload8[slot8[live].long()], xb[live])
+
+
+@pytest.mark.parametrize("x_dt", ["bf16", "f32"])
+def test_fused_site_promotes_a_weight_of_another_dtype(x_dt):
+    """A fused site whose weight has another dtype than the map: both
+    operands promote as ``jnp.dot`` promotes them (bf16 map, f32 weight:
+    f32 products of the unrounded weight), the output comes back in the
+    map's dtype, and the stream bytes are the map's; the dense reference
+    site returns the promoted product, as the reference's does."""
+    tdt, jdt = DTYPES[x_dt]
+    w_dt = "f32" if x_dt == "bf16" else "bf16"
+    h = np.random.default_rng(1).normal(size=(1, 16, 256)).astype(np.float32)
+    w = weight(256, 64, 2) * 16.0
+    wt, wj = torch.from_numpy(w).to(DTYPES[w_dt][0]), jnp.asarray(w, DTYPES[w_dt][1])
+    cfg = dict(mode="infer", t_obj=0.5)
+    y, aux = zebra_site(torch.from_numpy(h).to(tdt), ZebraConfig(backend="fused", **cfg),
+                        site="ffn_hidden", w=wt)
+    jy, jaux = jax_site(jnp.asarray(h, jdt), JZebraConfig(backend="fused", **cfg),
+                        site="ffn_hidden", w=wj)
+    assert y.dtype == tdt and str(jy.dtype) == str(jnp.dtype(jdt))
+    want_bytes = 8193 if x_dt == "bf16" else 16385     # 4 live 8x128 blocks + index
+    assert int(aux.measured_bytes) == int(jaux.measured_bytes) == want_bytes
+    assert np.array_equal(bits(aux.zero_frac), bits(jaux.zero_frac))
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(jy, np.float32), rtol=1e-2,
+                               atol=1e-2)
+    if x_dt == "bf16":                  # not the product of a bf16-rounded weight
+        rounded = torch.from_numpy(h).bfloat16().float() @ wt.bfloat16().float()
+        assert not torch.equal(y, rounded.bfloat16().reshape(y.shape))
+    yr, _ = zebra_site(torch.from_numpy(h).to(tdt), ZebraConfig(backend="reference", **cfg),
+                       site="ffn_hidden", w=wt)
+    jyr, _ = jax_site(jnp.asarray(h, jdt), JZebraConfig(backend="reference", **cfg),
+                      site="ffn_hidden", w=wj)
+    assert yr.dtype == torch.float32 and str(jyr.dtype) == "float32"
+    np.testing.assert_allclose(yr.numpy(), np.asarray(jyr), rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("bc", [4, 12, 20, 100, 130])
