@@ -40,7 +40,10 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
    CUDA events, beside the kernel's byte bound at the card's memory rate
    and, for the comparator and the masking kernel, beside ``torch.amax``
    of the same map over its blocks (a tuned library read of the same
-   bytes, as a yardstick: it does not compute either kernel's function);
+   bytes, as a yardstick: it does not compute either kernel's function),
+   and for the masking kernel, pack and the expander beside ``copy_`` of
+   the map into a map of its shape (a read and a write of the same order
+   of bytes, also only a yardstick);
 6. serves gemma3-4b at full width and depth (34 layers, random weights
    from seed 0) through ``repro_torch.launch.serve.main`` on the ``fused``
    backend: batch 2, prompt 2048 (the banded local and the chunked global
@@ -61,11 +64,17 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
    bfloat16, a 4x128 and an 8x24 block in bfloat16, and the skip rule for
    NaN/Inf in w in both) and timed on the path's maps beside their bound,
    their plain version and, for the GEMMs, ``torch.matmul`` of the
-   keep-gated dense map; the comparator and the masking kernel are timed
-   per prefill too, on the 34 ffn_hidden and the 68 kv_cache maps;
-7. prints one JSON line listing the kernels (the GEMM rows also carry ms
-   per launch, TFLOP/s of live work and the device body that ran), the
-   card line again, and ``{"ok": true, "device": ...}`` as the last line.
+   keep-gated dense map; the comparator, the masking kernel and pack are
+   held bit for bit against their plain versions and timed per prefill
+   too, on the 34 ffn_hidden and the 68 kv_cache maps, and the expander
+   per decode on the compressed KV leaves that decode expands (each leaf
+   must come back losslessly);
+7. prints one JSON line listing the kernels (the seven CUDA kernels, then
+   the four stream kernels' LM rows, named ``... (gemma3-4b prefill)`` or
+   ``... (gemma3-4b decode)``; the GEMM rows also carry ms per launch,
+   TFLOP/s of live work and the device body that ran, the stream rows
+   their ``amax_ms`` or ``copy_ms`` yardstick), the card line again, and
+   ``{"ok": true, "device": ...}`` as the last line.
 
 Any failed phase exits non-zero, and so does a host without CUDA or a
 directory without the port beside this script. Imports nothing of JAX.
@@ -100,12 +109,18 @@ LM_KERNELS = {
     "zebra_spmm_cs_kernel": "src/repro/kernels/spmm_cs.py:51",
 }
 STREAM_KERNELS = ("zebra_bitmap_kernel", "zebra_pack_kernel", "zebra_unpack_kernel")
-# kernels timed beside torch.amax of their map (the reducing ones)
+# kernels timed beside torch.amax of their map (the reducing ones), and
+# beside copy_ of their map into a map of its shape (the writing ones); both
+# are yardsticks of the same order of bytes, not library versions
 AMAX_YARDSTICK = ("zebra_bitmap_kernel", "zebra_mask_kernel")
-# the LM prefill's rows of the comparator and the masking kernel in the
-# kernels line: (kernel, the served maps it runs on)
+COPY_YARDSTICK = ("zebra_mask_kernel", "zebra_pack_kernel", "zebra_unpack_kernel")
+# the LM rows of the stream kernels in the kernels line: (kernel, the served
+# inputs it runs on: the prefill's ffn_hidden or kv_cache maps, or the
+# compressed KV leaves that decode expands)
 LM_STREAM_ROWS = {"zebra_bitmap_kernel (gemma3-4b prefill)": ("zebra_bitmap_kernel", "ffn"),
-                  "zebra_mask_kernel (gemma3-4b prefill)": ("zebra_mask_kernel", "kv")}
+                  "zebra_mask_kernel (gemma3-4b prefill)": ("zebra_mask_kernel", "kv"),
+                  "zebra_pack_kernel (gemma3-4b prefill)": ("zebra_pack_kernel", "ffn"),
+                  "zebra_unpack_kernel (gemma3-4b decode)": ("zebra_unpack_kernel", "leaves")}
 SOURCE = "src/repro_torch/kernels/csrc/zebra_stream.cu"
 GEMM_SOURCE = "src/repro_torch/kernels/csrc/zebra_gemm.cu"
 BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
@@ -290,23 +305,6 @@ def time_ms(fn, flush, iters: int = 10, warmup: int = 2) -> float:
     return total / iters
 
 
-def bound_bytes(name: str, M: int, K: int, bs: int, bc: int, item: int, n_live: int) -> int:
-    """Bytes the function must move on this input: each input read once,
-    each output written once. Only live blocks of x (pack) or of the
-    payload (unpack) need reading, and only their int32 slot entries; the
-    int8 bitmap is read whole."""
-    nb = (M // bs) * (K // bc)
-    blk = bs * bc * item
-    if name == "zebra_bitmap_kernel":
-        return M * K * item + nb
-    if name == "zebra_mask_kernel":                # map read, masked map + bitmap written
-        return 2 * M * K * item + nb
-    live_in = n_live * blk + nb + n_live * 4       # live blocks, bitmap, live slots
-    if name == "zebra_pack_kernel":
-        return live_in + 4 + nb * blk              # + n_live, whole payload written
-    return live_in + M * K * item                  # + dense map written
-
-
 # ---------------------------------------------------------------------------
 # The slice
 # ---------------------------------------------------------------------------
@@ -460,7 +458,9 @@ def profile_calls(fn, n: int, what: str, unit: str) -> float | None:
     print(f"  profile of {n} {what}: device busy {busy_ms / n:.3f} ms per {unit}, "
           f"{100 * busy_ms / wall_ms:.1f} % of the profiled wall time "
           f"({wall_ms / n:.3f} ms per {unit} under the profiler)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    # the top eight, and the port's own kernels wherever they rank
+    for e in ranked[:8] + [e for e in ranked[8:] if "zebra_" in e.key]:
         print(f"    {e.self_device_time_total / n / 1e3:8.3f} ms  {e.count // n:4d} calls  "
               f"{e.key[:100]}")
     return busy_ms / n
@@ -580,9 +580,10 @@ def time_kernels(groups, device) -> list[dict]:
     """``groups``: (kernel names, site maps, launches on the main path).
     Each kernel is held against its plain version on its maps and timed."""
     import torch
+    from repro_torch.kernels.stream_timing import bound_bytes
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)   # 256 MB
-    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
-            for k in KERNELS}
+    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+                **({"copy_ms": 0.0} if k in COPY_YARDSTICK else {})} for k in KERNELS}
     launches, by_shape = {}, {}
     for names, maps, group_launches in groups:
         launches.update({k: group_launches[k] for k in names})
@@ -593,6 +594,8 @@ def time_kernels(groups, device) -> list[dict]:
             calls, n_live = kernel_calls(x, T_OBJ, b, b, names)
             blocks = x.view(x.shape[0] // b, b, x.shape[1] // b, b)
             amax = time_ms(lambda: torch.amax(blocks, dim=(1, 3)), flush)
+            y = torch.empty_like(x)
+            copy = time_ms(lambda: y.copy_(x), flush)
             for name, (kern, plain) in calls.items():
                 ms, pms = time_ms(kern, flush), time_ms(plain, flush)
                 bound = bound_bytes(name, *x.shape, b, b, x.element_size(), n_live) \
@@ -602,20 +605,23 @@ def time_kernels(groups, device) -> list[dict]:
                 r["plain_ms"] += pms
                 r["bound_ms"] += bound
                 r["max_abs_err"] = max(r["max_abs_err"], errs[name])
-                by_shape.setdefault((name, tuple(x.shape)), []).append((ms, pms, bound, amax))
+                if "copy_ms" in r:
+                    r["copy_ms"] += copy
+                by_shape.setdefault((name, tuple(x.shape)), []).append(
+                    (ms, pms, bound, amax, copy))
     print("kernel times per site shape (mean over sites; CUDA events, L2 flushed; amax: "
-          "torch.amax of the map over its blocks, a yardstick read of the same bytes):")
+          "torch.amax of the map over its blocks, a yardstick read of the same bytes; "
+          "copy: copy_ of the map, a yardstick read and write of them):")
     for (name, shape), vals in sorted(by_shape.items()):
         n = len(vals)
-        ms, pms, bound, amax = (sum(v[i] for v in vals) / n for i in range(4))
+        ms, pms, bound, amax, copy = (sum(v[i] for v in vals) / n for i in range(5))
         yard = f"  amax {amax:.4f} ms" if name in AMAX_YARDSTICK else ""
+        yard += f"  copy {copy:.4f} ms" if name in COPY_YARDSTICK else ""
         print(f"  {name:22s} M,K={shape}: {ms:.4f} ms  plain {pms:.4f} ms  "
               f"bound {bound:.4f} ms{yard}  ({n} sites)")
     return [{"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
-             "launches": launches[name], "max_abs_err": rows[name]["max_abs_err"],
-             "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
-             "bound_ms": rows[name]["bound_ms"], "bound_by": "bytes", "library_ms": None}
-            for name in KERNELS]
+             "launches": launches[name], **rows[name], "bound_by": "bytes",
+             "library_ms": None} for name in KERNELS]
 
 # ---------------------------------------------------------------------------
 # The LM serving slice: gemma3-4b on the fused backend
@@ -998,7 +1004,7 @@ def run_lm(device) -> dict:
     # there) and its replay launches are reported beside, under their own name
     return {"maps": [(h, w) for h, w, *_ in rec.ffn], "kv": [x for x, *_ in rec.kv],
             "dense": dense, "comp": comp,
-            "launches": {k: final[k] for k in (*LM_KERNELS, *AMAX_YARDSTICK)},
+            "launches": {k: final[k] for k in (*LM_KERNELS, *KERNELS)},
             "replay_launches": {"zebra_spmm_kernel": replay["zebra_spmm_kernel"]}}
 
 
@@ -1011,6 +1017,7 @@ def time_lm_kernels(lm: dict, edge_errs: dict, device) -> list[dict]:
     import torch
     from repro_torch.compress import CompressedMap, nonzero_bitmap
     from repro_torch.kernels import mask_pack, spmm_cs, zebra_spmm
+    from repro_torch.kernels.stream_timing import bound_bytes
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)   # 256 MB
     rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
                 "max_abs_err": edge_errs[k], "bound_by": "bytes"} for k in LM_KERNELS}
@@ -1060,7 +1067,7 @@ def time_lm_kernels(lm: dict, edge_errs: dict, device) -> list[dict]:
             print(f"  {k}: bound terms over the prefill: bytes {b:.4f} ms, operations "
                   f"{f:.4f} ms")
     r = rows["zebra_pack"]
-    r["library_ms"] = None
+    r["library_ms"], r["copy_ms"] = None, 0.0
     for d, c in zip(lm["dense"], lm["comp"]):
         if not isinstance(c, CompressedMap):
             continue
@@ -1073,13 +1080,16 @@ def time_lm_kernels(lm: dict, edge_errs: dict, device) -> list[dict]:
                                                          c.bc, "zebra_pack"), flush)
         r["plain_ms"] += time_ms(lambda: mask_pack.pack_plain(x2, bitmap, slot, n_live_t,
                                                               c.bs, c.bc), flush)
+        y = torch.empty_like(x2)
+        r["copy_ms"] += time_ms(lambda: y.copy_(x2), flush)
         r["bound_ms"] += bound_bytes("zebra_pack_kernel", c.m, c.k, c.bs, c.bc,
                                      x2.element_size(), n_live) / HBM_BYTES_PER_S * 1e3
     print(f"LM kernel times (per prefill: {len(lm['maps'])} ffn_hidden maps; zebra_pack per "
           f"handoff; CUDA events, L2 flushed):")
     for k, r in rows.items():
+        copy = f"  copy {r['copy_ms']:.4f} ms" if "copy_ms" in r else ""
         print(f"  {k:22s} {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})  library {r['library_ms']}")
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})  library {r['library_ms']}{copy}")
     for k, n in lm["replay_launches"].items():
         rows[k]["replay_launches"] = n
     return [{"name": k, "route": "cuda",
@@ -1088,39 +1098,78 @@ def time_lm_kernels(lm: dict, edge_errs: dict, device) -> list[dict]:
             for k in LM_KERNELS] + time_lm_stream_kernels(lm, flush)
 
 
+def lm_row_inputs(lm: dict, name: str, src: str):
+    """Each input of an LM stream row: ``(map (M, K), bs, bc, (kernel call,
+    plain call), n_live)``. The prefill's ffn_hidden and kv_cache maps feed
+    the comparator, the masking kernel and pack as ``kernel_calls`` does;
+    the compressed KV leaves of the handoff feed the expander with their
+    own payload and bitmap, as decode's ``decompress`` does, and the map is
+    the dense leaf it must give back."""
+    from repro_torch.compress import CompressedMap
+    from repro_torch.compress.stream import unpack_bitmap
+    from repro_torch.kernels import pack
+    from repro_torch.kernels.schedule import slot_map
+    if src == "leaves":
+        for d, c in zip(lm["dense"], lm["comp"]):
+            if not isinstance(c, CompressedMap):
+                continue
+            nm, nk = c.m // c.bs, c.k // c.bc
+            bitmap = unpack_bitmap(c.index, nm, nk)
+            keep, slot = slot_map(bitmap)
+            yield (d.reshape(c.m, c.k), c.bs, c.bc,
+                   (lambda: pack.unpack_cuda(c.payload, bitmap, slot, c.bs, c.bc),
+                    lambda: pack.expand_payload(c.payload, keep, slot, nm, nk, c.bs, c.bc)),
+                   int(c.n_live))
+        return
+    for x in ([h for h, _ in lm["maps"]] if src == "ffn" else lm["kv"]):
+        x2 = x.reshape(-1, x.shape[-1])
+        bs = BS if x.shape[-2] % BS == 0 else 1
+        bc = BC if x2.shape[1] % BC == 0 else x2.shape[1]
+        calls, n_live = kernel_calls(x2, LM_T_OBJ, bs, bc, (name,))
+        yield x2, bs, bc, calls[name], n_live
+
+
 def time_lm_stream_kernels(lm: dict, flush) -> list[dict]:
-    """The comparator on the prefill's ffn_hidden maps and the masking
-    kernel on its kv_cache maps, each held against its plain version and
-    summed per prefill, beside the byte bound and torch.amax of each map."""
+    """The stream kernels on the served inputs (LM_STREAM_ROWS), each held
+    bit for bit against its plain version and summed per prefill or per
+    decode, beside the byte bound and torch.amax or copy_ of each map."""
     import torch
+    from repro_torch.kernels.stream_timing import bound_bytes
     out = []
     for row, (name, src) in LM_STREAM_ROWS.items():
-        maps = [h for h, _ in lm["maps"]] if src == "ffn" else lm["kv"]
-        r = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "amax_ms": 0.0, "max_abs_err": 0.0}
-        for x in maps:
-            x2 = x.reshape(-1, x.shape[-1])
-            bs = BS if x.shape[-2] % BS == 0 else 1
-            bc = BC if x2.shape[1] % BC == 0 else x2.shape[1]
-            errs = compare_kernels(x2, LM_T_OBJ, bs, bc, f"{row} map {tuple(x2.shape)}",
-                                   (name,))
-            (kern, plain), = kernel_calls(x2, LM_T_OBJ, bs, bc, (name,))[0].values()
-            blocks = x2.view(x2.shape[0] // bs, bs, x2.shape[1] // bc, bc)
+        r = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
+        yards = {k: 0.0 for k, names in (("amax_ms", AMAX_YARDSTICK),
+                                         ("copy_ms", COPY_YARDSTICK)) if name in names}
+        n = 0
+        for x2, bs, bc, (kern, plain), n_live in lm_row_inputs(lm, name, src):
+            label = f"{row} map {tuple(x2.shape)}"
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            check(same_bits(got, want), f"{label}: differs from its plain version (max abs "
+                                        f"err {max_abs_err(got, want)})")
+            check(src != "leaves" or same_bits(got, x2), f"{label}: leaf not expanded losslessly")
+            r["max_abs_err"] = max(r["max_abs_err"], max_abs_err(got, want))
+            del got, want
             r["ms"] += time_ms(kern, flush, iters=5, warmup=1)
             r["plain_ms"] += time_ms(plain, flush, iters=5, warmup=1)
-            r["amax_ms"] += time_ms(lambda: torch.amax(blocks, dim=(1, 3)), flush, iters=5,
-                                    warmup=1)
-            r["bound_ms"] += bound_bytes(name, *x2.shape, bs, bc, x2.element_size(), 0) \
+            if "amax_ms" in yards:
+                blocks = x2.view(x2.shape[0] // bs, bs, x2.shape[1] // bc, bc)
+                yards["amax_ms"] += time_ms(lambda: torch.amax(blocks, dim=(1, 3)), flush,
+                                            iters=5, warmup=1)
+            if "copy_ms" in yards:
+                y = torch.empty_like(x2)
+                yards["copy_ms"] += time_ms(lambda: y.copy_(x2), flush, iters=5, warmup=1)
+            r["bound_ms"] += bound_bytes(name, *x2.shape, bs, bc, x2.element_size(), n_live) \
                 / HBM_BYTES_PER_S * 1e3
-            r["max_abs_err"] = max(r["max_abs_err"], errs[name])
-        print(f"  {row}: {len(maps)} maps {tuple(x2.shape)}, bitwise == plain; "
-              f"{r['ms']:.4f} ms per prefill, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms, amax {r['amax_ms']:.4f} ms (CUDA events, L2 flushed)")
+            n += 1
+        print(f"  {row}: {n} maps {tuple(x2.shape)}, bitwise == plain; "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms"
+              + "".join(f", {k[:-3]} {v:.4f} ms" for k, v in yards.items())
+              + " (CUDA events, L2 flushed)")
         out.append({"name": row, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
-                    "launches": lm["launches"][name], "max_abs_err": r["max_abs_err"],
-                    "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": "bytes", "library_ms": None, "amax_ms": r["amax_ms"]})
+                    "launches": lm["launches"][name], **r, "bound_by": "bytes",
+                    "library_ms": None, **yards})
     return out
-
 
 
 def main() -> int:

@@ -22,8 +22,12 @@ pytestmark = pytest.mark.gpu
 # ending in "+offN" start N elements into their storage, "+row1" one row
 # into a map one row taller). "bf16-8x24" and "k36-bf16-8x12" give a block
 # 3 vectors wide (a group of 4 lanes, one idle), "f32-8x256" 64 (two passes
-# per lane), "bs16" more rows than a lane holds, "bf16-3x5" 2-byte vectors;
-# "grid-stride" has more blocks than the grid has lanes for
+# per lane), "bs16" more rows than a lane holds, "bf16-3x5" 2-byte vectors
+# (and a pack zero tail that starts mid-line); "grid-stride" has more blocks
+# than the grid has lanes for, and its "-few-live" and "-most-live" twins
+# leave about 1 % of the blocks live or dead ("few" and "most" kinds). Kinds
+# ending in "+payoffN" hand the expander a payload that starts N elements
+# into its storage (off 16 bytes); "ffn-hidden" is gemma3-4b's FFN map
 _F16 = torch.float16
 CASES = {
     "site-k64": (8192, 64, 8, 8, torch.float32, 1.5, "relu"),
@@ -54,6 +58,11 @@ CASES = {
     "bf16-3x5": (96, 25, 3, 5, torch.bfloat16, 1.0, "signed"),
     "grid-stride": (262144, 64, 8, 8, torch.float32, 1.5, "relu"),
     "kv-cache": (4096, 1280, 8, 128, torch.bfloat16, 1.05, "signed"),
+    "ffn-hidden": (4096, 10240, 8, 128, torch.bfloat16, 1.05, "signed"),
+    "grid-stride-few-live": (262144, 64, 8, 8, torch.float32, 1.5, "few"),
+    "grid-stride-most-live": (262144, 64, 8, 8, torch.float32, 1.5, "most"),
+    "payload-off-f32": (1024, 64, 8, 8, torch.float32, 1.5, "relu+payoff1"),
+    "payload-off-bf16": (256, 1024, 8, 128, torch.bfloat16, 0.5, "signed+payoff4"),
 }
 
 
@@ -69,8 +78,11 @@ def make_map(case, device):
     g = torch.Generator().manual_seed(sum(map(ord, case)))
     x = torch.randn(M, K, generator=g)
     scale = torch.rand(M // bs, 1, K // bc, 1, generator=g) * 3.0
-    x = (x.reshape(M // bs, bs, K // bc, bc) * scale).reshape(M, K)
     kind, _, place = kind.partition("+")
+    if kind in ("few", "most"):         # ~1 % of the blocks live, or dead
+        rare = torch.rand(scale.shape, generator=g) < 0.01
+        scale = torch.where(rare == (kind == "few"), 3.0, 0.01)
+    x = (x.reshape(M // bs, bs, K // bc, bc) * scale).reshape(M, K)
     if kind != "signed":
         x = x.clamp_min(0.0)
     if kind == "nan-inf":
@@ -83,8 +95,29 @@ def make_map(case, device):
         x = torch.cat([x.new_zeros(n), x.reshape(-1)])[n:].view(M, K)
     elif place == "row1":               # rows 1.. of a map one row taller
         x = torch.cat([x.new_zeros(1, K), x])[1:]
-    assert x.is_contiguous() and (not place or x.data_ptr() % 16)
+    assert x.is_contiguous() and (not place.startswith(("off", "row")) or x.data_ptr() % 16)
     return x, bs, bc, t_obj
+
+
+def place_payload(case, payload):
+    """The payload the expander gets: for a "+payoffN" kind a contiguous
+    view N elements into its storage, else the payload itself."""
+    place = CASES[case][-1].partition("+")[2]
+    if not place.startswith("payoff"):
+        return payload
+    n = int(place[6:])
+    payload = torch.cat([payload.new_zeros(n), payload.reshape(-1)])[n:].view(payload.shape)
+    assert payload.is_contiguous() and payload.data_ptr() % 16
+    return payload
+
+
+def dirty_allocator(t):
+    """Leaves a freed block of t's size full of 0xff bytes in the caching
+    allocator, so the next torch.empty of that size reads garbage unless
+    the kernel writes every byte."""
+    junk = torch.empty_like(t)
+    junk.view(-1).view(torch.uint8).fill_(0xff)
+    del junk
 
 
 def assert_bits(got, want):
@@ -118,11 +151,12 @@ def test_pack_kernel_matches_plain(case, cuda):
     bitmap = mask_pack.bitmap_plain(x, t_obj, bs, bc)
     keep, slot = slot_map(bitmap)
     n_live = keep.sum(dtype=torch.int32)
+    want = mask_pack.pack_plain(x, bitmap, slot, n_live, bs, bc)
     # the payload comes from torch.empty: the kernel must write every slot
+    dirty_allocator(want)
     got = mask_pack.pack_cuda(x, bitmap, slot, n_live, bs, bc)
     torch.cuda.synchronize()
-    np.testing.assert_array_equal(bits(got),
-                                  bits(mask_pack.pack_plain(x, bitmap, slot, n_live, bs, bc)))
+    np.testing.assert_array_equal(bits(got), bits(want))
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -131,7 +165,9 @@ def test_unpack_kernel_matches_plain(case, cuda):
     bitmap = mask_pack.bitmap_plain(x, t_obj, bs, bc)
     keep, slot = slot_map(bitmap)
     payload = mask_pack.pack_plain(x, bitmap, slot, keep.sum(dtype=torch.int32), bs, bc)
+    payload = place_payload(case, payload)
     nm, nk = bitmap.shape
+    dirty_allocator(x)          # the map comes from torch.empty: every byte written
     got = pack.unpack_cuda(payload, bitmap, slot, bs, bc)
     torch.cuda.synchronize()
     np.testing.assert_array_equal(

@@ -60,6 +60,17 @@ def nan_inf_map() -> np.ndarray:
     return x
 
 
+def block_map(M: int, K: int, bs: int, bc: int, seed: int, relu: bool) -> np.ndarray:
+    """An (M, K) map of (bs, bc) blocks, each scaled by U(0, 3) so that some
+    fall under T_obj; post-ReLU when ``relu``."""
+    rng = np.random.default_rng(seed)
+    scale = rng.uniform(0.0, 3.0, size=(M // bs, 1, K // bc, 1))
+    x = rng.normal(size=(M // bs, bs, K // bc, bc)) * scale
+    if relu:
+        x = np.maximum(x, 0.0)
+    return x.reshape(M, K).astype(np.float32)
+
+
 CASES = {
     "bench-f32": lambda: (bench_map(), "f32", 8, 128, 0.5),
     "bench-bf16": lambda: (bench_map(), "bf16", 8, 128, 0.5),
@@ -70,6 +81,14 @@ CASES = {
     "nchw-b8": lambda: (nchw_map(8, 8), "f32", 8, 8, 1.0),
     "nchw-b8-bf16": lambda: (nchw_map(8, 9), "bf16", 8, 8, 1.0),
     "nan-live-inf-dead": lambda: (nan_inf_map(), "f32", 4, 4, 0.5),
+    # the CUDA kernels' geometry branches (tests/test_torch_gpu_kernels.py
+    # holds each kernel to these plain versions): two 8-row register passes
+    # per lane, 32 vectors per block row, 96-byte map rows that split a
+    # block's rows among lanes, and one 32-byte block per map row
+    "bs16-bf16": lambda: (block_map(256, 1024, 16, 128, 16, False), "bf16", 16, 128, 4.0),
+    "8x256-bf16": lambda: (block_map(128, 2048, 8, 256, 17, False), "bf16", 8, 256, 4.0),
+    "k24-f32": lambda: (block_map(512, 24, 8, 8, 18, True), "f32", 8, 8, 3.0),
+    "k8-f32": lambda: (block_map(512, 8, 8, 8, 19, True), "f32", 8, 8, 3.0),
 }
 
 
@@ -197,4 +216,4 @@ def test_stream_timing_refuses_to_time_without_a_card():
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         stream_timing.main([])
     assert sum(n for _, shapes, *_ in stream_timing.ROWS.values()
-               for *_, n in shapes) == 17 + 17 + 34 + 68
+               for *_, n in shapes) == 17 + 17 + 34 + 68 + 17 + 17 + 34
