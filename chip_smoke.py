@@ -69,7 +69,26 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
    too, on the 34 ffn_hidden and the 68 kv_cache maps, and the expander
    per decode on the compressed KV leaves that decode expands (each leaf
    must come back losslessly);
-7. prints one JSON line listing the kernels (the seven CUDA kernels, then
+7. drives the validated stream (``compress.integrity``, ``ft``): ResNet-18
+   evaluate on ``stream`` with B's variables at ``structural`` and
+   ``checksum`` (4 x 128 images: the comparator, pack and the expander 17 x
+   4 times each, the masking kernel never; one batch's logits and every
+   site's bytes equal the ``off`` run's bit for bit); the 18 rows of
+   ``BENCH_faults.json`` this slice covers, rebuilt from the same numpy
+   maps (``validate.*``: 426016 stream bytes at zero_frac 0.5938;
+   ``detect.{stream,fused,serve}.*``: one fault injected, detected once,
+   recovered, the engine's recovery taking the masking kernel once); then
+   gemma3-4b as in 6 with ``--validate checksum`` and two faults armed (a
+   bitmap bit of the first ``kv_cache`` stream, a live value of the first
+   handoff leaf): prefill 34 GEMMs, 102 comparator and 102 pack launches,
+   67 expander launches and 1 masking launch (the recovered site), the
+   handoff one ``zebra_pack`` a leaf with one leaf recovered dense, decode
+   expanding the other 19, detected == injected == 2, every ``kv_cache``
+   map equal by value to the masking pass's, and 64 of 64 tokens equal to
+   the ``off`` run's. Every clean run must detect nothing. It prints the
+   host-clock ms of an evaluate forward and of a warm prefill at each
+   level (in turns, twice each), and the device busy share of each;
+8. prints one JSON line listing the kernels (the seven CUDA kernels, then
    the four stream kernels' LM rows, named ``... (gemma3-4b prefill)`` or
    ``... (gemma3-4b decode)``; the GEMM rows also carry ms per launch,
    TFLOP/s of live work and the device body that ran, the stream rows
@@ -771,7 +790,7 @@ class LMSiteRecorder:
     """Records the serving path's Zebra sites without launching anything:
     every ``ffn_hidden`` site that consumes ``w_down`` (a copy of its input
     map, the weight, its output and SiteAux), and every ``kv_cache``
-    site (a copy of its input map, its output and SiteAux)."""
+    site (copies of its input map and its output, and SiteAux)."""
 
     def __init__(self):
         self.ffn, self.ffn_decode, self.kv = [], [], []
@@ -793,8 +812,8 @@ class LMSiteRecorder:
 
         def engine_site(x, cfg, **kw):
             y, aux = self._inner(x, cfg, **kw)
-            if kw.get("site") == "kv_cache":
-                self.kv.append((x.clone(), y, aux))
+            if kw.get("site") == "kv_cache":     # y may become a cache decode updates
+                self.kv.append((x.clone(), y.clone(), aux))
             return y, aux
         ffn.zebra_site, engine.zebra_site = ffn_site, engine_site
         return self
@@ -1003,7 +1022,7 @@ def run_lm(device) -> dict:
     # launches from the served run alone; the dense twin is off the path (0
     # there) and its replay launches are reported beside, under their own name
     return {"maps": [(h, w) for h, w, *_ in rec.ffn], "kv": [x for x, *_ in rec.kv],
-            "dense": dense, "comp": comp,
+            "dense": dense, "comp": comp, "tokens": out["tokens"].cpu(),
             "launches": {k: final[k] for k in (*LM_KERNELS, *KERNELS)},
             "replay_launches": {"zebra_spmm_kernel": replay["zebra_spmm_kernel"]}}
 
@@ -1172,6 +1191,247 @@ def time_lm_stream_kernels(lm: dict, flush) -> list[dict]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The validated stream: integrity levels, fault injection and recovery
+# ---------------------------------------------------------------------------
+
+LEVELS = ("off", "structural", "checksum")
+# benchmarks/faults_bench.py's operating point and detection matrix
+F_M, F_K, F_N = 256, 1024, 512
+F_CASES = (("bitflip", "structural"), ("truncate", "structural"), ("nan", "structural"),
+           ("count", "structural"), ("value", "checksum"))
+FUSED_TOL = dict(rtol=1e-4, atol=1e-4)   # recovery's float32 matmul vs the payload GEMM
+
+
+def operating_x(seed: int):
+    """``faults_bench._operating_x``: an (M, K) float32 map whose blocks
+    survive T_obj 0.5 at about 64 % zero blocks (numpy, as the reference)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    keep = rng.random((F_M // BS, F_K // BC)) > 0.64
+    x = rng.uniform(0.6, 1.0, size=(F_M, F_K)).astype(np.float32)
+    return x * np.repeat(np.repeat(keep, BS, 0), BC, 1)
+
+
+def run_validated_slice(device, variables, batches=BATCHES, batch=BATCH, width_mult=1.0):
+    """ResNet-18 evaluate on ``stream`` with B's variables at structural and
+    checksum: the three stream kernels 17 x batches times each and the
+    masking kernel never; no failure; one batch's logits and every site's
+    bytes equal the ``off`` run's bit for bit. Returns the host-clock ms
+    per forward and the device busy ms per forward at each level."""
+    import torch
+    from repro_torch.compress import integrity
+    from repro_torch.core import ZebraConfig
+    from repro_torch.data import SYN_TINYIMAGENET, image_batch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.train import CNNTrainConfig, CNNTrainer
+
+    zcfg = ZebraConfig(mode="infer", backend="stream", block_hw=BLOCK, t_obj=T_OBJ,
+                       use_tnet=False)
+    images = torch.from_numpy(image_batch(SYN_TINYIMAGENET, batch, 10_000)[0]).to(device)
+    trainers, first = {}, {}
+    for level in LEVELS:
+        cfg = CNNTrainConfig(model="resnet18", width_mult=width_mult,
+                             dataset=SYN_TINYIMAGENET, zebra=zcfg.replace(validation=level),
+                             seed=0)
+        tr = trainers[level] = CNNTrainer(cfg, device=device)
+        n_sites = len(tr.model.map_specs(cfg.dataset.hw, cfg.zebra))
+        integrity.clear_failures()
+        if level != "off":
+            reset_launch_counts()
+            torch.cuda.synchronize()
+            out = tr.evaluate(variables, batches=batches, batch=batch)
+            torch.cuda.synchronize()
+            check_launches(launch_counts(), {k: n_sites * batches for k in STREAM_KERNELS},
+                           f"evaluate at {level}")
+            print(f"  evaluate at {level}: acc {out['acc']} zero_frac {out['zero_frac']} "
+                  f"bytes per batch {out['measured_bytes_per_batch']}")
+        with SiteRecorder() as rec:
+            logits, _ = tr.forward(variables, images)
+        check(integrity.failures() == [], f"{level}: clean run detected "
+                                          f"{integrity.failures()}")
+        first[level] = (logits, [int(a.measured_bytes) for *_, a in rec.records])
+    for level in LEVELS[1:]:
+        check(same_bits(first[level][0], first["off"][0]),
+              f"validated logits at {level} differ from off")
+        check(first[level][1] == first["off"][1], f"site bytes at {level} differ from off")
+    print(f"  logits and all {len(first['off'][1])} sites' bytes: structural == checksum "
+          f"== off (bitwise); failures() empty; masking kernel 0 launches")
+    ms, busy = {level: [] for level in LEVELS}, {}
+    for level in (*LEVELS, *reversed(LEVELS)):          # in turns, twice each
+        tr = trainers[level]
+        tr.forward(variables, images)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            tr.forward(variables, images)
+        torch.cuda.synchronize()
+        ms[level].append((time.perf_counter() - t0) / 5 * 1e3)
+    for level in LEVELS:
+        busy[level] = profile_calls(lambda: trainers[level].forward(variables, images), 3,
+                                    f"{level} forwards", "forward")
+    print("  evaluate forward of one batch of " + str(batch) + " (host clock, synchronised, "
+          "two turns): " + ", ".join(f"{lv} {ms[lv][0]:.3f} / {ms[lv][1]:.3f} ms"
+                                     for lv in LEVELS))
+    return {"ms": ms, "busy": busy}
+
+
+def run_detection(device) -> list[dict]:
+    """The ``BENCH_faults.json`` rows of this slice on the card: the three
+    ``validate.*`` levels (426016 stream bytes at zero_frac 0.5938 each) and
+    the 15 ``detect.{stream,fused,serve}.*`` cases, each one fault injected,
+    detected once and recovered (stream and serve bitwise, fused allclose),
+    the recovery taking the masking kernel exactly once."""
+    import numpy as np
+    import torch
+    from repro_torch.compress import compress_tree, decompress_tree, integrity
+    from repro_torch.core import ZebraConfig
+    from repro_torch.core.engine import zebra_site
+    from repro_torch.ft import Fault, inject
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch.serve import validate_state_ingest
+
+    rows = []
+    x0 = torch.from_numpy(operating_x(0)).to(device)
+    for level in LEVELS:
+        _, aux = zebra_site(x0, ZebraConfig(t_obj=0.5, mode="infer", backend="stream",
+                                            validation=level), site="bench")
+        zf, nbytes = round(float(aux.zero_frac), 4), int(aux.measured_bytes)
+        check((nbytes, zf) == (426016, 0.5938), f"validate.{level}: {nbytes} B at {zf}")
+        rows.append({"name": f"faults/validate.{level}", "stream_bytes": nbytes,
+                     "zero_frac": zf})
+    x1 = torch.from_numpy(operating_x(1)).to(device)
+    w = torch.from_numpy((np.random.default_rng(2).normal(size=(F_K, F_N)) / np.sqrt(F_K))
+                         .astype(np.float32)).to(device)
+    for backend in ("stream", "fused"):
+        ww = w if backend == "fused" else None
+        for kind, level in F_CASES:
+            cfg = ZebraConfig(t_obj=0.5, mode="infer", backend=backend, validation=level)
+            integrity.clear_failures()
+            reset_launch_counts()
+            clean, _ = zebra_site(x1, cfg, site="b", w=ww)
+            check(integrity.failures() == [] and launch_counts()["zebra_mask_kernel"] == 0,
+                  f"detect.{backend}.{kind}: the clean run recovered")
+            with inject(Fault(kind, site="engine:b", arg=3)) as plan:
+                y, _ = zebra_site(x1, cfg, site="b", w=ww)
+            torch.cuda.synchronize()
+            ok = (same_bits(y, clean) if backend == "stream"
+                  else bool(torch.allclose(y, clean, **FUSED_TOL)))
+            row = {"name": f"faults/detect.{backend}.{kind}", "level": level,
+                   "injected": len(plan.injected), "detected": len(integrity.failures()),
+                   "recovered": int(ok), "mask_launches": launch_counts()["zebra_mask_kernel"]}
+            check((row["injected"], row["detected"], ok, row["mask_launches"]) == (1, 1, True, 1),
+                  f"{row}")
+            rows.append(row)
+    rng = np.random.default_rng(4)
+    keep = rng.random((F_M // BS, F_K // BC)) > 0.64
+    dense = {"k": torch.from_numpy(rng.normal(size=(F_M, F_K)).astype(np.float32)
+                                   * np.repeat(np.repeat(keep, BS, 0), BC, 1)).to(device)}
+    for kind, level in F_CASES:
+        ctree = compress_tree(dense, bs=BS, bc=BC, checksum=(level == "checksum"))
+        with inject(Fault(kind, site="serve", arg=2)) as plan:
+            out, n_bad = validate_state_ingest(ctree, dense, level, log=lambda *_: None)
+        ok = same_bits(decompress_tree(out)["k"], dense["k"])
+        row = {"name": f"faults/detect.serve.{kind}", "level": level,
+               "injected": len(plan.injected), "detected": n_bad, "recovered": int(ok)}
+        check((row["injected"], n_bad, ok) == (1, 1, True), f"{row}")
+        rows.append(row)
+    integrity.clear_failures()
+    print(f"detection matrix on the card: {len(rows)} rows")
+    for r in rows:
+        print(f"  {json.dumps(r)}")
+    return rows
+
+
+def run_lm_validated(device, off_tokens) -> dict:
+    """gemma3-4b served at full width through ``serve.main --validate
+    checksum`` on fused, with a bitmap bit of the first ``kv_cache`` stream
+    and a live value of the first handoff leaf corrupted: launches per
+    phase, detected == injected == 2, every kv_cache map equal by value to
+    the masking pass's, the tokens equal to the ``off`` run's. Then the
+    warm prefill at off, structural and checksum, in turns, on the same
+    model, each run clean."""
+    import torch
+    from repro_torch.compress import integrity
+    from repro_torch.core.engine import stream_bytes
+    from repro_torch.core.zebra import zero_fraction
+    from repro_torch.ft import Fault, inject
+    from repro_torch.kernels import reset_launch_counts, zebra_mask
+    from repro_torch.launch import serve, steps
+
+    argv = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+            "--gen", str(LM_GEN), "--t-obj", str(LM_T_OBJ), "--backend", "fused",
+            "--validate", "checksum"]
+    print(f"LM serving, validated: python -m repro_torch.launch.serve {' '.join(argv)}, "
+          f"faults armed: bitflip at engine:kv_cache (bit 3), value at serve (slot 2)")
+    integrity.clear_failures()
+    reset_launch_counts()
+    with inject(Fault("bitflip", site="engine:kv_cache", arg=3),
+                Fault("value", site="serve", arg=2)) as plan, \
+            LMSiteRecorder() as rec, PhaseCounts(serve) as phases:
+        out = serve.main(argv)
+    torch.cuda.synchronize()
+    final = launch_counts()
+    n_layers, n_kv = len(rec.ffn), len(rec.kv)
+    leaves = [r for r in out["meter"].records if r.compressed]
+    detected = len(integrity.failures()) + out["ingest_recovered"]
+    print(f"  injected {plan.injected}; detected: engine {integrity.failures()}, handoff "
+          f"{out['ingest_recovered']} leaf recovered dense")
+    check(plan.injected == [("bitflip", "engine:kv_cache"), ("value", "serve")]
+          and integrity.failures() == ["engine:kv_cache"] and detected == 2,
+          "validated LM: detected != injected")
+    # 68 kv_cache sites: 67 expanded from their checked stream, 1 recovered
+    # by the masking kernel
+    check_launches(phases.at["prefill"], {"zebra_spmm_cs_kernel": n_layers,
+                                          "zebra_bitmap_kernel": n_layers + n_kv,
+                                          "zebra_pack_kernel": n_layers + n_kv,
+                                          "zebra_unpack_kernel": n_kv - 1,
+                                          "zebra_mask_kernel": 1}, "validated LM prefill")
+    check_launches(diff_counts(phases.at["handoff"], phases.at["prefill"]),
+                   {"zebra_pack": len(leaves), "zebra_unpack_kernel": 1},
+                   "validated LM handoff")
+    # the recovered leaf is handed over dense: decode expands the other 19
+    check_launches(diff_counts(final, phases.at["handoff"]),
+                   {"zebra_unpack_kernel": len(leaves) - 1}, "validated LM decode")
+    for i, (x, y, aux) in enumerate(rec.kv):
+        x2 = x.reshape(-1, x.shape[-1])
+        y_plain, bm = zebra_mask.mask_plain(x2, LM_T_OBJ, BS, BC)
+        check(bool((y.reshape(x2.shape) == y_plain).all()), f"kv site {i}: the validated "
+                                                            f"map != the masking pass's")
+        check(same_bits(aux.zero_frac, zero_fraction(bm))
+              and int(aux.measured_bytes) == int(stream_bytes(bm.sum(), BS, BC, x.dtype,
+                                                              bm.numel())),
+              f"kv site {i}: zero_frac or stream bytes")
+    tokens = out["tokens"].cpu()
+    agree = int((tokens == off_tokens).sum())
+    check(agree == tokens.numel(), f"validated tokens: {agree} of {tokens.numel()} equal "
+                                   f"to the off run's")
+    print(f"  kv_cache: {n_kv} maps equal by value to the masking pass's, stream bytes and "
+          f"zero fractions from their bitmaps; greedy tokens {agree} of {tokens.numel()} "
+          f"== the off fused run's")
+    model, prompts = out["model"], out["prompts"]
+    del out, rec
+    base = model.cfg
+    prefill_ms, busy = {level: [] for level in LEVELS}, {}
+    for level in (*LEVELS, *reversed(LEVELS)):          # in turns, twice each
+        model.cfg = base.replace(zebra_validation=level)
+        integrity.clear_failures()
+        again = serve.serve_one_shot(model, prompts, LM_GEN, log=lambda *_: None)
+        check(integrity.failures() == [] and again["ingest_recovered"] == 0,
+              f"clean run at {level} recovered something")
+        check(torch.equal(again["tokens"].cpu(), off_tokens), f"tokens at {level}")
+        prefill_ms[level].append(again["prefill_ms"])
+        del again
+    for level in LEVELS:
+        model.cfg = base.replace(zebra_validation=level)
+        busy[level] = profile_calls(lambda: steps.prefill(model, prompts), 2,
+                                    f"{level} prefills", "prefill")
+    model.cfg = base
+    print("  warm prefill (host clock, synchronised, two turns): " + ", ".join(
+        f"{lv} {prefill_ms[lv][0]:.3f} / {prefill_ms[lv][1]:.3f} ms" for lv in LEVELS))
+    return {"prefill_ms": prefill_ms, "busy": busy}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; run it from "
@@ -1212,16 +1472,23 @@ def main() -> int:
             [(STREAM_KERNELS, maps, launches),
              (("zebra_mask_kernel",), mask_maps, train_launches)],
             device)
-        del trained, mask_maps, maps
+        del mask_maps, maps
         torch.cuda.empty_cache()
         t2 = time.perf_counter()
         with torch.inference_mode():
             lm = run_lm(device)
             kernels += time_lm_kernels(lm, lm_errs, device)
+        off_tokens = lm["tokens"]
         del lm
+        torch.cuda.empty_cache()
         t3 = time.perf_counter()
+        with torch.inference_mode():
+            run_validated_slice(device, trained)
+            run_detection(device)
+            run_lm_validated(device, off_tokens)
+        t4 = time.perf_counter()
         print(f"phase times: edge cases {t1 - t0:.1f} s, CNN {t2 - t1:.1f} s, "
-              f"LM {t3 - t2:.1f} s")
+              f"LM {t3 - t2:.1f} s, validated {t4 - t3:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
         print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Compressed activation transport (``repro.compress``): the (bitmap,
-payload) stream codec over Zebra-masked maps, and the measured-bytes
-meter that reconciles it against Eq. 2/3. The integrity levels
-(``compress/integrity.py``) wait (ROADMAP.md, module queue)."""
+payload) stream codec over Zebra-masked maps, the measured-bytes meter
+that reconciles it against Eq. 2/3, and the stream-integrity
+contract (``integrity``: the validation levels, the checksum and the
+checks)."""
 from .stream import (  # noqa: F401
     CompressedMap,
     compress,

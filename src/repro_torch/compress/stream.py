@@ -8,7 +8,9 @@ expands through ``kernels.pack.zebra_unpack``, so on the card both run
 the CUDA kernels. Measured byte counts (``payload_bytes`` /
 ``index_bytes``) are observed stream lengths, which
 ``meter.BandwidthMeter`` reconciles against ``core.bandwidth.stored_bits``.
-The in-band checksum word waits for the integrity item (ROADMAP.md).
+``compress(..., checksum=True)`` seals a map with its in-band integrity
+word (``integrity.stream_checksum``), which an ingest boundary recomputes
+and compares (``integrity.validate_map``).
 """
 from __future__ import annotations
 
@@ -21,9 +23,6 @@ import torch
 from ..core.bandwidth import TokenMapSpec
 from ..kernels.pack import zebra_pack, zebra_unpack
 from ..utils import cdiv, map_tree
-
-CHECKSUM_NOT_PORTED = ("stream checksums are not yet ported to repro_torch "
-                       "(ROADMAP.md, module queue: integrity/validation)")
 
 
 # ---------------------------------------------------------------------------
@@ -55,7 +54,11 @@ def unpack_bitmap(packed: torch.Tensor, nm: int, nk: int) -> torch.Tensor:
 @dataclasses.dataclass
 class CompressedMap:
     """One compressed activation map: worst-case payload buffer (live blocks
-    first, zero tail), packed index, and the measured live count."""
+    first, zero tail), packed index, and the measured live count.
+
+    ``checksum`` is the optional in-band integrity word
+    (``integrity.stream_checksum``: a () int64 tensor holding the uint32
+    fold), or None for the unchecksummed wire format."""
     payload: torch.Tensor       # (n_blocks, bs, bc), activation dtype
     index: torch.Tensor         # (ceil(n_blocks/8),) uint8
     n_live: torch.Tensor        # () int32
@@ -64,6 +67,7 @@ class CompressedMap:
     k: int                      # flattened cols
     bs: int
     bc: int
+    checksum: torch.Tensor | None = None   # () int64 in [0, 2**32), or None
 
     # --- measured stream accounting (host side: reads n_live back) ---
     @property
@@ -111,17 +115,20 @@ def nonzero_bitmap(x: torch.Tensor, bs: int, bc: int) -> torch.Tensor:
 def compress(x: torch.Tensor, bitmap: torch.Tensor | None = None, *, bs: int = 8,
              bc: int = 128, checksum: bool = False) -> CompressedMap:
     """(..., K) map -> CompressedMap. Leading dims flatten onto M. With no
-    bitmap the nonzero-block bitmap is used (always lossless)."""
-    if checksum:
-        raise NotImplementedError(CHECKSUM_NOT_PORTED)
+    bitmap the nonzero-block bitmap is used (always lossless).
+    ``checksum=True`` seals the map with its integrity word."""
     shape = tuple(x.shape)
     x2 = x.reshape(-1, shape[-1])
     M, K = x2.shape
     if bitmap is None:
         bitmap = nonzero_bitmap(x2, bs, bc)
     payload, n_live = zebra_pack(x2, bitmap, bs=bs, bc=bc)
-    return CompressedMap(payload=payload, index=pack_bitmap(bitmap), n_live=n_live,
-                         shape=shape, m=M, k=K, bs=bs, bc=bc)
+    cm = CompressedMap(payload=payload, index=pack_bitmap(bitmap), n_live=n_live,
+                       shape=shape, m=M, k=K, bs=bs, bc=bc)
+    if checksum:
+        from .integrity import attach_checksum
+        cm = attach_checksum(cm)
+    return cm
 
 
 def decompress(cm: CompressedMap) -> torch.Tensor:
@@ -152,9 +159,8 @@ def compress_tree(tree: Any, *, bs: int = 8, bc: int = 128, meter=None,
     """Compress every compatible floating leaf of a tree (lossless,
     nonzero-block bitmap); incompatible leaves pass through dense. Each leaf
     is recorded on ``meter`` under ``"<site>/<path>"``, so the index bytes
-    are counted per leaf, as the reference counts them."""
-    if checksum:
-        raise NotImplementedError(CHECKSUM_NOT_PORTED)
+    are counted per leaf, as the reference counts them. ``checksum=True``
+    seals every compressed leaf."""
 
     def one(path, leaf):
         name = "/".join([site, *map(str, path)])
@@ -163,7 +169,8 @@ def compress_tree(tree: Any, *, bs: int = 8, bc: int = 128, meter=None,
             if meter is not None:
                 meter.record_dense(name, leaf.numel() * leaf.element_size())
             return leaf
-        cm = dataclasses.replace(compress(leaf.reshape(dims), bs=bs, bc=bc),
+        cm = dataclasses.replace(compress(leaf.reshape(dims), bs=bs, bc=bc,
+                                          checksum=checksum),
                                  shape=tuple(leaf.shape))
         if meter is not None:
             meter.record(name, cm)

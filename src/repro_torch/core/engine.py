@@ -18,6 +18,11 @@ from ``ZebraConfig.backend`` (per-site overrides via ``site_backends``):
                is never expanded; the site returns ``mask(x) @ w``. With
                no ``w`` it is the ``pallas`` masking pass.
 
+With ``ZebraConfig.validation`` other than ``off``, an infer-mode
+``stream`` or ``fused`` site (with or without ``w``) checks the stream
+between producer and consumer (``compress.integrity``) and recovers a
+failed one from the dense map in hand (``_validated_stream_impl``).
+
 The masked map is bitwise equal on reference, pallas and stream. Train
 mode runs on every backend but ``fused`` (not trainable: it degrades to
 reference): a pallas or stream site trains through
@@ -39,9 +44,14 @@ from typing import Any
 
 import torch
 
+from ..compress import integrity
+from ..ft.inject import stream_tap
 from ..kernels.grad import KernelStatics, launch_forward, zebra_kernel_trainable
 from ..kernels.mask_pack import mask_pack_with_slots
+from ..kernels.pack import unpack_with_slots
+from ..kernels.schedule import slot_map
 from ..kernels.spmm_cs import spmm_cs_with_slots
+from ..kernels.zebra_mask import zebra_mask
 from .backends import BackendSpec, backend_spec
 from .zebra import (ZebraConfig, effective_tnet, require_tnet, zebra_cnn,
                     zebra_tokens, zero_fraction)
@@ -189,21 +199,83 @@ def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.to(dt) @ w.to(dt)
 
 
+def _consume_fused(payload: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor,
+                   keep: torch.Tensor, slot: torch.Tensor, bs: int, bc: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The payload GEMM of a stream: each live block read from its
+    consumer-order slot, dead ones skipped. Operands promote as
+    ``jnp.dot`` promotes them (bf16 map, f32 w: products in f32); the
+    product comes back in the map's ``dtype``."""
+    dt = torch.promote_types(dtype, w.dtype)
+    out = spmm_cs_with_slots(payload.to(dt), w.to(dt), bitmap, keep, slot, bs=bs, bc=bc)
+    return out.to(dtype)
+
+
 def _run_fused(x2: torch.Tensor, w: torch.Tensor, bs: int, bc: int,
                cfg: ZebraConfig) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """mask_pack -> payload GEMM: the consumer reads each live block from
-    its consumer-order payload slot (the producer's slot map, reused) and
-    skips dead ones; the dense masked map is never expanded. A weight of
-    another dtype promotes both operands. Returns
-    ``(mask(x2) @ w in x2's dtype, bitmap, stream bytes)``."""
+    """mask_pack -> payload GEMM, reusing the producer's slot map; the
+    dense masked map is never expanded. Returns ``(mask(x2) @ w in x2's
+    dtype, bitmap, stream bytes)``; the stream bytes are the map's."""
     payload, bitmap, n_live, keep, slot = mask_pack_with_slots(
         x2, t_obj=cfg.t_obj, bs=bs, bc=bc)
-    # operands promoted as jnp.dot promotes them (bf16 map, f32 w: products
-    # in f32); the stream bytes stay the map's
-    dt = torch.promote_types(x2.dtype, w.dtype)
-    out = spmm_cs_with_slots(payload.to(dt), w.to(dt), bitmap, keep, slot, bs=bs, bc=bc)
-    measured = stream_bytes(n_live, bs, bc, x2.dtype, bitmap.numel())
-    return out.to(x2.dtype), bitmap, measured
+    out = _consume_fused(payload, w, bitmap, keep, slot, bs, bc, x2.dtype)
+    return out, bitmap, stream_bytes(n_live, bs, bc, x2.dtype, bitmap.numel())
+
+
+# ---------------------------------------------------------------------------
+# Validated ingest (cfg.validation != "off"): the wire contract checked at
+# the producer -> consumer boundary, with recompute-from-dense recovery
+# ---------------------------------------------------------------------------
+
+_VALIDATED_BACKENDS = ("stream", "fused")
+
+
+def _validated_stream_impl(x2: torch.Tensor, bs: int, bc: int, cfg: ZebraConfig,
+                           w: torch.Tensor | None = None, *, site: str = ""):
+    """The stream/fused pipeline with ``compress.integrity``'s contract
+    checked between producer and consumer: comparator + pack -> (chaos
+    tap) -> ``check_stream`` -> the expander (``w`` None) or the payload
+    GEMM. A failed check takes the ``ft.faults`` policy
+    "recompute-dense": the masking kernel on ``x2``, the dense source
+    still in hand (then, with ``w``, a float32 matmul by ``w``, cast
+    back), and ``integrity.note_failure``. The checksum level seals the
+    stream before the tap, so corruption in flight breaks the fold.
+
+    Returns ``(y2, bitmap of the branch taken, stream bytes, n_cols)``.
+
+    The branch is chosen on the host: reading the verdict costs one
+    device sync per site, where the reference's ``lax.cond`` has none.
+    Computing both branches and blending them with ``torch.where`` would
+    run the recovery (a masking pass, and with ``w`` a dense matmul) at
+    every site of every call."""
+    level = cfg.validation
+    tag = f"engine:{site or 'map'}"
+    payload, bitmap, n_live, keep, slot = mask_pack_with_slots(
+        x2, t_obj=cfg.t_obj, bs=bs, bc=bc)
+    csum = (integrity.stream_checksum(payload, bitmap, n_live)
+            if level == "checksum" else None)
+    produced = bitmap
+    payload, bitmap, n_live = stream_tap(payload, bitmap, n_live, site=tag)
+    ok = integrity.check_stream(payload, bitmap, n_live, level=level, checksum=csum,
+                                live_nonzero=cfg.t_obj > 0)
+    if bool(ok):
+        if bitmap is not produced:      # a tapped bitmap has slots of its own
+            keep, slot = slot_map(bitmap)
+        if w is None:
+            y2 = unpack_with_slots(payload, bitmap, keep, slot, bs=bs, bc=bc)
+        else:
+            y2 = _consume_fused(payload, w, bitmap, keep, slot, bs, bc, x2.dtype)
+    else:
+        integrity.note_failure(tag)
+        y2, bitmap = zebra_mask(x2, t_obj=cfg.t_obj, bs=bs, bc=bc)
+        if w is not None:
+            # a plain float32 product outside any kernel, as the reference
+            # computes it (TF32 is off: torch's default, and set so by the
+            # entry points on the card)
+            y2 = (y2.float() @ w.float()).to(x2.dtype)
+    measured = stream_bytes(bitmap.to(torch.int64).sum(), bs, bc, x2.dtype,
+                            bitmap.numel())
+    return y2, bitmap, measured, (None if w is None else w.shape[-1])
 
 
 # ---------------------------------------------------------------------------
@@ -322,6 +394,15 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
 
     x2 = x.contiguous().reshape(dims)
     no_bytes = torch.zeros((), dtype=torch.int64, device=x.device)
+    if (cfg.mode != "train" and cfg.validation != "off"
+            and backend in _VALIDATED_BACKENDS):
+        y2, bitmap, measured, n_cols = _validated_stream_impl(
+            x2, bs, bc, cfg, w if backend == "fused" else None, site=site)
+        y = (y2.reshape(x.shape) if n_cols is None
+             else y2.reshape(*x.shape[:-1], n_cols))
+        return y, SiteAux(reg=torch.zeros((), dtype=torch.float32, device=x.device),
+                          zero_frac=zero_fraction(bitmap), measured_bytes=measured,
+                          n_blocks=nb_sample, thresholds=None, backend=label)
     if backend == "fused":
         # infer only (fused is not trainable). With w: the payload GEMM;
         # without: the pallas masking pass, which moves no stream bytes

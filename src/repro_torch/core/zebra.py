@@ -37,11 +37,6 @@ from ..kernels.ref import threshold_as
 
 Aux = dict[str, Any]
 
-# Stream-integrity levels of ``repro.compress.integrity``. Only "off" runs
-# in the port until the stream codec (compress/) is ported.
-VALIDATION_LEVELS = ("off", "structural", "checksum")
-PORTED_VALIDATION_LEVELS = ("off",)
-
 @dataclasses.dataclass(frozen=True)
 class ZebraConfig:
     """Every field of ``repro.core.zebra.ZebraConfig`` that defines
@@ -62,22 +57,17 @@ class ZebraConfig:
     act_bits: int = 16           # B in Eq. 2
     backend: str = "reference"   # reference | pallas | stream | fused
     site_backends: tuple[tuple[str, str], ...] = ()  # per-site overrides
-    validation: str = "off"      # stream-integrity level ("off" only, so far)
+    validation: str = "off"      # stream integrity: off | structural | checksum
 
     def __post_init__(self):
+        from ..compress.integrity import validate_level
         from .backends import validate_backend
         if self.backend:
             validate_backend(self.backend)
         for _, name in self.site_backends:
             if name:
                 validate_backend(name)
-        if self.validation not in VALIDATION_LEVELS:
-            raise ValueError(f"unknown validation level {self.validation!r}; "
-                             f"expected one of {VALIDATION_LEVELS}")
-        if self.validation not in PORTED_VALIDATION_LEVELS:
-            raise NotImplementedError(
-                f"validation={self.validation!r} is not yet ported to "
-                f"repro_torch (ROADMAP.md, module queue: compress/ codec)")
+        validate_level(self.validation)
 
     def replace(self, **kw) -> "ZebraConfig":
         return dataclasses.replace(self, **kw)

@@ -1,0 +1,190 @@
+"""Deterministic fault injection (``repro.ft.inject``): the chaos harness
+behind the integrity claims.
+
+Faults are declared as data (:class:`Fault`), armed with :func:`inject`,
+and fire at taps on the stream paths:
+
+* :func:`stream_tap` sits where the engine has the raw ``(payload, bitmap,
+  n_live)`` triple in hand (between the producer and the check) and
+  corrupts it on the stream's device;
+* :func:`corrupt_map` corrupts a ``CompressedMap`` (serve's prefill ->
+  decode handoff).
+
+A fault names its target position (``arg``) outright, so a run injects
+the same corruption every time. PyTorch runs eagerly, so a tap consults
+the armed plan at every call; with no plan armed it returns its inputs
+and launches nothing.
+
+Fault kinds over one stream (all detected by ``compress.integrity``):
+
+=============  ==========================================================
+``bitflip``    flip bitmap bit ``arg`` (popcount no longer matches
+               ``n_live``, and the consumer slot map would shift)
+``truncate``   zero the last live payload slot (a cut-short transfer)
+``nan``        poison element (0, 0) of live slot ``arg`` with NaN
+``value``      add 1.0 to element (0, 0) of live slot ``arg``: still
+               finite and nonzero, so only the checksum level sees it
+``count``      ``n_live += 1`` (a corrupt counter; popcount mismatch)
+=============  ==========================================================
+"""
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+from typing import Any, Iterator
+
+import torch
+
+STREAM_KINDS = ("bitflip", "truncate", "nan", "value", "count")
+
+
+@dataclasses.dataclass
+class Fault:
+    """One declared fault. ``site`` matches the tap's site label (``"*"``
+    = any tap); ``arg`` picks the position (bit index, live slot);
+    ``times`` is how many taps it fires at (-1 = every matching tap)."""
+    kind: str
+    site: str = "*"
+    arg: int = 0
+    times: int = 1
+
+
+class FaultPlan:
+    """The armed set of faults plus the record of what actually fired.
+    ``injected`` is the ground truth a chaos run compares against
+    ``integrity.failures()``: detection must be 1:1 with injection."""
+
+    def __init__(self, faults: list[Fault]):
+        self.faults = list(faults)
+        self._remaining = [f.times for f in self.faults]
+        self.injected: list[tuple[str, str]] = []
+
+    def take(self, kinds: tuple[str, ...], site: str,
+             arg: int | None = None) -> Fault | None:
+        """Consume the first live fault matching this tap, or None.
+        ``arg`` additionally requires an exact ``f.arg`` match."""
+        for i, f in enumerate(self.faults):
+            if f.kind not in kinds or self._remaining[i] == 0:
+                continue
+            if f.site != "*" and f.site != site:
+                continue
+            if arg is not None and f.arg != arg:
+                continue
+            if self._remaining[i] > 0:
+                self._remaining[i] -= 1
+            return f
+        return None
+
+    def note(self, kind: str, site: str) -> None:
+        self.injected.append((kind, site))
+
+
+_ACTIVE: contextvars.ContextVar[FaultPlan | None] = \
+    contextvars.ContextVar("repro_torch_fault_plan", default=None)
+
+
+def active_plan() -> FaultPlan | None:
+    return _ACTIVE.get()
+
+
+@contextlib.contextmanager
+def inject(*faults: Fault) -> Iterator[FaultPlan]:
+    """Arm a fault plan for the dynamic extent of the block."""
+    plan = FaultPlan(list(faults))
+    tok = _ACTIVE.set(plan)
+    try:
+        yield plan
+    finally:
+        _ACTIVE.reset(tok)
+
+
+# ---------------------------------------------------------------------------
+# Corruption of an in-flight stream (on its device, no host read)
+# ---------------------------------------------------------------------------
+
+def _corrupt_stream(payload: torch.Tensor, bitmap: torch.Tensor,
+                    n_live: torch.Tensor, kind: str, arg: int):
+    """Apply one fault kind to a (payload, bitmap, n_live) triple, into
+    new tensors. Every corruption is guarded to bite: a NaN written into a
+    dead slot would be invisible, and would falsely fail the
+    detected-iff-injected assertion."""
+    nb = payload.shape[0]
+    nl = n_live.to(torch.int32)
+    if kind == "bitflip":
+        flat = bitmap.reshape(-1).clone()
+        pos = int(arg) % flat.numel()
+        flat[pos] = 1 - flat[pos]
+        return payload, flat.reshape(bitmap.shape), n_live
+    if kind == "count":
+        return payload, bitmap, nl + 1
+    if kind == "truncate":
+        last = torch.clamp(nl - 1, min=0)
+        hit = torch.arange(nb, dtype=torch.int32, device=payload.device)[:, None, None] == last
+        return torch.where(hit & (nl > 0), torch.zeros_like(payload), payload), bitmap, n_live
+    if kind in ("nan", "value"):
+        # a one-element index: the read and the write stay on the device
+        slot = torch.where(nl > 0, torch.clamp(nl - 1, max=int(arg)),
+                           torch.zeros_like(nl)).to(torch.int64).reshape(1)
+        old = payload[slot, 0, 0]
+        bad = (torch.full_like(old, float("nan")) if kind == "nan"
+               else old + torch.ones_like(old))
+        out = payload.clone()
+        out[slot, 0, 0] = torch.where(nl > 0, bad, old)
+        return out, bitmap, n_live
+    raise ValueError(f"unknown stream fault kind {kind!r}")
+
+
+def stream_tap(payload: torch.Tensor, bitmap: torch.Tensor, n_live: torch.Tensor,
+               *, site: str):
+    """Corruption point for one in-flight stream: returns its inputs
+    unless a matching fault is armed."""
+    plan = active_plan()
+    if plan is None:
+        return payload, bitmap, n_live
+    applied: set[int] = set()
+    while True:
+        f = plan.take(STREAM_KINDS, site)
+        # each armed fault fires at most once per tap call: a times=-1
+        # fault is returned by take() forever
+        if f is None or id(f) in applied:
+            return payload, bitmap, n_live
+        applied.add(id(f))
+        payload, bitmap, n_live = _corrupt_stream(payload, bitmap, n_live, f.kind, f.arg)
+        plan.note(f.kind, site)
+
+
+# ---------------------------------------------------------------------------
+# Corruption of a CompressedMap (the serve handoff)
+# ---------------------------------------------------------------------------
+
+def corrupt_map(cm: Any, kind: str, *, arg: int = 0) -> Any:
+    """A corrupted copy of a ``CompressedMap``, cloned on the map's
+    device. Same kinds and positions as :func:`stream_tap`; the checksum
+    is carried over unchanged (corrupting the stream must break the
+    match, not re-sign it). ``value`` adds 1.0 in float32 and rounds to
+    the payload's dtype, as the reference does on the host."""
+    from ..compress.stream import pack_bitmap, unpack_bitmap
+    n_live = int(cm.n_live)
+    if kind == "bitflip":
+        bitmap = unpack_bitmap(cm.index, cm.m // cm.bs, cm.k // cm.bc)
+        flat = bitmap.reshape(-1)
+        pos = int(arg) % flat.numel()
+        flat[pos] = 1 - flat[pos]
+        return dataclasses.replace(cm, index=pack_bitmap(bitmap))
+    if kind == "count":
+        return dataclasses.replace(cm, n_live=torch.tensor(
+            n_live + 1, dtype=torch.int32, device=cm.n_live.device))
+    payload = cm.payload.clone()
+    if kind == "truncate":
+        if n_live > 0:
+            payload[n_live - 1] = 0
+        return dataclasses.replace(cm, payload=payload)
+    if kind in ("nan", "value"):
+        if n_live > 0:
+            slot = min(int(arg), n_live - 1)
+            val = (float("nan") if kind == "nan"
+                   else payload[slot, 0, 0].float() + 1.0)
+            payload[slot, 0, 0] = val
+        return dataclasses.replace(cm, payload=payload)
+    raise ValueError(f"unknown map fault kind {kind!r}")

@@ -9,7 +9,7 @@
 // dense kernel reads block (i, kc) from the row-major (M, K) map x; the
 // payload kernel reads it from its consumer-order slot payload[slot[i*nk+kc]]
 // of the (nb, bs, bc) stream. For each dtype the two kernels run one device
-// body, templated on that block accessor (and, for bf16, on how the w panel
+// body, templated on that block accessor (and, for the 16-bit types, on how the w panel
 // is staged, which changes no value), so they are equal bit for bit (the
 // counterpart of the Pallas `gemm_supertile_body`). Each is held against
 // its plain PyTorch version (kernels/zebra_spmm.py, kernels/spmm_cs.py) to a
@@ -18,8 +18,9 @@
 //
 // The dtype picks the body at launch, the same for both kernels:
 //
-// * bfloat16 (the served path): `mma_block_rows`, on the tensor cores with
-//   mma.sync m16n8k16 bf16 x bf16 -> fp32. The product is taken as
+// * bfloat16 (the served path) and float16: `mma_block_rows<T>`, on the
+//   tensor cores with mma.sync m16n8k16 T x T -> fp32 (one instantiation
+//   per 16-bit type; they differ only in the MMA's operand type). The product is taken as
 //   y^T = w^T x^T ("swap A/B"): A is a 16(n) x 16(k) tile of w^T, read with
 //   ldmatrix.x4.trans from the row-major w panel in shared memory; B is the
 //   8 rows of ONE block row over 16 k, which in the MMA's "col" layout is
@@ -47,7 +48,7 @@
 //   upper 8 k zero in both operands; a stage shorter than kStageK (bc % 64
 //   != 0) tests each row at each step instead of dispatching. bc must be a
 //   multiple of 8 (16-byte rows for cp.async); the wrapper raises
-//   otherwise, and no bf16 caller has such a block. When N % 8 != 0 the w
+//   otherwise, and no 16-bit caller has such a block. When N % 8 != 0 the w
 //   rows are not 16-byte aligned and the panel is staged by element loads
 //   instead (the same values). Every output's fp32 accumulator sees the
 //   same MMA sequence (the k16 steps of its live blocks, ascending K) in
@@ -74,6 +75,7 @@
 // in zebra_spmm.zebra_spmm.launches and spmm_cs.zebra_spmm_cs.launches.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,6 +84,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int kMaxBs = 8;                 // block rows (of M) in registers
 
@@ -188,7 +191,7 @@ __device__ __forceinline__ void fma_block_rows(
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: the tensor-core body
+// bfloat16 and float16: the tensor-core body
 // ---------------------------------------------------------------------------
 
 constexpr int kBlockRowsTc = 16;          // block rows per CTA
@@ -218,7 +221,7 @@ static_assert((kStageK * kTileNTc / 8) % kThreadsTc == 0, "w staging");
 
 template <typename T>
 constexpr int kThreadsOf = std::is_same<T, float>::value ? kThreads : kThreadsTc;
-// two bf16 CTAs share an SM (registers <= 128 a thread, 2 x the ring in
+// two 16-bit CTAs share an SM (registers <= 128 a thread, 2 x the ring in
 // shared memory): a warp waits on ldmatrix and MMA latency, so warps count
 template <typename T>
 constexpr int kCtasPerSmOf = std::is_same<T, float>::value ? 1 : 2;
@@ -251,13 +254,20 @@ __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1])
                : "r"(addr));
 }
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// d += a (16 x 16, row) * b (16 x 8, col), T (bf16 or f16) in, fp32 accumulate
+template <typename T>
+__device__ __forceinline__ void mma_tc(float (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  if constexpr (std::is_same<T, bf16>::value)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Byte offsets in a stage: 16-byte chunk c of w row k, and of row r of
@@ -273,16 +283,16 @@ __device__ __forceinline__ uint32_t x_off(int b, int r, int c) {
 // Issue one stage: w rows kc*bc + k0 + [0, kStageK) x columns n0 +
 // [0, kTileNTc), and the live blocks of the CTA over the same k; rows past
 // the block's end (k >= len), columns past N and block rows r >= bs are zero.
-template <bool kAlignedW, typename Blocks>
+template <typename T, bool kAlignedW, typename Blocks>
 __device__ __forceinline__ void stage_load(
-    uint32_t st, const Blocks& blocks, const bf16* __restrict__ w,
+    uint32_t st, const Blocks& blocks, const T* __restrict__ w,
     uint32_t rows, int64_t i0, int64_t kc, int k0, int len, int64_t nk,
     int64_t N, int64_t n0, int bs, int bc) {
   constexpr int kWChunks = kTileNTc / 8;              // per w row
   for (int e = threadIdx.x; e < kStageK * kWChunks; e += kThreadsTc) {
     const int k = e / kWChunks, c = e % kWChunks;
     const int64_t n = n0 + c * 8;
-    const bf16* src = w + (kc * bc + k0 + k) * N + n;
+    const T* src = w + (kc * bc + k0 + k) * N + n;
     if constexpr (kAlignedW) {
       const bool in = k < len && n < N;
       cp_async16(st + w_off(k, c), in ? src : w, in ? 16 : 0);
@@ -304,7 +314,7 @@ __device__ __forceinline__ void stage_load(
   constexpr int kThreadsPerBlock = kThreadsTc / kBlockRowsTc;
   const int b = threadIdx.x / kThreadsPerBlock;
   if (!((rows >> b) & 1u)) return;                    // dead: never read
-  const bf16* blk = blocks.block(i0 + b, kc, nk);
+  const T* blk = blocks.block(i0 + b, kc, nk);
   const int64_t stride = blocks.row_stride();
   const int first = (threadIdx.x % kThreadsPerBlock) * kPerThread;
 #pragma unroll
@@ -325,7 +335,7 @@ using AFrags = uint32_t[kPartSteps][kWarpTiles][4];
 // all straight-line. Control flow costs tens of cycles a point with two
 // warps per scheduler, so a stage has one dispatch per group, not one test
 // per row and step.
-template <int G, uint32_t kLive>
+template <typename T, int G, uint32_t kLive>
 __device__ __forceinline__ void group_stage(Acc& acc, const AFrags& a, uint32_t xbase,
                                             int ks0, int rb, int cb) {
 #pragma unroll
@@ -339,19 +349,19 @@ __device__ __forceinline__ void group_stage(Acc& acc, const AFrags& a, uint32_t 
     for (int j = 0; j < kWarpTiles; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        if ((kLive >> r) & 1u) mma_bf16(acc[4 * G + r][j], a[ks][j], b[r]);
+        if ((kLive >> r) & 1u) mma_tc<T>(acc[4 * G + r][j], a[ks][j], b[r]);
   }
 }
 
 // Every group of 4 rows through the body of its live pattern (`live`
 // holds the warp's row bits); a dead row issues nothing.
-template <int G = 0>
+template <typename T, int G = 0>
 __device__ __forceinline__ void groups_stage(uint32_t live, Acc& acc, const AFrags& a,
                                              uint32_t xbase, int ks0, int rb, int cb) {
   if constexpr (G < kWarpRows / 4) {
 #define ZEBRA_GROUP(m) \
   case m:              \
-    group_stage<G, m>(acc, a, xbase, ks0, rb, cb); \
+    group_stage<T, G, m>(acc, a, xbase, ks0, rb, cb); \
     break;
     switch ((live >> (4 * G)) & 15u) {
       ZEBRA_GROUP(1) ZEBRA_GROUP(2) ZEBRA_GROUP(3) ZEBRA_GROUP(4) ZEBRA_GROUP(5)
@@ -360,7 +370,7 @@ __device__ __forceinline__ void groups_stage(uint32_t live, Acc& acc, const AFra
       default: break;
     }
 #undef ZEBRA_GROUP
-    groups_stage<G + 1>(live, acc, a, xbase, ks0, rb, cb);
+    groups_stage<T, G + 1>(live, acc, a, xbase, ks0, rb, cb);
   }
 }
 
@@ -368,6 +378,7 @@ __device__ __forceinline__ void groups_stage(uint32_t live, Acc& acc, const AFra
 // A stage shorter than kStageK (the last of a block when bc % kStageK !=
 // 0) tests each row at each step instead; both paths give each accumulator
 // the same MMAs in the same order.
+template <typename T>
 __device__ __forceinline__ void stage_mma(uint32_t st, uint32_t live, int len,
                                           int warp_m, int warp_n, int lane, Acc& acc) {
   // A = w^T: lanes 0-7 address k 0-7 at n 0-7, 8-15 k 0-7 at n 8-15,
@@ -386,7 +397,7 @@ __device__ __forceinline__ void stage_mma(uint32_t st, uint32_t live, int len,
 #pragma unroll
         for (int j = 0; j < kWarpTiles; ++j)
           ldmatrix_x4_trans(a[ks][j], st + w_off((ks0 + ks) * 16 + ka, ca + 2 * j));
-      groups_stage(live, acc, a, xbase, ks0, rb, cb);
+      groups_stage<T>(live, acc, a, xbase, ks0, rb, cb);
     }
     return;
   }
@@ -400,16 +411,16 @@ __device__ __forceinline__ void stage_mma(uint32_t st, uint32_t live, int len,
       uint32_t b[2];
       ldmatrix_x2(b, xbase + (((2 * ks + cb) ^ rb) << 4) + r * kXBlock);
 #pragma unroll
-      for (int j = 0; j < kWarpTiles; ++j) mma_bf16(acc[r][j], a[0][j], b);
+      for (int j = 0; j < kWarpTiles; ++j) mma_tc<T>(acc[r][j], a[0][j], b);
     }
   }
 }
 
-// THE bf16 GEMM body of both kernels (see the header).
-template <bool kAlignedW, typename Blocks>
+// THE 16-bit GEMM body of both kernels (see the header).
+template <typename T, bool kAlignedW, typename Blocks>
 __device__ __forceinline__ void mma_block_rows(
     const Blocks& blocks, const int8_t* __restrict__ bitmap,
-    const bf16* __restrict__ w, float* __restrict__ y, int64_t nm, int64_t nk,
+    const T* __restrict__ w, float* __restrict__ y, int64_t nm, int64_t nk,
     int64_t N, int bs, int bc) {
   extern __shared__ __align__(128) uint8_t smem[];
   uint32_t* live = reinterpret_cast<uint32_t*>(smem + kRingBytes);
@@ -443,7 +454,7 @@ __device__ __forceinline__ void mma_block_rows(
     }
   };
   auto issue = [&](int slot, int kc, int ch) {
-    stage_load<kAlignedW>(ring + slot * kStageBytes, blocks, w, live[kc], i0, kc,
+    stage_load<T, kAlignedW>(ring + slot * kStageBytes, blocks, w, live[kc], i0, kc,
                           ch * kStageK, min(kStageK, bc - ch * kStageK), nk, N,
                           n0, bs, bc);
   };
@@ -477,7 +488,7 @@ __device__ __forceinline__ void mma_block_rows(
     cp_async_commit();
     const uint32_t mine = (live[kc] >> (warp_m * kWarpRows)) & ((1ull << kWarpRows) - 1);
     if (mine)
-      stage_mma(ring + slot * kStageBytes, mine, min(kStageK, bc - ch * kStageK),
+      stage_mma<T>(ring + slot * kStageBytes, mine, min(kStageK, bc - ch * kStageK),
                 warp_m, warp_n, lane, acc);
     advance(kc, ch);
     slot = (slot + 1) % kStages;
@@ -517,7 +528,7 @@ zebra_spmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   if constexpr (std::is_same<T, float>::value)
     fma_block_rows(blocks, bitmap, w, y, nm, nk, N, bs, bc);
   else
-    mma_block_rows<kAlignedW>(blocks, bitmap, w, y, nm, nk, N, bs, bc);
+    mma_block_rows<T, kAlignedW>(blocks, bitmap, w, y, nm, nk, N, bs, bc);
 }
 
 template <typename T, bool kAlignedW>
@@ -530,7 +541,7 @@ zebra_spmm_cs_kernel(const T* __restrict__ payload,
   if constexpr (std::is_same<T, float>::value)
     fma_block_rows(blocks, bitmap, w, y, nm, nk, N, bs, bc);
   else
-    mma_block_rows<kAlignedW>(blocks, bitmap, w, y, nm, nk, N, bs, bc);
+    mma_block_rows<T, kAlignedW>(blocks, bitmap, w, y, nm, nk, N, bs, bc);
 }
 
 bool bad_shape(long long nm, long long nk, long long N, int bs, int bc) {
@@ -540,10 +551,10 @@ bool bad_shape(long long nm, long long nk, long long N, int bs, int bc) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-// the bf16 body's dynamic shared memory: the ring and the keep-map table
+// the 16-bit body's dynamic shared memory: the ring and the keep-map table
 size_t tc_smem_bytes(long long nk) { return kRingBytes + 4 * nk; }
 
-// The bf16 launch of either kernel: checks what the tensor-core body needs
+// The 16-bit launch of either kernel: checks what the tensor-core body needs
 // (bc % 8 == 0, 16-byte aligned operands, the table within shared memory),
 // then picks the w staging by N % 8 and launches.
 template <typename Aligned, typename Ragged, typename... Args>
@@ -574,7 +585,8 @@ dim3 fma_grid(int64_t nm, int64_t N) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x and w alike). y is (M, N) float32.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x and w alike). y is (M, N)
+// float32.
 int zebra_spmm_launch(const void* x, const void* w, const void* bitmap, void* y,
                       long long M, long long K, long long N, int bs, int bc,
                       int dtype, void* stream) {
@@ -595,6 +607,13 @@ int zebra_spmm_launch(const void* x, const void* w, const void* bitmap, void* y,
     const bf16* wb = static_cast<const bf16*>(w);
     return launch_tc(zebra_spmm_kernel<bf16, true>, zebra_spmm_kernel<bf16, false>,
                      x, w, nm, nk, N, bc, s, xb, wb, bm, out, (int64_t)nm,
+                     (int64_t)nk, (int64_t)N, bs, bc);
+  }
+  if (dtype == 2) {
+    const f16* xh = static_cast<const f16*>(x);
+    const f16* wh = static_cast<const f16*>(w);
+    return launch_tc(zebra_spmm_kernel<f16, true>, zebra_spmm_kernel<f16, false>,
+                     x, w, nm, nk, N, bc, s, xh, wh, bm, out, (int64_t)nm,
                      (int64_t)nk, (int64_t)N, bs, bc);
   }
   return (int)cudaErrorInvalidValue;
@@ -622,6 +641,14 @@ int zebra_spmm_cs_launch(const void* payload, const void* slot, const void* w,
     return launch_tc(zebra_spmm_cs_kernel<bf16, true>,
                      zebra_spmm_cs_kernel<bf16, false>, payload, w, nm, nk, N, bc,
                      s, pb, sl, wb, bm, out, (int64_t)nm, (int64_t)nk, (int64_t)N,
+                     bs, bc);
+  }
+  if (dtype == 2) {
+    const f16* ph = static_cast<const f16*>(payload);
+    const f16* wh = static_cast<const f16*>(w);
+    return launch_tc(zebra_spmm_cs_kernel<f16, true>,
+                     zebra_spmm_cs_kernel<f16, false>, payload, w, nm, nk, N, bc,
+                     s, ph, sl, wh, bm, out, (int64_t)nm, (int64_t)nk, (int64_t)N,
                      bs, bc);
   }
   return (int)cudaErrorInvalidValue;

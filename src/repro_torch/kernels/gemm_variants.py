@@ -1,7 +1,7 @@
-"""Time variants of the bfloat16 GEMM body (``csrc/zebra_gemm.cu``) at the
-gemma3-4b prefill's shape, on one card::
+"""Time variants of the 16-bit (tensor-core) GEMM body
+(``csrc/zebra_gemm.cu``) at the gemma3-4b prefill's shape, on one card::
 
-    PYTHONPATH=src python -m repro_torch.kernels.gemm_variants [--out FILE]
+    PYTHONPATH=src python -m repro_torch.kernels.gemm_variants [--dtype float16] [--out FILE]
 
 A variant is the shipped source with tile constants replaced, or with one
 named piece of the body cut out (an ablation: its outputs are wrong, and its
@@ -9,10 +9,11 @@ time says where the shipped kernel's time goes). Each variant is compiled by
 its own ``nvcc``, all at once, into ``build/repro_torch/variants/<name>/``,
 and both kernels of each are timed with CUDA events, the L2 cache flushed
 before each launch. The input is one ffn_hidden-shaped GEMM: a (4096, 10240)
-bf16 map whose 8 x 128 block maxima are spread so that T_obj at their
-0.669 quantile kills 66.9 % of the blocks (the served maps' zero fraction),
-and w (10240, 2560) bf16, both from seed 0. Prints one line per variant and
-writes them as JSON to ``--out``.
+map whose 8 x 128 block maxima are spread so that T_obj at their 0.669
+quantile kills 66.9 % of the blocks (the served maps' zero fraction), and w
+(10240, 2560), both from seed 0, in ``--dtype`` (bfloat16, the served type,
+or float16), beside ``torch.matmul`` of the gated map in that dtype. Prints
+one line per variant and writes them as JSON to ``--out``.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ M, K, N, BS, BC, ZERO_FRACTION = 4096, 10240, 2560, 8, 128, 0.669
 
 _CTAS = "std::is_same<T, float>::value ? 1 : 2;"
 _FULL_STAGE = "  if (len == kStageK) {"
-_MMA = "        if ((kLive >> r) & 1u) mma_bf16(acc[4 * G + r][j], a[ks][j], b[r]);"
+_MMA = "        if ((kLive >> r) & 1u) mma_tc<T>(acc[4 * G + r][j], a[ks][j], b[r]);"
 _W_COPY = "      cp_async16(st + w_off(k, c), in ? src : w, in ? 16 : 0);"
 _X_COPY = ("    cp_async16(st + x_off(b, r, c), in ? blk + r * stride + k0 + c * 8 : w,\n"
            "               in ? 16 : 0);")
@@ -66,9 +67,10 @@ def variant_source(consts: dict, patches: list) -> str:
     return src
 
 
-def compile_all(root: Path) -> dict[str, tuple[Path, str]]:
-    """{variant: (library, ptxas lines of its bf16 kernels)}, one nvcc each,
-    all running at once."""
+def compile_all(root: Path, dtype: torch.dtype) -> dict[str, tuple[Path, str]]:
+    """{variant: (library, ptxas lines of its kernels in ``dtype``)}, one
+    nvcc each, all running at once."""
+    mangled = {torch.bfloat16: "bfloat16", torch.float16: "__half"}[dtype]
     procs = {}
     for name, (consts, patches, _) in VARIANTS.items():
         d = root / re.sub(r"\W+", "_", name)
@@ -87,21 +89,21 @@ def compile_all(root: Path) -> dict[str, tuple[Path, str]]:
             raise RuntimeError(f"nvcc failed for variant {name!r}:\n{text}")
         lines = text.splitlines()
         info = [lines[i + j].strip() for i, l in enumerate(lines)
-                if "Compiling entry" in l and "bfloat16" in l for j in (1, 2)
+                if "Compiling entry" in l and mangled in l for j in (1, 2)
                 if i + j < len(lines)]
         out[name] = (d / "lib.so", " | ".join(x for x in info if "spill" in x or "Used" in x))
     return out
 
 
-def operands(device):
+def operands(device, dtype):
     g = torch.Generator().manual_seed(0)
     x = torch.randn(M, K, generator=g)
     x = (x.reshape(M // BS, BS, K // BC, BC)
          * torch.rand(M // BS, 1, K // BC, 1, generator=g) * 3.0).reshape(M, K)
-    x = x.to(torch.bfloat16).to(device)
+    x = x.to(dtype).to(device)
     blockmax = x.float().reshape(M // BS, BS, K // BC, BC).abs().amax(dim=(1, 3))
     t_obj = float(torch.quantile(blockmax.flatten().cpu(), ZERO_FRACTION))
-    w = (torch.randn(K, N, generator=g) / K ** 0.5).to(torch.bfloat16).to(device)
+    w = (torch.randn(K, N, generator=g) / K ** 0.5).to(dtype).to(device)
     bitmap = mask_pack.bitmap_plain(x, t_obj, BS, BC)
     keep, slot = slot_map(bitmap)
     payload = mask_pack.pack_plain(x, bitmap, slot, keep.sum(dtype=torch.int32), BS, BC)
@@ -125,21 +127,24 @@ def time_ms(fn, flush, iters: int = 10) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", default="bfloat16", choices=["bfloat16", "float16"])
     ap.add_argument("--out", help="write the rows as JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("gemm_variants: needs a CUDA card")
     device = torch.device("cuda")
-    libs = compile_all(build.BUILD_ROOT / "variants")
-    x, w, bitmap, slot, payload, n_live = operands(device)
+    dtype = getattr(torch, args.dtype)
+    code = zebra_spmm.GEMM_DTYPES[dtype]
+    libs = compile_all(build.BUILD_ROOT / "variants", dtype)
+    x, w, bitmap, slot, payload, n_live = operands(device, dtype)
     nm, nk = bitmap.shape
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)
     gated = zebra_spmm.gate_blocks(x, bitmap, BS, BC)
     want = gated.float() @ w.float()
     flops = 2 * n_live * BS * BC * N
     lib_ms = time_ms(lambda: torch.matmul(gated, w), flush)
-    print(f"{torch.cuda.get_device_name(0)}; zero fraction {1 - n_live / bitmap.numel():.4f}; "
-          f"torch.matmul of the gated map {lib_ms:.4f} ms")
+    print(f"{torch.cuda.get_device_name(0)}; {args.dtype}; zero fraction "
+          f"{1 - n_live / bitmap.numel():.4f}; torch.matmul of the gated map {lib_ms:.4f} ms")
     stream = torch.cuda.current_stream().cuda_stream
     rows = []
     for name, (path, ptxas) in libs.items():
@@ -151,12 +156,12 @@ def main(argv=None) -> int:
 
         def k6():
             return lib.zebra_spmm_launch(x.data_ptr(), w.data_ptr(), bitmap.data_ptr(),
-                                         y6.data_ptr(), M, K, N, BS, BC, 1, stream)
+                                         y6.data_ptr(), M, K, N, BS, BC, code, stream)
 
         def k7():
             return lib.zebra_spmm_cs_launch(payload.data_ptr(), slot.data_ptr(), w.data_ptr(),
                                             bitmap.data_ptr(), y7.data_ptr(), nm, nk, N, BS,
-                                            BC, 1, stream)
+                                            BC, code, stream)
         if k6() or k7():
             raise RuntimeError(f"variant {name!r} did not launch")
         torch.cuda.synchronize()
@@ -174,6 +179,7 @@ def main(argv=None) -> int:
               f"{ptxas}")
     if args.out:
         Path(args.out).write_text(json.dumps({"device": torch.cuda.get_device_name(0),
+                                              "dtype": args.dtype,
                                               "torch_matmul_ms": lib_ms, "rows": rows},
                                              indent=1))
     return 0

@@ -20,7 +20,8 @@ import torch
 from .build import check_launch, cuda_library, stream_of
 from .pack import expand_payload
 from .schedule import slot_map
-from .zebra_spmm import GEMM_DTYPES, MAX_BS, aligned16, check_cuda_gemm, check_gemm, split_rows
+from .zebra_spmm import (GEMM_DTYPES, MAX_BS, aligned16, check_cuda_gemm, check_gemm,
+                         split_rows, sub_rows)
 
 
 def spmm_cs_plain(payload: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor,
@@ -40,9 +41,9 @@ def spmm_cs_cuda(payload: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor,
     if tuple(payload.shape) != (bitmap.numel(), bs, bc):
         raise ValueError(f"zebra_spmm_cs: payload {tuple(payload.shape)} does not match "
                          f"bitmap {tuple(bitmap.shape)} with block bs={bs}, bc={bc}")
-    if bs > MAX_BS:             # (8, bc) sub-blocks of the same memory
+    if bs > MAX_BS:             # (sub_rows(bs), bc) sub-blocks of the same memory
         bitmap, slot = split_rows(bitmap, slot.reshape(-1), bs)
-        payload, bs = payload.reshape(-1, MAX_BS, bc), MAX_BS
+        payload, bs = payload.reshape(-1, sub_rows(bs), bc), sub_rows(bs)
     nm, nk = bitmap.shape
     N = w.shape[1]
     payload, w = aligned16(payload), aligned16(w)

@@ -9,16 +9,18 @@ launches ``zebra_spmm_kernel`` (``csrc/zebra_gemm.cu``), which is the same
 device body as the payload consumer ``spmm_cs.zebra_spmm_cs`` with only
 the block accessor changed, so on the card the two are equal bit for bit;
 it counts its launches in ``zebra_spmm.launches``. The dtype picks the
-body: bfloat16 runs on the tensor cores (``mma.sync``), float32 on the
-CUDA cores (``fmaf``), the same for both kernels. For a CPU tensor it
-runs the plain version, ``spmm_plain``: the keep-gated map (a select, so
-dead blocks are exact +0 whatever x holds) as float32 times ``w`` as
-float32.
+body: bfloat16 and float16 run on the tensor cores (``mma.sync``),
+float32 on the CUDA cores (``fmaf``), the same for both kernels. For a
+CPU tensor it runs the plain version, ``spmm_plain``: the keep-gated map
+(a select, so dead blocks are exact +0 whatever x holds) as float32 times
+``w`` as float32.
 
-The kernel holds 8 block rows in registers. A block of ``bs = 8·j`` rows
-runs as j (8, bc) sub-blocks that share its keep bit (``split_rows``):
-the bitmap row-repeats j times and the payload is viewed as ``(j·nb, 8,
-bc)``, so neither the memory nor the ascending-K order changes.
+The kernel holds 8 block rows in registers. A block of more rows runs as
+j sub-blocks of ``r = sub_rows(bs)`` rows (the largest divisor of bs that
+is at most 8: bs 12 as two 6-row halves, bs 24 as three 8-row thirds)
+that share its keep bit (``split_rows``): the bitmap row-repeats j times
+and the payload is viewed as ``(j·nb, r, bc)``, so neither the memory nor
+the ascending-K order changes.
 
 The TPU realizations' tile machinery (``gemm_plan`` supertiles, the
 scheduled capacity ladder) has no counterpart: a tile choice never
@@ -29,12 +31,13 @@ from __future__ import annotations
 import torch
 
 from .build import check_launch, cuda_library, stream_of
-# the operand dtypes of the GEMM bodies (csrc/zebra_gemm.cu's dtype codes)
-GEMM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the operand dtypes of the GEMM bodies (csrc/zebra_gemm.cu's dtype codes):
+# float32 runs the CUDA-core body, bfloat16 and float16 the tensor-core body
+GEMM_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 MAX_BS = 8          # block rows the CUDA kernel holds in registers
-# bfloat16 (the tensor-core body): the CTA's keep map, 4 bytes per K-block
-# column, sits beside the 96 KiB ring in the 227 KiB of shared memory a CTA
-# may have (csrc/zebra_gemm.cu, tc_smem_bytes)
+# the tensor-core body (bfloat16, float16): the CTA's keep map, 4 bytes per
+# K-block column, sits beside the 96 KiB ring in the 227 KiB of shared
+# memory a CTA may have (csrc/zebra_gemm.cu, tc_smem_bytes)
 MAX_BF16_NK = (232448 - 98304) // 4
 
 
@@ -56,31 +59,36 @@ def check_cuda_gemm(w: torch.Tensor, bitmap: torch.Tensor, bs: int, bc: int,
                     kernel: str) -> None:
     """Raises on what the CUDA GEMM kernels do not take."""
     if w.dtype not in GEMM_DTYPES:
-        raise TypeError(f"{kernel}: CUDA kernel takes float32 or bfloat16, "
+        raise TypeError(f"{kernel}: CUDA kernel takes float32, bfloat16 or float16, "
                         f"got {w.dtype}")
-    if bs < 1 or (bs > MAX_BS and bs % MAX_BS):
-        raise ValueError(f"{kernel}: CUDA kernel takes 1 <= bs <= {MAX_BS} or bs a "
-                         f"multiple of {MAX_BS}, got bs={bs}")
+    if bs < 1:
+        raise ValueError(f"{kernel}: CUDA kernel takes bs >= 1, got bs={bs}")
     if bitmap.dtype != torch.int8:
         raise ValueError(f"{kernel}: expected an int8 bitmap")
-    if w.dtype == torch.bfloat16:
+    if w.dtype != torch.float32:
         if bc % 8:
-            raise ValueError(f"{kernel}: the bfloat16 kernel stages 16-byte block rows, "
+            raise ValueError(f"{kernel}: the {w.dtype} kernel stages 16-byte block rows, "
                              f"so bc must be a multiple of 8, got {bc}")
         if bitmap.shape[1] > MAX_BF16_NK:
-            raise ValueError(f"{kernel}: the bfloat16 kernel keeps at most {MAX_BF16_NK} "
+            raise ValueError(f"{kernel}: the {w.dtype} kernel keeps at most {MAX_BF16_NK} "
                              f"K-block columns in shared memory, got {bitmap.shape[1]}")
+
+
+def sub_rows(bs: int) -> int:
+    """Rows of the sub-blocks a ``bs``-row block runs as: the largest
+    divisor of bs that is at most ``MAX_BS``."""
+    return max(r for r in range(1, min(bs, MAX_BS) + 1) if bs % r == 0)
 
 
 def split_rows(bitmap: torch.Tensor, slot: torch.Tensor | None, bs: int
                ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """The ``(bitmap, slot)`` of a GEMM with ``bs = 8·j`` row blocks, cut
-    into (8, bc) sub-blocks: sub-block row ``j·r + h`` keeps block row r's
-    bits, and its slot is ``j·slot + h`` into the payload viewed as ``(j·nb,
-    8, bc)`` (a dead block's slot aliases a live one and is never read).
-    ``slot`` is the flat (nm·nk) map of ``slot_map``, or None (the dense
-    form needs no slots)."""
-    j = bs // MAX_BS
+    """The ``(bitmap, slot)`` of a GEMM with ``bs = j·r`` row blocks (``r =
+    sub_rows(bs)``), cut into (r, bc) sub-blocks: sub-block row ``j·i + h``
+    keeps block row i's bits, and its slot is ``j·slot + h`` into the
+    payload viewed as ``(j·nb, r, bc)`` (a dead block's slot aliases a live
+    one and is never read). ``slot`` is the flat (nm·nk) map of
+    ``slot_map``, or None (the dense form needs no slots)."""
+    j = bs // sub_rows(bs)
     nm, nk = bitmap.shape
     bitmap8 = bitmap.repeat_interleave(j, dim=0)
     if slot is None:
@@ -123,7 +131,7 @@ def spmm_cuda(x: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor, bs: int,
                          f"{tuple(bitmap.shape)} with block bs={bs}, bc={bc}")
     if bs > MAX_BS:
         bitmap, _ = split_rows(bitmap, None, bs)
-        bs = MAX_BS
+        bs = sub_rows(bs)
     x, w, bitmap = aligned16(x), aligned16(w), bitmap.contiguous()
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     rc = lib.zebra_spmm_launch(x.data_ptr(), w.data_ptr(), bitmap.data_ptr(),

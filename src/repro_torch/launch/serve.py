@@ -8,19 +8,27 @@ observables and the bytes the handoff moved.
 
 It runs on the card; ``--device cpu`` runs it on the CPU (the kernels'
 plain versions). Weights are random from seed 0, prompts come from
-``data.lm_batch``. Continuous batching (``--requests``), stream
-validation (``--validate`` other than off) and model parallelism wait
-(ROADMAP.md, module queue) and raise.
+``data.lm_batch``. ``--validate structural|checksum`` checks every
+stream at its producer -> consumer boundary (``core.engine``) and every
+compressed cache leaf of the handoff (:func:`validate_state_ingest`),
+recovering a failed one from its dense source. Continuous batching
+(``--requests``) and model parallelism wait (ROADMAP.md, module queue)
+and raise.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import time
 
 import torch
 
 from .. import configs
 from ..compress import BandwidthMeter, CompressedMap, compress_tree, decompress
+from ..compress.integrity import validate_map
+from ..ft.breaker import active_board
+from ..ft.faults import CorruptStream
+from ..ft.inject import STREAM_KINDS, active_plan, corrupt_map
 from ..data import LMDatasetConfig, lm_batch
 from ..models.lm import LM, LMConfig
 from ..serve.bucket import pow2_bucket
@@ -55,7 +63,9 @@ def serve_one_shot(model: LM, prompts: torch.Tensor, gen: int, *,
     and reconcile result, the caches before the handoff (dense) and as
     handed over (``CompressedMap`` leaves where compressed, which decode
     expands into new tensors; a leaf handed over dense is updated in place
-    by decode), and the host-clock times (synchronised on the card)."""
+    by decode), the count of handoff leaves that failed ingest validation
+    and were recovered dense, and the host-clock times (synchronised on
+    the card)."""
     cfg = model.cfg
     device = prompts.device
     backend = cfg.zebra_backend
@@ -68,10 +78,11 @@ def serve_one_shot(model: LM, prompts: torch.Tensor, gen: int, *,
     _sync(device)
     t_pref = time.perf_counter() - t0
     dense_state = handoff = state
-    meter, rec = None, None
+    meter, rec, recovered = None, None, 0
     if backend in COMPRESSED_BACKENDS:
         meter = BandwidthMeter()
-        handoff, rec = transport_state_compressed(state, cfg, meter=meter, log=log)
+        handoff, rec, recovered = transport_state_compressed(
+            state, cfg, meter=meter, log=log, validation=cfg.zebra_validation)
     tok = _next_token(logits, temperature, generator)
 
     _sync(device)
@@ -82,6 +93,7 @@ def serve_one_shot(model: LM, prompts: torch.Tensor, gen: int, *,
     tokens = torch.cat([tok, toks], dim=1)[:, :gen]
     return {"tokens": tokens, "logits": logits, "aux": aux, "meter": meter,
             "reconcile": rec, "dense_state": dense_state, "handoff_state": handoff,
+            "ingest_recovered": recovered,
             "prefill_ms": t_pref * 1e3,
             "decode_ms_per_token": t_dec / max(gen - 1, 1) * 1e3}
 
@@ -107,7 +119,11 @@ def main(argv=None) -> dict:
                          "stream/fused also hand the prefill->decode KV caches "
                          "over compressed")
     ap.add_argument("--validate", default="off",
-                    choices=["off", "structural", "checksum"])
+                    choices=["off", "structural", "checksum"],
+                    help="stream-integrity level (compress.integrity): the engine's "
+                         "producer->consumer checks and the validation of the "
+                         "prefill->decode cache handoff, each failure recovered "
+                         "from its dense source")
     ap.add_argument("--requests", type=int, default=0,
                     help="continuous batching (not yet ported)")
     ap.add_argument("--device", default=None,
@@ -117,10 +133,6 @@ def main(argv=None) -> dict:
     if args.requests:
         raise NotImplementedError("continuous batching (--requests) is not yet ported "
                                   "to repro_torch (ROADMAP.md, module queue: serving)")
-    if args.validate != "off":
-        raise NotImplementedError("stream validation (--validate) is not yet ported to "
-                                  "repro_torch (ROADMAP.md, module queue: "
-                                  "integrity/validation)")
     if args.model_parallel != 1:
         raise NotImplementedError("--model-parallel > 1 is not yet ported to "
                                   "repro_torch (ROADMAP.md, module queue: distributed)")
@@ -158,18 +170,69 @@ def main(argv=None) -> dict:
     return out
 
 
+def validate_state_ingest(cstate, dense_state, level: str, site: str = "serve",
+                          breaker=None, log=print):
+    """Validate every ``CompressedMap`` leaf of a handoff tree at the
+    consumer boundary. A corrupt leaf is replaced by its dense source (the
+    ``ft.faults`` policy "recompute-dense", per leaf), so one bad stream
+    degrades one cache's transport, not the batch. A fault plan armed
+    with ``ft.inject`` with a stream fault at ``site`` corrupts leaves
+    here, after compression and before validation.
+
+    The handoff is also a circuit-breaker boundary: with a
+    ``ft.breaker.BreakerBoard`` passed (or armed ambiently with
+    ``breaker_scope``), per-leaf detections feed its trip window, and with
+    the site open the whole tree goes dense, with no per-leaf validation,
+    until half-open probes pass. Returns ``(tree, n_recovered)``."""
+    dense_leaves = _leaves(dense_state)
+    board = breaker if breaker is not None else active_board()
+    if board is not None:
+        board.tick()                        # call-counted breaker clock
+        if not board.allow(site):
+            return _map_leaves(lambda i, c: dense_leaves[i]
+                               if isinstance(c, CompressedMap) else c, cstate), 0
+    plan = active_plan()
+    n_bad = 0
+
+    def one(i, c):
+        nonlocal n_bad
+        if not isinstance(c, CompressedMap):
+            return c
+        if plan is not None:
+            f = plan.take(STREAM_KINDS, site)
+            if f is not None:
+                c = corrupt_map(c, f.kind, arg=f.arg)
+                plan.note(f.kind, site)
+        try:
+            validate_map(c, level=level, site=f"{site}:leaf{i}")
+        except CorruptStream as e:
+            n_bad += 1
+            if board is not None:
+                board.record_failure(site)
+            log(f"[serve] {e} — leaf {i} recovered from its dense source")
+            return dense_leaves[i]
+        if board is not None and level != "off":
+            board.record_success(site)
+        return c
+
+    return _map_leaves(one, cstate), n_bad
+
+
 def transport_state_compressed(state, cfg: LMConfig, meter: BandwidthMeter | None = None,
-                               log=print):
+                               log=print, validation: str = "off"):
     """The prefill -> decode handoff in compressed form: pack every
     compatible cache leaf (lossless nonzero-block bitmap, ``zebra_pack``),
     count the bytes moved on ``meter``, reconcile each leaf against Eq. 2/3
     (raises on the first leaf outside the band), and return the caches in
-    payload form with the reconcile result. The first compressed leaf is
-    spot-checked lossless."""
+    payload form with the reconcile result and the count of leaves
+    recovered dense. The first compressed leaf is spot-checked lossless.
+    With ``validation`` other than off, every compressed leaf is checked
+    on ingest (:func:`validate_state_ingest`); at ``checksum`` each is
+    sealed with its checksum when packed."""
     caches, enc_out = state
     meter = BandwidthMeter() if meter is None else meter
     ccaches = compress_tree(caches, bs=cfg.zebra_block_seq, bc=cfg.zebra_block_ch,
-                            meter=meter, site="kv")
+                            meter=meter, site="kv", checksum=(validation == "checksum"))
     sampled = [(a, c) for a, c in zip(_leaves(caches), _leaves(ccaches))
                if isinstance(c, CompressedMap)]
     ok = not sampled or bool(torch.equal(sampled[0][0], decompress(sampled[0][1])))
@@ -184,13 +247,25 @@ def transport_state_compressed(state, cfg: LMConfig, meter: BandwidthMeter | Non
         log("  WARNING: no cache leaf was block-divisible — every leaf moved dense; "
             "pick batch/prompt-len/gen so that batch*(prompt+gen) divides by "
             "zebra_block_seq")
-    return (ccaches, enc_out), rec
+    n_bad = 0
+    if validation != "off":
+        ccaches, n_bad = validate_state_ingest(ccaches, caches, validation, log=log)
+        log(f"  ingest validation ({validation}): "
+            f"{'clean' if n_bad == 0 else f'{n_bad} leaf(s) recovered dense'}")
+    return (ccaches, enc_out), rec, n_bad
 
 
 def _leaves(tree) -> list:
     out = []
     map_tree(lambda _, leaf: out.append(leaf), tree)
     return out
+
+
+def _map_leaves(fn, tree):
+    """``map_tree`` with each leaf's index in ``_leaves`` order instead of
+    its path."""
+    count = itertools.count()
+    return map_tree(lambda _, leaf: fn(next(count), leaf), tree)
 
 
 def model_prefill_pad(prefill_fn, prompts: torch.Tensor, cache_len: int):

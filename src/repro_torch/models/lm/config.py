@@ -41,7 +41,7 @@ class LMConfig:
     zebra_backend: str = "reference"  # reference | pallas | stream | fused
     zebra_site_backends: tuple[tuple[str, str], ...] = ()
     zebra_tnet: bool = True          # learned threshold nets at Zebra sites
-    zebra_validation: str = "off"    # stream-integrity level ("off" only)
+    zebra_validation: str = "off"    # stream integrity: off | structural | checksum
 
     def __post_init__(self):
         if self.head_dim == 0:

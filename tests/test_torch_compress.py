@@ -95,8 +95,11 @@ def test_compress_decompress_matches_reference(dt):
     back = decompress(cm)
     assert tuple(back.shape) == x.shape and np.array_equal(bits(back),
                                                            bits(torch.from_numpy(x).to(tdt)))
-    with pytest.raises(NotImplementedError, match="integrity"):
-        compress(torch.from_numpy(x), checksum=True)
+    sealed = compress(torch.from_numpy(x).to(tdt), checksum=True)
+    assert cm.checksum is None and jcm.checksum is None
+    assert int(sealed.checksum) == int(np.uint32(jcompress(jnp.asarray(x, jdt),
+                                                           checksum=True).checksum))
+    assert np.array_equal(bits(sealed.payload), bits(cm.payload))
 
 
 def kv_tree(dtype):

@@ -97,20 +97,24 @@ def test_nchw_stream_dims():
 
 @pytest.mark.parametrize("case", ["fused", "validation", "typo"])
 def test_unported_paths_raise(case):
+    """Names outside the reference's sets raise; every validation level
+    and the fused path (validated or not) run."""
     x = torch.ones(1, 1, 8, 8)
     if case == "validation":
-        with pytest.raises(NotImplementedError):
-            ZebraConfig(validation="checksum")
+        with pytest.raises(ValueError, match="validation level"):
+            ZebraConfig(validation="crc")
+        for level in ("off", "structural", "checksum"):
+            assert ZebraConfig(validation=level).validation == level
         return
     if case == "typo":
         with pytest.raises(ValueError):
             ZebraConfig(backend="steam")
         return
-    # the fused path runs; its validated ingest waits for the integrity item
-    with pytest.raises(NotImplementedError, match="validation"):
-        ZebraConfig(mode="infer", backend=case, validation="structural")
     y, aux = zebra_site(x, ZebraConfig(mode="infer", backend=case), layout="nchw")
     assert aux.backend == "fused" and torch.equal(y, x)
+    y, aux = zebra_site(x, ZebraConfig(mode="infer", backend=case, validation="structural"),
+                        layout="nchw")
+    assert aux.backend == "fused" and torch.equal(y, x) and int(aux.measured_bytes) > 0
 
 
 @pytest.mark.parametrize("backend", ["pallas", "stream"])

@@ -234,10 +234,12 @@ from repro_torch.kernels import spmm_cs, zebra_spmm  # noqa: E402
 # the tensor cores sum each k16 step in their own order)
 GEMM_TOL = dict(rtol=1e-4, atol=1e-4, equal_nan=True)
 # (M, K, N, bs, bc, dtype, t_obj, kind); float32 runs the CUDA-core body,
-# bfloat16 the tensor-core body. N = 300 and 130 take the bf16 body's
+# bfloat16 and float16 the tensor-core body (every bf16 case runs again in
+# float16 under its "-f16" name). N = 300 and 130 take the 16-bit body's
 # element-wise w staging (rows not 16-byte aligned), N % 8 == 0 its cp.async
 # staging; 4x128 has block rows r >= bs zero-filled in the MMA; 8x24 ends
-# each block with a half k16 step (bc % 16 == 8)
+# each block with a half k16 step (bc % 16 == 8); bs 12 runs as two 6-row
+# halves, bs 16 and 24 as 8-row sub-blocks (``zebra_spmm.split_rows``)
 _F32, _BF16 = torch.float32, torch.bfloat16
 GEMM_CASES = {
     "8x128-f32": (256, 1024, 384, 8, 128, _F32, 0.5, "signed"),
@@ -258,7 +260,12 @@ GEMM_CASES = {
     "16x128-bf16": (512, 1024, 256, 16, 128, _BF16, 0.5, "signed"),
     "16x128-f32": (256, 512, 128, 16, 128, _F32, 0.5, "signed"),
     "24x64-bf16": (384, 512, 136, 24, 64, _BF16, 0.5, "one"),
+    "12x128-bf16": (384, 1024, 256, 12, 128, _BF16, 0.5, "signed"),
+    "12x64-f32": (192, 512, 136, 12, 64, _F32, 0.5, "signed"),
+    "24x128-f32": (384, 512, 128, 24, 128, _F32, 0.5, "signed"),
 }
+GEMM_CASES.update({k.replace("bf16", "f16"): (*v[:5], _F16, *v[6:])
+                   for k, v in list(GEMM_CASES.items()) if v[5] == _BF16})
 
 
 def gemm_operands(case, device):
@@ -298,7 +305,7 @@ def test_gemm_kernels_match_plain_and_each_other(case, cuda):
         assert not y7.any()
 
 
-@pytest.mark.parametrize("case", ["8x128-f32", "8x128-bf16"])
+@pytest.mark.parametrize("case", ["8x128-f32", "8x128-bf16", "8x128-f16"])
 def test_gemm_skips_dead_blocks_whatever_w_holds(case, cuda):
     """The skip rule, in both bodies: a dead block forms no product with
     its w panel, so Inf/NaN in the w rows of a dead block do not reach
@@ -354,9 +361,9 @@ def test_gemm_wrappers_launch_count_and_never_fall_back(cuda, monkeypatch):
     assert (zebra_spmm.zebra_spmm.launches, spmm_cs.zebra_spmm_cs.launches) == \
         (before[0] + 1, before[1] + 1)
     assert torch.equal(y6.view(torch.int32), y7.view(torch.int32))
-    with pytest.raises(ValueError, match="bs"):            # refused, not run
-        zebra_spmm.spmm_cuda(x, w, bitmap, 12, bc)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        zebra_spmm.spmm_cuda(x.half(), w.half(), bitmap, bs, bc)
+    with pytest.raises(ValueError, match="bs >= 1"):       # refused, not run
+        zebra_spmm.spmm_cuda(x, w, bitmap, 0, bc)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        zebra_spmm.spmm_cuda(x.double(), w.double(), bitmap, bs, bc)
     assert (zebra_spmm.zebra_spmm.launches, spmm_cs.zebra_spmm_cs.launches) == \
         (before[0] + 1, before[1] + 1)

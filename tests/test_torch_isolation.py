@@ -38,7 +38,8 @@ def test_imports_with_jax_blocked():
             "    sys.modules[m] = None\n"
             "import repro_torch.train, repro_torch.kernels, repro_torch.models.cnn.convert\n"
             "import repro_torch.models.lm.convert, repro_torch.compress, repro_torch.serve\n"
-            "import repro_torch.launch.serve, repro_torch.configs\n"
+            "import repro_torch.launch.serve, repro_torch.configs, repro_torch.ft\n"
+            "import repro_torch.compress.integrity\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},

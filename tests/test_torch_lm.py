@@ -218,7 +218,12 @@ def test_serve_cli_runs_on_cpu(capsys):
     text = capsys.readouterr().out
     assert "compressed KV-cache transport" in text and "lossless" in text
     assert tuple(out["tokens"].shape) == (2, 3) and out["reconcile"]["n_sites"] > 0
-    for flags in (["--requests", "2"], ["--validate", "structural"], ["--model-parallel", "2"]):
+    checked = serve.main(["--arch", "gemma3-4b", "--reduced", "--backend", "fused",
+                          "--device", "cpu", "--batch", "2", "--prompt-len", "32", "--gen",
+                          "3", "--t-obj", "3.0", "--validate", "checksum"])
+    assert "ingest validation (checksum): clean" in capsys.readouterr().out
+    assert torch.equal(checked["tokens"], out["tokens"]) and checked["ingest_recovered"] == 0
+    for flags in (["--requests", "2"], ["--model-parallel", "2"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             serve.main(["--reduced", "--device", "cpu", *flags])
 

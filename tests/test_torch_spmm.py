@@ -26,7 +26,7 @@ from repro_torch.kernels.mask_pack import zebra_mask_pack
 from repro_torch.kernels.schedule import slot_map
 from repro_torch.kernels.spmm_cs import spmm_cs_plain, zebra_spmm_cs
 from repro_torch.kernels.zebra_spmm import (MAX_BF16_NK, aligned16, check_cuda_gemm,
-                                            spmm_plain, split_rows, zebra_spmm)
+                                            spmm_plain, split_rows, sub_rows, zebra_spmm)
 
 from _torch_parity import bits
 
@@ -185,23 +185,33 @@ def test_fused_degenerate_rows_take_the_masked_dense_matmul():
 
 @pytest.mark.parametrize("dt", list(DTYPES))
 def test_cuda_gemm_rules_take_every_bs_up_to_8(dt):
-    """Every bs up to 8, and multiples of 8 (run as (8, bc) sub-blocks);
-    any other bs is refused before a launch."""
+    """Every bs up to 8, and every larger bs (run as ``sub_rows(bs)``-row
+    sub-blocks); bs 0 is refused before a launch."""
     tdt = DTYPES[dt][0]
     bitmap = torch.ones(4, 2, dtype=torch.int8)
     w = torch.zeros(2 * 128, 16, dtype=tdt)
-    for bs in (*range(1, 9), 16, 24, 64):
+    for bs in (*range(1, 13), 16, 20, 24, 64):
         check_cuda_gemm(w, bitmap, bs, 128, "zebra_spmm")
-    for bs in (0, 9, 12, 20):
-        with pytest.raises(ValueError, match="1 <= bs <= 8 or bs a multiple of 8"):
-            check_cuda_gemm(w, bitmap, bs, 128, "zebra_spmm")
+    with pytest.raises(ValueError, match="bs >= 1"):
+        check_cuda_gemm(w, bitmap, 0, 128, "zebra_spmm")
+    assert [sub_rows(bs) for bs in (1, 8, 9, 11, 12, 16, 20, 24)] == [1, 8, 3, 1, 6, 8, 5, 8]
 
 
 def test_cuda_gemm_rules_refuse_float16():
-    """float16 has no GEMM body (the stream kernels take it)."""
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        check_cuda_gemm(torch.zeros(256, 16, dtype=torch.float16),
-                        torch.ones(4, 2, dtype=torch.int8), 8, 128, "zebra_spmm")
+    """float16 runs the tensor-core body, so it is refused where bfloat16
+    is: a block row of bc % 8 != 0 elements, or more K-block columns than
+    shared memory holds. Other dtypes have no GEMM body."""
+    half = torch.zeros(256, 16, dtype=torch.float16)
+    check_cuda_gemm(half, torch.ones(4, 2, dtype=torch.int8), 8, 128, "zebra_spmm")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        check_cuda_gemm(torch.zeros(240, 16, dtype=torch.float16),
+                        torch.ones(4, 20, dtype=torch.int8), 8, 12, "zebra_spmm")
+    with pytest.raises(ValueError, match="K-block columns"):
+        check_cuda_gemm(half, torch.ones(1, MAX_BF16_NK + 1, dtype=torch.int8), 8, 8,
+                        "zebra_spmm")
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        check_cuda_gemm(half.double(), torch.ones(4, 2, dtype=torch.int8), 8, 128,
+                        "zebra_spmm")
 
 
 @pytest.mark.parametrize("bs,dt", [(16, "f32"), (16, "bf16"), (24, "f32")])
@@ -228,6 +238,36 @@ def test_split_rows_runs_bs_8j_as_8_row_sub_blocks(bs, dt):
     live = keep8 != 0                   # each live sub-block's slot holds its rows
     xb = x.reshape(M // 8, 8, K // bc, bc).permute(0, 2, 1, 3).reshape(-1, 8, bc)
     assert torch.equal(payload8[slot8[live].long()], xb[live])
+
+
+@pytest.mark.parametrize("bs,dt", [(12, "f32"), (12, "bf16"), (9, "f32"), (11, "bf16"),
+                                   (24, "bf16")])
+def test_split_rows_runs_other_bs_as_sub_row_blocks(bs, dt):
+    """A bs that is not 8·j runs as j sub-blocks of ``r = sub_rows(bs)``
+    rows (bs 12: two 6-row halves; 9: three of 3; 11: eleven of 1; 24:
+    three of 8): through the r-row plain version on the payload viewed as
+    (j*nb, r, bc), the pieces ``split_rows`` derives give the bs GEMM bit
+    for bit in both forms, and each live sub-block's slot holds its rows."""
+    tdt = DTYPES[dt][0]
+    r = sub_rows(bs)
+    M, K, N, bc = 4 * bs, 512, 48, 128
+    x = torch.from_numpy(token_map(M, K, bs, bc, bs)).to(tdt)
+    w = torch.from_numpy(weight(K, N, 3)).to(tdt)
+    payload, bitmap, _ = zebra_mask_pack(x, t_obj=1.0, bs=bs, bc=bc)
+    keep, slot = slot_map(bitmap)
+    assert 0 < int(keep.sum()) < keep.numel()
+    bitmap_r, slot_r = split_rows(bitmap, slot, bs)
+    keep_r, _ = slot_map(bitmap_r)
+    assert tuple(bitmap_r.shape) == (M // r, K // bc) and slot_r.dtype == slot.dtype
+    payload_r = payload.reshape(-1, r, bc)
+    want = spmm_cs_plain(payload, w, bitmap, keep, slot, bs, bc)
+    got = spmm_cs_plain(payload_r, w, bitmap_r, keep_r, slot_r, r, bc)
+    assert torch.equal(bits_t(got), bits_t(want))
+    assert torch.equal(bits_t(spmm_plain(x, w, split_rows(bitmap, None, bs)[0], r, bc)),
+                       bits_t(spmm_plain(x, w, bitmap, bs, bc)))
+    live = keep_r != 0
+    xb = x.reshape(M // r, r, K // bc, bc).permute(0, 2, 1, 3).reshape(-1, r, bc)
+    assert torch.equal(payload_r[slot_r[live].long()], xb[live])
 
 
 @pytest.mark.parametrize("x_dt", ["bf16", "f32"])
