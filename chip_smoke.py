@@ -44,7 +44,18 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
    and for the masking kernel, pack and the expander beside ``copy_`` of
    the map into a map of its shape (a read and a write of the same order
    of bytes, also only a yardstick);
-6. serves gemma3-4b at full width and depth (34 layers, random weights
+6. trains and evaluates the paper's other two CNNs, VGG-16 (13 sites) and
+   MobileNetV1 (27 sites), at full width on the same shapes, block 8
+   shrinking with the maps, T_obj 1.0 and 0.5: R (``reference``) and B
+   (``pallas``) 3 steps each at batch 64, B's step-1 loss and gradients
+   and its variables after 3 steps equal to R's bit for bit (R's step 1
+   twice, against itself) and the masking kernel sites x 3 times; then
+   ``evaluate`` of B's variables on ``stream`` over 2 batches of 128, each
+   stream kernel sites x 2 times, every site in the Eq. 2/3 band, the
+   logits equal to a ``reference`` run's bit for bit; the three stream
+   kernels held and timed on one evaluate batch's site maps, the masking
+   kernel on the site maps of one B training step (batch 64);
+7. serves gemma3-4b at full width and depth (34 layers, random weights
    from seed 0) through ``repro_torch.launch.serve.main`` on the ``fused``
    backend: batch 2, prompt 2048 (the banded local and the chunked global
    attention both run), 32 greedy tokens, T_obj 1.05. The launch counts at
@@ -69,7 +80,17 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
    too, on the 34 ffn_hidden and the 68 kv_cache maps, and the expander
    per decode on the compressed KV leaves that decode expands (each leaf
    must come back losslessly);
-7. drives the validated stream (``compress.integrity``, ``ft``): ResNet-18
+8. serves starcoder2-15b (the GELU MLP with its biases, Q/K/V biases,
+   layernorm) the same way at full width and depth (40 layers), T_obj
+   1.55: prefill 40 payload GEMMs, 40 comparator and 40 pack launches, 80
+   masking launches, the same replays and the same reference run (on the
+   same weights: a second 31 GB model would not fit beside the first);
+   the payload GEMM, the comparator and pack timed per prefill; then
+   command-r-35b (layernorm + SwiGLU), qwen2.5-14b (Q/K/V biases) and
+   chameleon-34b (the untied head) at full width cut to 2 layers, batch 1,
+   prompt 512, 4 tokens on ``fused``: 2 GEMM launches per prefill, the
+   same checks, tokens recorded beside a ``reference`` run;
+9. drives the validated stream (``compress.integrity``, ``ft``): ResNet-18
    evaluate on ``stream`` with B's variables at ``structural`` and
    ``checksum`` (4 x 128 images: the comparator, pack and the expander 17 x
    4 times each, the masking kernel never; one batch's logits and every
@@ -78,7 +99,7 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
    maps (``validate.*``: 426016 stream bytes at zero_frac 0.5938;
    ``detect.{stream,fused,serve}.*``: one fault injected, detected once,
    recovered, the engine's recovery taking the masking kernel once); then
-   gemma3-4b as in 6 with ``--validate checksum`` and two faults armed (a
+   gemma3-4b as in 7 with ``--validate checksum`` and two faults armed (a
    bitmap bit of the first ``kv_cache`` stream, a live value of the first
    handoff leaf): prefill 34 GEMMs, 102 comparator and 102 pack launches,
    67 expander launches and 1 masking launch (the recovered site), the
@@ -88,12 +109,16 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
    the ``off`` run's. Every clean run must detect nothing. It prints the
    host-clock ms of an evaluate forward and of a warm prefill at each
    level (in turns, twice each), and the device busy share of each;
-8. prints one JSON line listing the kernels (the seven CUDA kernels, then
-   the four stream kernels' LM rows, named ``... (gemma3-4b prefill)`` or
-   ``... (gemma3-4b decode)``; the GEMM rows also carry ms per launch,
-   TFLOP/s of live work and the device body that ran, the stream rows
-   their ``amax_ms`` or ``copy_ms`` yardstick), the card line again, and
-   ``{"ok": true, "device": ...}`` as the last line.
+10. prints one JSON line listing the kernels (the seven CUDA kernels, the
+    three stream kernels per VGG-16 and per MobileNetV1 evaluate batch,
+    named ``... (vgg16 evaluate)`` and ``... (mobilenet evaluate)``, the
+    masking kernel per training step of each, ``... (vgg16 training)`` and
+    ``... (mobilenet training)``, then
+    the LM rows, named ``... (gemma3-4b prefill)``, ``... (gemma3-4b
+    decode)`` and ``... (starcoder2-15b prefill)``; the GEMM rows also
+    carry ms per launch, TFLOP/s of live work and the device body that
+    ran, the stream rows their ``amax_ms`` or ``copy_ms`` yardstick), the
+    card line again, and ``{"ok": true, "device": ...}`` as the last line.
 
 Any failed phase exits non-zero, and so does a host without CUDA or a
 directory without the port beside this script. Imports nothing of JAX.
@@ -595,9 +620,10 @@ def run_training(device, steps=TRAIN_STEPS, batch=TRAIN_BATCH, width_mult=1.0):
     return state_b["variables"], counts_b, rec.maps
 
 
-def time_kernels(groups, device) -> list[dict]:
+def time_kernels(groups, device, t_obj=T_OBJ, suffix: str = "", extra=None) -> list[dict]:
     """``groups``: (kernel names, site maps, launches on the main path).
-    Each kernel is held against its plain version on its maps and timed."""
+    Each kernel is held against its plain version on its maps and timed;
+    each row is named ``kernel + suffix`` and carries ``extra[kernel]``."""
     import torch
     from repro_torch.kernels.stream_timing import bound_bytes
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)   # 256 MB
@@ -609,8 +635,8 @@ def time_kernels(groups, device) -> list[dict]:
         for x4, b in maps:
             B, C, H, W = x4.shape
             x = x4.reshape(B * C * H, W)
-            errs = compare_kernels(x, T_OBJ, b, b, f"site map {tuple(x4.shape)}", names)
-            calls, n_live = kernel_calls(x, T_OBJ, b, b, names)
+            errs = compare_kernels(x, t_obj, b, b, f"site map {tuple(x4.shape)}", names)
+            calls, n_live = kernel_calls(x, t_obj, b, b, names)
             blocks = x.view(x.shape[0] // b, b, x.shape[1] // b, b)
             amax = time_ms(lambda: torch.amax(blocks, dim=(1, 3)), flush)
             y = torch.empty_like(x)
@@ -628,8 +654,8 @@ def time_kernels(groups, device) -> list[dict]:
                     r["copy_ms"] += copy
                 by_shape.setdefault((name, tuple(x.shape)), []).append(
                     (ms, pms, bound, amax, copy))
-    print("kernel times per site shape (mean over sites; CUDA events, L2 flushed; amax: "
-          "torch.amax of the map over its blocks, a yardstick read of the same bytes; "
+    print(f"kernel times per site shape{suffix} (mean over sites; CUDA events, L2 flushed; "
+          "amax: torch.amax of the map over its blocks, a yardstick read of the same bytes; "
           "copy: copy_ of the map, a yardstick read and write of them):")
     for (name, shape), vals in sorted(by_shape.items()):
         n = len(vals)
@@ -638,9 +664,153 @@ def time_kernels(groups, device) -> list[dict]:
         yard += f"  copy {copy:.4f} ms" if name in COPY_YARDSTICK else ""
         print(f"  {name:22s} M,K={shape}: {ms:.4f} ms  plain {pms:.4f} ms  "
               f"bound {bound:.4f} ms{yard}  ({n} sites)")
-    return [{"name": name, "route": "cuda", "source": SOURCE, "replaces": KERNELS[name],
-             "launches": launches[name], **rows[name], "bound_by": "bytes",
-             "library_ms": None} for name in KERNELS]
+    return [{"name": name + suffix, "route": "cuda", "source": SOURCE,
+             "replaces": KERNELS[name], "launches": launches[name], **rows[name],
+             "bound_by": "bytes", "library_ms": None, **(extra or {}).get(name, {})}
+            for name in KERNELS if name in launches]
+
+# ---------------------------------------------------------------------------
+# The paper's other two CNNs: VGG-16 and MobileNetV1
+# ---------------------------------------------------------------------------
+
+# T_obj per model: the evaluate zero fraction mid-band on these random
+# weights after 3 steps (VGG-16 0.677 at 1.0, MobileNetV1 0.664 at 0.5;
+# PERF.md)
+ZOO = {"vgg16": 1.0, "mobilenet": 0.5}
+ZOO_STEPS, ZOO_EVAL_BATCHES = 3, 2
+
+
+def run_zoo(device, name: str, steps=ZOO_STEPS, batch=TRAIN_BATCH, batches=ZOO_EVAL_BATCHES,
+            eval_batch=BATCH, width_mult=1.0) -> list[dict]:
+    """One CNN of the zoo at full width on Tiny-ImageNet shapes: train R
+    (``reference``) and B (``pallas``) for ``steps`` steps, B equal to R
+    bit for bit with the masking kernel sites x steps times; then evaluate
+    B's variables on ``stream`` (each stream kernel sites x batches times,
+    every site in the Eq. 2/3 band, logits == ``reference`` bitwise).
+    Returns the kernel rows: the three stream kernels on one evaluate
+    batch's site maps, the masking kernel on the site maps of one B
+    training step (batch ``batch``), each held against its plain version
+    on those maps."""
+    import torch
+    from repro_torch.core import ZebraConfig
+    from repro_torch.data import SYN_TINYIMAGENET, StreamingLoader, image_batch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.optim import sgd, step_decay
+    from repro_torch.train import CNNTrainConfig, CNNTrainer
+
+    t_obj = ZOO[name]
+    data = [tuple(torch.from_numpy(a).to(device)
+                  for a in image_batch(SYN_TINYIMAGENET, batch, i)) for i in range(steps)]
+
+    def trainer(backend):
+        cfg = CNNTrainConfig(model=name, width_mult=width_mult, dataset=SYN_TINYIMAGENET,
+                             batch=batch, steps=steps, grad_clip=10.0, seed=0,
+                             zebra=ZebraConfig(block_hw=BLOCK, t_obj=t_obj, use_tnet=False,
+                                               backend=backend))
+        return CNNTrainer(cfg, sgd(step_decay(0.05, total_steps=steps)), device=device)
+
+    R, B = trainer("reference"), trainer("pallas")
+    n_sites = len(R.model.map_specs(SYN_TINYIMAGENET.hw, R.cfg.zebra))
+    print(f"{name}: width {width_mult}, {n_sites} sites, T_obj {t_obj}, train batch {batch} "
+          f"x {steps} steps, evaluate {batches} x {eval_batch}")
+    # step 1: B's loss and gradients against R's, and R against itself (a
+    # nondeterministic reduction would show there first)
+    grads = {}
+    for label, tr in (("R", R), ("R again", R), ("B", B)):
+        _, loss, g, _, _ = tr.loss_and_grads(tr.init_state(), *data[0])
+        grads[label] = (loss, g)
+    for label in ("R again", "B"):
+        loss, g = grads[label]
+        bad = [k for k in g if not same_bits(g[k], grads["R"][1][k])]
+        check(same_bits(loss, grads["R"][0]) and not bad,
+              f"{name} step 1: {label} differs from R (loss {float(loss)} vs "
+              f"{float(grads['R'][0])}; gradients {bad[:4]})")
+    print(f"  step 1: R twice and B: loss and all {len(grads['R'][1])} gradients equal "
+          f"(bitwise)")
+    del grads
+    states, ms = {}, {}
+    for label, tr in (("R", R), ("B", B)):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states[label], hist = tr.train(steps, log_every=steps,
+                                       loader=StreamingLoader(lambda b, i: data[i], batch))
+        torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t0) / steps * 1e3
+        counts = launch_counts()
+        check_launches(counts, {"zebra_mask_kernel": n_sites * steps} if label == "B" else {},
+                       f"{name} train {label}")
+        check(math.isfinite(hist[-1]["loss"]), f"{name} {label}: loss not finite")
+        if label == "B":
+            train_launches = {"zebra_mask_kernel": counts["zebra_mask_kernel"]}
+        print(f"  {label}: {ms[label]:.3f} ms per step (host clock, synchronised, step 1 "
+              f"included); step {steps} loss {hist[-1]['loss']} zero_frac "
+              f"{hist[-1]['zero_frac']}")
+    for k, v in states["R"]["variables"].items():
+        check(same_bits(states["B"]["variables"][k], v),
+              f"{name}: B after {steps} steps: {k} differs from R")
+    print(f"  B: all {len(states['R']['variables'])} variables after {steps} steps == R "
+          f"(bitwise)")
+    variables = states["B"]["variables"]
+    with SiteRecorder(keep_maps=True) as train_rec:
+        B.loss_and_grads(states["B"], *data[0])
+    check(len(train_rec.maps) == n_sites,
+          f"{name}: {len(train_rec.maps)} B site maps, want {n_sites}")
+    del states, R, B
+
+    zcfg = ZebraConfig(mode="infer", backend="stream", block_hw=BLOCK, t_obj=t_obj,
+                       use_tnet=False)
+    ev = CNNTrainer(CNNTrainConfig(model=name, width_mult=width_mult,
+                                   dataset=SYN_TINYIMAGENET, zebra=zcfg, seed=0),
+                    device=device)
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    out = ev.evaluate(variables, batches=batches, batch=eval_batch)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check_launches(launches, {k: n_sites * batches for k in STREAM_KERNELS},
+                   f"{name} evaluate")
+    specs = ev.model.map_specs(SYN_TINYIMAGENET.hw, zcfg)
+    dense = sum(s.elems * 4 for s in specs)
+    print(f"  evaluate: zero_frac {out['zero_frac']} reduced_bandwidth_pct "
+          f"{out['reduced_bandwidth_pct']}; stream bytes per image "
+          f"{out['measured_bytes'] / eval_batch} vs dense float32 {dense} "
+          f"(per batch: {out['measured_bytes_per_batch']})")
+    check(0.0 < out["zero_frac"] < 1.0, f"{name}: zero_frac {out['zero_frac']}")
+    images = torch.from_numpy(image_batch(SYN_TINYIMAGENET, eval_batch, 10_000)[0]).to(device)
+    with SiteRecorder(keep_maps=True) as rec:
+        logits, _ = ev.forward(variables, images)
+    check(len(rec.maps) == n_sites, f"{name}: {len(rec.maps)} site maps, want {n_sites}")
+    check(bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (eval_batch, 200),
+          f"{name}: logits not finite of shape ({eval_batch}, 200)")
+    worst = check_band(rec.records, f"{name} evaluate")
+    ref_logits, _ = ev.forward(variables, images, zcfg.replace(backend="reference"))
+    check(same_bits(logits, ref_logits), f"{name}: stream logits differ from reference")
+    print(f"  every site inside the Eq. 2/3 band (worst |delta| {worst} B); logits: stream "
+          f"== reference (bitwise)")
+    fwd = {}
+    for backend in ("stream", "reference"):
+        z = zcfg.replace(backend=backend)
+        ev.forward(variables, images, z)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            ev.forward(variables, images, z)
+        torch.cuda.synchronize()
+        fwd[backend] = (time.perf_counter() - t0) / 3 * 1e3
+    print(f"  forward of one batch of {eval_batch}: stream {fwd['stream']:.3f} ms, reference "
+          f"{fwd['reference']:.3f} ms (host clock, synchronised)")
+    for backend in ("stream", "reference"):
+        busy = profile_calls(lambda: ev.forward(variables, images, zcfg.replace(
+            backend=backend)), 2, f"{name} {backend} forwards", "forward")
+        if busy is not None:
+            print(f"  {name} {backend}: device busy {100 * busy / fwd[backend]:.1f} % of an "
+                  f"unprofiled forward ({busy:.3f} of {fwd[backend]:.3f} ms)")
+    return (time_kernels([(STREAM_KERNELS, rec.maps, launches)], device, t_obj=t_obj,
+                         suffix=f" ({name} evaluate)")
+            + time_kernels([(("zebra_mask_kernel",), train_rec.maps, train_launches)],
+                           device, t_obj=t_obj, suffix=f" ({name} training)"))
+
 
 # ---------------------------------------------------------------------------
 # The LM serving slice: gemma3-4b on the fused backend
@@ -661,6 +831,25 @@ GEMM_BODY = {"torch.bfloat16": "mma_block_rows: mma.sync m16n8k16 bf16 -> fp32, 
 FMAF_WARM_PREFILL_MS = (404.5, 418.0)
 Y_TOL = dict(rtol=2 ** -7, atol=1e-2)    # bf16 outputs: up to two bf16 ulps apart
 BS, BC = 8, 128                          # the LM's token blocks
+# starcoder2-15b at full width and depth on fused. Its GELU MLP's
+# pre-activation is N(0, d/f = 1/4) per element on random weights
+# (layernorm'd rows, w_up of fan-in f), so an 8 x 128 block dies when the
+# largest of its 1024 values stays under gelu^-1(T_obj): zero fraction
+# ~Phi(gelu^-1(T)/0.5)^1024, 0.45 at 1.5, 0.58 at 1.55, 0.67 at 1.6 on
+# independent rows (a CPU draw agrees); the served maps sit higher, 0.734
+# at 1.55 (PERF.md), as gemma3-4b's do above their own estimate
+SC2 = dict(arch="starcoder2-15b", batch=2, prompt=2048, gen=32, t_obj=1.55)
+SC2_STREAM_ROWS = {
+    "zebra_bitmap_kernel (starcoder2-15b prefill)": ("zebra_bitmap_kernel", "ffn"),
+    "zebra_pack_kernel (starcoder2-15b prefill)": ("zebra_pack_kernel", "ffn")}
+# the three other dense architectures at full width, cut to 2 layers
+# (chameleon-34b's 68 GB and command-r-35b's 70 GB of bf16 weights do not
+# fit one card beside their activations), each with the field it brings;
+# T_obj 1.8 puts their SwiGLU ffn_hidden zero fraction near 0.65 on
+# independent rows (d/f ~0.37 against gemma3-4b's 0.25)
+ARCH_RUNS = {"command-r-35b": "layernorm + SwiGLU", "qwen2.5-14b": "qkv_bias",
+             "chameleon-34b": "untied head (lm_head)"}
+ARCH_RUN = dict(batch=1, prompt=512, gen=4, t_obj=1.8, layers=2)
 
 
 def gemm_pieces(x2, bitmap, bs, bc):
@@ -861,10 +1050,14 @@ def block_weighted(auxes) -> tuple[float, int]:
     return zf, sum(int(a.measured_bytes) for a in auxes)
 
 
-def run_lm(device) -> dict:
-    """Serve gemma3-4b through ``repro_torch.launch.serve.main`` on fused,
-    check launches per phase, the observables, the handoff and a replay of
-    every ffn_hidden site; then serve it on reference for the tokens."""
+def run_lm(device, arch=LM_ARCH, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
+           t_obj=LM_T_OBJ, layers=0, zf_band=(0.5, 0.8), profile=True) -> dict:
+    """Serve ``arch`` (gemma3-4b by default) through
+    ``repro_torch.launch.serve.main`` on fused (``layers`` > 0 cuts the
+    depth), check launches per phase, the observables, the handoff and a
+    replay of every ffn_hidden and kv_cache site (the ffn_hidden zero
+    fraction inside ``zf_band`` unless None); then serve the same model on
+    reference for the tokens, and again on fused, warm, for its times."""
     import torch
     from repro_torch.compress import CompressedMap, decompress
     from repro_torch.core.engine import stream_bytes, zebra_site
@@ -872,12 +1065,12 @@ def run_lm(device) -> dict:
     from repro_torch.kernels import (mask_pack, reset_launch_counts, spmm_cs, zebra_mask,
                                      zebra_spmm)
     from repro_torch.launch import serve, steps
-    from repro_torch.models.lm.ffn import zebra_cfg_for
+    from repro_torch.models.lm.ffn import eff_block_ch, zebra_cfg_for
     from repro_torch.utils import map_tree
 
-    argv = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
-            "--gen", str(LM_GEN), "--t-obj", str(LM_T_OBJ)]
-    cfg = serve.build_config(LM_ARCH, t_obj=LM_T_OBJ, backend="fused")
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
+            "--gen", str(gen), "--t-obj", str(t_obj), "--layers", str(layers)]
+    cfg = serve.build_config(arch, t_obj=t_obj, backend="fused", n_layers=layers)
     print(f"LM serving: python -m repro_torch.launch.serve {' '.join(argv)} --backend fused")
     reset_launch_counts()
     with LMSiteRecorder() as rec, PhaseCounts(serve) as phases:
@@ -899,16 +1092,24 @@ def run_lm(device) -> dict:
                    {"zebra_unpack_kernel": len(leaves)}, "LM decode (no GEMM)")
     print(f"  prefill {out['prefill_ms']:.3f} ms, decode {out['decode_ms_per_token']:.3f} "
           f"ms/token (host clock, synchronised)")
+    ffn_bc = eff_block_ch(cfg.d_ff, cfg)
     ffn_zf, ffn_bytes = block_weighted([a for *_, a in rec.ffn])
     kv_zf, kv_bytes = block_weighted([a for *_, a in rec.kv])
     dense_ffn = sum(h.numel() * h.element_size() for h, *_ in rec.ffn)
     print(f"  ffn_hidden: {n_layers} sites, zero fraction {ffn_zf}, stream bytes {ffn_bytes} "
-          f"of {dense_ffn} dense (T_obj {LM_T_OBJ})")
+          f"of {dense_ffn} dense (T_obj {t_obj})")
     print(f"  kv_cache: {len(rec.kv)} sites (the masking pass), zero fraction {kv_zf}, "
-          f"stream bytes {kv_bytes} (T_obj {LM_T_OBJ})")
-    check(0.5 <= ffn_zf <= 0.8, f"ffn_hidden zero fraction {ffn_zf} outside 0.5-0.8")
+          f"stream bytes {kv_bytes} (T_obj {t_obj})")
+    maxima = [h.reshape(-1, BS, h.shape[-1] // ffn_bc, ffn_bc).float().abs().amax(dim=(1, 3))
+              for h, *_ in rec.ffn]
+    print("  ffn_hidden zero fraction by T_obj on these maps: " + ", ".join(
+        f"{t}: {float(sum((m < t).sum() for m in maxima) / sum(m.numel() for m in maxima)):.4f}"
+        for t in (0.5 * t_obj, 0.9 * t_obj, t_obj, 1.1 * t_obj, 1.5 * t_obj)))
+    del maxima
+    check(zf_band is None or zf_band[0] <= ffn_zf <= zf_band[1],
+          f"ffn_hidden zero fraction {ffn_zf} outside {zf_band}")
     check(len(rec.kv) == 2 * n_layers, f"{len(rec.kv)} kv_cache sites, want {2 * n_layers}")
-    check(len(rec.ffn_decode) == n_layers * (LM_GEN - 1)
+    check(len(rec.ffn_decode) == n_layers * (gen - 1)
           and set(rec.ffn_decode) == {"reference(degenerate-rows)"},
           f"decode ffn_hidden sites: {len(rec.ffn_decode)} x {set(rec.ffn_decode)}")
     print(f"  decode: {len(rec.ffn_decode)} ffn_hidden sites, all reference(degenerate-rows) "
@@ -938,8 +1139,8 @@ def run_lm(device) -> dict:
         x2 = x.reshape(-1, x.shape[-1])
         bs = BS if x.shape[-2] % BS == 0 else 1
         bc = BC if x2.shape[1] % BC == 0 else x2.shape[1]
-        y_plain, bm_plain = zebra_mask.mask_plain(x2, LM_T_OBJ, bs, bc)
-        y_k, bm_k = zebra_mask.mask_cuda(x2, LM_T_OBJ, bs, bc)
+        y_plain, bm_plain = zebra_mask.mask_plain(x2, t_obj, bs, bc)
+        y_k, bm_k = zebra_mask.mask_cuda(x2, t_obj, bs, bc)
         check(same_bits(y.reshape(x2.shape), y_plain), f"kv site {i}: the path's masked "
                                                        f"map != mask_plain")
         check(same_bits(y_k, y_plain) and same_bits(bm_k, bm_plain),
@@ -948,25 +1149,26 @@ def run_lm(device) -> dict:
               and int(aux.measured_bytes) == 0, f"kv site {i}: zero_frac or bytes")
     print(f"  replay of {len(rec.kv)} kv_cache maps {tuple(rec.kv[0][0].shape)}: the path's "
           f"masked map, the kernel's map and bitmap == mask_plain (bitwise); zero fraction "
-          f"{kv_zf} at T_obj {LM_T_OBJ}{' (every block kept)' if kv_zf == 0 else ''}")
+          f"{kv_zf} at T_obj {t_obj}{' (every block kept)' if kv_zf == 0 else ''}")
 
     # replay every ffn_hidden input through the reference site and zebra_spmm
     zc = zebra_cfg_for(cfg, "infer")
     worst_y = 0.0
     for i, (h, w, y, aux) in enumerate(rec.ffn):
         h2 = h.reshape(-1, h.shape[-1])
-        payload, bitmap, n_live = mask_pack.zebra_mask_pack(h2, t_obj=LM_T_OBJ, bs=BS, bc=BC)
+        payload, bitmap, n_live = mask_pack.zebra_mask_pack(h2, t_obj=t_obj, bs=BS,
+                                                            bc=ffn_bc)
         y_ref, aux_ref = zebra_site(h, zc.replace(backend="reference"), site="ffn_hidden",
                                     w=w)
-        keep_ref = mask_pack.bitmap_plain(h2, LM_T_OBJ, BS, BC)
+        keep_ref = mask_pack.bitmap_plain(h2, t_obj, BS, ffn_bc)
         check(same_bits(bitmap, keep_ref), f"layer {i}: bitmap != the reference's")
         check(int(n_live) == int(keep_ref.sum()), f"layer {i}: n_live != the reference's")
-        want_bytes = stream_bytes(keep_ref.sum(), BS, BC, h.dtype, keep_ref.numel())
+        want_bytes = stream_bytes(keep_ref.sum(), BS, ffn_bc, h.dtype, keep_ref.numel())
         check(int(aux.measured_bytes) == int(want_bytes), f"layer {i}: stream bytes")
         check(same_bits(aux.zero_frac, aux_ref.zero_frac)
               and same_bits(aux.zero_frac, zero_fraction(bitmap)), f"layer {i}: zero_frac")
-        y7 = spmm_cs.zebra_spmm_cs(payload, w, bitmap, bs=BS, bc=BC)
-        y6 = zebra_spmm.zebra_spmm(h2, w, bitmap, bs=BS, bc=BC)
+        y7 = spmm_cs.zebra_spmm_cs(payload, w, bitmap, bs=BS, bc=ffn_bc)
+        y6 = zebra_spmm.zebra_spmm(h2, w, bitmap, bs=BS, bc=ffn_bc)
         check(same_bits(y6, y7), f"layer {i}: zebra_spmm != zebra_spmm_cs")
         check(same_bits(y7.to(h.dtype).reshape(y.shape), y), f"layer {i}: fused output "
                                                              f"!= the replayed kernel's")
@@ -978,8 +1180,11 @@ def run_lm(device) -> dict:
           f"reference (bitwise); zebra_spmm_cs == zebra_spmm (bitwise); y vs reference "
           f"max abs err {worst_y} ({Y_TOL})")
 
+    # the yardstick tokens from the same weights on reference (a second
+    # model of starcoder2-15b's 31 GB would not fit beside the first)
+    model, prompts = out["model"], out["prompts"]
     reset_launch_counts()
-    ref = serve.main([*argv, "--backend", "reference"])
+    ref = serve.serve_one_shot(model, prompts, gen, backend="reference", log=lambda *_: None)
     check(not any(launch_counts().values()), "the reference run launched a kernel")
     fused_t, ref_t = out["tokens"].cpu(), ref["tokens"].cpu()
     agree = int((fused_t == ref_t).sum())
@@ -995,63 +1200,76 @@ def run_lm(device) -> dict:
     del ref
     # the first run paid the first calls' set-up (cuBLAS handles, allocator
     # growth); serve the same prompts again on the warm model for its times
-    model, prompts = out["model"], out["prompts"]
-    again = serve.serve_one_shot(model, prompts, LM_GEN, log=lambda *_: None)
+    again = serve.serve_one_shot(model, prompts, gen, log=lambda *_: None)
     check(torch.equal(again["tokens"], out["tokens"]), "the second fused run's tokens differ")
+    warm = (again["prefill_ms"], again["decode_ms_per_token"])
     print(f"  fused again (warm): prefill {again['prefill_ms']:.3f} ms, decode "
           f"{again['decode_ms_per_token']:.3f} ms/token (host clock, synchronised)")
-    lo, hi = FMAF_WARM_PREFILL_MS
-    print(f"  fused warm prefill {again['prefill_ms']:.3f} ms beside {lo}-{hi} ms recorded "
-          f"with the GEMMs' fmaf body (PERF.md)")
-    busy = profile_calls(lambda: steps.prefill(model, prompts), 2, "fused prefills", "prefill")
+    if arch == LM_ARCH and not layers:
+        lo, hi = FMAF_WARM_PREFILL_MS
+        print(f"  fused warm prefill {again['prefill_ms']:.3f} ms beside {lo}-{hi} ms "
+              f"recorded with the GEMMs' fmaf body (PERF.md)")
+    busy = (profile_calls(lambda: steps.prefill(model, prompts), 2, "fused prefills",
+                          "prefill") if profile else None)
     if busy is not None:
         print(f"  fused prefill: device busy {100 * busy / again['prefill_ms']:.1f} % of an "
               f"unprofiled prefill ({busy:.3f} of {again['prefill_ms']:.3f} ms)")
     state = again["dense_state"]
     tok = again["tokens"][:, :1]
-    busy = profile_calls(lambda: steps.generate(model, tok, state, LM_PROMPT, 4), 1,
-                         "4-token decodes", "4 tokens")
+    busy = (profile_calls(lambda: steps.generate(model, tok, state, prompt, 4), 1,
+                          "4-token decodes", "4 tokens") if profile else None)
     if busy is not None:
         print(f"  decode: device busy {100 * busy / 4 / again['decode_ms_per_token']:.1f} % "
               f"of an unprofiled token ({busy / 4:.3f} of "
               f"{again['decode_ms_per_token']:.3f} ms)")
-    del again, state
+    del again, state, model, prompts
+    out.pop("model"), out.pop("prompts")
     check(bool(torch.isfinite(out["logits"]).all())
-          and tuple(out["logits"].shape) == (LM_BATCH, cfg.vocab),
-          f"prefill logits not finite of shape ({LM_BATCH}, {cfg.vocab})")
+          and tuple(out["logits"].shape) == (batch, cfg.vocab),
+          f"prefill logits not finite of shape ({batch}, {cfg.vocab})")
     # launches from the served run alone; the dense twin is off the path (0
     # there) and its replay launches are reported beside, under their own name
-    return {"maps": [(h, w) for h, w, *_ in rec.ffn], "kv": [x for x, *_ in rec.kv],
+    return {"arch": arch, "t_obj": t_obj, "agree": agree, "warm_ms": warm,
+            "maps": [(h, w) for h, w, *_ in rec.ffn], "kv": [x for x, *_ in rec.kv],
             "dense": dense, "comp": comp, "tokens": out["tokens"].cpu(),
             "launches": {k: final[k] for k in (*LM_KERNELS, *KERNELS)},
             "replay_launches": {"zebra_spmm_kernel": replay["zebra_spmm_kernel"]}}
 
 
-def time_lm_kernels(lm: dict, edge_errs: dict, device) -> list[dict]:
+def time_lm_kernels(lm: dict, edge_errs: dict, device, gemms=("zebra_spmm_kernel",
+                                                             "zebra_spmm_cs_kernel"),
+                    codec: bool = True, stream_rows=None) -> list[dict]:
     """The LM kernels on the path's inputs: the GEMMs on the ffn_hidden maps
     of the prefill (summed per prefill), zebra_pack on the handoff's
-    compressible leaves (summed per handoff); each beside its plain
-    version, its bound and, for the GEMMs, torch.matmul of the keep-gated
-    dense bf16 map by w (TF32 off)."""
+    compressible leaves (summed per handoff, when ``codec``); each beside
+    its plain version, its bound and, for the GEMMs, torch.matmul of the
+    keep-gated dense bf16 map by w (TF32 off). For another architecture
+    than gemma3-4b the rows are named ``... (<arch> prefill)``. Then the
+    stream kernels on the served inputs (``stream_rows``, by default
+    gemma3-4b's LM_STREAM_ROWS)."""
     import torch
     from repro_torch.compress import CompressedMap, nonzero_bitmap
     from repro_torch.kernels import mask_pack, spmm_cs, zebra_spmm
     from repro_torch.kernels.stream_timing import bound_bytes
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)   # 256 MB
+    t_obj = lm["t_obj"]
+    names = (*gemms, *(("zebra_pack",) if codec else ()))
     rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                "max_abs_err": edge_errs[k], "bound_by": "bytes"} for k in LM_KERNELS}
-    terms = {k: [0.0, 0.0] for k in LM_KERNELS}      # summed bytes and operations times
+                "max_abs_err": edge_errs[k], "bound_by": "bytes"} for k in names}
+    terms = {k: [0.0, 0.0] for k in names}           # summed bytes and operations times
     live_flops = 0                                   # 2 n_live bs bc N, summed per prefill
     for h, w in lm["maps"]:
         x2 = h.reshape(-1, h.shape[-1])
         M, K = x2.shape
         N, item = w.shape[1], x2.element_size()
-        bitmap = mask_pack.bitmap_plain(x2, LM_T_OBJ, BS, BC)
+        bitmap = mask_pack.bitmap_plain(x2, t_obj, BS, BC)
         keep, slot, payload, n_live = gemm_pieces(x2, bitmap, BS, BC)
         for k, e in compare_gemms(x2, w, bitmap, BS, BC, f"ffn_hidden map {M}x{K}").items():
-            rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], e)
+            if k in rows:
+                rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], e)
         gated = zebra_spmm.gate_blocks(x2, bitmap, BS, BC)
         lib = time_ms(lambda: torch.matmul(gated, w), flush, iters=5, warmup=1)
+        del gated
         live_flops += 2 * n_live * BS * BC * N
         flops_ms = 2 * n_live * BS * BC * N / BF16_FLOPS * 1e3
         common = n_live * BS * BC * item + bitmap.numel() + K * N * item + M * N * 4
@@ -1063,7 +1281,8 @@ def time_lm_kernels(lm: dict, edge_errs: dict, device) -> list[dict]:
             "zebra_spmm_kernel": (lambda: zebra_spmm.spmm_cuda(x2, w, bitmap, BS, BC),
                                   lambda: zebra_spmm.spmm_plain(x2, w, bitmap, BS, BC),
                                   common)}
-        for k, (kern, plain, nbytes) in calls.items():
+        for k in gemms:
+            kern, plain, nbytes = calls[k]
             r = rows[k]
             r["ms"] += time_ms(kern, flush, iters=5, warmup=1)
             r["plain_ms"] += time_ms(plain, flush, iters=5, warmup=1)
@@ -1073,48 +1292,55 @@ def time_lm_kernels(lm: dict, edge_errs: dict, device) -> list[dict]:
             terms[k][0] += bytes_ms
             terms[k][1] += flops_ms
     n_maps = len(lm["maps"])
-    for k in ("zebra_spmm_kernel", "zebra_spmm_cs_kernel"):
+    for k in gemms:
         r = rows[k]
         r["ms_per_launch"] = r["ms"] / n_maps
+        r["bound_ms_per_launch"] = r["bound_ms"] / n_maps
+        r["library_ms_per_launch"] = r["library_ms"] / n_maps
         r["tflops_live"] = live_flops / (r["ms"] * 1e-3) / 1e12
         r["body"] = GEMM_BODY[str(lm["maps"][0][1].dtype)]
-        print(f"  {k}: {r['ms_per_launch']:.4f} ms per launch, {r['tflops_live']:.2f} "
-              f"TFLOP/s of live work ({r['body']})")
+        print(f"  {k}: {r['ms_per_launch']:.4f} ms per launch (bound "
+              f"{r['bound_ms_per_launch']:.4f}, torch.matmul {r['library_ms_per_launch']:.4f}), "
+              f"{r['tflops_live']:.2f} TFLOP/s of live work ({r['body']})")
     for k, (b, f) in terms.items():
         rows[k]["bound_by"] = "operations" if f > b else "bytes"
         if b or f:
             print(f"  {k}: bound terms over the prefill: bytes {b:.4f} ms, operations "
                   f"{f:.4f} ms")
-    r = rows["zebra_pack"]
-    r["library_ms"], r["copy_ms"] = None, 0.0
-    for d, c in zip(lm["dense"], lm["comp"]):
-        if not isinstance(c, CompressedMap):
-            continue
-        x2 = d.reshape(c.m, c.k)
-        compare_zebra_pack(x2, c.bs, c.bc, f"KV leaf {tuple(d.shape)}")
-        bitmap = nonzero_bitmap(x2, c.bs, c.bc)
-        keep, slot, _, n_live = gemm_pieces(x2, bitmap, c.bs, c.bc)
-        n_live_t = keep.sum(dtype=torch.int32)
-        r["ms"] += time_ms(lambda: mask_pack.pack_launch(x2, bitmap, slot, n_live_t, c.bs,
-                                                         c.bc, "zebra_pack"), flush)
-        r["plain_ms"] += time_ms(lambda: mask_pack.pack_plain(x2, bitmap, slot, n_live_t,
-                                                              c.bs, c.bc), flush)
-        y = torch.empty_like(x2)
-        r["copy_ms"] += time_ms(lambda: y.copy_(x2), flush)
-        r["bound_ms"] += bound_bytes("zebra_pack_kernel", c.m, c.k, c.bs, c.bc,
-                                     x2.element_size(), n_live) / HBM_BYTES_PER_S * 1e3
-    print(f"LM kernel times (per prefill: {len(lm['maps'])} ffn_hidden maps; zebra_pack per "
+    if codec:
+        r = rows["zebra_pack"]
+        r["library_ms"], r["copy_ms"] = None, 0.0
+        for d, c in zip(lm["dense"], lm["comp"]):
+            if not isinstance(c, CompressedMap):
+                continue
+            x2 = d.reshape(c.m, c.k)
+            compare_zebra_pack(x2, c.bs, c.bc, f"KV leaf {tuple(d.shape)}")
+            bitmap = nonzero_bitmap(x2, c.bs, c.bc)
+            keep, slot, _, n_live = gemm_pieces(x2, bitmap, c.bs, c.bc)
+            n_live_t = keep.sum(dtype=torch.int32)
+            r["ms"] += time_ms(lambda: mask_pack.pack_launch(x2, bitmap, slot, n_live_t, c.bs,
+                                                             c.bc, "zebra_pack"), flush)
+            r["plain_ms"] += time_ms(lambda: mask_pack.pack_plain(x2, bitmap, slot, n_live_t,
+                                                                  c.bs, c.bc), flush)
+            y = torch.empty_like(x2)
+            r["copy_ms"] += time_ms(lambda: y.copy_(x2), flush)
+            r["bound_ms"] += bound_bytes("zebra_pack_kernel", c.m, c.k, c.bs, c.bc,
+                                         x2.element_size(), n_live) / HBM_BYTES_PER_S * 1e3
+    suffix = "" if lm["arch"] == LM_ARCH else f" ({lm['arch']} prefill)"
+    print(f"LM kernel times{suffix} (per prefill: {n_maps} ffn_hidden maps; zebra_pack per "
           f"handoff; CUDA events, L2 flushed):")
     for k, r in rows.items():
         copy = f"  copy {r['copy_ms']:.4f} ms" if "copy_ms" in r else ""
         print(f"  {k:22s} {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})  library {r['library_ms']}{copy}")
     for k, n in lm["replay_launches"].items():
-        rows[k]["replay_launches"] = n
-    return [{"name": k, "route": "cuda",
+        if k in rows:
+            rows[k]["replay_launches"] = n
+    return [{"name": k + suffix, "route": "cuda",
              "source": SOURCE if k == "zebra_pack" else GEMM_SOURCE,
              "replaces": LM_KERNELS[k], "launches": lm["launches"][k], **rows[k]}
-            for k in LM_KERNELS] + time_lm_stream_kernels(lm, flush)
+            for k in names] + time_lm_stream_kernels(
+                lm, flush, LM_STREAM_ROWS if stream_rows is None else stream_rows)
 
 
 def lm_row_inputs(lm: dict, name: str, src: str):
@@ -1144,18 +1370,19 @@ def lm_row_inputs(lm: dict, name: str, src: str):
         x2 = x.reshape(-1, x.shape[-1])
         bs = BS if x.shape[-2] % BS == 0 else 1
         bc = BC if x2.shape[1] % BC == 0 else x2.shape[1]
-        calls, n_live = kernel_calls(x2, LM_T_OBJ, bs, bc, (name,))
+        calls, n_live = kernel_calls(x2, lm["t_obj"], bs, bc, (name,))
         yield x2, bs, bc, calls[name], n_live
 
 
-def time_lm_stream_kernels(lm: dict, flush) -> list[dict]:
-    """The stream kernels on the served inputs (LM_STREAM_ROWS), each held
-    bit for bit against its plain version and summed per prefill or per
-    decode, beside the byte bound and torch.amax or copy_ of each map."""
+def time_lm_stream_kernels(lm: dict, flush, stream_rows) -> list[dict]:
+    """The stream kernels on the served inputs (``stream_rows``: row name ->
+    (kernel, inputs)), each held bit for bit against its plain version and
+    summed per prefill or per decode, beside the byte bound and torch.amax
+    or copy_ of each map."""
     import torch
     from repro_torch.kernels.stream_timing import bound_bytes
     out = []
-    for row, (name, src) in LM_STREAM_ROWS.items():
+    for row, (name, src) in stream_rows.items():
         r = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0}
         yards = {k: 0.0 for k, names in (("amax_ms", AMAX_YARDSTICK),
                                          ("copy_ms", COPY_YARDSTICK)) if name in names}
@@ -1475,20 +1702,42 @@ def main() -> int:
         del mask_maps, maps
         torch.cuda.empty_cache()
         t2 = time.perf_counter()
+        for name in ZOO:
+            kernels += run_zoo(device, name)
+            torch.cuda.empty_cache()
+        t3 = time.perf_counter()
         with torch.inference_mode():
             lm = run_lm(device)
             kernels += time_lm_kernels(lm, lm_errs, device)
         off_tokens = lm["tokens"]
         del lm
         torch.cuda.empty_cache()
-        t3 = time.perf_counter()
+        t4 = time.perf_counter()
+        with torch.inference_mode():
+            lm = run_lm(device, **SC2)
+            kernels += time_lm_kernels(lm, lm_errs, device, gemms=("zebra_spmm_cs_kernel",),
+                                       codec=False, stream_rows=SC2_STREAM_ROWS)
+            del lm
+            torch.cuda.empty_cache()
+            t5 = time.perf_counter()
+            for arch, field in ARCH_RUNS.items():
+                print(f"{arch}: the 2-layer run that exercises {field}")
+                lm = run_lm(device, arch, zf_band=None, profile=False, **ARCH_RUN)
+                print(f"  {arch} ({field}): 2 payload GEMM launches per prefill; greedy "
+                      f"tokens {lm['agree']} of {lm['tokens'].numel()} == reference; warm "
+                      f"prefill {lm['warm_ms'][0]:.3f} ms, decode {lm['warm_ms'][1]:.3f} "
+                      f"ms/token")
+                del lm
+                torch.cuda.empty_cache()
+        t6 = time.perf_counter()
         with torch.inference_mode():
             run_validated_slice(device, trained)
             run_detection(device)
             run_lm_validated(device, off_tokens)
-        t4 = time.perf_counter()
+        t7 = time.perf_counter()
         print(f"phase times: edge cases {t1 - t0:.1f} s, CNN {t2 - t1:.1f} s, "
-              f"LM {t3 - t2:.1f} s, validated {t4 - t3:.1f} s")
+              f"CNN zoo {t3 - t2:.1f} s, LM {t4 - t3:.1f} s, starcoder2-15b {t5 - t4:.1f} s, "
+              f"arch runs {t6 - t5:.1f} s, validated {t7 - t6:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
         print(json.dumps({"ok": True, "device": {

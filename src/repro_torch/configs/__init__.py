@@ -1,21 +1,25 @@
 """Architecture registry of the port (``repro.configs``).
 
 ``get(arch)`` -> LMConfig; ``reduced(arch)`` -> the smoke-test config.
-Only the dense gemma3-4b is ported so far; the reference's other
-architectures (MoE, SSM, RG-LRU, whisper) wait in ROADMAP.md's module
-queue and raise ``NotImplementedError`` here.
+The five dense architectures are ported (gemma3-4b, command-r-35b,
+qwen2.5-14b, starcoder2-15b, chameleon-34b); the reference's others (MoE,
+SSM, RG-LRU, whisper) wait in ROADMAP.md's module queue and raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
 import importlib
 
 _ARCH_MODULES = {
+    "chameleon-34b": "chameleon_34b",
+    "command-r-35b": "command_r_35b",
     "gemma3-4b": "gemma3_4b",
+    "qwen2.5-14b": "qwen25_14b",
+    "starcoder2-15b": "starcoder2_15b",
 }
 
 # registered in the reference, not yet ported
-_WAITING = ("chameleon-34b", "command-r-35b", "qwen2.5-14b", "starcoder2-15b",
-            "recurrentgemma-2b", "whisper-medium", "llama4-scout-17b-a16e",
+_WAITING = ("recurrentgemma-2b", "whisper-medium", "llama4-scout-17b-a16e",
             "granite-moe-1b-a400m", "mamba2-2.7b")
 
 ARCHS = tuple(_ARCH_MODULES)

@@ -18,11 +18,18 @@ def _is_weight(name: str, t: torch.Tensor) -> bool:
     return name.split(".")[-1] in ("w", "kernel") and t.dim() >= 2
 
 
-def magnitude_masks(params: Params, prune_frac: float) -> Params:
-    """Weight name -> 0/1 keep mask of the weight's shape and dtype: each
-    weight keeps the entries above its own ``prune_frac`` quantile of |w|."""
-    return {k: (w.abs() > quantile(w.abs().to(torch.float32), prune_frac)).to(w.dtype)
-            for k, w in params.items() if _is_weight(k, w)}
+def magnitude_masks(params: Params, prune_frac: float, per_layer: bool = True) -> Params:
+    """Weight name -> 0/1 keep mask of the weight's shape and dtype. With
+    ``per_layer`` each weight keeps the entries above its own
+    ``prune_frac`` quantile of |w|; otherwise every weight is cut at one
+    global quantile of |w| over all the weights together."""
+    weights = {k: w for k, w in params.items() if _is_weight(k, w)}
+    if per_layer:
+        return {k: (w.abs() > quantile(w.abs().to(torch.float32), prune_frac)).to(w.dtype)
+                for k, w in weights.items()}
+    thr = quantile(torch.cat([w.abs().reshape(-1).to(torch.float32)
+                              for w in weights.values()]), prune_frac)
+    return {k: (w.abs() > thr).to(w.dtype) for k, w in weights.items()}
 
 
 def apply_masks(params: Params, masks: Params) -> Params:

@@ -30,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -129,12 +130,15 @@ def _expand_mask_bsd(mask_blocks: torch.Tensor, bs: int, bc: int) -> torch.Tenso
 
 def zero_fraction(keep: torch.Tensor) -> torch.Tensor:
     """``1 - mean(keep)`` in float32, computed as the reference's compiled
-    mean is: the exact live count times the float32 reciprocal of the
-    block count (XLA turns a division by a constant into that product), so
-    the value is equal bit for bit."""
-    live = keep.sum(dtype=torch.int64).to(torch.float32)
-    inv_n = (torch.tensor(1.0, dtype=torch.float32) / keep.numel()).item()
-    return 1.0 - live * inv_n
+    form is: XLA turns the division by the block count into a product by
+    its float32 reciprocal and contracts ``1 - live · r`` into one fused
+    multiply-add, so the value is rounded once. Here the product and the
+    difference are exact in float64 (live < 2**29, r of 24 bits), then
+    rounded to float32: equal bit for bit, also when the block count is
+    not a power of two."""
+    live = keep.sum(dtype=torch.int64).to(torch.float64)
+    inv_n = float(np.float32(1.0) / np.float32(keep.numel()))
+    return (1.0 - live * inv_n).to(torch.float32)
 
 
 def effective_tnet(cfg: ZebraConfig, tnet):
@@ -279,7 +283,10 @@ def collect_zebra_loss(auxes) -> torch.Tensor:
 
 
 def mean_zero_frac(auxes) -> torch.Tensor:
-    """Block-count-weighted mean zero-block fraction across sites."""
+    """Block-count-weighted mean zero-block fraction across sites. The
+    division by the total block count is a product by its float32
+    reciprocal, as XLA compiles the reference's ``num / den``, so the value
+    is equal bit for bit also when the count is not a power of two."""
     num, den = None, 0.0
     for a in auxes:
         nb = float(a.get("n_blocks", 0) or 0)
@@ -289,4 +296,4 @@ def mean_zero_frac(auxes) -> torch.Tensor:
             den += nb
     if num is None:
         return torch.zeros((), dtype=torch.float32)
-    return num / den
+    return num * float(np.float32(1.0) / np.float32(den))

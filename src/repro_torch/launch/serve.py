@@ -6,9 +6,12 @@ observables and the bytes the handoff moved.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
         --backend fused --batch 2 --prompt-len 2048 --gen 32 --t-obj 1.05
 
-It runs on the card; ``--device cpu`` runs it on the CPU (the kernels'
-plain versions). Weights are random from seed 0, prompts come from
-``data.lm_batch``. ``--validate structural|checksum`` checks every
+``--arch`` takes the ported dense architectures (gemma3-4b,
+command-r-35b, qwen2.5-14b, starcoder2-15b, chameleon-34b); ``--layers N``
+keeps the first N layers at full width (for a model whose full depth
+does not fit one card). It runs on the card; ``--device cpu`` runs it on
+the CPU (the kernels' plain versions). Weights are random from seed 0,
+prompts come from ``data.lm_batch``. ``--validate structural|checksum`` checks every
 stream at its producer -> consumer boundary (``core.engine``) and every
 compressed cache leaf of the handoff (:func:`validate_state_ingest`),
 recovering a failed one from its dense source. Continuous batching
@@ -39,10 +42,18 @@ COMPRESSED_BACKENDS = ("stream", "fused")
 
 
 def build_config(arch: str, *, reduced: bool = False, t_obj: float = 0.1,
-                 backend: str = "reference", validation: str = "off") -> LMConfig:
+                 backend: str = "reference", validation: str = "off",
+                 n_layers: int = 0) -> LMConfig:
     """The served config: bf16 weights and the ``kv_cache`` site on top of
-    the architecture's Zebra sites, as the reference server sets them."""
+    the architecture's Zebra sites, as the reference server sets them;
+    ``n_layers`` > 0 keeps the first that many layers (at most the
+    architecture's depth)."""
     cfg = configs.reduced(arch) if reduced else configs.get(arch)
+    if not 0 <= n_layers <= cfg.n_layers:
+        raise ValueError(f"n_layers {n_layers}: {cfg.name} has {cfg.n_layers} layers "
+                         f"(0 keeps them all)")
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
     return cfg.replace(param_dtype="bfloat16",
                        zebra_sites=tuple(cfg.zebra_sites) + ("kv_cache",),
                        zebra_t_obj=t_obj, zebra_backend=backend,
@@ -55,7 +66,7 @@ def _sync(device: torch.device) -> None:
 
 
 @torch.inference_mode()
-def serve_one_shot(model: LM, prompts: torch.Tensor, gen: int, *,
+def serve_one_shot(model: LM, prompts: torch.Tensor, gen: int, *, backend: str | None = None,
                    temperature: float = 0.0, seed: int = 0, log=print) -> dict:
     """Prefill ``prompts`` (B, S), hand the caches over (compressed on the
     stream/fused backends), decode ``gen`` tokens in all. Returns the
@@ -65,7 +76,17 @@ def serve_one_shot(model: LM, prompts: torch.Tensor, gen: int, *,
     expands into new tensors; a leaf handed over dense is updated in place
     by decode), the count of handoff leaves that failed ingest validation
     and were recovered dense, and the host-clock times (synchronised on
-    the card)."""
+    the card). ``backend`` serves this call on another site backend with
+    the same weights: the model reads its config at every call, so the
+    call swaps it in and restores the model's own after."""
+    if backend is not None and backend != model.cfg.zebra_backend:
+        own = model.cfg
+        model.cfg = own.replace(zebra_backend=backend)
+        try:
+            return serve_one_shot(model, prompts, gen, temperature=temperature, seed=seed,
+                                  log=log)
+        finally:
+            model.cfg = own
     cfg = model.cfg
     device = prompts.device
     backend = cfg.zebra_backend
@@ -107,6 +128,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve only the first N layers at full width (0: the "
+                         "architecture's depth)")
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--t-obj", type=float, default=0.1)
     ap.add_argument("--temperature", type=float, default=0.0,
@@ -143,7 +167,8 @@ def main(argv=None) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     cfg = build_config(args.arch, reduced=args.reduced, t_obj=args.t_obj,
-                       backend=args.backend, validation=args.validate)
+                       backend=args.backend, validation=args.validate,
+                       n_layers=args.layers)
     model = LM(cfg, generator=torch.Generator(device=device).manual_seed(0),
                device=device).requires_grad_(False)
 

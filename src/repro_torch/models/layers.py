@@ -89,6 +89,29 @@ def dense_apply(w: torch.Tensor, b: torch.Tensor | None, x: torch.Tensor) -> tor
     return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
 
 
+def _valid_windows(x: torch.Tensor, k: int, stride: int) -> tuple[int, int]:
+    return tuple(max((n - k) // stride + 1, 0) for n in x.shape[-2:])
+
+
+def max_pool(x: torch.Tensor, k: int = 2, stride: int = 2) -> torch.Tensor:
+    """k x k max over NCHW windows, ``"VALID"``: an odd trailing row or
+    column is dropped, a map smaller than the window gives an empty map
+    (VGG-16's last pool on a 16x16 input), and a NaN in a window gives NaN,
+    as ``lax.max``."""
+    oh, ow = _valid_windows(x, k, stride)
+    if oh == 0 or ow == 0:
+        return x.new_empty(*x.shape[:-2], oh, ow)
+    return F.max_pool2d(x, k, stride)
+
+
+def avg_pool(x: torch.Tensor, k: int = 2, stride: int = 2) -> torch.Tensor:
+    """k x k mean over NCHW windows, ``"VALID"``, as ``max_pool``."""
+    oh, ow = _valid_windows(x, k, stride)
+    if oh == 0 or ow == 0:
+        return x.new_empty(*x.shape[:-2], oh, ow)
+    return F.avg_pool2d(x, k, stride)
+
+
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(2, 3))
 

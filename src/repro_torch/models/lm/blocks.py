@@ -29,7 +29,9 @@ NOT_PORTED = ("layer type {!r} is not yet ported to repro_torch (ROADMAP.md, "
 
 class Attention(nn.Module):
     """Head-major projections as the reference stores them: ``wq`` (d, Hq,
-    hd), ``wk``/``wv`` (d, Hkv, hd), ``wo`` (Hq, hd, d)."""
+    hd), ``wk``/``wv`` (d, Hkv, hd), ``wo`` (Hq, hd, d); with
+    ``cfg.qkv_bias`` also ``bq`` (Hq, hd) and ``bk``/``bv`` (Hkv, hd), zero
+    at init as in the reference."""
 
     def __init__(self, cfg: LMConfig, *, generator=None, dtype=torch.float32,
                  device=None):
@@ -40,6 +42,10 @@ class Attention(nn.Module):
         self.wk = nn.Parameter(lecun_normal((d, nkv, hd), fan_in=d, **kw))
         self.wv = nn.Parameter(lecun_normal((d, nkv, hd), fan_in=d, **kw))
         self.wo = nn.Parameter(lecun_normal((nq, hd, d), fan_in=nq * hd, **kw))
+        if cfg.qkv_bias:
+            for name, h in (("bq", nq), ("bk", nkv), ("bv", nkv)):
+                setattr(self, name, nn.Parameter(torch.zeros(h, hd, dtype=dtype,
+                                                             device=device)))
 
 
 class Layer(nn.Module):
@@ -80,6 +86,8 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 def _qkv(p: Attention, x: torch.Tensor, cfg: LMConfig, rope):
     q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    if cfg.qkv_bias:        # after the projection, before RoPE
+        q, k, v = q + p.bq.to(x.dtype), k + p.bk.to(x.dtype), v + p.bv.to(x.dtype)
     cos, sin = rope
     return attn.apply_rope(q, cos, sin), attn.apply_rope(k, cos, sin), v
 

@@ -3,12 +3,13 @@ drives the whole stack.
 
 ``layer_pattern`` is cycled over ``n_layers``. The port runs the dense
 attention layers: "global" (full causal self-attention) and "local"
-(banded sliding window of ``window``), each followed by its SwiGLU FFN,
-with tied embeddings. The reference's fields for the other architectures
-("rglru"/"ssm" layers, MoE and GELU FFNs, untied heads, the whisper
-encoder, the scanned local path) come with the code that reads them
-(ROADMAP.md, module queue), and so do its TPU knobs (remat, scan
-unrolling, sharding profiles, gradient accumulation).
+(banded sliding window of ``window``), with optional Q/K/V biases, each
+followed by its dense FFN (SwiGLU, or the GELU MLP with biases), and a
+tied or untied vocabulary head. The reference's fields for the other
+architectures ("rglru"/"ssm" layers, MoE FFNs, the whisper encoder, the
+scanned local path) come with the code that reads them (ROADMAP.md,
+module queue). Its TPU knobs (remat, scan unrolling, sharding profiles,
+gradient accumulation) have no counterpart.
 """
 from __future__ import annotations
 
@@ -27,8 +28,11 @@ class LMConfig:
     head_dim: int = 0                # 0 => d_model // n_heads
     layer_pattern: tuple[str, ...] = ("global",)
     window: int = 1024               # sliding-window size for "local"
+    qkv_bias: bool = False
     rope_theta: float = 10_000.0
     norm: str = "rmsnorm"            # rmsnorm | layernorm
+    act: str = "swiglu"              # swiglu | gelu
+    tie_embeddings: bool = True
     attn_chunk: int = 1024           # q/kv chunk for chunked attention
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

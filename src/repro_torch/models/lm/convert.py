@@ -5,9 +5,10 @@ The reference keeps one tree of arrays: ``embed``, ``final_norm`` and
 repeated ``count > 1`` times is stacked on a leading axis (``vmap``ed
 init, scanned apply). The port holds one module per layer, named
 ``run{ri}.{c}.sub{j}...``, with every weight in the reference's own layout
-(attention (d, H, hd) / (H, hd, d), FFN (in, out), threshold nets
-``w`` (in, out)), so conversion only unstacks the runs. Key sets and
-shapes must match exactly.
+(attention (d, H, hd) / (H, hd, d) and its biases ``bq``/``bk``/``bv``
+(H, hd), FFN (in, out) with the GELU MLP's ``b_up``/``b_down``, an untied
+``lm_head`` (d, vocab), threshold nets ``w`` (in, out)), so conversion
+only unstacks the runs. Key sets and shapes must match exactly.
 """
 from __future__ import annotations
 

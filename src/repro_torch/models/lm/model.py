@@ -1,5 +1,6 @@
 """The LM (``repro.models.lm.model``): embedding, pattern runs of layers,
-the tied vocabulary head.
+the vocabulary head: tied to the embedding, or with ``tie_embeddings``
+off an ``lm_head`` of shape (d, vocab) applied as ``x @ lm_head``.
 
 ``cfg.layer_pattern`` is a superlayer (gemma-3: 5 local + 1 global);
 ``layer_runs`` groups the layers into runs of repeated superlayers, as the
@@ -54,6 +55,10 @@ class LM(nn.Module):
         emb = torch.randn(cfg.vocab, d, generator=generator, device=device)
         self.embed = nn.Parameter(emb.to(self.pdt) * d ** -0.5)
         del emb
+        if not cfg.tie_embeddings:
+            head = torch.randn(d, cfg.vocab, generator=generator, device=device)
+            self.lm_head = nn.Parameter(head.to(self.pdt) * d ** -0.5)
+            del head
         self.final_norm = Norm(d, cfg.norm, device=device)
         for ri, (pattern, count) in enumerate(self.runs):
             setattr(self, f"run{ri}", nn.ModuleList(
@@ -79,7 +84,8 @@ class LM(nn.Module):
         return rope_frequencies(self.cfg.head_dim, self.cfg.rope_theta, positions)
 
     def _project_vocab(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.embed.t().to(self.cdt)
+        w = self.embed.t() if self.cfg.tie_embeddings else self.lm_head
+        return x @ w.to(self.cdt)
 
     # ------------------------------------------------------------------
     def forward(self, tokens: torch.Tensor, mode: str = "train"):

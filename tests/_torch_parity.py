@@ -1,4 +1,5 @@
-"""Shared helper of the port's parity tests (tests/test_torch_*.py)."""
+"""Shared helpers of the port's parity tests (tests/test_torch_*.py)."""
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -14,3 +15,20 @@ def bits(a) -> np.ndarray:
     if a.dtype.kind in "fV" or a.dtype.name == "bfloat16":
         return a.view({2: np.int16, 4: np.int32}[a.dtype.itemsize])
     return a
+
+
+def jax_cnn_variables(model) -> dict:
+    """The reference's ``{"params", "state", "zebra"}`` tree of a port CNN's
+    tensors (the dense weight ``fc.w`` transposed back to (in, out))."""
+    tree = {"params": {}, "state": {}, "zebra": {}}
+    for key, t in model.state_dict().items():
+        parts = key.split(".")
+        if parts[0] == "zebra":
+            root, parts = "zebra", parts[1:]
+        else:
+            root = "state" if parts[-1] in ("mean", "var") else "params"
+        node = tree[root]
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = jnp.asarray(t.numpy().T if key == "fc.w" else t.numpy())
+    return tree

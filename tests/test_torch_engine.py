@@ -4,6 +4,7 @@ the same map bit for bit and the same ``SiteAux`` observables; ``LayerAux``
 must sum bytes to the same exact integer."""
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,7 +50,13 @@ def test_zebra_site_matches_reference(name, backend):
     jy, jaux = jax_site(jnp.asarray(x), JZebraConfig(interpret=True, **kw),
                         site="s", layout=layout)
     np.testing.assert_array_equal(bits(y), bits(jy))
-    assert float(aux.zero_frac) == float(jaux.zero_frac)
+    # zero_frac as the reference's compiled programs (its trainer, its
+    # server) report it: XLA rounds ``1 - mean(keep)`` once, a fused
+    # multiply-add, where op by op it rounds twice; the two differ when the
+    # block count is not a power of two (nchw-b4: 24 blocks)
+    jzf = jax.jit(lambda xx: jax_site(xx, JZebraConfig(interpret=True, **kw), site="s",
+                                      layout=layout)[1].zero_frac)(jnp.asarray(x))
+    assert float(aux.zero_frac) == float(jzf)
     assert int(aux.measured_bytes) == int(jaux.measured_bytes)
     assert aux.n_blocks == jaux.n_blocks
     assert aux.backend == jaux.backend

@@ -38,7 +38,7 @@ from repro_torch.models.layers import bn_apply
 from repro_torch.train import CNNTrainConfig, CNNTrainer
 from repro_torch.utils import quantile
 
-from _torch_parity import bits
+from _torch_parity import bits, jax_cnn_variables
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_MODES = ("hard", "ste", "soft")
@@ -375,7 +375,7 @@ def jax_runs():
             tr = JTrainer(cfg, _optimizers(opt)[0])
             # the trainer's init_state, from the port's random weights
             # (the reference's own init takes seconds to compile)
-            variables = _jax_variables(_port_trainer(name, zkw).model)
+            variables = jax_cnn_variables(_port_trainer(name, zkw).model)
             state = {"variables": variables, "opt": tr.opt.init(tr._trainable(variables)),
                      "step": jnp.int32(0)}
             states, metrics = [state], []
@@ -388,23 +388,6 @@ def jax_runs():
             cache[name] = ([to_np(s) for s in states], to_np(metrics), zkw)
         return cache[name]
     return get
-
-
-def _jax_variables(model) -> dict:
-    """The reference's ``{"params", "state", "zebra"}`` tree of a port
-    model's tensors (dense weights transposed back to (in, out))."""
-    tree = {"params": {}, "state": {}, "zebra": {}}
-    for key, t in model.state_dict().items():
-        parts = key.split(".")
-        if parts[0] == "zebra":
-            root, parts = "zebra", parts[1:]
-        else:
-            root = "state" if parts[-1] in ("mean", "var") else "params"
-        node = tree[root]
-        for p in parts[:-1]:
-            node = node.setdefault(p, {})
-        node[parts[-1]] = jnp.asarray(t.numpy().T if key == "fc.w" else t.numpy())
-    return tree
 
 
 def _port_trainer(name, zkw):
