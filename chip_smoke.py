@@ -109,16 +109,45 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
    the ``off`` run's. Every clean run must detect nothing. It prints the
    host-clock ms of an evaluate forward and of a warm prefill at each
    level (in turns, twice each), and the device busy share of each;
-10. prints one JSON line listing the kernels (the seven CUDA kernels, the
+10. trains gemma3-4b at full width (d 2560, d_ff 10240, 8/4 heads of 320,
+    vocab 262144, tied head) cut to 12 layers (10 local + 2 global; the
+    optimizer state of 34 does not fit one card) through
+    ``repro_torch.launch.train``: float32 parameters, bf16 compute, batch
+    2 x 2048 in two microbatches of 1 x 2048 (the banded local and the
+    chunked global attention, the chunked CE in 2 chunks, forward and
+    backward), AdamW warmup_cosine(3e-4, 1, 3), bf16 gradient compression,
+    clip 1.0, weights from a ``torch.Generator`` seeded 0 on the card, T_obj
+    1.05, 3 steps in each run:
+    R  ``reference`` at the constant T_obj (the yardstick); step 1's loss
+       and gradients computed twice must agree bit for bit, and the
+       ``ffn_hidden`` zero fraction must lie in 0.5-0.8;
+    B  ``pallas``: step 1's loss and every gradient, and every parameter
+       after 3 steps, equal to R's bit for bit; the masking kernel 12 sites
+       x 2 microbatches x 3 steps = 72 times;
+    C  ``stream``: the comparator, pack and the expander 72 times each,
+       step 1's loss and the parameters after 3 steps equal to R's, each
+       step's ``measured_bytes`` the sum over its 24 sites, every site in
+       the Eq. 2/3 band;
+    A  the paper's Eq. 1 through ``launch.train.main`` (threshold nets,
+       ``--backend pallas``, batch 2 in one microbatch): every site must
+       resolve to ``reference(tnet)``, loss and ``zebra_reg`` finite.
+    Each run prints its host-clock ms per step, the device busy share of a
+    profiled step and ``torch.cuda.max_memory_allocated``; the masking
+    kernel, the comparator, pack and the expander are held bit for bit
+    against their plain versions on the 24 ``ffn_hidden`` maps of C's
+    first step and timed per training step;
+11. prints one JSON line listing the kernels (the seven CUDA kernels, the
     three stream kernels per VGG-16 and per MobileNetV1 evaluate batch,
     named ``... (vgg16 evaluate)`` and ``... (mobilenet evaluate)``, the
     masking kernel per training step of each, ``... (vgg16 training)`` and
     ``... (mobilenet training)``, then
     the LM rows, named ``... (gemma3-4b prefill)``, ``... (gemma3-4b
-    decode)`` and ``... (starcoder2-15b prefill)``; the GEMM rows also
-    carry ms per launch, TFLOP/s of live work and the device body that
-    ran, the stream rows their ``amax_ms`` or ``copy_ms`` yardstick), the
-    card line again, and ``{"ok": true, "device": ...}`` as the last line.
+    decode)`` and ``... (starcoder2-15b prefill)``, and the four stream
+    kernels per LM training step, ``... (gemma3-4b training)``; the GEMM
+    rows also carry ms per launch, TFLOP/s of live work and the device
+    body that ran, the stream rows their ``amax_ms`` or ``copy_ms``
+    yardstick), the card line again, and ``{"ok": true, "device": ...}``
+    as the last line.
 
 Any failed phase exits non-zero, and so does a host without CUDA or a
 directory without the port beside this script. Imports nothing of JAX.
@@ -1659,6 +1688,251 @@ def run_lm_validated(device, off_tokens) -> dict:
     return {"prefill_ms": prefill_ms, "busy": busy}
 
 
+# ---------------------------------------------------------------------------
+# LM training: gemma3-4b at full width through the masking and stream kernels
+# ---------------------------------------------------------------------------
+
+# gemma3-4b at full width cut to 12 layers (two superlayers: 10 local + 2
+# global). float32 parameters, their gradients and AdamW's two moments take
+# 64.6 GB at 34 layers before any activation (PERF.md §4); at 12, 29.8 GB.
+# Batch 2 x 2048 in two microbatches of 1 x 2048: the banded local, the
+# chunked global attention and the chunked CE (2 chunks) forward and
+# backward; 3 steps of AdamW warmup_cosine(3e-4, 1, 3), bf16 gradients,
+# clip 1.0, at the serving phase's T_obj
+LMT = dict(layers=12, batch=2, seq=2048, grad_accum=2, steps=3, t_obj=LM_T_OBJ)
+LMT_ROWS = {f"{k} (gemma3-4b training)": (k, "ffn") for k in
+            ("zebra_mask_kernel", "zebra_bitmap_kernel", "zebra_pack_kernel",
+             "zebra_unpack_kernel")}
+
+
+class LMTrainRecorder:
+    """Records every ``ffn_hidden`` site of the LM training path: its map
+    shape, element size, backend label, zero fraction and stream bytes
+    (detached: a threshold net's L2 term would hold the site's map for its
+    backward), and a copy of the first ``keep`` input maps. Adds no kernel
+    launch."""
+
+    def __init__(self, keep: int = 0):
+        self.keep = keep
+        self.records, self.maps = [], []
+
+    def __enter__(self):
+        import repro_torch.models.lm.ffn as ffn
+        self._ffn, self._inner = ffn, ffn.zebra_site
+
+        def site(x, cfg, **kw):
+            if len(self.maps) < self.keep:
+                self.maps.append(x.detach().clone())
+            y, aux = self._inner(x, cfg, **kw)
+            self.records.append((tuple(x.shape), x.element_size(), aux.backend,
+                                 aux.zero_frac.detach(), aux.measured_bytes))
+            return y, aux
+        ffn.zebra_site = site
+        return self
+
+    def __exit__(self, *exc):
+        self._ffn.zebra_site = self._inner
+
+
+def check_token_band(records, label: str) -> float:
+    """Every token site's stream bytes inside the Eq. 2/3 band (8 x 128
+    blocks): its zero fraction resolves to a whole count of live blocks,
+    and the bytes lie in [0, 1) above Eq. 2/3 at that count (in exact
+    rational arithmetic: a float product rounds at these map sizes)."""
+    from fractions import Fraction
+    from repro_torch.core.bandwidth import TokenMapSpec
+    worst = 0.0
+    for i, (shape, item, _, zf, nbytes) in enumerate(records):
+        spec = TokenMapSpec(s=math.prod(shape[:-1]), d=shape[-1], bits=8 * item,
+                            block_seq=BS, block_ch=BC)
+        nb, zf, nbytes = spec.n_blocks, float(zf), int(nbytes)
+        live = round((1.0 - zf) * nb)
+        check(abs((1.0 - zf) * nb - live) < 1e-2,
+              f"{label} site {i}: zero_frac {zf} is no count of {nb} blocks")
+        # Eq. 2 + 3 at zero fraction (nb - live) / nb: surviving data bits
+        # plus one index bit a block
+        delta = nbytes - (Fraction(spec.map_bits * live, nb) + spec.index_bits) / 8
+        worst = max(worst, abs(float(delta)))
+        check(0 <= delta < 1, f"{label} site {i}: {nbytes} B is {float(delta)} B off Eq. 2/3")
+    return worst
+
+
+def host_copy(tensors: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in tensors.items()}
+
+
+def differing(got: dict, want: dict) -> list[str]:
+    """Names whose tensors differ in a bit (``want`` on the host)."""
+    return [k for k, v in want.items() if not same_bits(got[k].detach().cpu(), v)]
+
+
+def run_lm_training(device, arch=LM_ARCH, layers=LMT["layers"], batch=LMT["batch"],
+                    seq=LMT["seq"], grad_accum=LMT["grad_accum"], steps=LMT["steps"],
+                    t_obj=LMT["t_obj"], reduced=False, zf_band=(0.5, 0.8)) -> list[dict]:
+    """The LM training runs R, B, C, A (module docstring) through
+    ``repro_torch.launch.train``; returns the kernel rows of the masking
+    kernel, the comparator, pack and the expander per training step, held
+    and timed on C's ffn_hidden maps of one step."""
+    import torch
+    from repro_torch.data import LMDatasetConfig, lm_batch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import adamw, warmup_cosine
+
+    base = train.build_config(arch, reduced=reduced, t_obj=t_obj, n_layers=layers).replace(
+        zebra_tnet=False, grad_accum=grad_accum)
+    check(base.zebra_sites == ("ffn_hidden",), f"sites {base.zebra_sites}")
+    n_sites = base.n_layers * grad_accum             # ffn_hidden sites a step
+    per_run = n_sites * steps
+    tokens0 = torch.from_numpy(lm_batch(LMDatasetConfig(vocab=base.vocab), batch, seq, 0)
+                               ).to(device=device, dtype=torch.int64)
+    argv = ["--arch", arch, "--layers", str(base.n_layers), "--batch", str(batch), "--seq",
+            str(seq), "--steps", str(steps), "--t-obj", str(t_obj)]
+    kinds = [base.layer_pattern[i % len(base.layer_pattern)] for i in range(base.n_layers)]
+    print(f"LM training: {arch} at full width, {base.n_layers} layers "
+          f"({kinds.count('local')} local, {kinds.count('global')} "
+          f"global), batch {batch} x {seq} in {grad_accum} microbatches, {steps} steps, "
+          f"T_obj {t_obj}, float32 parameters, bf16 compute")
+
+    def fresh(backend):
+        return LM(base.replace(zebra_backend=backend),
+                  generator=torch.Generator(device=device).manual_seed(0), device=device)
+
+    def step1(model):
+        """Step 1's gradients and loss, outside any training run."""
+        return lm_steps.accumulate_gradients(model, dict(model.named_parameters()), tokens0)
+
+    def run(model, label, want):
+        """``train_lm`` for ``steps`` steps on ``model``, the launch counts
+        set to 0 just before and read just after."""
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.synchronize()
+        _, state, hist = train.train_lm(model.cfg, steps=steps, batch=batch, seq=seq,
+                                        device=device, model=model, log=lambda *_: None)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check_launches(counts, want, label)
+        peak = torch.cuda.max_memory_allocated(device)
+        rest = [m["ms"] for m in hist[1:]] or [hist[0]["ms"]]
+        print(f"  {label}: step 1 {hist[0]['ms']:.3f} ms, steps 2-{steps} "
+              f"{sum(rest) / len(rest):.3f} ms per step (host clock, synchronised); "
+              f"max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+        for k in ("loss", "zero_frac", "grad_norm", "measured_bytes"):
+            print(f"    {k} {[m[k] for m in hist]}")
+        check(all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"]) for m in hist),
+              f"{label}: loss or grad_norm not finite")
+        return state, hist, counts, sum(rest) / len(rest)
+
+    def profile(model, state, label, step_ms):
+        opt = adamw(warmup_cosine(3e-4, 1, steps))
+        busy = profile_calls(lambda: lm_steps.train_step(model, opt, state, {"tokens": tokens0}),
+                             1, f"{label} steps", "step")
+        if busy is not None:
+            print(f"  {label}: device busy {100 * busy / step_ms:.1f} % of an unprofiled step "
+                  f"({busy:.3f} of {step_ms:.3f} ms)")
+
+    # R: reference, its step 1 twice (a nondeterministic reduction would
+    # show here first), then the yardstick run
+    model = fresh("reference")
+    g_r, loss_r, m_r = step1(model)
+    g_again, loss_again, _ = step1(model)
+    bad = [k for k in g_r if not same_bits(g_again[k], g_r[k])]
+    check(same_bits(loss_again, loss_r) and not bad,
+          f"R step 1 twice: loss {float(loss_again)} vs {float(loss_r)}; gradients {bad[:4]}")
+    del g_again
+    g_r = host_copy(g_r)
+    zf = float(m_r["zero_frac"])
+    print(f"  step 1: R twice: loss {float(loss_r)} and all {len(g_r)} gradients equal "
+          f"(bitwise); ffn_hidden zero fraction {zf} at T_obj {t_obj}")
+    check(zf_band is None or zf_band[0] <= zf <= zf_band[1],
+          f"R step 1 ffn_hidden zero fraction {zf} outside {zf_band}")
+    state, _, _, ms_r = run(model, "R reference", {})
+    params_r = host_copy(state["params"])
+    profile(model, state, "R", ms_r)
+    del model, state
+    torch.cuda.empty_cache()
+
+    # B: pallas (the masking kernel forward, the hard-gate backward)
+    model = fresh("pallas")
+    g_b, loss_b, _ = step1(model)
+    bad = differing(g_b, g_r)
+    check(same_bits(loss_b.cpu(), loss_r.cpu()) and not bad,
+          f"B step 1: loss {float(loss_b)} vs R {float(loss_r)}; gradients {bad[:4]}")
+    print(f"  step 1: B pallas loss and all {len(g_r)} gradients == R (bitwise)")
+    del g_b, g_r
+    state, _, counts_b, ms_b = run(model, "B pallas", {"zebra_mask_kernel": per_run})
+    bad = differing(state["params"], params_r)
+    check(not bad, f"B after {steps} steps: {bad[:4]} differ from R")
+    print(f"  B: all {len(params_r)} parameters after {steps} steps == R (bitwise)")
+    profile(model, state, "B", ms_b)
+    del model, state
+    torch.cuda.empty_cache()
+
+    # C: stream (comparator and pack, then the expander, the stream between)
+    model = fresh("stream")
+    _, loss_c, _ = step1(model)
+    check(same_bits(loss_c.cpu(), loss_r.cpu()), f"C step 1 loss {float(loss_c)} vs R")
+    with LMTrainRecorder(keep=n_sites) as rec:
+        state, hist_c, counts_c, ms_c = run(model, "C stream",
+                                            {k: per_run for k in STREAM_KERNELS})
+    check(len(rec.records) == per_run, f"{len(rec.records)} C site records, want {per_run}")
+    check({r[2] for r in rec.records} == {"stream"}, "C: a site did not run stream")
+    for i, m in enumerate(hist_c):
+        sites = sum(int(r[4]) for r in rec.records[i * n_sites:(i + 1) * n_sites])
+        check(m["measured_bytes"] == sites > 0,
+              f"C step {i + 1}: measured_bytes {m['measured_bytes']} != its sites' {sites}")
+    worst = check_token_band(rec.records, "C stream train")
+    bad = differing(state["params"], params_r)
+    check(not bad, f"C after {steps} steps: {bad[:4]} differ from R")
+    print(f"  C: step 1 loss == R (bitwise); each step's measured_bytes == the sum over its "
+          f"{n_sites} sites; every site inside the Eq. 2/3 band (worst |delta| {worst} B); "
+          f"all {len(params_r)} parameters after {steps} steps == R (bitwise)")
+    maps = rec.maps
+    maxima = [h.reshape(-1, BS, h.shape[-1] // BC, BC).float().abs().amax(dim=(1, 3))
+              for h in maps]
+    print("  ffn_hidden zero fraction by T_obj on C's step-1 maps: " + ", ".join(
+        f"{t}: {float(sum((m < t).sum() for m in maxima) / sum(m.numel() for m in maxima)):.4f}"
+        for t in (0.5 * t_obj, 0.9 * t_obj, t_obj, 1.1 * t_obj, 1.5 * t_obj)))
+    del maxima
+    profile(model, state, "C", ms_c)
+    del model, state, params_r, rec
+    torch.cuda.empty_cache()
+
+    # A: the paper's Eq. 1 through the launcher, threshold nets asked for pallas
+    print(f"  A: python -m repro_torch.launch.train {' '.join(argv)} --backend pallas")
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    with LMTrainRecorder() as rec:
+        out = train.main([*argv, "--backend", "pallas", *(["--reduced"] if reduced else []),
+                          "--device", str(device)])
+    hist_a = out["history"]
+    peak_a = torch.cuda.max_memory_allocated(device)
+    rest = hist_a[1:] or hist_a
+    profile(out["model"], out["state"], "A", sum(m["ms"] for m in rest) / len(rest))
+    del out
+    torch.cuda.empty_cache()
+    labels = {r[2] for r in rec.records}
+    check(labels == {"reference(tnet)"}, f"A: site backends {labels}")
+    check(not any(launch_counts().values()), f"A launched a kernel: {launch_counts()}")
+    check(all(math.isfinite(m["loss"]) and math.isfinite(m["zebra_reg"]) for m in hist_a),
+          "A: loss or zebra_reg not finite")
+    print(f"  A: all {len(rec.records)} sites ran reference(tnet); per step: loss "
+          f"{[m['loss'] for m in hist_a]}, zebra_reg {[m['zebra_reg'] for m in hist_a]}, "
+          f"ce {[m['ce'] for m in hist_a]}, zero_frac {[m['zero_frac'] for m in hist_a]}, "
+          f"{[round(m['ms'], 3) for m in hist_a]} ms; max_memory_allocated "
+          f"{peak_a / 2 ** 30:.2f} GiB")
+    del rec
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)   # 256 MB
+    lm = {"maps": [(h, None) for h in maps], "t_obj": t_obj,
+          "launches": {**counts_c, "zebra_mask_kernel": counts_b["zebra_mask_kernel"]}}
+    print(f"LM training kernel times per step ({len(maps)} ffn_hidden maps of C's step 1):")
+    return time_lm_stream_kernels(lm, flush, LMT_ROWS)
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; run it from "
@@ -1734,10 +2008,14 @@ def main() -> int:
             run_validated_slice(device, trained)
             run_detection(device)
             run_lm_validated(device, off_tokens)
+        torch.cuda.empty_cache()
         t7 = time.perf_counter()
+        kernels += run_lm_training(device)
+        t8 = time.perf_counter()
         print(f"phase times: edge cases {t1 - t0:.1f} s, CNN {t2 - t1:.1f} s, "
               f"CNN zoo {t3 - t2:.1f} s, LM {t4 - t3:.1f} s, starcoder2-15b {t5 - t4:.1f} s, "
-              f"arch runs {t6 - t5:.1f} s, validated {t7 - t6:.1f} s")
+              f"arch runs {t6 - t5:.1f} s, validated {t7 - t6:.1f} s, "
+              f"LM training {t8 - t7:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
         print(json.dumps({"ok": True, "device": {

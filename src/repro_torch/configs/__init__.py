@@ -41,3 +41,13 @@ def get(arch: str):
 
 def reduced(arch: str):
     return _mod(arch).reduced()
+
+
+def with_layers(arch: str, *, reduced: bool = False, n_layers: int = 0):
+    """The architecture's config (or its smoke-test config) with only its
+    first ``n_layers`` layers, at full width; 0 keeps them all."""
+    cfg = _mod(arch).reduced() if reduced else _mod(arch).CONFIG
+    if not 0 <= n_layers <= cfg.n_layers:
+        raise ValueError(f"n_layers {n_layers}: {cfg.name} has {cfg.n_layers} layers "
+                         f"(0 keeps them all)")
+    return cfg.replace(n_layers=n_layers) if n_layers else cfg

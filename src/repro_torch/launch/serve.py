@@ -48,12 +48,7 @@ def build_config(arch: str, *, reduced: bool = False, t_obj: float = 0.1,
     the architecture's Zebra sites, as the reference server sets them;
     ``n_layers`` > 0 keeps the first that many layers (at most the
     architecture's depth)."""
-    cfg = configs.reduced(arch) if reduced else configs.get(arch)
-    if not 0 <= n_layers <= cfg.n_layers:
-        raise ValueError(f"n_layers {n_layers}: {cfg.name} has {cfg.n_layers} layers "
-                         f"(0 keeps them all)")
-    if n_layers:
-        cfg = cfg.replace(n_layers=n_layers)
+    cfg = configs.with_layers(arch, reduced=reduced, n_layers=n_layers)
     return cfg.replace(param_dtype="bfloat16",
                        zebra_sites=tuple(cfg.zebra_sites) + ("kv_cache",),
                        zebra_t_obj=t_obj, zebra_backend=backend,

@@ -1,8 +1,19 @@
-"""Serve steps of the LM (``repro.launch.steps``): prefill, next-token
-choice and the generate loop. PyTorch runs eagerly, so the reference's
-jitted steps are plain functions and its ``lax.scan`` over decode steps is
-a Python loop. Everything runs under ``torch.inference_mode``. The train
-step waits with the LM half of training (ROADMAP.md).
+"""Train and serve steps of the LM (``repro.launch.steps``). PyTorch runs
+eagerly, so the reference's jitted steps are plain functions and its
+``lax.scan`` loops (over decode steps, over gradient-accumulation
+microbatches) are Python loops.
+
+Training: :func:`init_train_state` and :func:`train_step`, the
+counterparts of ``make_train_state_shape``'s ``init_fn`` and of
+``make_train_step``. The state is ``{"params", "opt", "compress",
+"step"}``; ``params`` are the model's own parameters (the module the loss
+runs), which the step updates in place with the optimizer's ``update_``,
+as it does the optimizer state and the int8 compression residual: at
+gemma3-4b's width every copy of the parameters is 7.4 GB. The reference's
+remat has no counterpart.
+
+Serving: prefill, next-token choice and the generate loop, under
+``torch.inference_mode``.
 """
 from __future__ import annotations
 
@@ -10,7 +21,86 @@ import torch
 
 from ..compress import decompress_tree
 from ..models.lm import LM
+from ..optim import Optimizer, clip_by_global_norm_, compressed_gradients, init_state
 
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+def init_train_state(model: LM, opt: Optimizer, compress: str = "bf16") -> dict:
+    """The model's parameters (by name, the tensors themselves), the
+    optimizer's state for them, the compression state and step 0."""
+    params = dict(model.named_parameters())
+    return {"params": params, "opt": opt.init(params),
+            "compress": init_state(params, compress), "step": 0}
+
+
+def _own_params(model: LM, params: dict) -> list[torch.Tensor]:
+    own = dict(model.named_parameters())
+    if params.keys() != own.keys() or any(params[k] is not own[k] for k in own):
+        raise ValueError("state['params'] must hold the model's own parameters "
+                         "(launch.steps.init_train_state)")
+    return list(params.values())
+
+
+def accumulate_gradients(model: LM, params: dict, tokens: torch.Tensor):
+    """The loss of ``tokens`` (B, S+1) and its float32 gradient with respect
+    to ``params`` (the model's own), over ``cfg.grad_accum`` microbatches:
+    rows ``[i·B/K, (i+1)·B/K)`` in order, each microbatch's gradient added
+    to the sum before the next one runs, then divided by K. Loss, ``ce``,
+    ``zebra_reg`` and ``zero_frac`` are means over the microbatches;
+    ``measured_bytes`` is their sum (extensive: the bytes the whole batch
+    moved, whatever K). Returns ``(grads, loss, metrics)``, all detached."""
+    leaves = _own_params(model, params)
+    K = max(model.cfg.grad_accum, 1)
+    B = tokens.shape[0]
+    if B % K:
+        raise ValueError(f"batch {B} does not split into grad_accum={K} microbatches")
+    micro = tokens.reshape(K, B // K, -1)
+    grads, loss, metrics = None, None, None
+    for i in range(K):
+        l, m = model.loss(micro[i], "train")
+        gs = torch.autograd.grad(l, leaves, allow_unused=True)
+        gs = [torch.zeros_like(p, dtype=torch.float32) if g is None else g.to(torch.float32)
+              for p, g in zip(leaves, gs)]
+        l, m = l.detach(), {k: v.detach() for k, v in m.items()}
+        if grads is None:
+            grads, loss, metrics = gs, l, m
+            continue
+        for acc, g in zip(grads, gs):
+            acc.add_(g)
+        del gs
+        loss = loss + l
+        metrics = {k: metrics[k] + v for k, v in m.items()}
+    if K > 1:
+        for g in grads:
+            g.div_(K)
+        loss = loss / K
+        metrics = {k: v if k == "measured_bytes" else v / K for k, v in metrics.items()}
+    return dict(zip(params, grads)), loss, metrics
+
+
+def train_step(model: LM, opt: Optimizer, state: dict, batch: dict, *,
+               compress: str = "bf16", grad_clip: float = 1.0):
+    """One optimizer step on ``batch["tokens"]`` (B, S+1): the accumulated
+    gradient, ``compressed_gradients`` (``compress``), clipping to the
+    global norm ``grad_clip``, then the optimizer's in-place update at the
+    step before the increment. Returns ``(state, metrics)``, the state
+    updated in place, the metrics with ``loss`` and ``grad_norm`` added
+    (device tensors; nothing is read on the host)."""
+    grads, loss, metrics = accumulate_gradients(model, state["params"], batch["tokens"])
+    grads, state["compress"] = compressed_gradients(grads, state["compress"], compress)
+    gnorm = clip_by_global_norm_(grads, grad_clip)
+    opt.update_(grads, state["opt"], state["params"], state["step"])
+    del grads
+    state["step"] += 1
+    return state, dict(metrics, loss=loss, grad_norm=gnorm)
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
 
 @torch.inference_mode()
 def prefill(model: LM, tokens: torch.Tensor):

@@ -1,0 +1,141 @@
+"""LM training launcher (``repro.launch.train``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-4b \\
+        --layers 12 --batch 2 --seq 2048 --steps 3 --t-obj 1.05 --backend pallas
+
+Builds the model (random weights from ``--seed``, float32 parameters,
+bf16 compute), AdamW under ``warmup_cosine(--lr, steps // 10, steps)``
+and the counter-indexed token stream (``data.lm_batch``), and runs
+``launch.steps.train_step`` for ``--steps`` steps, logging as the
+reference does. It runs on the card; ``--device cpu`` runs it on the CPU
+(the kernels' plain versions). ``--layers N`` keeps the first N layers at
+full width (gemma3-4b's 34 layers do not fit one card beside AdamW's
+state). ``--backend`` picks the Zebra site backend: with the default
+threshold nets (Eq. 1) every site trains on ``reference``, as the
+capability rules send a site with a net; :func:`train_lm` takes any
+config, e.g. constant-threshold training (``zebra_tnet=False``) through
+the ``pallas`` or ``stream`` kernels.
+
+Checkpointing, resume and the step supervisor (``--ckpt``,
+``--ckpt-every``) and model parallelism wait (ROADMAP.md, module queue)
+and raise.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from .. import configs
+from ..data import LMDatasetConfig, StreamingLoader, lm_batch
+from ..models.lm import LM, LMConfig
+from ..optim import adamw, warmup_cosine
+from ..utils import resolve_device
+from .steps import init_train_state, train_step
+
+LOG_KEYS = ("loss", "ce", "zebra_reg", "zero_frac", "grad_norm", "measured_bytes")
+
+
+def build_config(arch: str, *, reduced: bool = False, t_obj: float = 0.1,
+                 backend: str = "reference", n_layers: int = 0) -> LMConfig:
+    """The architecture's training config (its float32 parameters, bf16
+    compute); ``n_layers`` > 0 keeps the first that many layers."""
+    cfg = configs.with_layers(arch, reduced=reduced, n_layers=n_layers)
+    return cfg.replace(zebra_t_obj=t_obj, zebra_backend=backend)
+
+
+def _log(step: int, m: dict, log=print) -> None:
+    if step % 10 == 0 or step <= 2:
+        log(f"step {step:5d} loss={m['loss']:.4f} ce={m['ce']:.4f} "
+            f"zreg={m['zebra_reg']:.4f} zf={m['zero_frac']:.3f} "
+            f"gnorm={m['grad_norm']:.2f}")
+
+
+def train_lm(cfg: LMConfig, *, steps: int = 50, batch: int = 8, seq: int = 128,
+             lr: float = 3e-4, compress: str = "bf16", seed: int = 0, device=None,
+             model: LM | None = None, log=print):
+    """Train ``cfg`` for ``steps`` steps on ``batch`` x ``seq`` tokens of
+    the synthetic stream (seed ``seed``); ``model`` (else a new one, its
+    weights drawn from a ``torch.Generator`` seeded ``seed`` on the
+    device) is trained in place. Returns ``(model, state, history)``:
+    one row per step, the metrics read on the host (one device sync a
+    step) with ``step`` and ``ms``, the step's host-clock time."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        # full float32 for every float32 matmul, as the reference computes it
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    if model is None:
+        model = LM(cfg, generator=torch.Generator(device=device).manual_seed(seed),
+                   device=device)
+    opt = adamw(warmup_cosine(lr, max(steps // 10, 1), steps))
+    state = init_train_state(model, opt, compress)
+    ds = LMDatasetConfig(vocab=cfg.vocab, seed=seed)
+    loader = StreamingLoader(lambda b, s: {"tokens": lm_batch(ds, b, seq, s)}, batch)
+    history = []
+    for _ in range(steps):
+        tokens = torch.from_numpy(next(loader)["tokens"]).to(device=device, dtype=torch.int64)
+        t0 = time.perf_counter()
+        state, metrics = train_step(model, opt, state, {"tokens": tokens}, compress=compress)
+        # one device-to-host copy; float64 holds every float32 metric and
+        # the byte count (< 2**53) exactly
+        vals = torch.stack([metrics[k].double() for k in LOG_KEYS]).tolist()
+        m = dict(zip(LOG_KEYS, vals), step=state["step"],
+                 ms=(time.perf_counter() - t0) * 1e3)
+        m["measured_bytes"] = int(m["measured_bytes"])
+        history.append(m)
+        _log(state["step"], m, log)
+    return model, state, history
+
+
+def main(argv=None) -> dict:
+    """The CLI; returns ``{"model", "state", "history"}``."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma3-4b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="train only the first N layers at full width (0: the "
+                         "architecture's depth)")
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory (not yet ported)")
+    ap.add_argument("--compress", default="bf16", choices=["none", "bf16", "int8"])
+    ap.add_argument("--t-obj", type=float, default=0.1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--backend", default="reference",
+                    choices=["reference", "pallas", "stream", "fused"],
+                    help="Zebra site-engine backend for every activation site (sites "
+                         "with threshold nets train on reference)")
+    ap.add_argument("--device", default=None,
+                    help="default: the CUDA card (no fallback); 'cpu' runs the "
+                         "kernels' plain versions on the CPU")
+    args = ap.parse_args(argv)
+    if args.ckpt is not None:
+        raise NotImplementedError("checkpointing and resume (--ckpt) are not yet ported "
+                                  "to repro_torch (ROADMAP.md, module queue item 7: "
+                                  "checkpointing and fault tolerance)")
+    if args.model_parallel != 1:
+        raise NotImplementedError("--model-parallel > 1 is not yet ported to "
+                                  "repro_torch (ROADMAP.md, module queue: distributed)")
+    device = resolve_device(args.device)
+    cfg = build_config(args.arch, reduced=args.reduced, t_obj=args.t_obj,
+                       backend=args.backend, n_layers=args.layers)
+    model = LM(cfg, generator=torch.Generator(device=device).manual_seed(args.seed),
+               device=device)
+    print(f"[train] {cfg.name} params={sum(p.numel() for p in model.parameters()):,} "
+          f"layers={cfg.n_layers} on {device}", flush=True)
+    model, state, history = train_lm(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
+                                     lr=args.lr, compress=args.compress, seed=args.seed,
+                                     device=device, model=model,
+                                     log=lambda line: print(line, flush=True))
+    print(f"[train] done at step {state['step']}")
+    return {"model": model, "state": state, "history": history}
+
+
+if __name__ == "__main__":
+    main()

@@ -8,8 +8,10 @@ followed by its dense FFN (SwiGLU, or the GELU MLP with biases), and a
 tied or untied vocabulary head. The reference's fields for the other
 architectures ("rglru"/"ssm" layers, MoE FFNs, the whisper encoder, the
 scanned local path) come with the code that reads them (ROADMAP.md,
-module queue). Its TPU knobs (remat, scan unrolling, sharding profiles,
-gradient accumulation) have no counterpart.
+module queue). ``ce_chunk`` (the chunked cross-entropy of ``LM.loss``) and
+``grad_accum`` (the microbatches of ``launch.steps.train_step``) are the
+reference's. Its TPU knobs (remat, scan unrolling, sharding profiles) have
+no counterpart.
 """
 from __future__ import annotations
 
@@ -34,6 +36,10 @@ class LMConfig:
     act: str = "swiglu"              # swiglu | gelu
     tie_embeddings: bool = True
     attn_chunk: int = 1024           # q/kv chunk for chunked attention
+    ce_chunk: int = 1024             # 0 = unchunked CE; else the sequence chunk
+                                     # of LM.loss (one (B, chunk, V) logits
+                                     # buffer alive at a time)
+    grad_accum: int = 1              # microbatches per train step
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     # --- Zebra integration (the paper's technique) ---

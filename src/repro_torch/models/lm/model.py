@@ -11,15 +11,17 @@ caches keep the reference's grouping: run -> ``sub{j}`` -> k/v, stacked
 over the run's count when it is above one, so a cache tree has the same
 leaves as the reference's (the codec's index bytes are counted per leaf).
 
-API (``forward``, ``prefill``, ``decode_step``, ``init_cache``) mirrors the
-reference's pure functions of params, on an ``nn.Module`` that holds
-them. Parameters are drawn from an explicit ``torch.Generator`` on
+API (``forward``, ``loss``, ``prefill``, ``decode_step``, ``init_cache``)
+mirrors the reference's pure functions of params, on an ``nn.Module`` that
+holds them. Parameters are drawn from an explicit ``torch.Generator`` on
 ``device``.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...core.engine import LayerAux
 from ..layers import Norm
@@ -87,16 +89,60 @@ class LM(nn.Module):
         w = self.embed.t() if self.cfg.tie_embeddings else self.lm_head
         return x @ w.to(self.cdt)
 
-    # ------------------------------------------------------------------
-    def forward(self, tokens: torch.Tensor, mode: str = "train"):
-        """tokens (B, S) -> (logits (B, S, V), LayerAux)."""
+    def _backbone(self, tokens: torch.Tensor, mode: str):
+        """tokens (B, S) -> (final-normed x (B, S, d), LayerAux)."""
         x = self._embed(tokens)
         rope = self._rope(torch.arange(x.shape[1], device=x.device))
         aux = LayerAux.zero(x.device)
         for *_, t, layer in self._layers():
             x, a = apply_layer(layer, x, t, self.cfg, mode, rope)
             aux = aux + a
-        return self._project_vocab(self.final_norm(x)), aux
+        return self.final_norm(x), aux
+
+    # ------------------------------------------------------------------
+    def forward(self, tokens: torch.Tensor, mode: str = "train"):
+        """tokens (B, S) -> (logits (B, S, V), LayerAux)."""
+        x, aux = self._backbone(tokens, mode)
+        return self._project_vocab(x), aux
+
+    def _nll_sum(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Σ -log_softmax(x @ head)[label] over one chunk, float32 logits."""
+        lp = F.log_softmax(self._project_vocab(x).float(), dim=-1)
+        return -lp.gather(-1, labels[..., None]).sum()
+
+    def loss(self, tokens: torch.Tensor, mode: str = "train"):
+        """tokens (B, S+1): next-token cross-entropy of ``tokens[:, 1:]``
+        from ``tokens[:, :-1]``. Returns (total, metrics).
+
+        With ``cfg.ce_chunk`` dividing S (and below it), the sequence is cut
+        into chunks whose NLL sums add in chunk order and divide by B·S;
+        each chunk runs under ``torch.utils.checkpoint`` (the reference's
+        ``jax.checkpoint``), so one chunk's (B, chunk, V) float32 logits
+        are alive at a time, in the forward and in the backward. Otherwise
+        the CE is the mean over all tokens (another order of summation).
+        ``total`` adds ``zebra_reg`` only with threshold nets: at a constant
+        threshold it is the realised zero-block count, an observable.
+        Metrics: ``ce``, ``zebra_reg``, ``zero_frac`` (block-weighted over
+        the sites) and ``measured_bytes`` (the stream sites' bytes, one
+        exact int64)."""
+        cfg = self.cfg
+        inp, lbl = tokens[:, :-1], tokens[:, 1:]
+        x, aux = self._backbone(inp, mode)
+        B, S, _ = x.shape
+        C = cfg.ce_chunk
+        if C and S % C == 0 and S > C:
+            tot = torch.zeros((), dtype=torch.float32, device=x.device)
+            for i in range(S // C):
+                tot = tot + checkpoint(self._nll_sum, x[:, i * C:(i + 1) * C],
+                                       lbl[:, i * C:(i + 1) * C], use_reentrant=False)
+            ce = tot / (B * S)
+        else:
+            lp = F.log_softmax(self._project_vocab(x).float(), dim=-1)
+            ce = -lp.gather(-1, lbl[..., None]).mean()
+        total = ce + aux.reg if cfg.zebra_tnet else ce
+        metrics = {"ce": ce, "zebra_reg": aux.reg, "zero_frac": aux.zero_frac,
+                   "measured_bytes": aux.measured_bytes}
+        return total, metrics
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int) -> list[dict]:

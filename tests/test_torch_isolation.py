@@ -39,7 +39,8 @@ def test_imports_with_jax_blocked():
             "import repro_torch.train, repro_torch.kernels, repro_torch.models.cnn.convert\n"
             "import repro_torch.models.lm.convert, repro_torch.compress, repro_torch.serve\n"
             "import repro_torch.launch.serve, repro_torch.configs, repro_torch.ft\n"
-            "import repro_torch.compress.integrity\n"
+            "import repro_torch.compress.integrity, repro_torch.optim.compress\n"
+            "import repro_torch.launch.steps, repro_torch.launch.train\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
@@ -64,6 +65,30 @@ def test_serve_without_device_needs_cuda():
         pytest.skip("a card is present: the server would run on it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--reduced"])
+
+
+def test_lm_trainer_without_device_needs_cuda():
+    from repro_torch.launch import train
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the trainer would run on it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--reduced", "--steps", "1"])
+
+
+def test_lm_trainer_cli_runs_on_cpu(capsys):
+    """``--device cpu --reduced --steps 2`` trains and logs as the reference
+    does; ``--ckpt`` and ``--model-parallel`` wait for their module items."""
+    from repro_torch.launch import train
+    out = train.main(["--reduced", "--device", "cpu", "--steps", "2", "--batch", "2",
+                      "--seq", "32", "--backend", "pallas"])
+    text = capsys.readouterr().out
+    assert "step     1 loss=" in text and "step     2 loss=" in text
+    assert out["state"]["step"] == 2 and len(out["history"]) == 2
+    assert all(torch.isfinite(torch.tensor(m["loss"])) for m in out["history"])
+    with pytest.raises(NotImplementedError, match="item 7"):
+        train.main(["--reduced", "--device", "cpu", "--ckpt", "ckpt"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train.main(["--reduced", "--device", "cpu", "--model-parallel", "2"])
 
 
 @pytest.mark.parametrize("launch", ["bitmap", "pack", "unpack", "mask", "zebra_pack",
