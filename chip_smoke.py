@@ -136,7 +136,30 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     kernel, the comparator, pack and the expander are held bit for bit
     against their plain versions on the 24 ``ffn_hidden`` maps of C's
     first step and timed per training step;
-11. prints one JSON line listing the kernels (the seven CUDA kernels, the
+11. trains gemma3-4b at full width and depth (34 layers: the deepest that
+    trains on one card, found by ``src/repro_torch/launch/lm_timing.py
+    depth``) with ``remat="block"`` through ``launch.train.train_lm``: R
+    and C 2 steps each at batch 2 x 2048 in two microbatches, C's
+    parameters equal to R's bit for bit and each stream kernel launched
+    34 sites x 2 microbatches x 2 steps x 2 (the forward and the
+    backward's recompute); R again at K 1; step 1's gradients, summed in
+    ``.grad`` as they arrive, equal to the two-copy form bit for bit; and
+    at 12 layers remat ``block`` equal to ``none``. Each run prints its
+    host-clock ms per step and ``max_memory_allocated``, and R's runs the
+    device busy share. Then the same width cut to 2 layers trains 4
+    steps on ``stream`` under ``--ckpt`` with a checkpoint every 2 steps
+    and a crash (``ft.crashing_step``, after moving every parameter) at
+    the 3rd call: the supervisor restores step 2 and the loader, and the
+    parameters, both AdamW moments, the step and the loader step at step 4
+    must equal an uninterrupted run's bit for bit. A corrupted newest shard
+    must fall back to step 2 (``detect.ckpt.bitflip``), the two
+    ``ffn_hidden`` maps of one microbatch must come back from
+    ``save_acts``/``restore_acts`` bit for bit through the pack and the
+    expander on the card, and a flipped index bit must raise
+    ``CorruptStream`` naming the map (``detect.ckpt.acts_bitflip``). It
+    prints the time a save blocks the loop, the write time and MB/s,
+    restore plus verify, and the free disk space; the directory is removed;
+12. prints one JSON line listing the kernels (the seven CUDA kernels, the
     three stream kernels per VGG-16 and per MobileNetV1 evaluate batch,
     named ``... (vgg16 evaluate)`` and ``... (mobilenet evaluate)``, the
     masking kernel per training step of each, ``... (vgg16 training)`` and
@@ -1758,7 +1781,8 @@ def check_token_band(records, label: str) -> float:
 
 
 def host_copy(tensors: dict) -> dict:
-    return {k: v.detach().cpu() for k, v in tensors.items()}
+    """A copy on the host (also of host tensors: the step updates in place)."""
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
 
 
 def differing(got: dict, want: dict) -> list[str]:
@@ -1782,7 +1806,7 @@ def run_lm_training(device, arch=LM_ARCH, layers=LMT["layers"], batch=LMT["batch
     from repro_torch.optim import adamw, warmup_cosine
 
     base = train.build_config(arch, reduced=reduced, t_obj=t_obj, n_layers=layers).replace(
-        zebra_tnet=False, grad_accum=grad_accum)
+        zebra_tnet=False, grad_accum=grad_accum, remat="none")
     check(base.zebra_sites == ("ffn_hidden",), f"sites {base.zebra_sites}")
     n_sites = base.n_layers * grad_accum             # ffn_hidden sites a step
     per_run = n_sites * steps
@@ -1810,8 +1834,8 @@ def run_lm_training(device, arch=LM_ARCH, layers=LMT["layers"], batch=LMT["batch
         reset_launch_counts()
         torch.cuda.reset_peak_memory_stats(device)
         torch.cuda.synchronize()
-        _, state, hist = train.train_lm(model.cfg, steps=steps, batch=batch, seq=seq,
-                                        device=device, model=model, log=lambda *_: None)
+        _, state, hist, _ = train.train_lm(model.cfg, steps=steps, batch=batch, seq=seq,
+                                           device=device, model=model, log=lambda *_: None)
         torch.cuda.synchronize()
         counts = launch_counts()
         check_launches(counts, want, label)
@@ -1902,12 +1926,13 @@ def run_lm_training(device, arch=LM_ARCH, layers=LMT["layers"], batch=LMT["batch
     torch.cuda.empty_cache()
 
     # A: the paper's Eq. 1 through the launcher, threshold nets asked for pallas
-    print(f"  A: python -m repro_torch.launch.train {' '.join(argv)} --backend pallas")
+    print(f"  A: python -m repro_torch.launch.train {' '.join(argv)} --backend pallas "
+          f"--remat none")
     reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(device)
     with LMTrainRecorder() as rec:
-        out = train.main([*argv, "--backend", "pallas", *(["--reduced"] if reduced else []),
-                          "--device", str(device)])
+        out = train.main([*argv, "--backend", "pallas", "--remat", "none",
+                          *(["--reduced"] if reduced else []), "--device", str(device)])
     hist_a = out["history"]
     peak_a = torch.cuda.max_memory_allocated(device)
     rest = hist_a[1:] or hist_a
@@ -1931,6 +1956,334 @@ def run_lm_training(device, arch=LM_ARCH, layers=LMT["layers"], batch=LMT["batch
           "launches": {**counts_c, "zebra_mask_kernel": counts_b["zebra_mask_kernel"]}}
     print(f"LM training kernel times per step ({len(maps)} ffn_hidden maps of C's step 1):")
     return time_lm_stream_kernels(lm, flush, LMT_ROWS)
+
+
+# ---------------------------------------------------------------------------
+# Remat at depth, checkpointing and the step supervisor
+# ---------------------------------------------------------------------------
+
+# the deepest gemma3-4b that trains on one card with remat="block": all 34
+# layers, at K 1 (67.50 GiB) and at K 2 (67.94 GiB), found by
+# src/repro_torch/launch/lm_timing.py depth (34, then 6 fewer at a time)
+LMD = dict(layers=34, batch=2, seq=2048, grad_accum=2, steps=2, t_obj=LM_T_OBJ)
+# crash and resume: full width cut to 2 layers (0.87 B parameters, 10.4 GB of
+# float32 state a checkpoint), 4 steps on stream, a checkpoint every 2
+LMC = dict(layers=2, steps=4, ckpt_every=2, crash_at=3)
+
+
+def two_copy_gradients(model, tokens):
+    """The accumulation before one-copy ``.grad`` sums: each microbatch's
+    float32 gradients by ``autograd.grad``, added into the first's
+    (``acc + g`` in microbatch order), then divided by K: the yardstick the
+    one-copy form must equal bit for bit."""
+    import torch
+    leaves = list(model.parameters())
+    K = model.cfg.grad_accum
+    grads = None
+    for mb in tokens.reshape(K, tokens.shape[0] // K, -1):
+        loss, _ = model.loss(mb, "train")
+        gs = [torch.zeros_like(p) if g is None else g.float()
+              for p, g in zip(leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
+        if grads is None:
+            grads = gs
+            continue
+        for acc, g in zip(grads, gs):
+            acc.add_(g)
+        del gs
+    for g in grads:
+        g.div_(K)
+    return dict(zip((n for n, _ in model.named_parameters()), grads))
+
+
+def run_lm_depth(device, arch=LM_ARCH, layers=LMD["layers"], batch=LMD["batch"],
+                 seq=LMD["seq"], grad_accum=LMD["grad_accum"], steps=LMD["steps"],
+                 t_obj=LMD["t_obj"], check_layers=12, reduced=False) -> None:
+    """Phase 11a: gemma3-4b at full width and ``layers`` deep with
+    ``remat="block"`` through ``launch.train.train_lm``: R (reference) and
+    C (stream) ``steps`` steps each at K ``grad_accum``, C's parameters
+    equal to R's bit for bit and its stream kernels launched forward plus
+    recompute; R again at K 1; step 1's one-copy gradients equal to the
+    two-copy yardstick's; remat none and block equal at ``check_layers``."""
+    import torch
+    from repro_torch.data import LMDatasetConfig, lm_batch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import adamw, warmup_cosine
+
+    base = train.build_config(arch, reduced=reduced, t_obj=t_obj, n_layers=layers).replace(
+        zebra_tnet=False, grad_accum=grad_accum, remat="block")
+    tokens0 = torch.from_numpy(lm_batch(LMDatasetConfig(vocab=base.vocab), batch, seq, 0)
+                               ).to(device=device, dtype=torch.int64)
+    print(f"LM remat at depth: {arch} at full width, {base.n_layers} layers, remat block, "
+          f"batch {batch} x {seq}, {steps} steps, T_obj {t_obj}")
+
+    def fresh(cfg):
+        return LM(cfg, generator=torch.Generator(device=device).manual_seed(0), device=device)
+
+    def run(model, label, want):
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.synchronize()
+        _, state, hist, _ = train.train_lm(model.cfg, steps=steps, batch=batch, seq=seq,
+                                           device=device, model=model, log=lambda *_: None)
+        torch.cuda.synchronize()
+        check_launches(launch_counts(), want, label)
+        peak = torch.cuda.max_memory_allocated(device)
+        check(all(math.isfinite(m["loss"]) for m in hist), f"{label}: loss not finite")
+        print(f"  {label}: {[m['ms'] for m in hist]} ms per step (host clock, "
+              f"synchronised); max_memory_allocated {peak / 2 ** 30:.2f} GiB; loss "
+              f"{[m['loss'] for m in hist]}")
+        return state, hist[-1]["ms"]
+
+    def profile(model, state, label, step_ms):
+        """One more step under the profiler (it moves the state: after any
+        comparison of it)."""
+        opt = adamw(warmup_cosine(3e-4, 1, steps))
+        busy = profile_calls(lambda: lm_steps.train_step(model, opt, state,
+                                                         {"tokens": tokens0}),
+                             1, f"{label} steps", "step")
+        if busy is not None:
+            print(f"  {label}: device busy {100 * busy / step_ms:.1f} % of an unprofiled "
+                  f"step ({busy:.3f} of {step_ms:.3f} ms)")
+
+    # step 1 at K grad_accum: the one-copy accumulation against the two-copy form
+    model = fresh(base)
+    want = two_copy_gradients(model, tokens0)
+    got, _, _ = lm_steps.accumulate_gradients(model, dict(model.named_parameters()), tokens0)
+    bad = [k for k in want if not same_bits(got[k], want[k])]
+    check(not bad, f"one-copy gradients differ from the two-copy form: {bad[:4]}")
+    print(f"  step 1 at K {grad_accum}: all {len(want)} one-copy gradients == the "
+          f"two-copy form (bitwise)")
+    del want, got
+    torch.cuda.empty_cache()
+
+    # R then C at K grad_accum; C's stream kernels run forward and recompute
+    n_sites = base.n_layers * grad_accum
+    state, ms = run(model, f"R reference, K {grad_accum}", {})
+    params_r = host_copy(state["params"])
+    profile(model, state, f"R reference, K {grad_accum}", ms)
+    del model, state
+    torch.cuda.empty_cache()
+    model = fresh(base.replace(zebra_backend="stream"))
+    state, _ = run(model, f"C stream, K {grad_accum}",
+                   {k: 2 * n_sites * steps for k in STREAM_KERNELS})
+    bad = differing(state["params"], params_r)
+    check(not bad, f"C after {steps} steps under remat: {bad[:4]} differ from R")
+    print(f"  C: all {len(params_r)} parameters after {steps} steps == R (bitwise); each "
+          f"stream kernel {2 * n_sites * steps} launches = {n_sites} sites x {steps} steps "
+          f"x 2 (forward + recompute)")
+    del model, state, params_r
+    torch.cuda.empty_cache()
+    model = fresh(base.replace(grad_accum=1))
+    state, ms = run(model, "R reference, K 1", {})
+    profile(model, state, "R reference, K 1", ms)
+    del model, state
+    torch.cuda.empty_cache()
+
+    # remat none and block: the same step-1 gradients
+    cut = base.replace(n_layers=check_layers)
+    grads = {}
+    for mode in ("none", "block"):
+        model = fresh(cut.replace(remat=mode))
+        grads[mode] = lm_steps.accumulate_gradients(model, dict(model.named_parameters()),
+                                                    tokens0)[:2]
+        del model
+    bad = [k for k, v in grads["none"][0].items() if not same_bits(grads["block"][0][k], v)]
+    check(same_bits(grads["block"][1], grads["none"][1]) and not bad,
+          f"remat block vs none at {check_layers} layers: {bad[:4]}")
+    print(f"  {check_layers} layers: remat block == none, loss and all "
+          f"{len(grads['none'][0])} gradients (bitwise)")
+
+
+class CkptTimer:
+    """Times ``CheckpointManager.save`` (what blocks the loop: the copy to
+    the host), its write (on the writer thread), ``restore`` (verify and
+    load) and ``save_acts``/``restore_acts``; adds nothing else."""
+
+    def __init__(self):
+        self.times = {}
+
+    def __enter__(self):
+        from repro_torch.checkpoint import manager
+        self._cls = manager.CheckpointManager
+        self._inner = {n: getattr(self._cls, n) for n in
+                       ("save", "_write", "restore", "save_acts", "restore_acts")}
+        for name, fn in self._inner.items():
+            setattr(self._cls, name, self._timed(name, fn))
+        return self
+
+    def _timed(self, name, fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.times.setdefault(name, []).append(time.perf_counter() - t0)
+        return wrapped
+
+    def __exit__(self, *exc):
+        for name, fn in self._inner.items():
+            setattr(self._cls, name, fn)
+
+
+def run_lm_ckpt(device, arch=LM_ARCH, layers=LMC["layers"], batch=LMD["batch"],
+                seq=LMD["seq"], grad_accum=LMD["grad_accum"], steps=LMC["steps"],
+                ckpt_every=LMC["ckpt_every"], crash_at=LMC["crash_at"], t_obj=LM_T_OBJ,
+                reduced=False) -> None:
+    """Phase 11b: crash and resume under ``--ckpt`` (module docstring)."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.data import LMDatasetConfig, lm_batch
+    from repro_torch.ft import CorruptStream, TransientStep, corrupt_file, crashing_step
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+
+    cfg = train.build_config(arch, reduced=reduced, t_obj=t_obj, n_layers=layers,
+                             backend="stream").replace(zebra_tnet=False,
+                                                       grad_accum=grad_accum)
+    tmp = tempfile.mkdtemp(prefix="zebra_ckpt_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"LM checkpoint and resume: {arch} at full width, {cfg.n_layers} layers, "
+              f"{steps} steps on stream, --ckpt-every {ckpt_every}, a crash at call "
+              f"{crash_at}; {free / 1e9:.1f} GB free under {tempfile.gettempdir()}")
+
+        def fresh():
+            return LM(cfg, generator=torch.Generator(device=device).manual_seed(0),
+                      device=device)
+
+        def snapshot(state):
+            return {**{f"params/{k}": v for k, v in state["params"].items()},
+                    **{f"opt/{s}/{k}": v for s in ("m", "v")
+                       for k, v in state["opt"][s].items()}}
+
+        _, want, hist_u, _ = train.train_lm(cfg, steps=steps, batch=batch, seq=seq,
+                                            device=device, model=fresh(),
+                                            log=lambda *_: None)
+        want_flat = snapshot(want)
+        n_params = sum(v.numel() for k, v in want["params"].items())
+        model = fresh()
+        inner = train.train_step
+
+        def dirty():
+            """The crash after a half-applied update: every parameter and
+            moment moved, then ``TransientStep``."""
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.add_(1.0)
+            return TransientStep(f"injected crash at call {crash_at}")
+        train.train_step = crashing_step(inner, crash_at, exc=dirty)
+        try:
+            with CkptTimer() as timer:
+                _, got, hist, sup = train.train_lm(cfg, steps=steps, batch=batch, seq=seq,
+                                                   device=device, model=model, ckpt=tmp,
+                                                   ckpt_every=ckpt_every,
+                                                   log=lambda *_: None)
+        finally:
+            train.train_step = inner
+        check([e["class"] for e in sup.failure_log] == ["TransientStep"],
+              f"failure log {sup.failure_log}")
+        check([h["step"] for h in hist] == list(range(1, steps + 1)),
+              f"history steps {[h['step'] for h in hist]}")
+        bad = [k for k, v in snapshot(got).items() if not same_bits(v, want_flat[k])]
+        check(not bad and got["step"] == want["step"] == steps,
+              f"resumed run differs from the uninterrupted one: {bad[:4]}, step "
+              f"{got['step']}")
+        manifest = json.loads((Path(tmp) / f"step_{steps}" / "manifest.json").read_text())
+        check(manifest["extra"] == {"loader_step": steps}, f"manifest extra {manifest}")
+        check([h["loss"] for h in hist] == [h["loss"] for h in hist_u], "losses differ")
+        state_bytes = sum(v.numel() * 4 for v in want_flat.values())
+        print(f"  crashed at call {crash_at}, restored step {ckpt_every} and the loader at "
+              f"{ckpt_every}: parameters, both AdamW moments ({len(want_flat)} tensors), "
+              f"step {got['step']} and loader step {manifest['extra']['loader_step']} == "
+              f"the uninterrupted run (bitwise); {n_params / 1e9:.3f} B parameters, "
+              f"{state_bytes / 1e9:.2f} GB of float32 state a checkpoint")
+        t = timer.times
+        for i, (blk, wr) in enumerate(zip(t["save"], t["_write"])):
+            print(f"  save {i + 1}: blocks the loop {blk * 1e3:.1f} ms (the copy to the "
+                  f"host); write and CRCs {wr * 1e3:.1f} ms on the writer thread "
+                  f"({state_bytes / wr / 1e6:.1f} MB/s)")
+        print(f"  restore plus verify after the crash: {t['restore'][0] * 1e3:.1f} ms")
+        del want, want_flat
+        torch.cuda.empty_cache()
+
+        # detect.ckpt.bitflip: the newest shard corrupted, restore falls back
+        ckpt = sup.ckpt
+        corrupt_file(str(Path(tmp) / f"step_{steps}" / "shard_0.npz"))
+        t0 = time.perf_counter()
+        step, _, extra = ckpt.restore(got)
+        ms = (time.perf_counter() - t0) * 1e3
+        # the fallback fired: the CRC (the zip member's or the manifest's) caught it
+        detected = int(step < steps)
+        recovered = int(step == steps - ckpt_every and extra["loader_step"] == step)
+        check(detected == recovered == 1, f"ckpt bitflip: detected {detected}, restored "
+                                          f"step {step}")
+        print(f"  detect.ckpt.bitflip: injected 1, detected {detected}, recovered "
+              f"{recovered} (restore-older: step {step}, {ms:.1f} ms)")
+
+        # save_acts of one step's ffn_hidden maps (the masked site outputs)
+        maps = []
+        import repro_torch.models.lm.ffn as ffn
+        site = ffn.zebra_site
+
+        def keep(x, zcfg, **kw):
+            y, aux = site(x, zcfg, **kw)
+            maps.append(y.detach().clone())
+            return y, aux
+        ffn.zebra_site = keep
+        try:
+            with torch.no_grad():
+                model.loss(torch.from_numpy(lm_batch(
+                    LMDatasetConfig(vocab=cfg.vocab), batch // grad_accum, seq, 0)
+                ).to(device=device, dtype=torch.int64))
+        finally:
+            ffn.zebra_site = site
+        acts = {f"layer{i}/ffn_hidden": m for i, m in enumerate(maps)}
+        reset_launch_counts()
+        with CkptTimer() as timer:
+            stats = ckpt.save_acts(steps, acts)
+            torch.cuda.synchronize()
+            back = ckpt.restore_acts(steps, device=device)
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts["zebra_pack"] == len(acts) and counts["zebra_unpack_kernel"] == len(acts),
+              f"save_acts/restore_acts launches {counts}")
+        with np.load(Path(tmp) / f"acts_{steps}.npz") as f:
+            files = dict(f.items())
+        for name, m in acts.items():
+            check(same_bits(back[name], m), f"restore_acts {name} differs")
+            stored = files[f"{name}/payload"].nbytes + files[f"{name}/index"].nbytes
+            check(stats[name]["stored_bytes"] == stored, f"{name} stored bytes")
+        t = timer.times
+        print(f"  save_acts of {len(acts)} ffn_hidden maps {tuple(maps[0].shape)} bf16: "
+              + ", ".join(f"{n} {s['stored_bytes']} of {s['dense_bytes']} B"
+                          for n, s in stats.items())
+              + f"; save {t['save_acts'][0] * 1e3:.1f} ms (the codec's pack on the card), "
+              f"restore {t['restore_acts'][0] * 1e3:.1f} ms (the expander), each map equal "
+              f"(bitwise), pack and expander {len(acts)} launches each")
+        # detect.ckpt.acts_bitflip: a flipped index bit on disk
+        name = next(iter(acts))
+        files[f"{name}/index"] = files[f"{name}/index"].copy()
+        files[f"{name}/index"][0] ^= 1
+        np.savez(Path(tmp) / f"acts_{steps}.npz", **files)
+        detected = 0
+        try:
+            ckpt.restore_acts(steps, device=device)
+        except CorruptStream as e:
+            detected = int(name in str(e))
+            print(f"  detect.ckpt.acts_bitflip: {e}")
+        check(detected == 1, "acts bitflip not detected, or not named")
+        print("  detect.ckpt.acts_bitflip: injected 1, detected 1, recovered 1 "
+              "(reject-named-invariant)")
+        del got, model, maps, acts, back
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -2011,11 +2364,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         t7 = time.perf_counter()
         kernels += run_lm_training(device)
+        torch.cuda.empty_cache()
         t8 = time.perf_counter()
+        run_lm_depth(device)
+        torch.cuda.empty_cache()
+        run_lm_ckpt(device)
+        torch.cuda.empty_cache()
+        t9 = time.perf_counter()
         print(f"phase times: edge cases {t1 - t0:.1f} s, CNN {t2 - t1:.1f} s, "
               f"CNN zoo {t3 - t2:.1f} s, LM {t4 - t3:.1f} s, starcoder2-15b {t5 - t4:.1f} s, "
               f"arch runs {t6 - t5:.1f} s, validated {t7 - t6:.1f} s, "
-              f"LM training {t8 - t7:.1f} s")
+              f"LM training {t8 - t7:.1f} s, remat and checkpoints {t9 - t8:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
         print(json.dumps({"ok": True, "device": {

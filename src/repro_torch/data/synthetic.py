@@ -83,14 +83,23 @@ def lm_batch(cfg: LMDatasetConfig, batch: int, seq: int, step: int) -> np.ndarra
 
 
 class StreamingLoader:
-    """Counter-indexed loader: batch ``step`` is ``make_fn(batch, step)``."""
+    """Counter-indexed loader: batch ``step`` is ``make_fn(batch, step)``, so
+    its state is the step counter and checkpoint and restore persist one
+    int. The reference's per-host sharding waits for the distributed item
+    (ROADMAP.md)."""
 
-    def __init__(self, make_fn, batch: int):
+    def __init__(self, make_fn, batch: int, start_step: int = 0):
         self.make_fn = make_fn
         self.batch = batch
-        self.step = 0
+        self.step = start_step
 
     def __next__(self):
         out = self.make_fn(self.batch, self.step)
         self.step += 1
         return out
+
+    def state(self) -> int:
+        return self.step
+
+    def restore(self, step: int) -> None:
+        self.step = step

@@ -1,7 +1,7 @@
-"""Fault tolerance of the stream paths (``repro.ft``): the failure
-taxonomy, the per-site circuit breaker and deterministic fault injection.
-The step supervisor, the checkpoint and ring-hop taps and the crash
-injectors wait for their consumers (ROADMAP.md, module queue)."""
+"""Fault tolerance (``repro.ft``): the failure taxonomy, the per-site
+circuit breaker, deterministic fault injection and the training step
+supervisor. The supervisor's remesh and the ring-hop and engine-tick taps
+wait for the distributed and serving items (ROADMAP.md, module queue)."""
 from .faults import (  # noqa: F401
     CorruptStream,
     DeadlineExceeded,
@@ -24,7 +24,10 @@ from .inject import (  # noqa: F401
     Fault,
     FaultPlan,
     active_plan,
+    corrupt_file,
     corrupt_map,
+    crashing_step,
     inject,
     stream_tap,
 )
+from .supervisor import FailurePolicy, FTConfig, StepSupervisor  # noqa: F401

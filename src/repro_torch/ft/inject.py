@@ -10,6 +10,10 @@ and fire at taps on the stream paths:
 * :func:`corrupt_map` corrupts a ``CompressedMap`` (serve's prefill ->
   decode handoff).
 
+Two helpers act outside the stream: :func:`corrupt_file` flips a byte of a
+file on disk (a checkpoint shard), and :func:`crashing_step` makes a step
+function raise at a given call (the supervisor's restore path).
+
 A fault names its target position (``arg``) outright, so a run injects
 the same corruption every time. PyTorch runs eagerly, so a tap consults
 the armed plan at every call; with no plan armed it returns its inputs
@@ -32,9 +36,11 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator
 
 import torch
+
+from .faults import TransientStep
 
 STREAM_KINDS = ("bitflip", "truncate", "nan", "value", "count")
 
@@ -188,3 +194,44 @@ def corrupt_map(cm: Any, kind: str, *, arg: int = 0) -> Any:
             payload[slot, 0, 0] = val
         return dataclasses.replace(cm, payload=payload)
     raise ValueError(f"unknown map fault kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint and step-level faults
+# ---------------------------------------------------------------------------
+
+def corrupt_file(path: str, *, offset: int | None = None) -> None:
+    """Flip one byte of a file in place (checkpoint-corruption chaos).
+    Default offset: the middle of the file, past any header, inside the
+    array data."""
+    with open(path, "r+b") as f:
+        f.seek(0, 2)
+        size = f.tell()
+        if size == 0:
+            return
+        pos = size // 2 if offset is None else int(offset) % size
+        f.seek(pos)
+        b = f.read(1)
+        f.seek(pos)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def crashing_step(step_fn: Callable, crash_at: int,
+                  exc: Callable[[], BaseException] | None = None,
+                  times: int = 1) -> Callable:
+    """Wrap a step function to raise at its ``crash_at``-th call (1-based),
+    ``times`` times in all. Default exception: ``TransientStep``, the
+    supervisor's restore-and-retry policy. ``wrapped.calls`` counts the
+    calls and the raises."""
+    make = exc or (lambda: TransientStep(f"injected crash at call {crash_at}"))
+    calls = {"n": 0, "raised": 0}
+
+    def wrapped(*a, **kw):
+        calls["n"] += 1
+        if calls["n"] >= crash_at and calls["raised"] < times:
+            calls["raised"] += 1
+            raise make()
+        return step_fn(*a, **kw)
+
+    wrapped.calls = calls  # type: ignore[attr-defined]
+    return wrapped

@@ -9,17 +9,19 @@ counterparts of ``make_train_state_shape``'s ``init_fn`` and of
 "step"}``; ``params`` are the model's own parameters (the module the loss
 runs), which the step updates in place with the optimizer's ``update_``,
 as it does the optimizer state and the int8 compression residual: at
-gemma3-4b's width every copy of the parameters is 7.4 GB. The reference's
-remat has no counterpart.
+gemma3-4b's width every copy of the parameters is 7.4 GB.
 
 Serving: prefill, next-token choice and the generate loop, under
 ``torch.inference_mode``.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..compress import decompress_tree
+from ..ft.faults import PoisonBatch
 from ..models.lm import LM
 from ..optim import Optimizer, clip_by_global_norm_, compressed_gradients, init_state
 
@@ -47,32 +49,42 @@ def _own_params(model: LM, params: dict) -> list[torch.Tensor]:
 def accumulate_gradients(model: LM, params: dict, tokens: torch.Tensor):
     """The loss of ``tokens`` (B, S+1) and its float32 gradient with respect
     to ``params`` (the model's own), over ``cfg.grad_accum`` microbatches:
-    rows ``[i·B/K, (i+1)·B/K)`` in order, each microbatch's gradient added
-    to the sum before the next one runs, then divided by K. Loss, ``ce``,
+    rows ``[i·B/K, (i+1)·B/K)`` in order. Each microbatch's backward adds
+    its gradient into the parameters' ``.grad`` as it arrives (``acc +
+    g``, in microbatch order), so one float32 copy of the gradients is
+    alive, not two; the sum is then divided by K. Loss, ``ce``,
     ``zebra_reg`` and ``zero_frac`` are means over the microbatches;
     ``measured_bytes`` is their sum (extensive: the bytes the whole batch
-    moved, whatever K). Returns ``(grads, loss, metrics)``, all detached."""
+    moved, whatever K). Returns ``(grads, loss, metrics)``, all detached;
+    the parameters' ``.grad`` is left empty."""
     leaves = _own_params(model, params)
     K = max(model.cfg.grad_accum, 1)
     B = tokens.shape[0]
     if B % K:
         raise ValueError(f"batch {B} does not split into grad_accum={K} microbatches")
+    if any(p.grad is not None for p in leaves):
+        raise ValueError("the parameters carry gradients already; accumulate_gradients "
+                         "sums into .grad from None")
+    if K > 1 and any(p.dtype != torch.float32 for p in leaves):
+        raise ValueError("grad_accum > 1 sums the microbatches in .grad, which needs "
+                         "float32 parameters")
     micro = tokens.reshape(K, B // K, -1)
-    grads, loss, metrics = None, None, None
-    for i in range(K):
-        l, m = model.loss(micro[i], "train")
-        gs = torch.autograd.grad(l, leaves, allow_unused=True)
-        gs = [torch.zeros_like(p, dtype=torch.float32) if g is None else g.to(torch.float32)
-              for p, g in zip(leaves, gs)]
-        l, m = l.detach(), {k: v.detach() for k, v in m.items()}
-        if grads is None:
-            grads, loss, metrics = gs, l, m
-            continue
-        for acc, g in zip(grads, gs):
-            acc.add_(g)
-        del gs
-        loss = loss + l
-        metrics = {k: metrics[k] + v for k, v in m.items()}
+    loss, metrics = None, None
+    try:
+        for i in range(K):
+            l, m = model.loss(micro[i], "train")
+            l.backward()
+            l, m = l.detach(), {k: v.detach() for k, v in m.items()}
+            if loss is None:
+                loss, metrics = l, m
+                continue
+            loss = loss + l
+            metrics = {k: metrics[k] + v for k, v in m.items()}
+        grads = [torch.zeros_like(p, dtype=torch.float32) if p.grad is None
+                 else p.grad.to(torch.float32) for p in leaves]
+    finally:
+        for p in leaves:
+            p.grad = None
     if K > 1:
         for g in grads:
             g.div_(K)
@@ -82,14 +94,19 @@ def accumulate_gradients(model: LM, params: dict, tokens: torch.Tensor):
 
 
 def train_step(model: LM, opt: Optimizer, state: dict, batch: dict, *,
-               compress: str = "bf16", grad_clip: float = 1.0):
+               compress: str = "bf16", grad_clip: float = 1.0, check_finite: bool = False):
     """One optimizer step on ``batch["tokens"]`` (B, S+1): the accumulated
     gradient, ``compressed_gradients`` (``compress``), clipping to the
     global norm ``grad_clip``, then the optimizer's in-place update at the
     step before the increment. Returns ``(state, metrics)``, the state
     updated in place, the metrics with ``loss`` and ``grad_norm`` added
-    (device tensors; nothing is read on the host)."""
+    (device tensors). With ``check_finite`` the loss is read on the host
+    before anything in ``state`` changes, and a non-finite one raises
+    ``ft.faults.PoisonBatch`` with the state untouched (the supervisor's
+    skip-batch policy); otherwise nothing is read on the host."""
     grads, loss, metrics = accumulate_gradients(model, state["params"], batch["tokens"])
+    if check_finite and not math.isfinite(float(loss)):
+        raise PoisonBatch(f"non-finite loss {float(loss)} at step {state['step']}")
     grads, state["compress"] = compressed_gradients(grads, state["compress"], compress)
     gnorm = clip_by_global_norm_(grads, grad_clip)
     opt.update_(grads, state["opt"], state["params"], state["step"])

@@ -21,6 +21,7 @@ from ..layers import Norm, lecun_normal
 from . import attention as attn
 from .config import LMConfig
 from .ffn import FFN, eff_block_ch, ffn_apply, zebra_cfg_for
+from .remat import checkpoint_name
 
 LAYER_TYPES = ("global", "local")
 NOT_PORTED = ("layer type {!r} is not yet ported to repro_torch (ROADMAP.md, "
@@ -119,7 +120,8 @@ def apply_layer(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, mode: str, r
     aux = LayerAux.zero(x.device)
     h = p.norm1(x)
     q, k, v = _qkv(p.attn, h, cfg, rope)
-    x = x + _out_proj(_attend(q, k, v, typ, cfg), p.attn.wo)
+    o = checkpoint_name(_attend(q, k, v, typ, cfg), "attn_out", cfg.remat)
+    x = x + _out_proj(o, p.attn.wo)
     x, aux = _ffn_residual(p, x, cfg, mode, aux)
     x, zo = _layer_out_zebra(p, x, cfg, mode)
     return x, aux + LayerAux.of_site(zo)

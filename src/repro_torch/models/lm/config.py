@@ -9,9 +9,10 @@ tied or untied vocabulary head. The reference's fields for the other
 architectures ("rglru"/"ssm" layers, MoE FFNs, the whisper encoder, the
 scanned local path) come with the code that reads them (ROADMAP.md,
 module queue). ``ce_chunk`` (the chunked cross-entropy of ``LM.loss``) and
-``grad_accum`` (the microbatches of ``launch.steps.train_step``) are the
-reference's. Its TPU knobs (remat, scan unrolling, sharding profiles) have
-no counterpart.
+``grad_accum`` (the microbatches of ``launch.steps.train_step``) and
+``remat`` (what the backward keeps of a layer unit, ``remat.run_unit``)
+are the reference's. Its TPU knobs (scan unrolling, sharding profiles)
+have no counterpart.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ class LMConfig:
                                      # of LM.loss (one (B, chunk, V) logits
                                      # buffer alive at a time)
     grad_accum: int = 1              # microbatches per train step
+    remat: str = "block"             # none | block | save_acts
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     # --- Zebra integration (the paper's technique) ---

@@ -11,6 +11,8 @@ no-op without the comm context the port does not have yet.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -19,6 +21,7 @@ from ...core.engine import wants_fused, zebra_site
 from ...core.zebra import ThresholdNet, ZebraConfig
 from ..layers import lecun_normal
 from .config import LMConfig
+from .remat import checkpoint_name
 
 ACTS = ("swiglu", "gelu")
 
@@ -72,13 +75,69 @@ class FFN(nn.Module):
                                            generator=generator, device=device)
 
 
+def _const(v: float, like: torch.Tensor) -> torch.Tensor:
+    """``v`` rounded to ``like``'s dtype, as the reference's weakly typed
+    Python constants are."""
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
+
+
+class _Silu16(torch.autograd.Function):
+    """silu in a 16-bit dtype: the reference's ops one by one, each rounded
+    to the dtype (``negate``, ``exp``, ``1 +``, ``1 /``, ``x ·``); the
+    backward is ``F.silu``'s (float32 inside, rounded once), which saves
+    only x."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        one = _const(1.0, x)
+        return x * (one / (one + torch.exp(-x)))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.ops.aten.silu_backward(g, x)
+
+
+class _Gelu16(torch.autograd.Function):
+    """The tanh gelu in a 16-bit dtype: the reference's ops one by one, each
+    rounded, its constants rounded to the dtype (``x·x·x``, ``· 0.044715``,
+    ``x +``, ``· sqrt(2/π)``, ``tanh``, ``1 +``, ``· 0.5``, ``x ·``); the
+    backward is ``F.gelu``'s."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        t = (x + (x * x * x) * _const(0.044715, x)) * _const(math.sqrt(2 / math.pi), x)
+        return x * ((_const(1.0, x) + torch.tanh(t)) * _const(0.5, x))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.ops.aten.gelu_backward(g, x, approximate="tanh")
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: in a 16-bit dtype rounded after each op as the
+    reference's HLO is (``F.silu`` computes in float32 and rounds once);
+    in float32 ``F.silu``, as the op-by-op form differs from it in the last
+    bit there and both are within an ulp of the reference."""
+    return F.silu(x) if x.element_size() > 2 else _Silu16.apply(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh form (torch's default is erf),
+    rounded as :func:`silu` is."""
+    return F.gelu(x, approximate="tanh") if x.element_size() > 2 else _Gelu16.apply(x)
+
+
 def ffn_apply(p: FFN, x: torch.Tensor, cfg: LMConfig, mode: str):
     """x (B, S, d) -> (y (B, S, d), SiteAux of the hidden site)."""
     cdt = x.dtype
     if cfg.act == "swiglu":
-        h = F.silu(x @ p.w_gate.to(cdt)) * (x @ p.w_up.to(cdt))
-    else:       # jax.nn.gelu's default is the tanh form; torch's is erf
-        h = F.gelu(x @ p.w_up.to(cdt) + p.b_up.to(cdt), approximate="tanh")
+        h = silu(x @ p.w_gate.to(cdt)) * (x @ p.w_up.to(cdt))
+    else:
+        h = gelu(x @ p.w_up.to(cdt) + p.b_up.to(cdt))
     zc = _hidden_site_cfg(cfg, mode)
     if wants_fused(zc, "ffn_hidden"):
         # fused: w_down consumes the compressed hidden map (dead blocks
@@ -86,6 +145,7 @@ def ffn_apply(p: FFN, x: torch.Tensor, cfg: LMConfig, mode: str):
         y, zaux = zebra_site(h, zc, site="ffn_hidden", w=p.w_down.to(cdt))
     else:
         h, zaux = zebra_site(h, zc, site="ffn_hidden", tnet=getattr(p, "zebra_tnet", None))
+        h = checkpoint_name(h, "ffn_hidden", cfg.remat)
         y = h @ p.w_down.to(cdt)
     if cfg.act == "gelu":
         y = y + p.b_down.to(cdt)

@@ -4,7 +4,8 @@ off an ``lm_head`` of shape (d, vocab) applied as ``x @ lm_head``.
 
 ``cfg.layer_pattern`` is a superlayer (gemma-3: 5 local + 1 global);
 ``layer_runs`` groups the layers into runs of repeated superlayers, as the
-reference does. The reference stacks a run's parameters on a leading axis
+reference does; with gradients on, ``cfg.remat`` checkpoints each repeat
+(``remat.run_unit``). The reference stacks a run's parameters on a leading axis
 and scans over it; the port keeps one module per layer (``run{ri}[c]
 ["sub{j}"]``) and loops, and ``convert.from_jax_params`` unstacks. The
 caches keep the reference's grouping: run -> ``sub{j}`` -> k/v, stacked
@@ -18,6 +19,8 @@ holds them. Parameters are drawn from an explicit ``torch.Generator`` on
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,6 +32,7 @@ from .attention import rope_frequencies
 from .blocks import (Layer, apply_layer, apply_layer_decode, apply_layer_prefill,
                      init_layer_cache)
 from .config import LMConfig
+from .remat import run_unit
 
 
 def layer_runs(cfg: LMConfig) -> list[tuple[tuple[str, ...], int]]:
@@ -79,7 +83,10 @@ class LM(nn.Module):
                     yield ri, c, j, t, run[c][f"sub{j}"]
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embed[tokens].to(self.cdt)
+        # F.embedding, not indexing: the CPU backward of an index sums the
+        # rows of repeated tokens with atomic adds across threads, in no
+        # fixed order; the embedding's backward sums each row in token order
+        x = F.embedding(tokens, self.embed).to(self.cdt)
         return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.cdt, device=x.device)
 
     def _rope(self, positions: torch.Tensor):
@@ -89,14 +96,25 @@ class LM(nn.Module):
         w = self.embed.t() if self.cfg.tie_embeddings else self.lm_head
         return x @ w.to(self.cdt)
 
+    def _unit(self, layers: nn.ModuleDict, pattern: tuple[str, ...], mode: str, rope,
+              x: torch.Tensor, aux: LayerAux):
+        """One repeat of a run's pattern (the reference's ``super_fwd``):
+        the unit ``cfg.remat`` checkpoints."""
+        for j, t in enumerate(pattern):
+            x, a = apply_layer(layers[f"sub{j}"], x, t, self.cfg, mode, rope)
+            aux = aux + a
+        return x, aux
+
     def _backbone(self, tokens: torch.Tensor, mode: str):
         """tokens (B, S) -> (final-normed x (B, S, d), LayerAux)."""
         x = self._embed(tokens)
         rope = self._rope(torch.arange(x.shape[1], device=x.device))
         aux = LayerAux.zero(x.device)
-        for *_, t, layer in self._layers():
-            x, a = apply_layer(layer, x, t, self.cfg, mode, rope)
-            aux = aux + a
+        for ri, (pattern, count) in enumerate(self.runs):
+            run = getattr(self, f"run{ri}")
+            for c in range(count):
+                x, aux = run_unit(functools.partial(self._unit, run[c], pattern, mode, rope),
+                                  self.cfg.remat, x, aux)
         return self.final_norm(x), aux
 
     # ------------------------------------------------------------------

@@ -1,7 +1,20 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py)."""
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for a bitwise comparison of two CPU runs: the
+    float32 GEMMs may split their sums by the number of threads they get,
+    which varies with the machine's load, so two runs of the same step can
+    differ in the last bit."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def bits(a) -> np.ndarray:

@@ -41,6 +41,8 @@ def test_imports_with_jax_blocked():
             "import repro_torch.launch.serve, repro_torch.configs, repro_torch.ft\n"
             "import repro_torch.compress.integrity, repro_torch.optim.compress\n"
             "import repro_torch.launch.steps, repro_torch.launch.train\n"
+            "import repro_torch.checkpoint, repro_torch.ft.supervisor\n"
+            "import repro_torch.models.lm.remat\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
@@ -75,9 +77,10 @@ def test_lm_trainer_without_device_needs_cuda():
         train.main(["--reduced", "--steps", "1"])
 
 
-def test_lm_trainer_cli_runs_on_cpu(capsys):
+def test_lm_trainer_cli_runs_on_cpu(capsys, tmp_path):
     """``--device cpu --reduced --steps 2`` trains and logs as the reference
-    does; ``--ckpt`` and ``--model-parallel`` wait for their module items."""
+    does; with ``--ckpt`` a second run resumes from the first's checkpoint;
+    ``--model-parallel`` waits for the distributed item."""
     from repro_torch.launch import train
     out = train.main(["--reduced", "--device", "cpu", "--steps", "2", "--batch", "2",
                       "--seq", "32", "--backend", "pallas"])
@@ -85,9 +88,14 @@ def test_lm_trainer_cli_runs_on_cpu(capsys):
     assert "step     1 loss=" in text and "step     2 loss=" in text
     assert out["state"]["step"] == 2 and len(out["history"]) == 2
     assert all(torch.isfinite(torch.tensor(m["loss"])) for m in out["history"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train.main(["--reduced", "--device", "cpu", "--ckpt", "ckpt"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    ckpt = ["--reduced", "--device", "cpu", "--batch", "2", "--seq", "32", "--ckpt",
+            str(tmp_path), "--ckpt-every", "1"]
+    train.main([*ckpt, "--steps", "2"])
+    assert sorted(p.name for p in tmp_path.glob("step_*")) == ["step_1", "step_2"]
+    out = train.main([*ckpt, "--steps", "3"])
+    assert [m["step"] for m in out["history"]] == [3] and out["state"]["step"] == 3
+    assert f"checkpoints in {tmp_path}" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="distributed"):
         train.main(["--reduced", "--device", "cpu", "--model-parallel", "2"])
 
 

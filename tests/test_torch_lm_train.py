@@ -19,10 +19,13 @@ run under ``jax.jit``. Tolerances:
   update is ``g / (|g| + eps)``, which turns the rounding noise of a
   gradient near eps (1e-8) into a visible step (the largest difference
   seen is 3.7e-5);
-* bf16 compute: XLA and PyTorch round bf16 intermediates in other places
-  (silu, the norms). The reduced gemma3-4b's loss at rtol 1e-3 with
-  zero_frac within 0.02 (a few of its 384 blocks sit on the other side of
-  T_obj); the ``lm-2l-64d`` steps, where no block dies, at rtol 1e-4.
+* bf16 compute: silu rounds after each op as XLA does, but the bf16
+  projections sum in another order and XLA skips the rounding of a bf16
+  sum that a norm upcasts, so a few maps differ in the last bit
+  (``test_torch_activations.py`` names the ops and the blocks). The
+  reduced gemma3-4b's loss at rtol 1e-3 and its zero_frac one block of
+  384 above the reference's (one net block on the other side of T_obj);
+  the ``lm-2l-64d`` steps, where no block dies, at rtol 1e-4.
 """
 import functools
 
@@ -167,7 +170,7 @@ def test_lm_loss_matches_reference(case, monkeypatch):
         _grads_close(model, grads, jg)
     else:
         np.testing.assert_allclose(float(loss), float(jl), rtol=1e-3)
-        assert abs(float(m["zero_frac"]) - float(jmet["zero_frac"])) < 0.02
+        assert round((float(jmet["zero_frac"]) - float(m["zero_frac"])) * 384) == 1
     assert int(m["measured_bytes"]) == 0 and m["measured_bytes"].dtype == torch.int64
 
 
