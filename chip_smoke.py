@@ -159,14 +159,66 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     ``CorruptStream`` naming the map (``detect.ckpt.acts_bitflip``). It
     prints the time a save blocks the loop, the write time and MB/s,
     restore plus verify, and the free disk space; the directory is removed;
-12. prints one JSON line listing the kernels (the seven CUDA kernels, the
+12. drives the MoE FFNs, whose Zebra site runs on the expert dispatch
+    buffer ((E·cap, d_ff) capacity slots, empty slots zero rows):
+    (a) granite-moe-1b-a400m (32 experts top-8, d_ff 512) at full width and
+    depth through ``launch.serve.main`` on ``stream``, batch 2, prompt 2048,
+    32 greedy tokens, T_obj 0.0064: prefill 72 launches of each stream
+    kernel (24 ``ffn_hidden`` maps (40960, 512), 48 ``kv_cache`` maps), the
+    handoff one ``zebra_pack`` a compressed leaf, decode 24 x 31 of each
+    (the (32, 512) dispatch map of every layer every token) plus the
+    expander per leaf; the filled slots' zero fraction in 0.5-0.8 (printed
+    over every slot too); the last logits and 64 of 64 greedy tokens equal
+    to a ``reference`` run on the same weights bit for bit; warm times of
+    both in turns; the same run at ``--validate checksum`` (every site
+    validated, tokens unchanged, nothing detected); the three stream
+    kernels held bit for bit against their plain versions on the 24
+    prefill maps and one decode step's 24 maps, and timed;
+    (b) llama4-scout-17b-a16e (16 experts top-1, d_ff 8192) at full width
+    cut to 18 layers on ``fused`` (an MoE site hands the engine no weight:
+    the masking pass), T_obj 0.00038: prefill 3 x 18 masking launches and
+    no comparator, pack or GEMM, decode 18 a token; logits and tokens equal
+    to ``reference``'s bit for bit; the masking kernel held and timed on
+    the 18 prefill maps (5120, 8192) and one decode step's; weight bytes
+    and ``max_memory_allocated``;
+    (c) granite trained at full width and depth with ``remat="block"``
+    through ``launch.train.train_lm``: batch 2 x 2048 in 2 microbatches,
+    float32 parameters, bf16 compute, AdamW, bf16 gradients, clip 1.0,
+    T_obj 0.0064, 2 steps each of R (``reference``), B (``pallas``) and C
+    (``stream``): B's and C's parameters equal R's bit for bit, the loss
+    ce + 0.01 router_aux, the masking kernel (B) and each stream kernel (C)
+    24 x 2 x 2 x 2 times (forward and recompute); ms per step, the device
+    busy share, ``max_memory_allocated``; kernels 1-4 held and timed on C's
+    96 maps of step 1;
+13. drives whisper-medium and the scanned local attention:
+    (a) whisper-medium at full width and depth (24 encoder + 24 decoder
+    layers) served on ``fused`` through ``serve.serve_one_shot``: batch 4,
+    1500 frames ~ N(0, 1) from a generator seeded 1 on the card, prompt
+    416, 32 tokens, T_obj 1.55: prefill 24 payload GEMMs, 24 comparator and
+    24 pack launches, 48 masking launches; the encoder's 24 sites
+    ``reference(degenerate-rows)`` (1500 is no multiple of 8) and no
+    launch; decode only the expander of the handoff leaves; every decoder
+    ``ffn_hidden`` map replayed through the ``reference`` site and
+    ``zebra_spmm`` as in 7; tokens beside a ``reference`` run recorded; the
+    encoder's share of the prefill's device time; the payload GEMM, the
+    comparator and pack timed per prefill;
+    (b) whisper trained R and C (batch 4 x 448 in 2 microbatches, fresh
+    seeded frames each step, remat block, 2 steps): C's parameters equal
+    R's bit for bit, each stream kernel 24 x 2 x 2 x 2 times;
+    (c) gemma3-4b at full width cut to 12 layers trained 2 steps (phase
+    10's traffic, ``reference``, no remat) with ``local_impl="scanned"``
+    beside ``"banded"``: losses allclose 1e-3, step 1's ``ffn_hidden``
+    bitmaps compared, ``max_memory_allocated`` and ms per step of both;
+14. prints one JSON line listing the kernels (the seven CUDA kernels, the
     three stream kernels per VGG-16 and per MobileNetV1 evaluate batch,
     named ``... (vgg16 evaluate)`` and ``... (mobilenet evaluate)``, the
     masking kernel per training step of each, ``... (vgg16 training)`` and
     ``... (mobilenet training)``, then
     the LM rows, named ``... (gemma3-4b prefill)``, ``... (gemma3-4b
-    decode)`` and ``... (starcoder2-15b prefill)``, and the four stream
-    kernels per LM training step, ``... (gemma3-4b training)``; the GEMM
+    decode)`` and ``... (starcoder2-15b prefill)``, the four stream
+    kernels per LM training step, ``... (gemma3-4b training)``, and the
+    rows of phases 12-13, ``... (<arch> prefill)``, ``... (<arch> decode
+    step)`` and ``... (granite-moe-1b-a400m training)``; the GEMM
     rows also carry ms per launch, TFLOP/s of live work and the device
     body that ran, the stream rows their ``amax_ms`` or ``copy_ms``
     yardstick), the card line again, and ``{"ok": true, "device": ...}``
@@ -177,6 +229,7 @@ directory without the port beside this script. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -1034,7 +1087,7 @@ class LMSiteRecorder:
     site (copies of its input map and its output, and SiteAux)."""
 
     def __init__(self):
-        self.ffn, self.ffn_decode, self.kv = [], [], []
+        self.ffn, self.ffn_decode, self.kv, self.other_rows = [], [], [], []
 
     def __enter__(self):
         import repro_torch.core.engine as engine
@@ -1047,8 +1100,9 @@ class LMSiteRecorder:
             if kw.get("site") == "ffn_hidden" and kw.get("w") is not None:
                 if aux.backend == "fused":
                     self.ffn.append((x.clone(), kw["w"], y, aux))
-                else:                       # one-token decode maps
+                else:                       # one-token decode maps (and an encoder's)
                     self.ffn_decode.append(aux.backend)
+                    self.other_rows.append(x.shape[-2])
             return y, aux
 
         def engine_site(x, cfg, **kw):
@@ -1102,6 +1156,41 @@ def block_weighted(auxes) -> tuple[float, int]:
     return zf, sum(int(a.measured_bytes) for a in auxes)
 
 
+def replay_ffn_sites(sites, cfg, t_obj, ffn_bc) -> float:
+    """Replay every fused ``ffn_hidden`` site (input map, w, output, SiteAux)
+    through the ``reference`` site and ``zebra_spmm``: bitmap, n_live, bytes
+    and zero_frac bitwise, ``zebra_spmm_cs == zebra_spmm`` bitwise, the fused
+    output the replayed kernel's; returns the worst abs error of y against
+    the reference's mask(h) @ w (inside Y_TOL)."""
+    from repro_torch.core.engine import stream_bytes, zebra_site
+    from repro_torch.core.zebra import zero_fraction
+    from repro_torch.kernels import mask_pack, spmm_cs, zebra_spmm
+    from repro_torch.models.lm.ffn import zebra_cfg_for
+    zc = zebra_cfg_for(cfg, "infer")
+    worst_y = 0.0
+    for i, (h, w, y, aux) in enumerate(sites):
+        h2 = h.reshape(-1, h.shape[-1])
+        payload, bitmap, n_live = mask_pack.zebra_mask_pack(h2, t_obj=t_obj, bs=BS,
+                                                            bc=ffn_bc)
+        y_ref, aux_ref = zebra_site(h, zc.replace(backend="reference"), site="ffn_hidden",
+                                    w=w)
+        keep_ref = mask_pack.bitmap_plain(h2, t_obj, BS, ffn_bc)
+        check(same_bits(bitmap, keep_ref), f"layer {i}: bitmap != the reference's")
+        check(int(n_live) == int(keep_ref.sum()), f"layer {i}: n_live != the reference's")
+        want_bytes = stream_bytes(keep_ref.sum(), BS, ffn_bc, h.dtype, keep_ref.numel())
+        check(int(aux.measured_bytes) == int(want_bytes), f"layer {i}: stream bytes")
+        check(same_bits(aux.zero_frac, aux_ref.zero_frac)
+              and same_bits(aux.zero_frac, zero_fraction(bitmap)), f"layer {i}: zero_frac")
+        y7 = spmm_cs.zebra_spmm_cs(payload, w, bitmap, bs=BS, bc=ffn_bc)
+        y6 = zebra_spmm.zebra_spmm(h2, w, bitmap, bs=BS, bc=ffn_bc)
+        check(same_bits(y6, y7), f"layer {i}: zebra_spmm != zebra_spmm_cs")
+        check(same_bits(y7.to(h.dtype).reshape(y.shape), y), f"layer {i}: fused output "
+                                                             f"!= the replayed kernel's")
+        worst_y = max(worst_y, close_err(y.float(), y_ref.float(), Y_TOL,
+                                         f"layer {i}: fused y vs the reference's mask(h) @ w"))
+    return worst_y
+
+
 def run_lm(device, arch=LM_ARCH, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
            t_obj=LM_T_OBJ, layers=0, zf_band=(0.5, 0.8), profile=True) -> dict:
     """Serve ``arch`` (gemma3-4b by default) through
@@ -1112,12 +1201,10 @@ def run_lm(device, arch=LM_ARCH, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
     reference for the tokens, and again on fused, warm, for its times."""
     import torch
     from repro_torch.compress import CompressedMap, decompress
-    from repro_torch.core.engine import stream_bytes, zebra_site
     from repro_torch.core.zebra import zero_fraction
-    from repro_torch.kernels import (mask_pack, reset_launch_counts, spmm_cs, zebra_mask,
-                                     zebra_spmm)
+    from repro_torch.kernels import reset_launch_counts, zebra_mask
     from repro_torch.launch import serve, steps
-    from repro_torch.models.lm.ffn import eff_block_ch, zebra_cfg_for
+    from repro_torch.models.lm.ffn import eff_block_ch
     from repro_torch.utils import map_tree
 
     argv = ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
@@ -1203,29 +1290,7 @@ def run_lm(device, arch=LM_ARCH, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
           f"masked map, the kernel's map and bitmap == mask_plain (bitwise); zero fraction "
           f"{kv_zf} at T_obj {t_obj}{' (every block kept)' if kv_zf == 0 else ''}")
 
-    # replay every ffn_hidden input through the reference site and zebra_spmm
-    zc = zebra_cfg_for(cfg, "infer")
-    worst_y = 0.0
-    for i, (h, w, y, aux) in enumerate(rec.ffn):
-        h2 = h.reshape(-1, h.shape[-1])
-        payload, bitmap, n_live = mask_pack.zebra_mask_pack(h2, t_obj=t_obj, bs=BS,
-                                                            bc=ffn_bc)
-        y_ref, aux_ref = zebra_site(h, zc.replace(backend="reference"), site="ffn_hidden",
-                                    w=w)
-        keep_ref = mask_pack.bitmap_plain(h2, t_obj, BS, ffn_bc)
-        check(same_bits(bitmap, keep_ref), f"layer {i}: bitmap != the reference's")
-        check(int(n_live) == int(keep_ref.sum()), f"layer {i}: n_live != the reference's")
-        want_bytes = stream_bytes(keep_ref.sum(), BS, ffn_bc, h.dtype, keep_ref.numel())
-        check(int(aux.measured_bytes) == int(want_bytes), f"layer {i}: stream bytes")
-        check(same_bits(aux.zero_frac, aux_ref.zero_frac)
-              and same_bits(aux.zero_frac, zero_fraction(bitmap)), f"layer {i}: zero_frac")
-        y7 = spmm_cs.zebra_spmm_cs(payload, w, bitmap, bs=BS, bc=ffn_bc)
-        y6 = zebra_spmm.zebra_spmm(h2, w, bitmap, bs=BS, bc=ffn_bc)
-        check(same_bits(y6, y7), f"layer {i}: zebra_spmm != zebra_spmm_cs")
-        check(same_bits(y7.to(h.dtype).reshape(y.shape), y), f"layer {i}: fused output "
-                                                             f"!= the replayed kernel's")
-        worst_y = max(worst_y, close_err(y.float(), y_ref.float(), Y_TOL,
-                                         f"layer {i}: fused y vs the reference's mask(h) @ w"))
+    worst_y = replay_ffn_sites(rec.ffn, cfg, t_obj, ffn_bc)
     torch.cuda.synchronize()
     replay = launch_counts()
     print(f"  replay of {n_layers} ffn_hidden maps: bitmap, n_live, bytes and zero_frac == "
@@ -2286,6 +2351,493 @@ def run_lm_ckpt(device, arch=LM_ARCH, layers=LMC["layers"], batch=LMD["batch"],
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the MoE FFNs; phase 13: whisper-medium and the scanned local
+# attention
+# ---------------------------------------------------------------------------
+
+# granite-moe-1b-a400m at full width and depth on stream. Its expert stacks
+# are drawn with fan-in d·f (lecun_normal's default over (E, d, f)), so gate
+# and up are N(0, 1/f) and the 8 x 128 block maxima of the hidden map sit
+# near 0.006. A CPU draw of one full-width MoE layer on N(0, 1) rows (batch 2
+# x 2048: 80 % of the 40960 slots filled) gives the filled slots' zero
+# fraction 0.496 at T_obj 0.0060, 0.627 at 0.0064 and 0.781 at 0.0070
+GRANITE = dict(arch="granite-moe-1b-a400m", batch=2, prompt=2048, gen=32, t_obj=0.0064)
+# llama4-scout-17b-a16e at full width on fused, cut to the deepest that serves
+# on one card beside a reference run of the same weights: 18 of 48 layers
+# (76.9 GB of bf16 weights; src/repro_torch/launch/lm_timing.py serve: 20 ran
+# out of memory, 18 peaked at 74.08 GiB, this phase at 74.77 GiB with its map
+# copies). Gate and up are N(0, 1/8192), and the same CPU draw puts the
+# filled slots' zero fraction at 0.35 at T_obj 0.00035 and 0.64 at 0.0004
+LLAMA4 = dict(arch="llama4-scout-17b-a16e", batch=2, prompt=2048, gen=32, t_obj=0.00038,
+              layers=18)
+# MoE training: granite at full width and depth, batch 2 x 2048 in two
+# microbatches of 1 x 2048 (capacity 640), remat block, 2 steps of AdamW
+# warmup_cosine(3e-4, 1, 2), bf16 gradients, clip 1.0, at the serving T_obj
+MOE_TRAIN = dict(batch=2, seq=2048, grad_accum=2, steps=2)
+# whisper-medium at full width and depth (24 + 24 layers) on fused: batch 4,
+# 1500 frames ~ N(0, 1) in bf16 from a torch.Generator seeded 1 on the card,
+# prompt 416 + 32 greedy tokens = 448 positions, its decoder context. Its GELU
+# MLP's pre-activation is N(0, d/f = 1/4), as starcoder2-15b's: the same T_obj
+WHISPER = dict(arch="whisper-medium", batch=4, prompt=416, gen=32, t_obj=1.55)
+WHISPER_TRAIN = dict(batch=4, seq=448, grad_accum=2, steps=2)
+# the scanned local attention beside the banded one: phase 10's traffic
+SCAN = dict(layers=12, batch=2, seq=2048, grad_accum=2, steps=2, t_obj=LM_T_OBJ)
+
+
+class MoESiteRecorder:
+    """Records every ``ffn_hidden`` site of a serving run (map shape,
+    SiteAux) with a copy of the first ``keep`` input maps, and counts the
+    ``kv_cache`` sites. Launches nothing."""
+
+    def __init__(self, keep: int = 0):
+        self.keep = keep
+        self.ffn, self.maps, self.kv = [], [], 0
+
+    def __enter__(self):
+        import repro_torch.core.engine as engine
+        import repro_torch.models.lm.ffn as ffn
+        self._mods, self._inner = (engine, ffn), engine.zebra_site
+
+        def ffn_site(x, cfg, **kw):
+            if len(self.maps) < self.keep:
+                self.maps.append(x.detach().clone())
+            y, aux = self._inner(x, cfg, **kw)
+            self.ffn.append((tuple(x.shape), aux))
+            return y, aux
+
+        def engine_site(x, cfg, **kw):
+            y, aux = self._inner(x, cfg, **kw)
+            self.kv += kw.get("site") == "kv_cache"
+            return y, aux
+        ffn.zebra_site, engine.zebra_site = ffn_site, engine_site
+        return self
+
+    def __exit__(self, *exc):
+        engine, ffn = self._mods
+        engine.zebra_site = ffn.zebra_site = self._inner
+
+
+def moe_cap(cfg, tokens: int) -> int:
+    """The reference's capacity expression."""
+    return int(max(1, round(cfg.capacity_factor * tokens * cfg.top_k / cfg.n_experts)))
+
+
+def slot_zero_fractions(maps, t_obj) -> tuple[float, float]:
+    """(zero fraction over every block, over the blocks of filled slots) of
+    dispatch maps, dead as the comparator's plain version decides: an
+    empty slot is a zero row, so a block of 8 empty slots has max 0 (a
+    block mixing both counts as filled)."""
+    from repro_torch.kernels import mask_pack
+    dead = filled = dead_filled = total = 0
+    for h in maps:
+        h2 = h.reshape(-1, h.shape[-1])
+        gone = mask_pack.bitmap_plain(h2, t_obj, BS, BC) == 0
+        full = h2.reshape(-1, BS, h2.shape[1] // BC, BC).abs().amax(dim=(1, 3)) > 0
+        dead += int(gone.sum())
+        filled += int(full.sum())
+        dead_filled += int((gone & full).sum())
+        total += gone.numel()
+    return dead / total, dead_filled / max(filled, 1)
+
+
+def run_moe_serve(device, arch, batch, prompt, gen, t_obj, layers=0, backend="stream",
+                  zf_band=None, validated=False) -> list[dict]:
+    """Phase 12 (a)/(b): serve ``arch`` through ``launch.serve.main`` on
+    ``backend``; launch counts per phase; the same weights on ``reference``
+    give the same last logits and tokens bit for bit; the stream kernels
+    (``stream``) or the masking kernel (``fused``: an MoE site hands the
+    engine no weight) held bit for bit against their plain versions on the
+    prefill's dispatch maps and one decode step's, and timed. Returns the
+    kernel rows."""
+    import torch
+    from repro_torch.compress import integrity
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import serve
+
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
+            "--gen", str(gen), "--t-obj", str(t_obj), "--layers", str(layers)]
+    cfg = serve.build_config(arch, t_obj=t_obj, backend=backend, n_layers=layers)
+    L, E, f = cfg.n_layers, cfg.n_experts, cfg.d_ff
+    rows_pre, rows_dec = E * moe_cap(cfg, batch * prompt), E * moe_cap(cfg, batch)
+    print(f"MoE serving: python -m repro_torch.launch.serve {' '.join(argv)} "
+          f"--backend {backend}: {L} layers, {E} experts top-{cfg.top_k}, d_ff {f}; "
+          f"dispatch maps ({rows_pre}, {f}) in prefill, ({rows_dec}, {f}) a decode step")
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    with MoESiteRecorder(keep=2 * L) as rec, PhaseCounts(serve) as phases:
+        out = serve.main([*argv, "--backend", backend])
+    torch.cuda.synchronize()
+    # keep what the checks read: a served run's caches are ~1 GB at llama4's depth
+    out = {k: out[k] for k in ("model", "prompts", "meter", "tokens", "logits", "prefill_ms",
+                               "decode_ms_per_token")}
+    final = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    model, prompts = out["model"], out["prompts"]
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    leaves = [r for r in out["meter"].records if r.compressed]
+    n_dec = gen - 1
+    if backend == "stream":
+        pre = {k: 3 * L for k in STREAM_KERNELS}
+        dec = {k: L * n_dec for k in STREAM_KERNELS}
+        dec["zebra_unpack_kernel"] += len(leaves)
+    else:
+        pre = {"zebra_mask_kernel": 3 * L}
+        dec = {"zebra_mask_kernel": L * n_dec, "zebra_unpack_kernel": len(leaves)}
+    check_launches(phases.at["prefill"], pre, f"{arch} prefill ({L} ffn_hidden + {2 * L} "
+                                              f"kv_cache sites)")
+    check_launches(diff_counts(phases.at["handoff"], phases.at["prefill"]),
+                   {"zebra_pack": len(leaves), "zebra_unpack_kernel": 1}, f"{arch} handoff")
+    check_launches(diff_counts(final, phases.at["handoff"]), dec,
+                   f"{arch} decode ({L} MoE sites x {n_dec} steps)")
+    shapes = [s for s, _ in rec.ffn]
+    labels = {a.backend for _, a in rec.ffn}
+    check(len(rec.ffn) == L * gen and rec.kv == 2 * L, f"{len(rec.ffn)} ffn_hidden and "
+                                                      f"{rec.kv} kv_cache sites")
+    check(shapes[:L] == [(1, rows_pre, f)] * L and shapes[L:] == [(1, rows_dec, f)] * L * n_dec,
+          f"dispatch map shapes {set(shapes)}")
+    check(labels == {backend}, f"MoE site backends {labels}, want {backend}")
+    pre_maps, dec_maps = rec.maps[:L], rec.maps[L:]
+    zf_all, zf_filled = slot_zero_fractions(pre_maps, t_obj)
+    zf_aux = sum(float(a.zero_frac) for _, a in rec.ffn[:L]) / L
+    print(f"  ffn_hidden (prefill): zero fraction {zf_all:.4f} over all slots "
+          f"(the sites' aux: {zf_aux:.4f}), {zf_filled:.4f} over the filled slots "
+          f"(T_obj {t_obj})")
+    check(abs(zf_aux - zf_all) < 1e-5, "the sites' zero fraction != the maps'")
+    check(zf_band is None or zf_band[0] <= zf_filled <= zf_band[1],
+          f"filled-slot zero fraction {zf_filled} outside {zf_band}")
+    dzf, dzf_filled = slot_zero_fractions(dec_maps, t_obj)
+    print(f"  ffn_hidden (decode step 1): zero fraction {dzf:.4f}, {dzf_filled:.4f} over "
+          f"the filled slots")
+    print(f"  weights {weight_bytes / 1e9:.3f} GB (bf16; float32 router); "
+          f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; prefill {out['prefill_ms']:.3f} "
+          f"ms, decode {out['decode_ms_per_token']:.3f} ms/token (cold)")
+
+    def served(**kw) -> dict:
+        """One more ``serve_one_shot`` of the same prompts; the caches dropped."""
+        r = serve.serve_one_shot(model, prompts, gen, log=lambda *_: None, **kw)
+        return {k: r[k] for k in ("tokens", "logits", "prefill_ms", "decode_ms_per_token",
+                                  "ingest_recovered")}
+
+    # the same weights on reference: logits and tokens bit for bit
+    reset_launch_counts()
+    ref = served(backend="reference")
+    check(not any(launch_counts().values()), "the reference run launched a kernel")
+    check(same_bits(ref["logits"], out["logits"]),
+          f"last logits differ from reference (max abs err "
+          f"{max_abs_err(ref['logits'], out['logits'])})")
+    agree = int((ref["tokens"] == out["tokens"]).sum())
+    check(agree == out["tokens"].numel(), f"{agree} of {out['tokens'].numel()} greedy tokens "
+                                          f"== reference")
+    print(f"  == reference: last logits (bitwise) and {agree} of {agree} greedy tokens")
+    # warm times, the two backends in turns (backend, reference, backend)
+    again = served()
+    ref = served(backend="reference")
+    third = served()
+    check(torch.equal(again["tokens"], out["tokens"])
+          and torch.equal(third["tokens"], out["tokens"]), "a later run's tokens differ")
+    print(f"  warm, in turns: {backend} prefill {again['prefill_ms']:.3f} / "
+          f"{third['prefill_ms']:.3f} ms, decode {again['decode_ms_per_token']:.3f} / "
+          f"{third['decode_ms_per_token']:.3f} ms/token; reference prefill "
+          f"{ref['prefill_ms']:.3f} ms, decode {ref['decode_ms_per_token']:.3f} ms/token (host "
+          f"clock, synchronised; {backend} runs "
+          f"{'3 kernel launches' if backend == 'stream' else '1 kernel launch'} a layer a "
+          f"decode token, reference none)")
+    del third
+    if validated:
+        # the validated stream on one tiny dispatch map a layer a token
+        own = model.cfg
+        model.cfg = own.replace(zebra_validation="checksum")
+        integrity.clear_failures()
+        reset_launch_counts()
+        try:
+            val = served()
+        finally:
+            model.cfg = own
+        counts = launch_counts()
+        check(not integrity.failures() and torch.equal(val["tokens"], out["tokens"])
+              and val["ingest_recovered"] == 0, "the checksum run detected a fault or "
+                                                "changed a token")
+        # every site validated: 3L in prefill, L a decode step
+        sites = 3 * L + L * n_dec
+        check_launches(counts, {"zebra_bitmap_kernel": sites, "zebra_pack_kernel": sites,
+                                "zebra_unpack_kernel": sites + 1 + len(leaves),
+                                "zebra_pack": len(leaves)}, f"{arch} --validate checksum")
+        print(f"  --validate checksum: tokens == off, no detection; prefill "
+              f"{val['prefill_ms']:.3f} ms, decode {val['decode_ms_per_token']:.3f} ms/token")
+    del out, ref, again, model, prompts
+    torch.cuda.empty_cache()
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)   # 256 MB
+    names = STREAM_KERNELS if backend == "stream" else ("zebra_mask_kernel",)
+    rows = []
+    for what, maps in (("prefill", pre_maps), ("decode step", dec_maps)):
+        print(f"{arch} kernel times per {what} ({len(maps)} dispatch maps):")
+        rows += time_lm_stream_kernels(
+            {"maps": [(h, None) for h in maps], "t_obj": t_obj, "launches": final}, flush,
+            {f"{k} ({arch} {what})": (k, "ffn") for k in names})
+    return rows
+
+
+def run_train_parity(device, arch, t_obj, runs, batch, seq, grad_accum, steps,
+                     enc_feats=None, keep=0) -> tuple[dict, list]:
+    """Train ``arch`` at full width and depth with ``remat="block"`` through
+    ``launch.train.train_lm`` on each backend of ``runs`` (backend -> the
+    launch counts it must make), ``reference`` first: a fresh model each,
+    the counts set to 0 just before and read just after; every other run's
+    parameters after ``steps`` steps equal R's bit for bit. Returns ({backend:
+    counts}, the first ``keep`` maps of the ``stream`` run's kernel sites)."""
+    import torch
+    from repro_torch.data import LMDatasetConfig, lm_batch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import adamw, warmup_cosine
+
+    base = train.build_config(arch, t_obj=t_obj).replace(
+        zebra_tnet=False, grad_accum=grad_accum, remat="block")
+    tokens0 = torch.from_numpy(lm_batch(LMDatasetConfig(vocab=base.vocab), batch, seq, 0)
+                               ).to(device=device, dtype=torch.int64)
+    batch0 = {"tokens": tokens0, **({"enc_feats": enc_feats(0)} if enc_feats else {})}
+    print(f"{arch} training: full width and depth, remat block, batch {batch} x {seq} in "
+          f"{grad_accum} microbatches, {steps} steps, T_obj {t_obj}, float32 parameters, "
+          f"bf16 compute" + (", fresh seeded frames each step" if enc_feats else ""))
+    params_r, counts, maps = None, {}, []
+    for backend, want in runs.items():
+        model = LM(base.replace(zebra_backend=backend),
+                   generator=torch.Generator(device=device).manual_seed(0), device=device)
+        reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats(device)
+        torch.cuda.synchronize()
+        with LMTrainRecorder(keep=keep if backend == "stream" else 0) as rec:
+            _, state, hist, _ = train.train_lm(model.cfg, steps=steps, batch=batch, seq=seq,
+                                               device=device, model=model,
+                                               log=lambda *_: None, enc_feats=enc_feats)
+        torch.cuda.synchronize()
+        counts[backend] = launch_counts()
+        peak = torch.cuda.max_memory_allocated(device)
+        check_launches(counts[backend], want, f"{arch} {backend}")
+        kinds = {}
+        for shape, _, label, *_ in rec.records:
+            kinds.setdefault(label, set()).add(shape[-2])
+        ms = [m["ms"] for m in hist]
+        print(f"  {backend}: {ms} ms per step (host clock, synchronised); "
+              f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; site backends by map rows "
+              f"{ {k: sorted(v) for k, v in kinds.items()} }")
+        for k in ("loss", "ce", "router_aux", "zero_frac", "grad_norm", "measured_bytes"):
+            print(f"    {k} {[m[k] for m in hist]}")
+        check(all(math.isfinite(m["loss"]) and math.isfinite(m["router_aux"]) for m in hist),
+              f"{backend}: loss or router_aux not finite")
+        if base.is_moe:
+            # the loss is ce + router_aux_coef * router_aux (no threshold nets)
+            for m in hist:
+                check(m["router_aux"] > 0 and math.isclose(
+                    m["loss"], m["ce"] + base.router_aux_coef * m["router_aux"],
+                    rel_tol=1e-5), f"{backend}: the loss is not ce + "
+                                   f"{base.router_aux_coef} router_aux")
+        if params_r is None:
+            params_r = host_copy(state["params"])
+        else:
+            bad = differing(state["params"], params_r)
+            check(not bad, f"{backend} after {steps} steps: {bad[:4]} differ from reference")
+            print(f"  {backend}: all {len(params_r)} parameters after {steps} steps == "
+                  f"reference (bitwise)")
+        if backend == "stream":
+            maps = rec.maps
+        opt = adamw(warmup_cosine(3e-4, 1, steps))
+        busy = profile_calls(lambda: lm_steps.train_step(model, opt, state, batch0), 1,
+                             f"{backend} steps", "step")
+        if busy is not None:
+            print(f"  {backend}: device busy {100 * busy / ms[-1]:.1f} % of an unprofiled "
+                  f"step ({busy:.3f} of {ms[-1]:.3f} ms)")
+        del model, state, rec
+        torch.cuda.empty_cache()
+    return counts, maps
+
+
+def run_moe_training(device, arch=GRANITE["arch"], t_obj=GRANITE["t_obj"],
+                     batch=MOE_TRAIN["batch"], seq=MOE_TRAIN["seq"],
+                     grad_accum=MOE_TRAIN["grad_accum"], steps=MOE_TRAIN["steps"]
+                     ) -> list[dict]:
+    """Phase 12 (c): granite-moe-1b-a400m trained R / B / C; returns the
+    rows of kernels 1-4 per training step on C's dispatch maps of step 1."""
+    import torch
+    from repro_torch import configs
+    L, K, n = configs.get(arch).n_layers, grad_accum, steps
+    per_run = L * K * n * 2                      # forward + the recompute
+    counts, maps = run_train_parity(
+        device, arch, t_obj,
+        {"reference": {}, "pallas": {"zebra_mask_kernel": per_run},
+         "stream": {k: per_run for k in STREAM_KERNELS}}, batch, seq, grad_accum, steps,
+        keep=2 * L * K)
+    print(f"  B: the masking kernel {per_run} launches, C: each stream kernel {per_run} "
+          f"= {L} sites x {K} microbatches x {n} steps x 2 (forward + recompute)")
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)   # 256 MB
+    lm = {"maps": [(h, None) for h in maps], "t_obj": t_obj,
+          "launches": {**counts["stream"],
+                       "zebra_mask_kernel": counts["pallas"]["zebra_mask_kernel"]}}
+    print(f"granite training kernel times per step ({len(maps)} dispatch maps of C's step 1, "
+          f"forward and recompute):")
+    return time_lm_stream_kernels(lm, flush, {
+        f"{k} (granite-moe-1b-a400m training)": (k, "ffn")
+        for k in ("zebra_mask_kernel", *STREAM_KERNELS)})
+
+
+def whisper_frames(device, batch, seed):
+    """(batch, enc_seq, d) bf16 frames ~ N(0, 1) from a generator seeded
+    ``seed`` on the device (whisper-medium: 1500 x 1024)."""
+    import torch
+    from repro_torch import configs
+    cfg = configs.get(WHISPER["arch"])
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((batch, cfg.enc_seq, cfg.d_model), generator=g,
+                       device=device).to(torch.bfloat16)
+
+
+def run_whisper_serve(device, edge_errs, arch=WHISPER["arch"], batch=WHISPER["batch"],
+                      prompt=WHISPER["prompt"], gen=WHISPER["gen"], t_obj=WHISPER["t_obj"]
+                      ) -> list[dict]:
+    """Phase 13 (a): whisper-medium served on fused through
+    ``launch.serve.serve_one_shot``; returns the kernel rows per prefill."""
+    import torch
+    from repro_torch.data import LMDatasetConfig, lm_batch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import serve, steps
+    from repro_torch.models.lm import LM
+    from repro_torch.models.lm.ffn import eff_block_ch
+
+    cfg = serve.build_config(arch, t_obj=t_obj, backend="fused")
+    L, Le = cfg.n_layers, cfg.encoder_layers
+    model = LM(cfg, generator=torch.Generator(device=device).manual_seed(0),
+               device=device).requires_grad_(False)
+    prompts = torch.from_numpy(lm_batch(LMDatasetConfig(vocab=cfg.vocab), batch, prompt, 0)
+                               [:, :prompt]).to(device=device, dtype=torch.int64)
+    frames = whisper_frames(device, batch, 1)
+    print(f"whisper serving: {arch} at full width and depth ({Le} encoder + {L} decoder "
+          f"layers) on fused, batch {batch}, {cfg.enc_seq} frames, prompt {prompt}, {gen} "
+          f"tokens, T_obj {t_obj}")
+    reset_launch_counts()
+    with LMSiteRecorder() as rec, PhaseCounts(serve) as phases:
+        out = serve.serve_one_shot(model, prompts, gen, enc_feats=frames, log=lambda *_: None)
+    torch.cuda.synchronize()
+    final = launch_counts()
+    leaves = [r for r in out["meter"].records if r.compressed]
+    check_launches(phases.at["prefill"], {"zebra_spmm_cs_kernel": L,
+                                          "zebra_bitmap_kernel": L, "zebra_pack_kernel": L,
+                                          "zebra_mask_kernel": 2 * L},
+                   "whisper prefill (the encoder: none)")
+    check_launches(diff_counts(phases.at["handoff"], phases.at["prefill"]),
+                   {"zebra_pack": len(leaves), "zebra_unpack_kernel": 1}, "whisper handoff")
+    check_launches(diff_counts(final, phases.at["handoff"]),
+                   {"zebra_unpack_kernel": len(leaves)}, "whisper decode")
+    enc_sites = [(r, b) for r, b in zip(rec.other_rows, rec.ffn_decode) if r == cfg.enc_seq]
+    dec_sites = [(r, b) for r, b in zip(rec.other_rows, rec.ffn_decode) if r != cfg.enc_seq]
+    check(len(rec.ffn) == L and len(enc_sites) == Le
+          and set(b for _, b in enc_sites) == {"reference(degenerate-rows)"},
+          f"{len(rec.ffn)} fused decoder sites; encoder sites {set(enc_sites)}")
+    check(len(dec_sites) == L * (gen - 1) and len(rec.kv) == 2 * L,
+          f"{len(dec_sites)} decode ffn sites, {len(rec.kv)} kv_cache sites")
+    print(f"  encoder: {Le} ffn_hidden sites, all reference(degenerate-rows) ({cfg.enc_seq} "
+          f"frames, no multiple of {BS}), no kernel launch; decoder: {L} fused sites")
+    ffn_zf, ffn_bytes = block_weighted([a for *_, a in rec.ffn])
+    print(f"  decoder ffn_hidden: zero fraction {ffn_zf}, stream bytes {ffn_bytes} of "
+          f"{sum(h.numel() * h.element_size() for h, *_ in rec.ffn)} dense; prefill "
+          f"{out['prefill_ms']:.3f} ms, decode {out['decode_ms_per_token']:.3f} ms/token (cold)")
+    check(0.0 < ffn_zf < 1.0, f"decoder ffn_hidden zero fraction {ffn_zf}")
+    worst_y = replay_ffn_sites(rec.ffn, cfg, t_obj, eff_block_ch(cfg.d_ff, cfg))
+    torch.cuda.synchronize()
+    replay = launch_counts()
+    print(f"  replay of {L} decoder ffn_hidden maps: bitmap, n_live, bytes and zero_frac == "
+          f"reference (bitwise); zebra_spmm_cs == zebra_spmm (bitwise); y vs reference max "
+          f"abs err {worst_y} ({Y_TOL})")
+    ref = serve.serve_one_shot(model, prompts, gen, backend="reference", enc_feats=frames,
+                               log=lambda *_: None)
+    agree = int((ref["tokens"] == out["tokens"]).sum())
+    print(f"  greedy tokens: {agree} of {out['tokens'].numel()} agree with reference "
+          f"(recorded, not asserted: the payload GEMM sums in another order)")
+    again = serve.serve_one_shot(model, prompts, gen, enc_feats=frames, log=lambda *_: None)
+    print(f"  warm fused: prefill {again['prefill_ms']:.3f} ms, decode "
+          f"{again['decode_ms_per_token']:.3f} ms/token; reference prefill "
+          f"{ref['prefill_ms']:.3f} ms (host clock, synchronised)")
+    enc_busy = profile_calls(lambda: model._encode(frames, "infer"), 2, "encoder passes",
+                             "encoder pass")
+    pre_busy = profile_calls(lambda: steps.prefill(model, prompts, frames), 2,
+                             "whisper prefills", "prefill")
+    if enc_busy is not None and pre_busy is not None:
+        print(f"  the encoder: {100 * enc_busy / pre_busy:.1f} % of the prefill's device time "
+              f"({enc_busy:.3f} of {pre_busy:.3f} ms)")
+    lm = {"arch": arch, "t_obj": t_obj, "maps": [(h, w) for h, w, *_ in rec.ffn],
+          "launches": {k: final[k] for k in (*LM_KERNELS, *KERNELS)},
+          "replay_launches": {"zebra_spmm_kernel": replay["zebra_spmm_kernel"]}}
+    check(bool(torch.isfinite(out["logits"]).all()), "whisper logits not finite")
+    del out, ref, again, model, rec
+    torch.cuda.empty_cache()
+    return time_lm_kernels(lm, edge_errs, device, gemms=("zebra_spmm_cs_kernel",),
+                           codec=False, stream_rows={
+                               f"{k} (whisper-medium prefill)": (k, "ffn")
+                               for k in ("zebra_bitmap_kernel", "zebra_pack_kernel")})
+
+
+def run_whisper_training(device, t_obj=WHISPER["t_obj"], batch=WHISPER_TRAIN["batch"],
+                         seq=WHISPER_TRAIN["seq"], grad_accum=WHISPER_TRAIN["grad_accum"],
+                         steps=WHISPER_TRAIN["steps"]) -> None:
+    """Phase 13 (b): whisper-medium trained R and C with fresh frames each
+    step; C's parameters == R's, its stream kernels only at the decoder's
+    sites."""
+    from repro_torch import configs
+    L, K, n = configs.get(WHISPER["arch"]).n_layers, grad_accum, steps
+    per_run = L * K * n * 2
+    run_train_parity(device, WHISPER["arch"], t_obj,
+                     {"reference": {}, "stream": {k: per_run for k in STREAM_KERNELS}},
+                     batch, seq, grad_accum, steps,
+                     enc_feats=lambda s: whisper_frames(device, batch, 100 + s))
+    print(f"  C: each stream kernel {per_run} launches = {L} decoder sites x {K} "
+          f"microbatches x {n} steps x 2 (forward + recompute); the encoder's sites ran "
+          f"reference(degenerate-rows)")
+
+
+def run_scanned(device, layers=SCAN["layers"], batch=SCAN["batch"], seq=SCAN["seq"],
+                grad_accum=SCAN["grad_accum"], steps=SCAN["steps"], t_obj=SCAN["t_obj"],
+                reduced=False) -> None:
+    """Phase 13 (c): gemma3-4b at full width cut to ``layers`` trained with
+    ``local_impl="banded"`` and ``"scanned"`` (no remat, the reference
+    backend): losses allclose 1e-3, the ffn_hidden bitmaps of step 1 compared,
+    max_memory_allocated and ms per step of both."""
+    import torch
+    from repro_torch.kernels import mask_pack
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+
+    base = train.build_config(LM_ARCH, reduced=reduced, t_obj=t_obj, n_layers=layers).replace(
+        zebra_tnet=False, grad_accum=grad_accum, remat="none")
+    n_sites = base.n_layers * grad_accum
+    out = {}
+    for impl in ("banded", "scanned"):
+        model = LM(base.replace(local_impl=impl),
+                   generator=torch.Generator(device=device).manual_seed(0), device=device)
+        torch.cuda.reset_peak_memory_stats(device)
+        with LMTrainRecorder(keep=n_sites) as rec:
+            _, _, hist, _ = train.train_lm(model.cfg, steps=steps, batch=batch, seq=seq,
+                                           device=device, model=model, log=lambda *_: None)
+        peak = torch.cuda.max_memory_allocated(device)
+        bitmaps = [mask_pack.bitmap_plain(h.reshape(-1, h.shape[-1]), t_obj, BS, BC)
+                   for h in rec.maps]
+        out[impl] = ([m["loss"] for m in hist], [m["ms"] for m in hist], peak, bitmaps)
+        print(f"  {impl}: loss {out[impl][0]}, {out[impl][1]} ms per step (host clock, "
+              f"synchronised), max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+        del model, rec
+        torch.cuda.empty_cache()
+    (lb, _, _, bb), (ls, _, _, bsc) = out["banded"], out["scanned"]
+    for a, b in zip(lb, ls):
+        check(math.isclose(a, b, rel_tol=1e-3), f"scanned loss {b} vs banded {a}")
+    flips = sum(int((x != y).sum()) for x, y in zip(bb, bsc))
+    total = sum(x.numel() for x in bb)
+    print(f"  scanned vs banded: losses allclose 1e-3 ({[b - a for a, b in zip(lb, ls)]}); "
+          f"step-1 ffn_hidden bitmaps: {flips} of {total} blocks differ over {len(bb)} maps; "
+          f"peak {out['banded'][2] / 2 ** 30:.2f} -> {out['scanned'][2] / 2 ** 30:.2f} GiB")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; run it from "
@@ -2369,12 +2921,36 @@ def main() -> int:
         run_lm_depth(device)
         torch.cuda.empty_cache()
         run_lm_ckpt(device)
+        # phase 11 leaves ~10 GB on the card in reference cycles, which
+        # llama4's 18 layers need back (74.8 GiB of 79.2)
+        held = torch.cuda.memory_allocated(device)
+        gc.collect()
         torch.cuda.empty_cache()
+        print(f"memory allocated before the MoE phases: {held / 2 ** 30:.2f} GiB, "
+              f"{torch.cuda.memory_allocated(device) / 2 ** 30:.2f} GiB after gc.collect(); "
+              f"phases 12-13 on {card_line()}")
         t9 = time.perf_counter()
+        with torch.inference_mode():
+            kernels += run_moe_serve(device, **GRANITE, zf_band=(0.5, 0.8), validated=True)
+            kernels += run_moe_serve(device, **LLAMA4, backend="fused")
+        kernels += run_moe_training(device)
+        torch.cuda.empty_cache()
+        t10 = time.perf_counter()
+        with torch.inference_mode():
+            kernels += run_whisper_serve(device, lm_errs)
+        run_whisper_training(device)
+        torch.cuda.empty_cache()
+        print(f"the scanned local attention: {LM_ARCH} at full width, {SCAN['layers']} "
+              f"layers, batch {SCAN['batch']} x {SCAN['seq']} in {SCAN['grad_accum']} "
+              f"microbatches, reference, no remat")
+        run_scanned(device)
+        torch.cuda.empty_cache()
+        t11 = time.perf_counter()
         print(f"phase times: edge cases {t1 - t0:.1f} s, CNN {t2 - t1:.1f} s, "
               f"CNN zoo {t3 - t2:.1f} s, LM {t4 - t3:.1f} s, starcoder2-15b {t5 - t4:.1f} s, "
               f"arch runs {t6 - t5:.1f} s, validated {t7 - t6:.1f} s, "
-              f"LM training {t8 - t7:.1f} s, remat and checkpoints {t9 - t8:.1f} s")
+              f"LM training {t8 - t7:.1f} s, remat and checkpoints {t9 - t8:.1f} s, "
+              f"MoE {t10 - t9:.1f} s, whisper and scanned {t11 - t10:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
         print(json.dumps({"ok": True, "device": {

@@ -97,21 +97,24 @@ class SiteAux:
 
 @dataclasses.dataclass
 class LayerAux:
-    """Site aux accumulated across sites. Bytes add in int64, exact to
-    2**63 (the reference carries an f32 base-2**24 pair only because JAX
-    runs 32-bit); ``measured_bytes_exact`` returns the same integer."""
+    """Site aux accumulated across sites and layers. Bytes add in int64,
+    exact to 2**63 (the reference carries an f32 base-2**24 pair only
+    because JAX runs 32-bit); ``measured_bytes_exact`` returns the same
+    integer. ``router_aux`` is an MoE layer's load-balancing loss (float32,
+    0 elsewhere), summed over the layers as the reference's carry sums it."""
     reg: torch.Tensor
     zf_blocks: torch.Tensor
     n_blocks: torch.Tensor
     measured_bytes: torch.Tensor
+    router_aux: torch.Tensor
 
     @classmethod
     def zero(cls, device=None) -> "LayerAux":
         z = torch.zeros((), dtype=torch.float32, device=device)
-        return cls(z, z, z, torch.zeros((), dtype=torch.int64, device=device))
+        return cls(z, z, z, torch.zeros((), dtype=torch.int64, device=device), z)
 
     @classmethod
-    def of_site(cls, site: SiteAux) -> "LayerAux":
+    def of_site(cls, site: SiteAux, router_aux=0.0) -> "LayerAux":
         zf = torch.as_tensor(site.zero_frac, dtype=torch.float32)
         nb = float(site.n_blocks)
         return cls(reg=torch.as_tensor(site.reg, dtype=torch.float32,
@@ -119,12 +122,15 @@ class LayerAux:
                    zf_blocks=zf * nb,
                    n_blocks=torch.tensor(nb, dtype=torch.float32, device=zf.device),
                    measured_bytes=torch.as_tensor(site.measured_bytes,
-                                                  device=zf.device).to(torch.int64))
+                                                  device=zf.device).to(torch.int64),
+                   router_aux=torch.as_tensor(router_aux, dtype=torch.float32,
+                                              device=zf.device))
 
     def __add__(self, other: "LayerAux") -> "LayerAux":
         return LayerAux(self.reg + other.reg, self.zf_blocks + other.zf_blocks,
                         self.n_blocks + other.n_blocks,
-                        self.measured_bytes + other.measured_bytes)
+                        self.measured_bytes + other.measured_bytes,
+                        self.router_aux + other.router_aux)
 
     @property
     def zero_frac(self) -> torch.Tensor:

@@ -6,12 +6,15 @@ observables and the bytes the handoff moved.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
         --backend fused --batch 2 --prompt-len 2048 --gen 32 --t-obj 1.05
 
-``--arch`` takes the ported dense architectures (gemma3-4b,
-command-r-35b, qwen2.5-14b, starcoder2-15b, chameleon-34b); ``--layers N``
-keeps the first N layers at full width (for a model whose full depth
-does not fit one card). It runs on the card; ``--device cpu`` runs it on
-the CPU (the kernels' plain versions). Weights are random from seed 0,
-prompts come from ``data.lm_batch``. ``--validate structural|checksum`` checks every
+``--arch`` takes the ported architectures: the dense ones (gemma3-4b,
+command-r-35b, qwen2.5-14b, starcoder2-15b, chameleon-34b), the MoE ones
+(granite-moe-1b-a400m, llama4-scout-17b-a16e) and the encoder-decoder
+whisper-medium, whose encoder is fed zero frames (B, enc_seq, d) in bf16,
+as the reference's server feeds it; ``--layers N`` keeps the first N
+layers at full width (for a model whose full depth does not fit one
+card). It runs on the card; ``--device cpu`` runs it on the CPU (the
+kernels' plain versions). Weights are random from seed 0, prompts come
+from ``data.lm_batch``. ``--validate structural|checksum`` checks every
 stream at its producer -> consumer boundary (``core.engine``) and every
 compressed cache leaf of the handoff (:func:`validate_state_ingest`),
 recovering a failed one from its dense source. Continuous batching
@@ -62,9 +65,12 @@ def _sync(device: torch.device) -> None:
 
 @torch.inference_mode()
 def serve_one_shot(model: LM, prompts: torch.Tensor, gen: int, *, backend: str | None = None,
-                   temperature: float = 0.0, seed: int = 0, log=print) -> dict:
-    """Prefill ``prompts`` (B, S), hand the caches over (compressed on the
-    stream/fused backends), decode ``gen`` tokens in all. Returns the
+                   temperature: float = 0.0, seed: int = 0, log=print,
+                   enc_feats: torch.Tensor | None = None) -> dict:
+    """Prefill ``prompts`` (B, S) (an encoder-decoder encodes its frames
+    ``enc_feats`` first), hand the caches over (compressed on the
+    stream/fused backends; the encoder output goes on dense), decode
+    ``gen`` tokens in all. Returns the
     tokens, the prefill's first logits and LayerAux, the handoff's meter
     and reconcile result, the caches before the handoff (dense) and as
     handed over (``CompressedMap`` leaves where compressed, which decode
@@ -79,7 +85,7 @@ def serve_one_shot(model: LM, prompts: torch.Tensor, gen: int, *, backend: str |
         model.cfg = own.replace(zebra_backend=backend)
         try:
             return serve_one_shot(model, prompts, gen, temperature=temperature, seed=seed,
-                                  log=log)
+                                  log=log, enc_feats=enc_feats)
         finally:
             model.cfg = own
     cfg = model.cfg
@@ -90,7 +96,8 @@ def serve_one_shot(model: LM, prompts: torch.Tensor, gen: int, *, backend: str |
 
     _sync(device)
     t0 = time.perf_counter()
-    logits, state, aux = model_prefill_pad(lambda t: prefill(model, t), prompts, S + gen)
+    logits, state, aux = model_prefill_pad(lambda t: prefill(model, t, enc_feats), prompts,
+                                           S + gen)
     _sync(device)
     t_pref = time.perf_counter() - t0
     dense_state = handoff = state
@@ -170,8 +177,10 @@ def main(argv=None) -> dict:
     B, S = args.batch, args.prompt_len
     prompts = torch.from_numpy(lm_batch(LMDatasetConfig(vocab=cfg.vocab), B, S, 0)[:, :S])
     prompts = prompts.to(device=device, dtype=torch.int64)
+    enc = (torch.zeros((B, cfg.enc_seq, cfg.d_model), dtype=torch.bfloat16, device=device)
+           if cfg.encoder_layers else None)
     out = serve_one_shot(model, prompts, args.gen, temperature=args.temperature,
-                         seed=args.seed)
+                         seed=args.seed, enc_feats=enc)
     aux = out["aux"]
     n_blocks = float(aux.n_blocks)
     print(f"[serve] {cfg.name} batch={B} prompt={S} gen={args.gen} on {device}")

@@ -46,16 +46,18 @@ def _own_params(model: LM, params: dict) -> list[torch.Tensor]:
     return list(params.values())
 
 
-def accumulate_gradients(model: LM, params: dict, tokens: torch.Tensor):
-    """The loss of ``tokens`` (B, S+1) and its float32 gradient with respect
-    to ``params`` (the model's own), over ``cfg.grad_accum`` microbatches:
-    rows ``[i·B/K, (i+1)·B/K)`` in order. Each microbatch's backward adds
-    its gradient into the parameters' ``.grad`` as it arrives (``acc +
-    g``, in microbatch order), so one float32 copy of the gradients is
-    alive, not two; the sum is then divided by K. Loss, ``ce``,
-    ``zebra_reg`` and ``zero_frac`` are means over the microbatches;
-    ``measured_bytes`` is their sum (extensive: the bytes the whole batch
-    moved, whatever K). Returns ``(grads, loss, metrics)``, all detached;
+def accumulate_gradients(model: LM, params: dict, tokens: torch.Tensor,
+                         enc_feats: torch.Tensor | None = None):
+    """The loss of ``tokens`` (B, S+1) (with an encoder-decoder's frames
+    ``enc_feats`` (B, enc_seq, d), split like the tokens) and its float32
+    gradient with respect to ``params`` (the model's own), over
+    ``cfg.grad_accum`` microbatches: rows ``[i·B/K, (i+1)·B/K)`` in order.
+    Each microbatch's backward adds its gradient into the parameters'
+    ``.grad`` as it arrives (``acc + g``, in microbatch order), so one
+    float32 copy of the gradients is alive, not two; the sum is then
+    divided by K. Loss, ``ce``, ``zebra_reg``, ``zero_frac`` and
+    ``router_aux`` are means over the microbatches; ``measured_bytes`` is
+    their sum (extensive: the bytes the whole batch moved, whatever K). Returns ``(grads, loss, metrics)``, all detached;
     the parameters' ``.grad`` is left empty."""
     leaves = _own_params(model, params)
     K = max(model.cfg.grad_accum, 1)
@@ -69,10 +71,11 @@ def accumulate_gradients(model: LM, params: dict, tokens: torch.Tensor):
         raise ValueError("grad_accum > 1 sums the microbatches in .grad, which needs "
                          "float32 parameters")
     micro = tokens.reshape(K, B // K, -1)
+    enc = None if enc_feats is None else enc_feats.reshape(K, B // K, *enc_feats.shape[1:])
     loss, metrics = None, None
     try:
         for i in range(K):
-            l, m = model.loss(micro[i], "train")
+            l, m = model.loss(micro[i], "train", None if enc is None else enc[i])
             l.backward()
             l, m = l.detach(), {k: v.detach() for k, v in m.items()}
             if loss is None:
@@ -95,7 +98,8 @@ def accumulate_gradients(model: LM, params: dict, tokens: torch.Tensor):
 
 def train_step(model: LM, opt: Optimizer, state: dict, batch: dict, *,
                compress: str = "bf16", grad_clip: float = 1.0, check_finite: bool = False):
-    """One optimizer step on ``batch["tokens"]`` (B, S+1): the accumulated
+    """One optimizer step on ``batch["tokens"]`` (B, S+1) (and an
+    encoder-decoder's ``batch["enc_feats"]``): the accumulated
     gradient, ``compressed_gradients`` (``compress``), clipping to the
     global norm ``grad_clip``, then the optimizer's in-place update at the
     step before the increment. Returns ``(state, metrics)``, the state
@@ -104,7 +108,8 @@ def train_step(model: LM, opt: Optimizer, state: dict, batch: dict, *,
     before anything in ``state`` changes, and a non-finite one raises
     ``ft.faults.PoisonBatch`` with the state untouched (the supervisor's
     skip-batch policy); otherwise nothing is read on the host."""
-    grads, loss, metrics = accumulate_gradients(model, state["params"], batch["tokens"])
+    grads, loss, metrics = accumulate_gradients(model, state["params"], batch["tokens"],
+                                                batch.get("enc_feats"))
     if check_finite and not math.isfinite(float(loss)):
         raise PoisonBatch(f"non-finite loss {float(loss)} at step {state['step']}")
     grads, state["compress"] = compressed_gradients(grads, state["compress"], compress)
@@ -120,9 +125,10 @@ def train_step(model: LM, opt: Optimizer, state: dict, batch: dict, *,
 # ---------------------------------------------------------------------------
 
 @torch.inference_mode()
-def prefill(model: LM, tokens: torch.Tensor):
-    """Prefill a batch of prompts with a cache sized to the prompt."""
-    return model.prefill(tokens, tokens.shape[1])
+def prefill(model: LM, tokens: torch.Tensor, enc_feats: torch.Tensor | None = None):
+    """Prefill a batch of prompts with a cache sized to the prompt (an
+    encoder-decoder encodes its frames ``enc_feats`` first)."""
+    return model.prefill(tokens, tokens.shape[1], enc_feats)
 
 
 def _next_token(logits: torch.Tensor, temperature: float,

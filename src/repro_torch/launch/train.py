@@ -9,7 +9,12 @@ steps // 10, steps)`` and the counter-indexed token stream
 (``data.lm_batch``), and runs ``launch.steps.train_step`` for ``--steps``
 steps under ``ft.StepSupervisor``, logging as the reference does. It runs
 on the card; ``--device cpu`` runs it on the CPU (the kernels' plain
-versions). ``--layers N`` keeps the first N layers at full width.
+versions). ``--layers N`` keeps the first N layers at full width. ``--arch`` takes
+every ported architecture (``configs.ARCHS``: the dense ones, the MoE
+ones, whose loss adds ``router_aux_coef · router_aux``, and
+whisper-medium); the CLI feeds tokens only, as the reference's does, so
+an encoder-decoder trains its decoder without cross-attention there, and
+:func:`train_lm` takes a per-step source of encoder frames.
 ``--backend`` picks the Zebra site backend: with the default threshold
 nets (Eq. 1) every site trains on ``reference``, as the capability rules
 send a site with a net; :func:`train_lm` takes any config, e.g.
@@ -40,7 +45,8 @@ from ..optim import adamw, warmup_cosine
 from ..utils import resolve_device
 from .steps import init_train_state, train_step
 
-LOG_KEYS = ("loss", "ce", "zebra_reg", "zero_frac", "grad_norm", "measured_bytes")
+LOG_KEYS = ("loss", "ce", "zebra_reg", "zero_frac", "router_aux", "grad_norm",
+            "measured_bytes")
 
 
 def build_config(arch: str, *, reduced: bool = False, t_obj: float = 0.1,
@@ -61,9 +67,11 @@ def _log(step: int, m: dict, log=print) -> None:
 def train_lm(cfg: LMConfig, *, steps: int = 50, batch: int = 8, seq: int = 128,
              lr: float = 3e-4, compress: str = "bf16", seed: int = 0, device=None,
              model: LM | None = None, log=print, ckpt: str | None = None,
-             ckpt_every: int = 25):
+             ckpt_every: int = 25, enc_feats=None):
     """Train ``cfg`` for ``steps`` steps on ``batch`` x ``seq`` tokens of
-    the synthetic stream (seed ``seed``); ``model`` (else a new one, its
+    the synthetic stream (seed ``seed``), an encoder-decoder also on the
+    frames ``enc_feats(step)`` (B, enc_seq, d) of each loader step when a
+    source is given; ``model`` (else a new one, its
     weights drawn from a ``torch.Generator`` seeded ``seed`` on the
     device) is trained in place, under a ``StepSupervisor`` that
     checkpoints to ``ckpt`` (None: no checkpoints) every ``ckpt_every``
@@ -81,16 +89,24 @@ def train_lm(cfg: LMConfig, *, steps: int = 50, batch: int = 8, seq: int = 128,
                    device=device)
     opt = adamw(warmup_cosine(lr, max(steps // 10, 1), steps))
     ds = LMDatasetConfig(vocab=cfg.vocab, seed=seed)
-    loader = StreamingLoader(lambda b, s: {"tokens": lm_batch(ds, b, seq, s)}, batch)
+    def make_batch(b, s):
+        out = {"tokens": lm_batch(ds, b, seq, s)}
+        if enc_feats is not None:
+            out["enc_feats"] = enc_feats(s)
+        return out
+    loader = StreamingLoader(make_batch, batch)
     sup = StepSupervisor(FTConfig(ckpt_dir=ckpt, ckpt_every=ckpt_every))
     state, start, extra = sup.resume_or_init(lambda: init_train_state(model, opt, compress))
     loader.restore(extra.get("loader_step", start))
 
     def step_fn(state, batch):
-        tokens = torch.from_numpy(batch["tokens"]).to(device=device, dtype=torch.int64)
+        inputs = {"tokens": torch.from_numpy(batch["tokens"]).to(device=device,
+                                                                  dtype=torch.int64)}
+        if "enc_feats" in batch:
+            inputs["enc_feats"] = batch["enc_feats"].to(device)
         t0 = time.perf_counter()
-        state, metrics = train_step(model, opt, state, {"tokens": tokens},
-                                    compress=compress, check_finite=True)
+        state, metrics = train_step(model, opt, state, inputs, compress=compress,
+                                    check_finite=True)
         # one device-to-host copy; float64 holds every float32 metric and
         # the byte count (< 2**53) exactly
         vals = torch.stack([metrics[k].double() for k in LOG_KEYS]).tolist()

@@ -1,11 +1,15 @@
 """Attention for the LM stack (``repro.models.lm.attention``): GQA + RoPE.
 
-* ``attend_full``    — causal O(S²) attention (short sequences).
+* ``attend_full``    — O(S·T) attention, causal or not (short sequences;
+  with ``causal=False`` whisper's encoder and cross-attention, T != S).
 * ``attend_chunked`` — causal attention over (chunk, chunk) tiles with an
   online softmax: live memory O(chunk²) per step.
 * ``attend_local``   — exact sliding-window attention in banded-chunk form:
   window W == chunk, each query chunk attends [prev, self] chunks with an
   in-band mask. Cost O(S·W), gemma-3's local layers.
+* ``attend_local_scanned`` — the same window one chunk at a time, each
+  chunk under ``torch.utils.checkpoint`` when gradients are on: one chunk's
+  (B, H, G, W, 2W) scores alive at a time, recomputed in the backward.
 * ``attend_decode``  — one query token against a KV cache.
 
 Plain PyTorch, with the reference's numerics: scores in float32 (the
@@ -13,11 +17,12 @@ products of the compute dtype summed in float32), softmax in float32, the
 probabilities cast back to the values' dtype for the second product.
 
 Layout: q (B, S, Hq, hd), k/v (B, S, Hkv, hd), GQA via reshape to
-(B, S, Hkv, G, hd). ``attend_local_scanned`` waits (ROADMAP.md).
+(B, S, Hkv, G, hd).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -2.0 ** 30   # large-but-finite: keeps all-masked rows NaN-free
 
@@ -57,20 +62,24 @@ def _scale(q: torch.Tensor) -> torch.Tensor:
     return q * torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype, device=q.device)
 
 
-def attend_full(q, k, v, *, window: int = 0):
-    """Causal attention over the whole sequence; with ``window``, key j is
-    visible to query i iff 0 <= i - j < window."""
+def attend_full(q, k, v, *, causal: bool = True, window: int = 0):
+    """Attention of S queries over T keys: causal (key j visible to query i
+    iff j <= i) or not (every key visible; T may differ from S); with
+    ``window``, also 0 <= i - j < window."""
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     qg = _scale(q.reshape(B, S, Hkv, G, hd))
     s = torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float())   # (B,Hkv,G,S,T)
-    qi = torch.arange(S, device=q.device)[:, None]
-    kj = torch.arange(T, device=q.device)[None, :]
-    ok = qi >= kj
-    if window:
-        ok &= qi - kj < window
-    s = torch.where(ok, s, torch.tensor(NEG_INF, device=q.device))
+    if causal or window:
+        qi = torch.arange(S, device=q.device)[:, None]
+        kj = torch.arange(T, device=q.device)[None, :]
+        ok = torch.ones((S, T), dtype=torch.bool, device=q.device)
+        if causal:
+            ok &= qi >= kj
+        if window:
+            ok &= qi - kj < window
+        s = torch.where(ok, s, torch.tensor(NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgst,bthd->bshgd", p.to(v.dtype), v)
     return o.reshape(B, S, Hq, hd)
@@ -149,6 +158,48 @@ def attend_local(q, k, v, *, window: int):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bnhgct,bnthd->bnchgd", p.to(v2.dtype), v2)
     return o.reshape(B, S, Hq, hd)
+
+
+def _local_chunk(qc, k2, v2, mask):
+    """One query chunk (B, W, Hkv, G, hd) of the sliding window against its
+    [prev, self] keys and values (B, 2W, Hkv, hd) under ``mask`` (W, 2W)."""
+    s = torch.einsum("bchgd,bthd->bhgct", qc.float(), k2.float())     # (B,H,G,W,2W)
+    s = torch.where(mask, s, torch.tensor(NEG_INF, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgct,bthd->bchgd", p.to(v2.dtype), v2)
+
+
+def attend_local_scanned(q, k, v, *, window: int):
+    """``attend_local``'s sliding window, one query chunk at a time: chunk i
+    attends chunks [i-1, i] (chunk 0 a zero chunk before it, masked). With
+    gradients on, each chunk runs under ``torch.utils.checkpoint`` (the
+    reference's checkpointed ``lax.map`` body): the forward keeps no
+    scores, and the backward recomputes one chunk's at a time."""
+    B, S, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    W = min(window, S)
+    assert S % W == 0, (S, window)
+    nc = S // W
+    dev = q.device
+    qg = _scale(q.reshape(B, nc, W, Hkv, G, hd))
+    kc = k.reshape(B, nc, W, Hkv, hd)
+    vc = v.reshape(B, nc, W, Hkv, hd)
+    pad = torch.zeros_like(kc[:, :1])
+    kpad = torch.cat([pad, kc], dim=1)                                # (B,nc+1,W,..)
+    vpad = torch.cat([pad, vc], dim=1)
+    qi = torch.arange(W, device=dev)[:, None] + W
+    kj = torch.arange(2 * W, device=dev)[None, :]
+    ok = (qi >= kj) & (qi - kj < W)
+    ok0 = ok & (kj >= W)                                              # no prev chunk
+    grad = torch.is_grad_enabled()
+    outs = []
+    for i in range(nc):
+        args = (qg[:, i], kpad[:, i:i + 2].reshape(B, 2 * W, Hkv, hd),
+                vpad[:, i:i + 2].reshape(B, 2 * W, Hkv, hd), ok0 if i == 0 else ok)
+        outs.append(checkpoint(_local_chunk, *args, use_reentrant=False) if grad
+                    else _local_chunk(*args))
+    return torch.stack(outs, dim=1).reshape(B, S, Hq, hd)
 
 
 # ---------------------------------------------------------------------------

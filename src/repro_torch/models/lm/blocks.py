@@ -1,14 +1,15 @@
 """Layer assembly for the LM stack (``repro.models.lm.blocks``): one
-attention layer ("global" or "local") followed by its FFN, in three
-forms: the full-sequence forward, the prefill that also emits the decode
-cache, and the one-token decode step against that cache.
+attention layer ("global" or "local"), in an encoder-decoder also
+cross-attention to the encoder's output, then its FFN (dense or MoE), in
+three forms: the full-sequence forward (causal, or not for the encoder),
+the prefill that also emits the decode cache, and the one-token decode
+step against that cache.
 
 Every layer returns a ``core.engine.LayerAux`` accumulated over its Zebra
 sites (``kv_cache`` in prefill, ``ffn_hidden``, ``layer_out``), which all
-run through the site engine. ``Layer`` is the counterpart of the
-reference's ``init_layer``. "rglru" and "ssm" layers, cross-attention
-(the non-causal encoder path) and MoE FFNs wait (ROADMAP.md, module
-queue).
+run through the site engine, and an MoE layer's ``router_aux``.
+``Layer`` is the counterpart of the reference's ``init_layer``. "rglru"
+and "ssm" layers wait (ROADMAP.md, module queue).
 """
 from __future__ import annotations
 
@@ -20,12 +21,12 @@ from ...core.zebra import ThresholdNet
 from ..layers import Norm, lecun_normal
 from . import attention as attn
 from .config import LMConfig
-from .ffn import FFN, eff_block_ch, ffn_apply, zebra_cfg_for
+from .ffn import FFN, MoE, eff_block_ch, ffn_apply, moe_apply, zebra_cfg_for
 from .remat import checkpoint_name
 
 LAYER_TYPES = ("global", "local")
 NOT_PORTED = ("layer type {!r} is not yet ported to repro_torch (ROADMAP.md, "
-              "module queue: the LM stack's other architectures)")
+              "module queue, item 1 (b): the SSM and RG-LRU layers)")
 
 
 class Attention(nn.Module):
@@ -50,19 +51,28 @@ class Attention(nn.Module):
 
 
 class Layer(nn.Module):
-    """``norm1``, ``attn``, ``norm2``, ``ffn`` (and ``zebra_out_tnet``, the
-    layer-output site's threshold net, when that site trains one)."""
+    """``norm1``, ``attn``, with ``cross`` also ``norm_c`` and ``cross`` (the
+    cross-attention projections), ``norm2``, then ``moe`` when
+    ``cfg.is_moe``, else ``ffn`` (and ``zebra_out_tnet``, the layer-output
+    site's threshold net, when that site trains one)."""
 
-    def __init__(self, typ: str, cfg: LMConfig, *, generator=None,
+    def __init__(self, typ: str, cfg: LMConfig, *, cross: bool = False, generator=None,
                  dtype=torch.float32, device=None):
         super().__init__()
         if typ not in LAYER_TYPES:
             raise NotImplementedError(NOT_PORTED.format(typ))
         self.typ = typ
+        kw = dict(generator=generator, dtype=dtype, device=device)
         self.norm1 = Norm(cfg.d_model, cfg.norm, device=device)
-        self.attn = Attention(cfg, generator=generator, dtype=dtype, device=device)
+        self.attn = Attention(cfg, **kw)
+        if cross:
+            self.norm_c = Norm(cfg.d_model, cfg.norm, device=device)
+            self.cross = Attention(cfg, **kw)
         self.norm2 = Norm(cfg.d_model, cfg.norm, device=device)
-        self.ffn = FFN(cfg, generator=generator, dtype=dtype, device=device)
+        if cfg.is_moe:
+            self.moe = MoE(cfg, **kw)
+        else:
+            self.ffn = FFN(cfg, **kw)
         if cfg.zebra_enabled and "layer_out" in cfg.zebra_sites and cfg.zebra_tnet:
             nblk = cfg.d_model // eff_block_ch(cfg.d_model, cfg)
             self.zebra_out_tnet = ThresholdNet(cfg.d_model, nblk, generator=generator,
@@ -93,14 +103,36 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: LMConfig, rope):
     return attn.apply_rope(q, cos, sin), attn.apply_rope(k, cos, sin), v
 
 
-def _attend(q, k, v, typ: str, cfg: LMConfig):
-    """The reference's choice of causal attention path for a full sequence."""
+def _attend(q, k, v, typ: str, cfg: LMConfig, causal: bool = True):
+    """The reference's choice of attention path for a full sequence (the
+    encoder's non-causal layers attend in full, whatever their length)."""
     S = q.shape[1]
     if typ == "local" and S > cfg.window:
-        return attn.attend_local(q, k, v, window=cfg.window)
-    if S <= cfg.attn_chunk:
-        return attn.attend_full(q, k, v, window=cfg.window if typ == "local" else 0)
+        local = (attn.attend_local_scanned if cfg.local_impl == "scanned"
+                 else attn.attend_local)
+        return local(q, k, v, window=cfg.window)
+    if S <= cfg.attn_chunk or not causal:
+        return attn.attend_full(q, k, v, causal=causal,
+                                window=cfg.window if typ == "local" else 0)
     return attn.attend_chunked(q, k, v, chunk=cfg.attn_chunk)
+
+
+def _enc_kv(p: Attention, enc_out: torch.Tensor):
+    """The cross-attention's K and V of the encoder output (B, T, d)."""
+    return _proj(enc_out, p.wk), _proj(enc_out, p.wv)
+
+
+def _cross_attention(p: Layer, x: torch.Tensor, enc_out: torch.Tensor | None
+                     ) -> torch.Tensor:
+    """x plus the cross-attention of its ``norm_c`` to the encoder output,
+    when the layer has one and an encoder output is given (the reference
+    adds no Q/K/V biases and no RoPE here, and recomputes K and V at every
+    call, decode steps included)."""
+    if not hasattr(p, "cross") or enc_out is None:
+        return x
+    q = _proj(p.norm_c(x), p.cross.wq)
+    k, v = _enc_kv(p.cross, enc_out)
+    return x + _out_proj(attn.attend_full(q, k, v, causal=False), p.cross.wo)
 
 
 def _layer_out_zebra(p: Layer, x: torch.Tensor, cfg: LMConfig, mode: str):
@@ -110,18 +142,27 @@ def _layer_out_zebra(p: Layer, x: torch.Tensor, cfg: LMConfig, mode: str):
     return zebra_site(x, zc, site="layer_out", tnet=getattr(p, "zebra_out_tnet", None))
 
 
+def _ffn(p: Layer, h: torch.Tensor, cfg: LMConfig, mode: str):
+    """(y, SiteAux, router_aux) of the layer's dense or MoE FFN."""
+    if hasattr(p, "moe"):
+        return moe_apply(p.moe, h, cfg, mode)
+    return (*ffn_apply(p.ffn, h, cfg, mode), 0.0)
+
+
 def _ffn_residual(p: Layer, x: torch.Tensor, cfg: LMConfig, mode: str, aux: LayerAux):
-    y, zaux = ffn_apply(p.ffn, p.norm2(x), cfg, mode)
-    return x + y, aux + LayerAux.of_site(zaux)
+    y, zaux, raux = _ffn(p, p.norm2(x), cfg, mode)
+    return x + y, aux + LayerAux.of_site(zaux, raux)
 
 
-def apply_layer(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, mode: str, rope
+def apply_layer(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, mode: str, rope,
+                enc_out: torch.Tensor | None = None, causal: bool = True
                 ) -> tuple[torch.Tensor, LayerAux]:
     aux = LayerAux.zero(x.device)
     h = p.norm1(x)
     q, k, v = _qkv(p.attn, h, cfg, rope)
-    o = checkpoint_name(_attend(q, k, v, typ, cfg), "attn_out", cfg.remat)
+    o = checkpoint_name(_attend(q, k, v, typ, cfg, causal), "attn_out", cfg.remat)
     x = x + _out_proj(o, p.attn.wo)
+    x = _cross_attention(p, x, enc_out)
     x, aux = _ffn_residual(p, x, cfg, mode, aux)
     x, zo = _layer_out_zebra(p, x, cfg, mode)
     return x, aux + LayerAux.of_site(zo)
@@ -150,7 +191,8 @@ def _cache_write(cache: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Ten
 
 
 def apply_layer_decode(p: Layer, x: torch.Tensor, cache: dict, typ: str, cfg: LMConfig,
-                       pos: int, rope1) -> tuple[torch.Tensor, dict]:
+                       pos: int, rope1, enc_out: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, dict]:
     """x (B, 1, d) at position ``pos``. Returns (x, cache), the cache
     updated in place."""
     h = p.norm1(x)
@@ -161,12 +203,14 @@ def apply_layer_decode(p: Layer, x: torch.Tensor, cache: dict, typ: str, cfg: LM
     vc = _cache_write(cache["v"], v, slot)
     o = attn.attend_decode(q, kc, vc, pos, window=cfg.window if typ == "local" else 0)
     x = x + _out_proj(o, p.attn.wo)
-    y, _ = ffn_apply(p.ffn, p.norm2(x), cfg, "infer")
+    x = _cross_attention(p, x, enc_out)
+    y, *_ = _ffn(p, p.norm2(x), cfg, "infer")
     return x + y, {"k": kc, "v": vc}
 
 
 def apply_layer_prefill(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, rope,
-                        cache_len: int) -> tuple[torch.Tensor, dict, LayerAux]:
+                        cache_len: int, enc_out: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, dict, LayerAux]:
     """Forward + the decode cache. Returns (x, cache, aux)."""
     B, S, _ = x.shape
     aux = LayerAux.zero(x.device)
@@ -187,6 +231,7 @@ def apply_layer_prefill(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, rope
     else:
         cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, cache_len - S)).to(x.dtype)
                  for n, c in (("k", k), ("v", v))}
+    x = _cross_attention(p, x, enc_out)
     x, aux = _ffn_residual(p, x, cfg, "infer", aux)
     x, zo = _layer_out_zebra(p, x, cfg, "infer")
     return x, cache, aux + LayerAux.of_site(zo)

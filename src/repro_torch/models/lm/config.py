@@ -1,18 +1,20 @@
 """LM architecture config (``repro.models.lm.config``): one frozen dataclass
 drives the whole stack.
 
-``layer_pattern`` is cycled over ``n_layers``. The port runs the dense
-attention layers: "global" (full causal self-attention) and "local"
-(banded sliding window of ``window``), with optional Q/K/V biases, each
-followed by its dense FFN (SwiGLU, or the GELU MLP with biases), and a
-tied or untied vocabulary head. The reference's fields for the other
-architectures ("rglru"/"ssm" layers, MoE FFNs, the whisper encoder, the
-scanned local path) come with the code that reads them (ROADMAP.md,
-module queue). ``ce_chunk`` (the chunked cross-entropy of ``LM.loss``) and
-``grad_accum`` (the microbatches of ``launch.steps.train_step``) and
-``remat`` (what the backward keeps of a layer unit, ``remat.run_unit``)
-are the reference's. Its TPU knobs (scan unrolling, sharding profiles)
-have no counterpart.
+``layer_pattern`` is cycled over ``n_layers``. The port runs the attention
+layers: "global" (full causal self-attention) and "local" (sliding window
+of ``window``, banded or, with ``local_impl="scanned"``, one chunk at a
+time), with optional Q/K/V biases, each followed by its FFN: dense
+(SwiGLU, or the GELU MLP with biases) or, with ``n_experts`` > 0, the
+top-k MoE (``top_k``, ``capacity_factor``, ``router_aux_coef``); a tied or
+untied vocabulary head. ``encoder_layers`` > 0 adds whisper's non-causal
+encoder over ``enc_seq`` precomputed frames and cross-attention in every
+decoder layer. The reference's fields for "rglru"/"ssm" layers come with
+the code that reads them (ROADMAP.md, module queue). ``ce_chunk`` (the
+chunked cross-entropy of ``LM.loss``), ``grad_accum`` (the microbatches of
+``launch.steps.train_step``) and ``remat`` (what the backward keeps of a
+layer unit, ``remat.run_unit``) are the reference's. Its TPU knobs (scan
+unrolling, sharding profiles) have no counterpart.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     name: str = "lm"
+    family: str = "dense"            # dense|moe|ssm|hybrid|audio|vlm
     n_layers: int = 4
     d_model: int = 512
     n_heads: int = 8
@@ -36,12 +39,23 @@ class LMConfig:
     norm: str = "rmsnorm"            # rmsnorm | layernorm
     act: str = "swiglu"              # swiglu | gelu
     tie_embeddings: bool = True
+    # --- MoE ---
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+    # --- encoder-decoder (whisper) ---
+    encoder_layers: int = 0
+    enc_seq: int = 1500              # stub frontend frames
     attn_chunk: int = 1024           # q/kv chunk for chunked attention
     ce_chunk: int = 1024             # 0 = unchunked CE; else the sequence chunk
                                      # of LM.loss (one (B, chunk, V) logits
                                      # buffer alive at a time)
     grad_accum: int = 1              # microbatches per train step
     remat: str = "block"             # none | block | save_acts
+    local_impl: str = "banded"       # "banded" | "scanned" local attention
+                                     # (scanned: one chunk's scores alive at
+                                     # a time, recomputed in the backward)
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     # --- Zebra integration (the paper's technique) ---
@@ -58,6 +72,10 @@ class LMConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // max(self.n_heads, 1))
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
 
     def replace(self, **kw) -> "LMConfig":
         return dataclasses.replace(self, **kw)

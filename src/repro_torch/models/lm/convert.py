@@ -3,12 +3,16 @@
 The reference keeps one tree of arrays: ``embed``, ``final_norm`` and
 ``run{ri}`` -> ``sub{j}`` -> layer params, where a run
 repeated ``count > 1`` times is stacked on a leading axis (``vmap``ed
-init, scanned apply). The port holds one module per layer, named
-``run{ri}.{c}.sub{j}...``, with every weight in the reference's own layout
+init, scanned apply), and for an encoder-decoder ``encoder`` (its layers
+stacked the same way, whatever their count) and ``enc_norm``. The port
+holds one module per layer, named ``run{ri}.{c}.sub{j}...`` and
+``encoder.{i}...``, with every weight in the reference's own layout
 (attention (d, H, hd) / (H, hd, d) and its biases ``bq``/``bk``/``bv``
-(H, hd), FFN (in, out) with the GELU MLP's ``b_up``/``b_down``, an untied
+(H, hd), FFN (in, out) with the GELU MLP's ``b_up``/``b_down``, the MoE's
+float32 ``router`` (d, E) and expert stacks (E, in, out), an untied
 ``lm_head`` (d, vocab), threshold nets ``w`` (in, out)), so conversion
-only unstacks the runs. Key sets and shapes must match exactly.
+only unstacks the runs and the encoder. Key sets and shapes must match
+exactly.
 """
 from __future__ import annotations
 
@@ -35,16 +39,18 @@ def _flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
 def port_params(model: LM, params) -> dict[str, np.ndarray]:
     """The reference tree as the port's dotted parameter names."""
     counts = {f"run{ri}": count for ri, (_, count) in enumerate(model.runs)}
+    if model.cfg.encoder_layers:
+        counts["encoder"] = model.cfg.encoder_layers
     out = {}
     for key, arr in _flatten(params).items():
-        m = re.match(r"(run\d+)\.(.*)", key)
+        m = re.match(r"(run\d+|encoder)\.(.*)", key)
         if m is None:
             out[key] = arr
             continue
         run, rest = m.groups()
         if run not in counts:
             raise KeyError(f"reference parameter {key} has no run in the port")
-        if counts[run] == 1:
+        if counts[run] == 1 and run != "encoder":     # the encoder is stacked always
             out[f"{run}.0.{rest}"] = arr
         else:
             if arr.shape[0] != counts[run]:

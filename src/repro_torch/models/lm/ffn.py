@@ -1,16 +1,23 @@
-"""The dense FFNs, SwiGLU and the GELU MLP with biases, each with its
-Zebra site on the hidden map (``repro.models.lm.ffn``), executed through
-the site engine. On the ``fused`` backend ``w_down`` consumes the
+"""The FFNs (``repro.models.lm.ffn``), each with its Zebra site on the
+hidden map, executed through the site engine: the dense SwiGLU and the
+GELU MLP with biases, and the top-k MoE with sort-based dispatch.
+
+On the ``fused`` backend the dense FFN's ``w_down`` consumes the
 compressed hidden map: the engine's payload GEMM (``kernels.spmm_cs``)
 skips dead blocks and the masked map is never re-read densely; the GELU
-MLP adds ``b_down`` after it.
+MLP adds ``b_down`` after it. The MoE site runs on the expert dispatch
+buffer, (E·cap, d_ff) rows of capacity slots, and hands the engine no
+weight (the per-expert products are batched GEMMs), so ``fused`` runs the
+masking pass there.
 
-MoE FFNs wait (ROADMAP.md, module queue), and so does the
-sequence-parallel layer-output exchange (``ffn_layer_out_exchange``), a
-no-op without the comm context the port does not have yet.
+The data-parallel MoE (``moe_apply_dp``, a ``shard_map``) and the
+sequence-parallel layer-output exchange (``ffn_layer_out_exchange``) wait
+for the distributed item (ROADMAP.md); without a mesh or a comm context
+the reference runs neither.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -150,3 +157,109 @@ def ffn_apply(p: FFN, x: torch.Tensor, cfg: LMConfig, mode: str):
     if cfg.act == "gelu":
         y = y + p.b_down.to(cdt)
     return y, zaux
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN: top-k routing, sort-based capacity dispatch
+# ---------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    """The reference's ``moe_init``: ``router`` (d, E) float32 whatever the
+    parameter dtype (routing is computed in float32), the expert stacks
+    ``w_gate``/``w_up`` (E, d, f) and ``w_down`` (E, f, d), and
+    ``zebra_tnet`` for the hidden site. The stacks are drawn as the
+    reference draws them: fan-in d·f for gate and up (``lecun_normal``'s
+    default, every axis after the first), f for down."""
+
+    def __init__(self, cfg: LMConfig, *, generator: torch.Generator | None = None,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+        kw = dict(generator=generator, device=device)
+        self.router = nn.Parameter(lecun_normal((d, E), dtype=torch.float32, **kw))
+        self.w_gate = nn.Parameter(lecun_normal((E, d, f), dtype=dtype, **kw))
+        self.w_up = nn.Parameter(lecun_normal((E, d, f), dtype=dtype, **kw))
+        self.w_down = nn.Parameter(lecun_normal((E, f, d), dtype=dtype, fan_in=f, **kw))
+        if cfg.zebra_enabled and "ffn_hidden" in cfg.zebra_sites and cfg.zebra_tnet:
+            self.zebra_tnet = ThresholdNet(f, f // eff_block_ch(f, cfg),
+                                           generator=generator, device=device)
+
+
+@dataclasses.dataclass
+class Routing:
+    """One dispatch: ``gate`` (T, k) float32 combine weights, ``expert_idx``
+    (T, k), for each of the T·k (token, choice) pairs in expert order
+    ``order`` its ``dest`` slot (E·cap for a pair past its expert's
+    capacity: dropped), ``slot_of`` the slot of each pair in token order,
+    the capacity ``cap`` and the load-balancing loss ``router_aux``."""
+    gate: torch.Tensor
+    expert_idx: torch.Tensor
+    order: torch.Tensor
+    dest: torch.Tensor
+    slot_of: torch.Tensor
+    cap: int
+    router_aux: torch.Tensor
+
+
+def moe_route(router: torch.Tensor, xt: torch.Tensor, cfg: LMConfig) -> Routing:
+    """Route T tokens ``xt`` (T, d): float32 softmax over the E experts, the
+    top k by a stable descending sort (``jax.lax.top_k`` keeps the lower
+    expert among equal probabilities, ``torch.topk`` does not), the
+    Switch-style aux ``E · Σ mean(probs) · mean(one_hot(top-1))``, and the
+    capacity-bounded slots: each pair's rank among its expert's pairs in
+    token order (stable argsort, then ``searchsorted`` from the left)."""
+    T = xt.shape[0]
+    E, k = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(xt.float() @ router, dim=-1)                   # (T, E)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, expert_idx = vals[:, :k], idx[:, :k]
+    gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True), min=1e-9)
+    me = probs.mean(dim=0)
+    ce = F.one_hot(expert_idx[:, 0], E).float().mean(dim=0)
+    router_aux = E * (me * ce).sum()
+    cap = int(max(1, round(cfg.capacity_factor * T * k / E)))
+    flat_e = expert_idx.reshape(-1)
+    order = torch.sort(flat_e, stable=True).indices
+    sorted_e = flat_e[order]
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    rank = torch.arange(T * k, device=xt.device) - first
+    dest = torch.where(rank < cap, sorted_e * cap + rank,
+                       torch.full_like(sorted_e, E * cap))
+    slot_of = torch.empty_like(dest).scatter_(0, order, dest)
+    return Routing(gate, expert_idx, order, dest, slot_of, cap, router_aux)
+
+
+def moe_apply(p: MoE, x: torch.Tensor, cfg: LMConfig, mode: str):
+    """x (B, S, d) -> (y (B, S, d), SiteAux of the hidden site, router_aux).
+
+    Route, scatter each (token, choice) pair into its slot of the (E·cap +
+    1, d) dispatch buffer (the last row takes the dropped pairs and is cut
+    off), the per-expert SwiGLU as batched GEMMs, the Zebra site on the
+    (E·cap, f) hidden map, then gather each pair's output back and combine
+    with the gate weights. The tokens are repeated k times by an expand
+    and gathered by ``order``, a permutation: each gathered row's gradient
+    lands alone in its source row, and the expand's backward sums a
+    token's k copies in one reduction, in a fixed order (gathering
+    ``xt[order // k]`` would add the k copies with atomic adds, in no fixed
+    order). Both gathers are ``index_select``s: an indexing backward sorts
+    its indices first, a third of a granite training step's device time.
+    Only the dropped pairs gather one row twice, the cut-off one. The
+    combine multiplies and sums in float32 and rounds once, as the
+    reference's compiled combine does."""
+    B, S, d = x.shape
+    E, k, f = cfg.n_experts, cfg.top_k, cfg.d_ff
+    T = B * S
+    xt = x.reshape(T, d)
+    r = moe_route(p.router, xt, cfg)
+    rows = xt[:, None].expand(T, k, d).reshape(T * k, d).index_select(0, r.order)
+    buf = x.new_zeros((E * r.cap + 1, d)).index_put((r.dest,), rows)
+    eb = buf[:E * r.cap].reshape(E, r.cap, d)
+    cdt = x.dtype
+    h = silu(torch.bmm(eb, p.w_gate.to(cdt))) * torch.bmm(eb, p.w_up.to(cdt))
+    hz, zaux = zebra_site(h.reshape(1, E * r.cap, f), _hidden_site_cfg(cfg, mode),
+                          site="ffn_hidden", tnet=getattr(p, "zebra_tnet", None))
+    y_e = torch.bmm(hz.reshape(E, r.cap, f), p.w_down.to(cdt))
+    y_flat = torch.cat([y_e.reshape(E * r.cap, d), y_e.new_zeros((1, d))])
+    per_choice = y_flat.index_select(0, r.slot_of).reshape(T, k, d)
+    y = (per_choice.float() * r.gate.to(cdt).float()[..., None]).sum(dim=1).to(cdt)
+    return y.reshape(B, S, d), zaux, r.router_aux

@@ -12,6 +12,15 @@ caches keep the reference's grouping: run -> ``sub{j}`` -> k/v, stacked
 over the run's count when it is above one, so a cache tree has the same
 leaves as the reference's (the codec's index bytes are counted per leaf).
 
+Encoder-decoder (whisper, ``cfg.encoder_layers`` > 0): ``enc_feats`` are
+the stub frontend's precomputed frame embeddings (B, enc_seq, d_model);
+the encoder is a list of non-causal "global" layers (``encoder.{i}``, the
+reference's stack unstacked) and ``enc_norm``, and every decoder layer
+carries cross-attention to its output. With gradients on, ``cfg.remat``
+checkpoints each encoder layer as one unit (the reference remats its
+scan body, one layer). The serving state is ``(caches, enc_out)``; decode
+passes ``enc_out`` on to every layer.
+
 API (``forward``, ``loss``, ``prefill``, ``decode_step``, ``init_cache``)
 mirrors the reference's pure functions of params, on an ``nn.Module`` that
 holds them. Parameters are drawn from an explicit ``torch.Generator`` on
@@ -66,12 +75,18 @@ class LM(nn.Module):
             self.lm_head = nn.Parameter(head.to(self.pdt) * d ** -0.5)
             del head
         self.final_norm = Norm(d, cfg.norm, device=device)
+        cross = cfg.encoder_layers > 0
         for ri, (pattern, count) in enumerate(self.runs):
             setattr(self, f"run{ri}", nn.ModuleList(
-                nn.ModuleDict({f"sub{j}": Layer(t, cfg, generator=generator,
+                nn.ModuleDict({f"sub{j}": Layer(t, cfg, cross=cross, generator=generator,
                                                 dtype=self.pdt, device=device)
                                for j, t in enumerate(pattern)})
                 for _ in range(count)))
+        if cross:
+            self.encoder = nn.ModuleList(
+                Layer("global", cfg, generator=generator, dtype=self.pdt, device=device)
+                for _ in range(cfg.encoder_layers))
+            self.enc_norm = Norm(d, cfg.norm, device=device)
 
     # ------------------------------------------------------------------
     def _layers(self):
@@ -97,15 +112,39 @@ class LM(nn.Module):
         return x @ w.to(self.cdt)
 
     def _unit(self, layers: nn.ModuleDict, pattern: tuple[str, ...], mode: str, rope,
-              x: torch.Tensor, aux: LayerAux):
+              enc_out, x: torch.Tensor, aux: LayerAux):
         """One repeat of a run's pattern (the reference's ``super_fwd``):
         the unit ``cfg.remat`` checkpoints."""
         for j, t in enumerate(pattern):
-            x, a = apply_layer(layers[f"sub{j}"], x, t, self.cfg, mode, rope)
+            x, a = apply_layer(layers[f"sub{j}"], x, t, self.cfg, mode, rope, enc_out)
             aux = aux + a
         return x, aux
 
-    def _backbone(self, tokens: torch.Tensor, mode: str):
+    def _enc_unit(self, layer: Layer, mode: str, rope, x: torch.Tensor, aux: LayerAux):
+        """One non-causal encoder layer (the reference's scan body): the
+        encoder's remat unit."""
+        x, a = apply_layer(layer, x, "global", self.cfg, mode, rope, causal=False)
+        return x, aux + a
+
+    def _encode(self, enc_feats: torch.Tensor, mode: str):
+        """enc_feats (B, T, d) -> (enc_norm'd encoder output, LayerAux of its
+        sites)."""
+        x = enc_feats.to(self.cdt)
+        rope = self._rope(torch.arange(x.shape[1], device=x.device))
+        aux = LayerAux.zero(x.device)
+        for layer in self.encoder:
+            x, aux = run_unit(functools.partial(self._enc_unit, layer, mode, rope),
+                              self.cfg.remat, x, aux)
+        return self.enc_norm(x), aux
+
+    def _maybe_encode(self, enc_feats, mode: str):
+        """(encoder output or None, its LayerAux): an encoder-decoder given
+        frames encodes them; otherwise no encoder runs."""
+        if self.cfg.encoder_layers and enc_feats is not None:
+            return self._encode(enc_feats, mode)
+        return None, LayerAux.zero(self.embed.device)
+
+    def _backbone(self, tokens: torch.Tensor, mode: str, enc_out=None):
         """tokens (B, S) -> (final-normed x (B, S, d), LayerAux)."""
         x = self._embed(tokens)
         rope = self._rope(torch.arange(x.shape[1], device=x.device))
@@ -113,24 +152,29 @@ class LM(nn.Module):
         for ri, (pattern, count) in enumerate(self.runs):
             run = getattr(self, f"run{ri}")
             for c in range(count):
-                x, aux = run_unit(functools.partial(self._unit, run[c], pattern, mode, rope),
+                x, aux = run_unit(functools.partial(self._unit, run[c], pattern, mode, rope,
+                                                    enc_out),
                                   self.cfg.remat, x, aux)
         return self.final_norm(x), aux
 
     # ------------------------------------------------------------------
-    def forward(self, tokens: torch.Tensor, mode: str = "train"):
-        """tokens (B, S) -> (logits (B, S, V), LayerAux)."""
-        x, aux = self._backbone(tokens, mode)
-        return self._project_vocab(x), aux
+    def forward(self, tokens: torch.Tensor, mode: str = "train", enc_feats=None):
+        """tokens (B, S) -> (logits (B, S, V), LayerAux); an encoder-decoder
+        takes its frames ``enc_feats`` (B, enc_seq, d), whose encoder's
+        LayerAux adds to the decoder's."""
+        enc_out, enc_aux = self._maybe_encode(enc_feats, mode)
+        x, aux = self._backbone(tokens, mode, enc_out)
+        return self._project_vocab(x), aux + enc_aux
 
     def _nll_sum(self, x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """Σ -log_softmax(x @ head)[label] over one chunk, float32 logits."""
         lp = F.log_softmax(self._project_vocab(x).float(), dim=-1)
         return -lp.gather(-1, labels[..., None]).sum()
 
-    def loss(self, tokens: torch.Tensor, mode: str = "train"):
+    def loss(self, tokens: torch.Tensor, mode: str = "train", enc_feats=None):
         """tokens (B, S+1): next-token cross-entropy of ``tokens[:, 1:]``
-        from ``tokens[:, :-1]``. Returns (total, metrics).
+        from ``tokens[:, :-1]`` (an encoder-decoder's frames ``enc_feats``
+        encoded first). Returns (total, metrics).
 
         With ``cfg.ce_chunk`` dividing S (and below it), the sequence is cut
         into chunks whose NLL sums add in chunk order and divide by B·S;
@@ -139,13 +183,16 @@ class LM(nn.Module):
         are alive at a time, in the forward and in the backward. Otherwise
         the CE is the mean over all tokens (another order of summation).
         ``total`` adds ``zebra_reg`` only with threshold nets: at a constant
-        threshold it is the realised zero-block count, an observable.
+        threshold it is the realised zero-block count, an observable; an MoE
+        adds ``router_aux_coef · router_aux`` (summed over its layers).
         Metrics: ``ce``, ``zebra_reg``, ``zero_frac`` (block-weighted over
-        the sites) and ``measured_bytes`` (the stream sites' bytes, one
-        exact int64)."""
+        the sites), ``router_aux`` and ``measured_bytes`` (the stream sites'
+        bytes, one exact int64)."""
         cfg = self.cfg
         inp, lbl = tokens[:, :-1], tokens[:, 1:]
-        x, aux = self._backbone(inp, mode)
+        enc_out, enc_aux = self._maybe_encode(enc_feats, mode)
+        x, aux = self._backbone(inp, mode, enc_out)
+        aux = aux + enc_aux
         B, S, _ = x.shape
         C = cfg.ce_chunk
         if C and S % C == 0 and S > C:
@@ -158,8 +205,10 @@ class LM(nn.Module):
             lp = F.log_softmax(self._project_vocab(x).float(), dim=-1)
             ce = -lp.gather(-1, lbl[..., None]).mean()
         total = ce + aux.reg if cfg.zebra_tnet else ce
+        if cfg.is_moe:
+            total = total + cfg.router_aux_coef * aux.router_aux
         metrics = {"ce": ce, "zebra_reg": aux.reg, "zero_frac": aux.zero_frac,
-                   "measured_bytes": aux.measured_bytes}
+                   "router_aux": aux.router_aux, "measured_bytes": aux.measured_bytes}
         return total, metrics
 
     # ------------------------------------------------------------------
@@ -175,14 +224,19 @@ class LM(nn.Module):
             caches.append(sub)
         return caches
 
-    def prefill(self, tokens: torch.Tensor, cache_len: int):
-        """tokens (B, S) -> (last logits (B, V), (caches, None), LayerAux)."""
+    def prefill(self, tokens: torch.Tensor, cache_len: int, enc_feats=None):
+        """tokens (B, S) -> (last logits (B, V), (caches, enc_out), LayerAux
+        of the decoder's sites). An encoder-decoder encodes ``enc_feats``
+        first (its sites' aux is not reported, as in the reference);
+        ``enc_out`` is None otherwise."""
+        enc_out, _ = self._maybe_encode(enc_feats, "infer")
         x = self._embed(tokens)
         rope = self._rope(torch.arange(x.shape[1], device=x.device))
         aux = LayerAux.zero(x.device)
         per_layer: dict[tuple[int, int], dict] = {}
         for ri, c, j, t, layer in self._layers():
-            x, cache, a = apply_layer_prefill(layer, x, t, self.cfg, rope, cache_len)
+            x, cache, a = apply_layer_prefill(layer, x, t, self.cfg, rope, cache_len,
+                                              enc_out)
             per_layer[(ri, c, j)] = cache
             aux = aux + a
         caches = []
@@ -194,7 +248,7 @@ class LM(nn.Module):
                                   {n: torch.stack([cc[n] for cc in cs]) for n in ("k", "v")})
             caches.append(run)
         logits = self._project_vocab(self.final_norm(x[:, -1:]))
-        return logits[:, 0], (caches, None), aux
+        return logits[:, 0], (caches, enc_out), aux
 
     def decode_step(self, token: torch.Tensor, state, pos: int):
         """token (B, 1) int; ``pos`` the position of that token (one for the
@@ -206,6 +260,6 @@ class LM(nn.Module):
         for ri, c, j, t, layer in self._layers():
             kv = caches[ri][f"sub{j}"]
             lc = kv if self.runs[ri][1] == 1 else {n: kv[n][c] for n in ("k", "v")}
-            x, _ = apply_layer_decode(layer, x, lc, t, self.cfg, pos, rope1)
+            x, _ = apply_layer_decode(layer, x, lc, t, self.cfg, pos, rope1, enc_out)
         logits = self._project_vocab(self.final_norm(x))[:, 0]
         return logits, (caches, enc_out)

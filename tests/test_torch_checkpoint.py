@@ -134,6 +134,45 @@ def test_crc32_equals_reference(tmp_path):
     assert set(port["paths"]) == set(port["checksums"])
 
 
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "whisper-medium"])
+def test_moe_and_encoder_leaves_roundtrip_with_reference_crcs(arch, tmp_path):
+    """The MoE's leaves (the float32 router, the bf16 expert stacks) and
+    whisper's (the unstacked encoder, ``enc_norm``, cross-attention) in a
+    bf16 model: each parameter's CRC32 equals the reference's ``_crc`` of
+    the same array as the reference stores it, the router stays float32,
+    and a restore into a fresh model gives every tensor
+    back bit for bit, each in its own dtype."""
+    kw = dict(vocab=512, param_dtype="bfloat16")
+    jcfg = jconfigs.reduced(arch).replace(**kw)
+    params = jax.tree_util.tree_map(np.asarray, jax.jit(JLM(jcfg).init)(jax.random.PRNGKey(0)))
+    model = from_jax_params(LM(configs.reduced(arch).replace(**kw)), params)
+    state = steps.init_train_state(model, optim.adamw(optim.constant(1e-3)), "none")
+    mgr = CheckpointManager(str(tmp_path), async_save=False)
+    mgr.save(5, state)
+    man = json.load(open(tmp_path / "step_5" / "manifest.json"))
+    src = port_params(model, params)
+    dtypes = {k: str(t.dtype).split(".")[-1] for k, t in model.state_dict().items()}
+    # each leaf as the port holds it, flattened and CRC'd by the reference's
+    # manager (which stores a bf16 leaf as float32, as npz has no bf16)
+    want = {f"params/{k}": jmanager._crc(jmanager._flatten(
+        {"x": jnp.asarray(v).astype(dtypes[k])})["x"]) for k, v in src.items()}
+    got = {k: man["checksums"][k] for k in want}
+    assert got == want
+    names = set(src)
+    if arch.startswith("granite"):
+        assert "params/run0.1.sub0.moe.router" in want
+        assert model.run0[1]["sub0"].moe.router.dtype == torch.float32
+    else:
+        assert {"encoder.1.attn.wq", "enc_norm.scale", "run0.0.sub0.cross.wo"} <= names
+    fresh = LM(configs.reduced(arch).replace(**kw), generator=torch.Generator().manual_seed(9))
+    like = steps.init_train_state(fresh, optim.adamw(optim.constant(1e-3)), "none")
+    step, restored, _ = mgr.restore(like)
+    assert step == 5
+    for k, v in model.state_dict().items():
+        got_t = fresh.state_dict()[k]
+        assert got_t.dtype == v.dtype and np.array_equal(bits(got_t), bits(v)), k
+
+
 def _acts(seed=0):
     """An NCHW float32 map (4x4 spatial blocks), a bf16 and a float16 token
     map (8x128 blocks), each with dead blocks, and a map neither layout

@@ -43,6 +43,9 @@ def test_imports_with_jax_blocked():
             "import repro_torch.launch.steps, repro_torch.launch.train\n"
             "import repro_torch.checkpoint, repro_torch.ft.supervisor\n"
             "import repro_torch.models.lm.remat\n"
+            "from repro_torch import configs\n"
+            "for a in configs.ARCHS:\n"
+            "    configs.get(a)\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},

@@ -255,13 +255,13 @@ def test_forward_and_init_cache_match_reference():
     assert shapes(LM(scfg).init_cache(2, 256)) == shapes(jcaches)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "granite-moe-1b-a400m", "whisper-medium",
-                                  "recurrentgemma-2b", "gemma3-4b:ssm"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b", "gemma3-4b:ssm",
+                                  "gemma3-4b:rglru"])
 def test_unported_configs_raise(arch):
     """The registry refuses the architectures the port does not run yet,
     and a layer kind outside global/local raises when the model is built."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if arch == "gemma3-4b:ssm":
-            LM(configs.reduced("gemma3-4b").replace(layer_pattern=("ssm",)))
+        if arch.startswith("gemma3-4b:"):
+            LM(configs.reduced("gemma3-4b").replace(layer_pattern=(arch.split(":")[1],)))
         else:
             configs.get(arch)

@@ -1,10 +1,14 @@
-"""The four dense LM architectures the port adds (command-r-35b, qwen2.5-14b,
-starcoder2-15b, chameleon-34b) at their ``reduced()`` configs against the
-reference package: the forward logits, and the serving slice on ``fused``
-(prefill, the compressed KV handoff, greedy decode) with its Zebra
-observables. Between them they exercise layernorm with SwiGLU
-(command-r), the Q/K/V biases (qwen2.5, starcoder2), the GELU MLP with its
-biases (starcoder2) and the untied vocabulary head (chameleon).
+"""The LM architectures the port adds beside gemma3-4b (``configs.ARCHS``:
+command-r-35b, qwen2.5-14b, starcoder2-15b, chameleon-34b, whisper-medium,
+llama4-scout-17b-a16e, granite-moe-1b-a400m) at their ``reduced()``
+configs against the reference package: the forward logits, and the
+serving slice on ``fused`` (prefill, the compressed KV handoff, greedy
+decode) with its Zebra observables. Between them they exercise layernorm
+with SwiGLU (command-r), the Q/K/V biases (qwen2.5, starcoder2, whisper),
+the GELU MLP with its biases (starcoder2, whisper), the untied vocabulary
+head (chameleon), the MoE FFN with its sites on the dispatch buffer, in
+prefill and in decode (llama4, granite), and whisper's encoder and
+cross-attention, fed frames ~ N(0, 0.1²) from numpy.
 
 The reference initialises the biases to zero and draws its own head, so
 every test draws ``bq``/``bk``/``bv``, ``b_up``/``b_down`` and ``lm_head``
@@ -40,19 +44,28 @@ from repro_torch.models.lm.ffn import FFN, ffn_apply
 
 from _torch_parity import bits
 
-ARCHS = ("command-r-35b", "qwen2.5-14b", "starcoder2-15b", "chameleon-34b")
+ARCHS = tuple(a for a in configs.ARCHS if a != "gemma3-4b")
 # the fields each architecture brings, as the reference sets them
 FIELDS = {"command-r-35b": dict(norm="layernorm", act="swiglu", qkv_bias=False,
-                                tie_embeddings=True),
+                                tie_embeddings=True, family="dense"),
           "qwen2.5-14b": dict(norm="rmsnorm", act="swiglu", qkv_bias=True,
-                              tie_embeddings=True),
+                              tie_embeddings=True, family="dense"),
           "starcoder2-15b": dict(norm="layernorm", act="gelu", qkv_bias=True,
-                                 tie_embeddings=True),
+                                 tie_embeddings=True, family="dense"),
           "chameleon-34b": dict(norm="rmsnorm", act="swiglu", qkv_bias=False,
-                                tie_embeddings=False)}
+                                tie_embeddings=False, family="vlm"),
+          "whisper-medium": dict(norm="layernorm", act="gelu", qkv_bias=True,
+                                 tie_embeddings=True, family="audio"),
+          "llama4-scout-17b-a16e": dict(norm="rmsnorm", act="swiglu", qkv_bias=False,
+                                        tie_embeddings=True, family="moe"),
+          "granite-moe-1b-a400m": dict(norm="rmsnorm", act="swiglu", qkv_bias=False,
+                                       tie_embeddings=True, family="moe")}
 # ffn_hidden T_obj of the reduced configs on these weights: zero fractions
-# 0.26 (starcoder2) to 0.61 (command-r) in the forward
+# 0.26 (starcoder2) to 0.61 (command-r) in the forward at 2.5; the MoE
+# experts are drawn with fan-in d·f, so their hidden maps are ~100x smaller
 T_OBJ = 2.5
+T_OBJS = {**dict.fromkeys(ARCHS, T_OBJ), "llama4-scout-17b-a16e": 0.025,
+          "granite-moe-1b-a400m": 0.025}
 B, S, GEN = 2, 64, 4
 BIASES = ("bq", "bk", "bv", "b_up", "b_down")
 
@@ -80,6 +93,24 @@ def with_drawn_extras(params, seed: int):
             return (rng.normal(size=leaf.shape) * leaf.shape[0] ** -0.5).astype(np.float32)
         return np.asarray(leaf)
     return jax.tree_util.tree_map_with_path(draw, params)
+
+
+def enc_feats(arch, batch):
+    """whisper's frames (batch, enc_seq, d) ~ N(0, 0.1²) from numpy (None for
+    a decoder-only architecture)."""
+    cfg = configs.reduced(arch)
+    if not cfg.encoder_layers:
+        return None
+    rng = np.random.default_rng(7)
+    return (rng.normal(size=(batch, cfg.enc_seq, cfg.d_model)) * 0.1).astype(np.float32)
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,10 +143,20 @@ def test_params_carry_biases_and_head(arch):
     model = from_jax_params(LM(tcfg), params)
     names = set(model.state_dict())
     has_bias = FIELDS[arch]["qkv_bias"]
+    moe, enc = FIELDS[arch]["family"] == "moe", FIELDS[arch]["family"] == "audio"
     assert ("run0.0.sub0.attn.bq" in names) == has_bias
     assert ("run0.1.sub0.ffn.b_up" in names) == (FIELDS[arch]["act"] == "gelu")
-    assert ("run0.0.sub0.ffn.w_gate" in names) == (FIELDS[arch]["act"] == "swiglu")
+    assert ("run0.0.sub0.ffn.w_gate" in names) == (FIELDS[arch]["act"] == "swiglu"
+                                                   and not moe)
+    assert ("run0.1.sub0.moe.router" in names) == moe
+    assert ("run0.1.sub0.cross.wq" in names) == ("encoder.1.ffn.b_up" in names) == enc
     assert ("lm_head" in names) == (not FIELDS[arch]["tie_embeddings"])
+    if moe:
+        assert np.array_equal(model.run0[1]["sub0"].moe.w_down.detach().numpy(),
+                              params["run0"]["sub0"]["moe"]["w_down"][1])
+    if enc:
+        got = model.encoder[1].attn.bq.detach().numpy()
+        assert np.array_equal(got, params["encoder"]["attn"]["bq"][1]) and got.any()
     if has_bias:
         got = model.run0[1]["sub0"].attn.bk.detach().numpy()
         assert np.array_equal(got, params["run0"]["sub0"]["attn"]["bk"][1]) and got.any()
@@ -127,14 +168,15 @@ def test_params_carry_biases_and_head(arch):
 def test_forward_matches_reference(arch):
     """``LM.forward`` (infer, ``reference`` sites) from the same weights:
     logits allclose, the sites' zero fractions exact."""
-    jcfg, tcfg = cfgs(arch, zebra_t_obj=T_OBJ)
+    jcfg, tcfg = cfgs(arch, zebra_t_obj=T_OBJS[arch])
     params = reference_params(arch)
     tokens = lm_batch(LMDatasetConfig(vocab=jcfg.vocab), 2, 32, 3)[:, :32]
-    jlogits, jaux = jax.jit(lambda p, t: JLM(jcfg).forward(p, t, "infer"))(
-        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(tokens))
+    ef = enc_feats(arch, 2)
+    jlogits, jaux = jax.jit(lambda p, t, e: JLM(jcfg).forward(p, t, "infer", e))(
+        jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(tokens), _j(ef))
     model = from_jax_params(LM(tcfg), params)
     with torch.no_grad():
-        logits, aux = model(torch.from_numpy(tokens).long(), "infer")
+        logits, aux = model(torch.from_numpy(tokens).long(), "infer", _t(ef))
     close(logits, jlogits, rtol=1e-4, atol=1e-4)
     assert 0.0 < float(aux.zero_frac) < 1.0
     assert np.array_equal(bits(aux.zero_frac), bits(jaux.zero_frac))
@@ -144,14 +186,14 @@ def test_forward_matches_reference(arch):
 def reference_slice(arch):
     """The reference server's one-shot path on ``fused``: prefill, pad, the
     compressed handoff metered per leaf, greedy tokens."""
-    jcfg, _ = cfgs(arch, zebra_sites=("ffn_hidden", "kv_cache"), zebra_t_obj=T_OBJ,
+    jcfg, _ = cfgs(arch, zebra_sites=("ffn_hidden", "kv_cache"), zebra_t_obj=T_OBJS[arch],
                    zebra_backend="fused")
     mesh = make_host_mesh(model=1)
     model = JLM(jcfg)
     params = jax.tree_util.tree_map(jnp.asarray, reference_params(arch))
     prompts = jnp.asarray(lm_batch(LMDatasetConfig(vocab=jcfg.vocab), B, S, 0)[:, :S])
     logits, (caches, enc), aux = jprefill_pad(jax.jit(make_prefill(model, mesh)), params,
-                                             prompts, S + GEN)
+                                             prompts, S + GEN, _j(enc_feats(arch, B)))
     meter = JMeter()
     ccaches = jcompress_tree(caches, bs=jcfg.zebra_block_seq, bc=jcfg.zebra_block_ch,
                              meter=meter, site="kv")
@@ -168,17 +210,20 @@ def test_slice_serves_like_reference(arch):
     Zebra observables of every prefill site, the handoff's meter and the
     greedy tokens of prefill + decode."""
     prompts, jlogits, jaux, jmeter, jtokens = reference_slice(arch)
-    _, tcfg = cfgs(arch, zebra_sites=("ffn_hidden", "kv_cache"), zebra_t_obj=T_OBJ,
+    _, tcfg = cfgs(arch, zebra_sites=("ffn_hidden", "kv_cache"), zebra_t_obj=T_OBJS[arch],
                    zebra_backend="fused")
     model = from_jax_params(LM(tcfg), reference_params(arch)).requires_grad_(False)
     out = serve.serve_one_shot(model, torch.from_numpy(prompts.copy()).long(), GEN,
-                               log=lambda *_: None)
+                               log=lambda *_: None, enc_feats=_t(enc_feats(arch, B)))
     close(out["logits"], jlogits, rtol=1e-4, atol=1e-4)
     aux = out["aux"]
     assert float(aux.n_blocks) == float(jaux.n_blocks) > 0
     assert np.array_equal(bits(aux.zero_frac), bits(jaux.zero_frac))
     assert 0.0 < float(aux.zero_frac) < 1.0
-    assert aux.measured_bytes_exact() == jaux.measured_bytes_exact() > 0
+    # an MoE site hands the engine no weight: fused runs the masking pass
+    # there, which moves no stream bytes
+    assert aux.measured_bytes_exact() == jaux.measured_bytes_exact()
+    assert (aux.measured_bytes_exact() > 0) == (FIELDS[arch]["family"] != "moe")
     meter = out["meter"]
     assert [(r.site, r.payload_bytes, r.index_bytes, r.dense_bytes, r.n_live)
             for r in meter.records] == [(r.site, r.payload_bytes, r.index_bytes,
@@ -191,7 +236,7 @@ def test_slice_serves_like_reference(arch):
 def test_serve_cli_runs_on_cpu(arch, capsys):
     out = serve.main(["--arch", arch, "--reduced", "--backend", "fused", "--device", "cpu",
                       "--batch", "2", "--prompt-len", "32", "--gen", "3", "--t-obj",
-                      str(T_OBJ)])
+                      str(T_OBJS[arch])])
     assert "compressed KV-cache transport" in capsys.readouterr().out
     assert tuple(out["tokens"].shape) == (2, 3) and out["reconcile"]["n_sites"] > 0
     assert out["model"].cfg.param_dtype == "bfloat16"

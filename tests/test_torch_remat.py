@@ -7,7 +7,11 @@ gradients a unit is a plain call, so serving does not change.
 
 The reduced gemma3-4b with a 512-token vocabulary (the CE's cost is the
 vocabulary's; the layers are the reduced config's), float32 at T_obj 2.45
-where blocks die, unless a case says otherwise.
+where blocks die, unless a case says otherwise; the ``moe`` case is the
+reduced granite-moe-1b-a400m (its ``router_aux`` is a metric, and part of
+the loss, and must not count twice when a unit is recomputed), the
+``whisper`` case the reduced whisper-medium with frames ~ N(0, 0.1²)
+(each encoder layer one more unit).
 """
 import jax
 import jax.numpy as jnp
@@ -33,7 +37,9 @@ CASES = {"reference": {}, "pallas": dict(zebra_backend="pallas"),
          "stream": dict(zebra_backend="stream"),
          "tnet": dict(zebra_tnet=True, zebra_t_obj=1.0),
          "bf16-stream": dict(zebra_backend="stream", compute_dtype="bfloat16"),
-         "grad-accum-2": dict(zebra_backend="stream", grad_accum=2)}
+         "grad-accum-2": dict(zebra_backend="stream", grad_accum=2),
+         "moe": dict(arch="granite-moe-1b-a400m", zebra_backend="stream", zebra_t_obj=0.025),
+         "whisper": dict(arch="whisper-medium", zebra_backend="stream", zebra_t_obj=2.5)}
 
 
 def _tokens(vocab, batch=2, seq=128):
@@ -42,13 +48,23 @@ def _tokens(vocab, batch=2, seq=128):
 
 def _grads(cfg, monkeypatch=None):
     model = LM(cfg, generator=torch.Generator().manual_seed(0))
+    frames = None
+    if cfg.encoder_layers:
+        rng = np.random.default_rng(5)
+        frames = torch.from_numpy((rng.normal(size=(2, cfg.enc_seq, cfg.d_model)) * 0.1)
+                                  .astype(np.float32))
     return steps.accumulate_gradients(model, dict(model.named_parameters()),
-                                      _tokens(cfg.vocab))
+                                      _tokens(cfg.vocab), frames)
+
+
+def _case_cfg(case):
+    kw = dict(CASES[case])
+    return configs.reduced(kw.pop("arch", "gemma3-4b")).replace(**{**BASE, **kw})
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_remat_modes_bitwise(case, monkeypatch):
-    cfg = configs.reduced("gemma3-4b").replace(**{**BASE, **CASES[case]})
+    cfg = _case_cfg(case)
     calls = []
     inner = remat.checkpoint
     monkeypatch.setattr(remat, "checkpoint",
@@ -57,10 +73,15 @@ def test_remat_modes_bitwise(case, monkeypatch):
     for mode in remat.REMATS:
         calls.clear()
         runs[mode] = _grads(cfg.replace(remat=mode))
-        units = cfg.grad_accum          # the reduced config is one unit of 6 layers
-        assert len(calls) == (0 if mode == "none" else units), mode
+        # a unit per repeat of the pattern (the reduced gemma3-4b: one of 6
+        # layers) and per encoder layer, per microbatch
+        repeats = cfg.n_layers // len(cfg.layer_pattern) + cfg.encoder_layers
+        assert len(calls) == (0 if mode == "none" else repeats * cfg.grad_accum), mode
         assert all((c is None) == (mode == "block") for c in calls), mode
     g0, l0, m0 = runs["none"]
+    assert (float(m0["router_aux"]) > 0) == (case == "moe")
+    if case in ("moe", "whisper"):
+        assert 0.0 < float(m0["zero_frac"]) < 1.0 and int(m0["measured_bytes"]) > 0
     for mode in ("block", "save_acts"):
         g, l, m = runs[mode]
         assert np.array_equal(bits(l), bits(l0)), mode
