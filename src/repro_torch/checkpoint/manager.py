@@ -395,23 +395,28 @@ class CheckpointManager:
         if not candidates:
             raise FileNotFoundError(f"no checkpoint under {self.dir}")
         last: Exception | None = None
-        for s in candidates:
-            path = os.path.join(self.dir, f"step_{s}")
-            try:
+        try:
+            for s in candidates:
+                path = os.path.join(self.dir, f"step_{s}")
                 try:
-                    with open(os.path.join(path, "manifest.json")) as f:
-                        manifest = json.load(f)
-                except Exception as e:  # truncated json, missing file, ...
-                    raise CorruptStream(f"ckpt step_{s}: unreadable "
-                                        f"({type(e).__name__}: {e})") from e
-                tree = load_pytree(path, like, manifest=manifest if verify else None,
-                                   label=f"ckpt step_{s}")
-                return s, tree, manifest.get("extra", {})
-            except Exception as e:  # noqa: BLE001 - chain fallback below
-                if step is not None:
-                    raise
-                _log.warning("ckpt step_%s failed to restore (%s); falling back to "
-                             "older step", s, e)
-                last = e
-        raise CorruptStream(f"no restorable checkpoint under {self.dir}: all of "
-                            f"{candidates} failed verification") from last
+                    try:
+                        with open(os.path.join(path, "manifest.json")) as f:
+                            manifest = json.load(f)
+                    except Exception as e:  # truncated json, missing file, ...
+                        raise CorruptStream(f"ckpt step_{s}: unreadable "
+                                            f"({type(e).__name__}: {e})") from e
+                    tree = load_pytree(path, like, manifest=manifest if verify else None,
+                                       label=f"ckpt step_{s}")
+                    return s, tree, manifest.get("extra", {})
+                except Exception as e:  # noqa: BLE001 - chain fallback below
+                    if step is not None:
+                        raise
+                    # the text, not the exception: a handler that keeps its
+                    # records would keep the traceback, and so ``like``
+                    _log.warning("ckpt step_%s failed to restore (%s); falling back to "
+                                 "older step", s, str(e))
+                    last = e
+            raise CorruptStream(f"no restorable checkpoint under {self.dir}: all of "
+                                f"{candidates} failed verification") from last
+        finally:
+            last = None        # its traceback holds this frame: no cycle

@@ -6,7 +6,7 @@ Backbone: dense GQA transformer. [arXiv:2405.09818] (a copy of
 from ..models.lm.config import LMConfig
 
 CONFIG = LMConfig(
-    name="chameleon-34b", family="vlm",
+    name="chameleon-34b",
     n_layers=48, d_model=8192, n_heads=64, n_kv_heads=8,
     d_ff=22016, vocab=65536,
     layer_pattern=("global",), qkv_bias=False, norm="rmsnorm", act="swiglu",

@@ -4,7 +4,7 @@
 from ..models.lm.config import LMConfig
 
 CONFIG = LMConfig(
-    name="command-r-35b", family="dense",
+    name="command-r-35b",
     n_layers=40, d_model=8192, n_heads=64, n_kv_heads=8,
     d_ff=22528, vocab=256000,
     layer_pattern=("global",), qkv_bias=False, norm="layernorm", act="swiglu",

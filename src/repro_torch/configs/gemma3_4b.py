@@ -3,7 +3,7 @@
 from ..models.lm.config import LMConfig
 
 CONFIG = LMConfig(
-    name="gemma3-4b", family="dense",
+    name="gemma3-4b",
     n_layers=34, d_model=2560, n_heads=8, n_kv_heads=4,
     d_ff=10240, vocab=262144,
     layer_pattern=("local", "local", "local", "local", "local", "global"),

@@ -4,7 +4,7 @@
 from ..models.lm.config import LMConfig
 
 CONFIG = LMConfig(
-    name="granite-moe-1b-a400m", family="moe",
+    name="granite-moe-1b-a400m",
     n_layers=24, d_model=1024, n_heads=16, n_kv_heads=8,
     d_ff=512, vocab=49155,
     layer_pattern=("global",), qkv_bias=False, norm="rmsnorm", act="swiglu",

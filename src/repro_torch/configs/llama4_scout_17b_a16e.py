@@ -5,7 +5,7 @@
 from ..models.lm.config import LMConfig
 
 CONFIG = LMConfig(
-    name="llama4-scout-17b-a16e", family="moe",
+    name="llama4-scout-17b-a16e",
     n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8,
     d_ff=8192, vocab=202048,
     layer_pattern=("global",), qkv_bias=False, norm="rmsnorm", act="swiglu",

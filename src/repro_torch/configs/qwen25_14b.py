@@ -3,7 +3,7 @@
 from ..models.lm.config import LMConfig
 
 CONFIG = LMConfig(
-    name="qwen2.5-14b", family="dense",
+    name="qwen2.5-14b",
     n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8,
     d_ff=13824, vocab=152064,
     layer_pattern=("global",), qkv_bias=True, norm="rmsnorm", act="swiglu",

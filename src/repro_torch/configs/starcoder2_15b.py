@@ -4,7 +4,7 @@ StarCoder2 family keeps the classic MLP). [arXiv:2402.19173] (a copy of
 from ..models.lm.config import LMConfig
 
 CONFIG = LMConfig(
-    name="starcoder2-15b", family="dense",
+    name="starcoder2-15b",
     n_layers=40, d_model=6144, n_heads=48, n_kv_heads=4,
     d_ff=24576, vocab=49152,
     layer_pattern=("global",), qkv_bias=True, norm="layernorm", act="gelu",

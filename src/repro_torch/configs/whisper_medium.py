@@ -5,7 +5,7 @@ as in the reference: the encoder takes precomputed frame embeddings (B,
 from ..models.lm.config import LMConfig
 
 CONFIG = LMConfig(
-    name="whisper-medium", family="audio",
+    name="whisper-medium",
     n_layers=24, d_model=1024, n_heads=16, n_kv_heads=16,
     d_ff=4096, vocab=51865,
     layer_pattern=("global",), qkv_bias=True, norm="layernorm", act="gelu",

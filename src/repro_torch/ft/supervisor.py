@@ -211,7 +211,7 @@ class StepSupervisor:
                     poison_run += 1
                     self.skipped_batches.append({"step": step, "error": str(e)})
                     _log.warning("poison batch at step %d skipped (%s): state kept, "
-                                 "%d/%d consecutive", step, e, poison_run,
+                                 "%d/%d consecutive", step, str(e), poison_run,
                                  self.cfg.max_poison_skips)
                     if poison_run > self.cfg.max_poison_skips:
                         raise          # every batch is poison: the data is sick
@@ -228,8 +228,10 @@ class StepSupervisor:
                 if not within_budget or self.ckpt is None or self.ckpt.latest_step() is None:
                     raise
                 delay = self.policy.backoff()
+                # the text, not the exception: a handler that keeps its records
+                # would keep the traceback, and so the step's tensors
                 _log.warning("%s at step %d (%s): restoring after %.2fs (failure %d/%d)",
-                             cls.__name__, step, e, delay, self.failures,
+                             cls.__name__, step, str(e), delay, self.failures,
                              self.cfg.max_failures)
                 if delay:
                     time.sleep(delay)

@@ -24,7 +24,6 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     name: str = "lm"
-    family: str = "dense"            # dense|moe|ssm|hybrid|audio|vlm
     n_layers: int = 4
     d_model: int = 512
     n_heads: int = 8

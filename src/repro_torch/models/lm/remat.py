@@ -29,6 +29,11 @@ from __future__ import annotations
 import functools
 
 import torch
+# ``checkpoint`` imports torch._dynamo at its first call, and that import
+# leaves its frames in a reference cycle (``torch.fx.wrap`` keeps its own
+# frame) that holds the caller's whole stack, the model and its state among
+# it, until a full garbage collection: imported here, it holds no tensor
+import torch._dynamo  # noqa: F401
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 

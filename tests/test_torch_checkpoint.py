@@ -5,8 +5,10 @@ explicit step that never falls back, CRC32s equal to the reference's on
 the same leaves, and compressed activation maps whose stored arrays equal
 the reference's byte for byte (the ``BENCH_faults.json`` rows
 ``detect.ckpt.bitflip`` and ``detect.ckpt.acts_bitflip`` at CPU size)."""
+import gc
 import json
 import os
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -93,6 +95,23 @@ def test_ckpt_corrupt_newest_falls_back(tmp_path):
     step, tree, extra = ckpt.restore(like)
     assert step == 4 and extra["loader_step"] == 4
     assert float(tree["w"][0, 0]) == 4.0 and int(tree["s"]) == 4
+
+
+def test_ckpt_fallback_leaves_no_cycle_holding_the_state(tmp_path):
+    """A restore that fell back holds nothing of ``like`` once it returns:
+    its tensors go with their last reference, the collector off (a kept
+    failure's traceback would hold the restore's frame, and so ``like``)."""
+    ckpt = CheckpointManager(str(tmp_path), keep_last=3)
+    like = _save_steps(ckpt, [2, 4, 6])
+    corrupt_file(os.path.join(str(tmp_path), "step_6", "shard_0.npz"))
+    gone = weakref.ref(like["w"])
+    gc.disable()
+    try:
+        assert ckpt.restore(like)[0] == 4
+        del like
+        assert gone() is None
+    finally:
+        gc.enable()
 
 
 def test_ckpt_explicit_step_never_falls_back(tmp_path):

@@ -47,19 +47,19 @@ from _torch_parity import bits
 ARCHS = tuple(a for a in configs.ARCHS if a != "gemma3-4b")
 # the fields each architecture brings, as the reference sets them
 FIELDS = {"command-r-35b": dict(norm="layernorm", act="swiglu", qkv_bias=False,
-                                tie_embeddings=True, family="dense"),
+                                tie_embeddings=True),
           "qwen2.5-14b": dict(norm="rmsnorm", act="swiglu", qkv_bias=True,
-                              tie_embeddings=True, family="dense"),
+                              tie_embeddings=True),
           "starcoder2-15b": dict(norm="layernorm", act="gelu", qkv_bias=True,
-                                 tie_embeddings=True, family="dense"),
+                                 tie_embeddings=True),
           "chameleon-34b": dict(norm="rmsnorm", act="swiglu", qkv_bias=False,
-                                tie_embeddings=False, family="vlm"),
+                                tie_embeddings=False),
           "whisper-medium": dict(norm="layernorm", act="gelu", qkv_bias=True,
-                                 tie_embeddings=True, family="audio"),
+                                 tie_embeddings=True),
           "llama4-scout-17b-a16e": dict(norm="rmsnorm", act="swiglu", qkv_bias=False,
-                                        tie_embeddings=True, family="moe"),
+                                        tie_embeddings=True),
           "granite-moe-1b-a400m": dict(norm="rmsnorm", act="swiglu", qkv_bias=False,
-                                       tie_embeddings=True, family="moe")}
+                                       tie_embeddings=True)}
 # ffn_hidden T_obj of the reduced configs on these weights: zero fractions
 # 0.26 (starcoder2) to 0.61 (command-r) in the forward at 2.5; the MoE
 # experts are drawn with fan-in d·f, so their hidden maps are ~100x smaller
@@ -143,7 +143,7 @@ def test_params_carry_biases_and_head(arch):
     model = from_jax_params(LM(tcfg), params)
     names = set(model.state_dict())
     has_bias = FIELDS[arch]["qkv_bias"]
-    moe, enc = FIELDS[arch]["family"] == "moe", FIELDS[arch]["family"] == "audio"
+    moe, enc = tcfg.is_moe, tcfg.encoder_layers > 0
     assert ("run0.0.sub0.attn.bq" in names) == has_bias
     assert ("run0.1.sub0.ffn.b_up" in names) == (FIELDS[arch]["act"] == "gelu")
     assert ("run0.0.sub0.ffn.w_gate" in names) == (FIELDS[arch]["act"] == "swiglu"
@@ -223,7 +223,7 @@ def test_slice_serves_like_reference(arch):
     # an MoE site hands the engine no weight: fused runs the masking pass
     # there, which moves no stream bytes
     assert aux.measured_bytes_exact() == jaux.measured_bytes_exact()
-    assert (aux.measured_bytes_exact() > 0) == (FIELDS[arch]["family"] != "moe")
+    assert (aux.measured_bytes_exact() > 0) == (not tcfg.is_moe)
     meter = out["meter"]
     assert [(r.site, r.payload_bytes, r.index_bytes, r.dense_bytes, r.n_live)
             for r in meter.records] == [(r.site, r.payload_bytes, r.index_bytes,

@@ -6,8 +6,10 @@ batch must leave every parameter and moment bit-identical, and a 3-layer
 reduced gemma3-4b run crashed after a dirtying step and resumed from its
 checkpoint must equal the uninterrupted run bit for bit (parameters, both
 AdamW moments, the step and the loader's step)."""
+import gc
 import json
 import threading
+import weakref
 
 import numpy as np
 import pytest
@@ -194,3 +196,19 @@ def test_run_started_again_continues_from_disk(tmp_path, uninterrupted):
                                      log=lambda *_: None)
     assert [h["step"] for h in hist] == [3, 4]
     assert not _same(_snapshot(got), _snapshot(want))
+
+
+def test_a_crashed_run_holds_nothing_once_dropped(tmp_path):
+    """A run crashed, restored and finished keeps its tensors in no reference
+    cycle: dropped, the model's and the optimizer's go with their last
+    reference, the collector off for the whole run."""
+    gc.disable()
+    try:
+        model, state, _, sup = _run(str(tmp_path), crash_at=3)
+        assert [e["class"] for e in sup.failure_log] == ["TransientStep"]
+        gone = [weakref.ref(model.final_norm.scale),
+                weakref.ref(state["opt"]["m"]["final_norm.scale"])]
+        del model, state, sup
+        assert [r() for r in gone] == [None, None]
+    finally:
+        gc.enable()
