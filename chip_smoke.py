@@ -217,7 +217,38 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     10's traffic, ``reference``, no remat) with ``local_impl="scanned"``
     beside ``"banded"``: the losses and step 1's ``ffn_hidden`` bitmaps
     equal bit for bit, ``max_memory_allocated`` and ms per step of both;
-14. prints one JSON line listing the kernels (the seven CUDA kernels, the
+14. drives the two recurrent architectures at full width and depth:
+    (a) mamba2-2.7b (64 Mamba-2 SSD layers, d_inner 5120, 80 heads of 64,
+    state 128) through ``launch.serve.main`` on ``stream``, batch 2, prompt
+    2048, 32 greedy tokens, T_obj 5.0: its one Zebra site is ``layer_out``
+    (64 maps (2, 2048, 2560) bf16 a prefill); prefill 64 launches of each
+    stream kernel and no GEMM or masking launch, the handoff one
+    ``zebra_pack`` a compressed cache leaf (the float32 SSD state ``H`` (64,
+    2, 80, 128, 64) as (10240, 8192), and the conv buffers), decode only the
+    expander of those leaves (decode has no Zebra site); the first layer's
+    zero fraction in 0.3-0.8; every site's bytes equal to Eq. 2/3 of the
+    comparator's plain bitmap and inside the band; every leaf lossless, and
+    ``H``'s bytes measured, predicted and dense; the last logits and 64 of 64
+    greedy tokens equal to a ``reference`` run on the same weights bit for
+    bit; warm times of both in turns and the device busy share; the three
+    stream kernels held bit for bit and timed on the 64 prefill maps, and
+    the codec's pack and the expander on the handoff's leaves;
+    (b) recurrentgemma-2b (26 layers: 18 RG-LRU and 8 local attention
+    layers, window 2048, d_ff 7680) served as gemma3-4b in 7 on ``fused``,
+    T_obj 1.5: prefill 26 payload GEMMs, 26 comparator and 26 pack launches,
+    16 masking launches (the 8 local layers' K and V); every ffn_hidden map
+    replayed through the ``reference`` site and ``zebra_spmm``, every
+    kv_cache map through the masking kernel; tokens beside a ``reference``
+    run recorded; the payload GEMM, the comparator, the masking kernel and
+    pack timed per prefill;
+    (c) both trained R and C through the harness of 10 (batch 2 x 2048 in 2
+    microbatches, remat block, 2 steps, float32 parameters, bf16 compute):
+    C's parameters equal R's bit for bit, each stream kernel sites x 2 x 2 x 2
+    times (mamba2: 64 ``layer_out`` sites, recurrentgemma: 26 ``ffn_hidden``),
+    each step's ``measured_bytes`` the sum over its forward sites, every
+    recorded site in the band; ms per step, the busy share,
+    ``max_memory_allocated``; the stream kernels timed on C's maps of step 1;
+15. prints one JSON line listing the kernels (the seven CUDA kernels, the
     three stream kernels per VGG-16 and per MobileNetV1 evaluate batch,
     named ``... (vgg16 evaluate)`` and ``... (mobilenet evaluate)``, the
     masking kernel per training step of each, ``... (vgg16 training)`` and
@@ -226,7 +257,11 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     decode)`` and ``... (starcoder2-15b prefill)``, the four stream
     kernels per LM training step, ``... (gemma3-4b training)``, and the
     rows of phases 12-13, ``... (<arch> prefill)``, ``... (<arch> decode
-    step)`` and ``... (granite-moe-1b-a400m training)``; the GEMM
+    step)`` and ``... (granite-moe-1b-a400m training)``, the codec's pack
+    and the expander on phase 11's ``save_acts`` maps, ``... (gemma3-4b
+    save_acts)`` and ``... (gemma3-4b restore_acts)``, and phase 14's,
+    ``... (mamba2-2.7b prefill)``, ``... (mamba2-2.7b handoff)``, ``...
+    (recurrentgemma-2b prefill)`` and ``... (<arch> training)``; the GEMM
     rows also carry ms per launch, TFLOP/s of live work and the device
     body that ran, the stream rows their ``amax_ms`` or ``copy_ms``
     yardstick), the card line again, and ``{"ok": true, "device": ...}``
@@ -597,11 +632,13 @@ def profile_forward(trainer, variables, images, zcfg, n: int = 3) -> None:
 def profile_calls(fn, n: int, what: str, unit: str) -> float | None:
     """Device kernel time by kernel over n calls of fn (torch.profiler),
     and the device's busy share of the profiled window's wall time.
-    Returns the busy ms per call (None when the profiler saw no device)."""
+    Returns the busy ms per call (None when the profiler saw no device).
+    Only the device is traced: the host's op events of a training step
+    (~10^5 kernels) took the profiler tens of seconds to gather."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -1225,12 +1262,15 @@ def run_lm(device, arch=LM_ARCH, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
     final = launch_counts()
     n_layers = len(rec.ffn)
     leaves = [r for r in out["meter"].records if r.compressed]
+    # the kv_cache sites: K and V of every attention layer
+    n_kv = 2 * sum(cfg.layer_pattern[i % len(cfg.layer_pattern)] in ("global", "local")
+                   for i in range(cfg.n_layers))
     check(n_layers == cfg.n_layers, f"{n_layers} ffn_hidden sites ran fused, want "
                                     f"{cfg.n_layers}")
     check_launches(phases.at["prefill"], {"zebra_spmm_cs_kernel": n_layers,
                                           "zebra_bitmap_kernel": n_layers,
                                           "zebra_pack_kernel": n_layers,
-                                          "zebra_mask_kernel": 2 * n_layers}, "LM prefill")
+                                          "zebra_mask_kernel": n_kv}, f"{arch} prefill")
     # the handoff's lossless spot check expands its first compressed leaf
     check_launches(diff_counts(phases.at["handoff"], phases.at["prefill"]),
                    {"zebra_pack": len(leaves), "zebra_unpack_kernel": 1}, "LM handoff")
@@ -1254,7 +1294,7 @@ def run_lm(device, arch=LM_ARCH, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
     del maxima
     check(zf_band is None or zf_band[0] <= ffn_zf <= zf_band[1],
           f"ffn_hidden zero fraction {ffn_zf} outside {zf_band}")
-    check(len(rec.kv) == 2 * n_layers, f"{len(rec.kv)} kv_cache sites, want {2 * n_layers}")
+    check(len(rec.kv) == n_kv, f"{len(rec.kv)} kv_cache sites, want {n_kv}")
     check(len(rec.ffn_decode) == n_layers * (gen - 1)
           and {b for _, b in rec.ffn_decode} == {"reference(degenerate-rows)"},
           f"decode ffn_hidden sites: {len(rec.ffn_decode)} x {set(rec.ffn_decode)}")
@@ -1362,15 +1402,15 @@ def run_lm(device, arch=LM_ARCH, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
 
 def time_lm_kernels(lm: dict, edge_errs: dict, device, gemms=("zebra_spmm_kernel",
                                                              "zebra_spmm_cs_kernel"),
-                    codec: bool = True, stream_rows=None) -> list[dict]:
+                    codec: bool = True, stream_rows=None, suffix=None) -> list[dict]:
     """The LM kernels on the path's inputs: the GEMMs on the ffn_hidden maps
     of the prefill (summed per prefill), zebra_pack on the handoff's
     compressible leaves (summed per handoff, when ``codec``); each beside
     its plain version, its bound and, for the GEMMs, torch.matmul of the
     keep-gated dense bf16 map by w (TF32 off). For another architecture
-    than gemma3-4b the rows are named ``... (<arch> prefill)``. Then the
-    stream kernels on the served inputs (``stream_rows``, by default
-    gemma3-4b's LM_STREAM_ROWS)."""
+    than gemma3-4b the rows are named ``... (<arch> prefill)`` (or
+    ``suffix``). Then the stream kernels on the served inputs
+    (``stream_rows``, by default gemma3-4b's LM_STREAM_ROWS)."""
     import torch
     from repro_torch.compress import CompressedMap, nonzero_bitmap
     from repro_torch.kernels import mask_pack, spmm_cs, zebra_spmm
@@ -1382,7 +1422,7 @@ def time_lm_kernels(lm: dict, edge_errs: dict, device, gemms=("zebra_spmm_kernel
                 "max_abs_err": edge_errs[k], "bound_by": "bytes"} for k in names}
     terms = {k: [0.0, 0.0] for k in names}           # summed bytes and operations times
     live_flops = 0                                   # 2 n_live bs bc N, summed per prefill
-    for h, w in lm["maps"]:
+    for h, w in (lm["maps"] if gemms else ()):
         x2 = h.reshape(-1, h.shape[-1])
         M, K = x2.shape
         N, item = w.shape[1], x2.element_size()
@@ -1450,7 +1490,8 @@ def time_lm_kernels(lm: dict, edge_errs: dict, device, gemms=("zebra_spmm_kernel
             r["copy_ms"] += time_ms(lambda: y.copy_(x2), flush)
             r["bound_ms"] += bound_bytes("zebra_pack_kernel", c.m, c.k, c.bs, c.bc,
                                          x2.element_size(), n_live) / HBM_BYTES_PER_S * 1e3
-    suffix = "" if lm["arch"] == LM_ARCH else f" ({lm['arch']} prefill)"
+    if suffix is None:
+        suffix = "" if lm["arch"] == LM_ARCH else f" ({lm['arch']} prefill)"
     print(f"LM kernel times{suffix} (per prefill: {n_maps} ffn_hidden maps; zebra_pack per "
           f"handoff; CUDA events, L2 flushed):")
     for k, r in rows.items():
@@ -1802,39 +1843,50 @@ LMT_ROWS = {f"{k} (gemma3-4b training)": (k, "ffn") for k in
 
 class FFNSiteRecorder:
     """Records every ``ffn_hidden`` site of an LM run (training, or an MoE
-    model served): its map shape, element size, backend label, zero
-    fraction and stream bytes (detached: a threshold net's L2 term would
-    hold the site's map for its backward), with a copy of the first
-    ``keep`` input maps, and counts the ``kv_cache`` sites. Adds no kernel
-    launch."""
+    model served), or with ``site="layer_out"`` every enabled ``layer_out``
+    site: its map shape, element size, backend label, zero fraction, stream
+    bytes (detached: a threshold net's L2 term would hold the site's map for
+    its backward) and whether it ran in a backward (remat's recompute), with
+    a copy of the first ``keep`` input maps; counts the sites entered
+    (``calls``: a recompute that stops early, once the backward has what it
+    needs, can stop inside a unit's last site, after its kernels and before
+    it returns) and the ``kv_cache`` sites. Adds no kernel launch."""
 
-    def __init__(self, keep: int = 0):
-        self.keep, self.kv = keep, 0
+    def __init__(self, keep: int = 0, site: str = "ffn_hidden"):
+        self.keep, self.kv, self.site, self.calls = keep, 0, site, 0
         self.records, self.maps = [], []
 
     def __enter__(self):
         import repro_torch.core.engine as engine
+        import repro_torch.models.lm.blocks as blocks
         import repro_torch.models.lm.ffn as ffn
-        self._mods, self._inner = (engine, ffn), (engine.zebra_site, ffn.zebra_site)
-        engine_site, ffn_site = self._inner
+        self._owner = blocks if self.site == "layer_out" else ffn
+        self._mods = (engine, self._owner)
+        self._inner = (engine.zebra_site, self._owner.zebra_site)
+        engine_site, own_site = self._inner
 
         def site(x, cfg, **kw):
+            if not cfg.enabled:
+                return own_site(x, cfg, **kw)
+            import torch
+            self.calls += 1
             if len(self.maps) < self.keep:
                 self.maps.append(x.detach().clone())
-            y, aux = ffn_site(x, cfg, **kw)
+            y, aux = own_site(x, cfg, **kw)
             self.records.append((tuple(x.shape), x.element_size(), aux.backend,
-                                 aux.zero_frac.detach(), aux.measured_bytes))
+                                 aux.zero_frac.detach(), aux.measured_bytes,
+                                 torch._C._current_graph_task_id() != -1))
             return y, aux
 
         def kv_site(x, cfg, **kw):
             self.kv += kw.get("site") == "kv_cache"
             return engine_site(x, cfg, **kw)
-        ffn.zebra_site, engine.zebra_site = site, kv_site
+        self._owner.zebra_site, engine.zebra_site = site, kv_site
         return self
 
     def __exit__(self, *exc):
-        (engine, ffn), (engine_site, ffn_site) = self._mods, self._inner
-        engine.zebra_site, ffn.zebra_site = engine_site, ffn_site
+        (engine, owner), (engine_site, own_site) = self._mods, self._inner
+        engine.zebra_site, owner.zebra_site = engine_site, own_site
 
 
 def check_token_band(records, label: str) -> float:
@@ -1845,7 +1897,7 @@ def check_token_band(records, label: str) -> float:
     from fractions import Fraction
     from repro_torch.core.bandwidth import TokenMapSpec
     worst = 0.0
-    for i, (shape, item, _, zf, nbytes) in enumerate(records):
+    for i, (shape, item, _, zf, nbytes, *_) in enumerate(records):
         spec = TokenMapSpec(s=math.prod(shape[:-1]), d=shape[-1], bits=8 * item,
                             block_seq=BS, block_ch=BC)
         nb, zf, nbytes = spec.n_blocks, float(zf), int(nbytes)
@@ -1872,7 +1924,8 @@ def differing(got: dict, want: dict) -> list[str]:
 
 def run_train_parity(device, arch, t_obj, runs, batch, seq, grad_accum, steps, *,
                      layers=0, remat="block", reduced=False, enc_feats=None, keep=0,
-                     other_sites=None, before=None) -> tuple[dict, list]:
+                     other_sites=None, before=None, site="ffn_hidden",
+                     profiled=None) -> tuple[dict, list]:
     """Train ``arch`` at full width (``layers`` > 0 keeps the first that
     many) with ``remat`` through ``launch.train.train_lm`` on each backend
     of ``runs`` (backend -> the launch counts it must make), ``reference``
@@ -1885,6 +1938,9 @@ def run_train_parity(device, arch, t_obj, runs, batch, seq, grad_accum, steps, *
     run, which launch nothing), each step's ``measured_bytes`` is the sum
     over its sites (under ``remat="block"`` each site is met once more in
     the recompute), and every ``stream`` site lies inside the Eq. 2/3 band.
+    ``site`` is the architecture's one Zebra site kind (``ffn_hidden``, or
+    mamba2's ``layer_out``). One more step of each backend in ``profiled``
+    (default: every run) runs under the profiler for the busy share.
     Returns ({backend: counts}, the first ``keep`` maps of the ``stream``
     run's sites)."""
     import torch
@@ -1898,7 +1954,7 @@ def run_train_parity(device, arch, t_obj, runs, batch, seq, grad_accum, steps, *
 
     base = train.build_config(arch, reduced=reduced, t_obj=t_obj, n_layers=layers).replace(
         zebra_tnet=False, grad_accum=grad_accum, remat=remat)
-    check(base.zebra_sites == ("ffn_hidden",), f"sites {base.zebra_sites}")
+    check(base.zebra_sites == (site,), f"sites {base.zebra_sites}, want ({site},)")
     tokens0 = torch.from_numpy(lm_batch(LMDatasetConfig(vocab=base.vocab), batch, seq, 0)
                                ).to(device=device, dtype=torch.int64)
     batch0 = {"tokens": tokens0, **({"enc_feats": enc_feats(0)} if enc_feats else {})}
@@ -1920,7 +1976,7 @@ def run_train_parity(device, arch, t_obj, runs, batch, seq, grad_accum, steps, *
         reset_launch_counts()
         torch.cuda.reset_peak_memory_stats(device)
         torch.cuda.synchronize()
-        with FFNSiteRecorder(keep=keep if backend == "stream" else 0) as rec:
+        with FFNSiteRecorder(keep=keep if backend == "stream" else 0, site=site) as rec:
             _, state, hist, _ = train.train_lm(model.cfg, steps=steps, batch=batch, seq=seq,
                                                device=device, model=model,
                                                log=lambda *_: None, enc_feats=enc_feats)
@@ -1947,21 +2003,28 @@ def run_train_parity(device, arch, t_obj, runs, batch, seq, grad_accum, steps, *
                     rel_tol=1e-5), f"{backend}: the loss is not ce + "
                                    f"{base.router_aux_coef} router_aux")
         if backend == "stream":
-            check(labels == Counter({"stream": want[STREAM_KERNELS[0]], **(other_sites or {})}),
-                  f"stream: sites by label {dict(labels)}")
-            per_step, rest = divmod(len(rec.records), steps)
-            check(rest == 0, f"{len(rec.records)} site records over {steps} steps")
+            # the forward's sites, each met again in the recompute (which may
+            # stop early inside a unit's last site, unrecorded)
+            fwd = [r for r in rec.records if not r[5]]
+            want_fwd = Counter({k: n // recompute for k, n in
+                                {"stream": want[STREAM_KERNELS[0]], **(other_sites or {})}.items()})
+            check(Counter(r[2] for r in fwd) == want_fwd
+                  and rec.calls == recompute * len(fwd) and set(labels) == set(want_fwd),
+                  f"stream: forward sites by label {dict(Counter(r[2] for r in fwd))}, "
+                  f"{rec.calls} entered, all {dict(labels)}")
+            per_step, rest = divmod(len(fwd), steps)
+            check(rest == 0, f"{len(fwd)} forward site records over {steps} steps")
             for i, m in enumerate(hist):
-                sites = sum(int(r[4]) for r in rec.records[i * per_step:(i + 1) * per_step])
-                check(recompute * m["measured_bytes"] == sites > 0,
-                      f"stream step {i + 1}: measured_bytes {m['measured_bytes']} x "
-                      f"{recompute} != its sites' {sites}")
+                sites = sum(int(r[4]) for r in fwd[i * per_step:(i + 1) * per_step])
+                check(m["measured_bytes"] == sites > 0,
+                      f"stream step {i + 1}: measured_bytes {m['measured_bytes']} != its "
+                      f"forward sites' {sites}")
             worst = check_token_band([r for r in rec.records if r[2] == "stream"],
                                      f"{arch} stream train")
-            print(f"  stream: each step's measured_bytes == the sum over its "
-                  f"{per_step // recompute} sites"
-                  + (" (each met again in the recompute)" if recompute == 2 else "")
-                  + f"; every stream site inside the Eq. 2/3 band (worst |delta| {worst} B)")
+            print(f"  stream: each step's measured_bytes == the sum over its {per_step} "
+                  f"forward sites ({rec.calls} sites entered, {len(rec.records) - len(fwd)} "
+                  f"recorded in the recompute); every recorded stream site inside the Eq. "
+                  f"2/3 band (worst |delta| {worst} B)")
             maps = rec.maps
         if params_r is None:
             params_r = host_copy(state["params"])
@@ -1973,8 +2036,9 @@ def run_train_parity(device, arch, t_obj, runs, batch, seq, grad_accum, steps, *
         # one more step under the profiler (it moves the state: after the
         # comparison)
         opt = adamw(warmup_cosine(3e-4, 1, steps))
-        busy = profile_calls(lambda: lm_steps.train_step(model, opt, state, batch0), 1,
-                             f"{backend} steps", "step")
+        busy = (profile_calls(lambda: lm_steps.train_step(model, opt, state, batch0), 1,
+                              f"{backend} steps", "step")
+                if profiled is None or backend in profiled else None)
         if busy is not None:
             print(f"  {backend}: device busy {100 * busy / step_ms:.1f} % of an unprofiled "
                   f"step ({busy:.3f} of {step_ms:.3f} ms)")
@@ -2259,8 +2323,10 @@ class CkptTimer:
 def run_lm_ckpt(device, arch=LM_ARCH, layers=LMC["layers"], batch=LMD["batch"],
                 seq=LMD["seq"], grad_accum=LMD["grad_accum"], steps=LMC["steps"],
                 ckpt_every=LMC["ckpt_every"], crash_at=LMC["crash_at"], t_obj=LM_T_OBJ,
-                reduced=False) -> None:
-    """Phase 11b: crash and resume under ``--ckpt`` (module docstring)."""
+                reduced=False) -> list[dict]:
+    """Phase 11b: crash and resume under ``--ckpt`` (module docstring);
+    returns the rows of the codec's pack and the expander on the
+    ``save_acts`` maps."""
     import shutil
     import tempfile
     import numpy as np
@@ -2408,8 +2474,20 @@ def run_lm_ckpt(device, arch=LM_ARCH, layers=LMC["layers"], batch=LMD["batch"],
         check(detected == 1, "acts bitflip not detected, or not named")
         print("  detect.ckpt.acts_bitflip: injected 1, detected 1, recovered 1 "
               "(reject-named-invariant)")
-        del got, model, maps, acts, back
+        # the codec's pack and the expander on these maps, timed alone
+        from repro_torch.compress import compress
+        dense = [m.reshape(-1, m.shape[-1]) for m in acts.values()]
+        lm = {"arch": arch, "t_obj": t_obj, "maps": [], "dense": dense,
+              "comp": [compress(m, bs=BS, bc=BC) for m in dense], "launches": counts,
+              "replay_launches": {}}
+        print(f"save_acts / restore_acts kernel times ({len(dense)} maps):")
+        rows = time_lm_kernels(lm, {"zebra_pack": 0.0}, device, gemms=(), codec=True,
+                               suffix=f" ({arch} save_acts)", stream_rows={
+                                   f"zebra_unpack_kernel ({arch} restore_acts)":
+                                   ("zebra_unpack_kernel", "leaves")})
+        del got, model, maps, acts, back, dense, lm
         torch.cuda.empty_cache()
+        return rows
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2808,6 +2886,226 @@ def run_scanned(device, layers=SCAN["layers"], batch=SCAN["batch"], seq=SCAN["se
           f"{out['scanned'][2] / 2 ** 30:.2f} GiB")
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the recurrent architectures, Mamba-2's SSD and Griffin's RG-LRU
+# ---------------------------------------------------------------------------
+
+# mamba2-2.7b at full width and depth (64 layers) on stream. Its one Zebra
+# site is layer_out, the residual stream plus the SSD block's output, whose
+# 8 x 128 block maxima sit above the ~3.2 of 1024 N(0, 1) values: a CPU draw
+# of the full-width first layer (bf16, batch 1 x 2048, random weights from a
+# CPU generator seeded 0) gave the zero fraction 0.48 at T_obj 4.8, 0.635 at
+# 5.0 and 0.787 at 5.2
+MAMBA2 = dict(arch="mamba2-2.7b", batch=2, prompt=2048, gen=32, t_obj=5.0)
+# recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU, 8 local
+# attention with window 2048) on fused. Its SwiGLU pre-activations are
+# N(0, d/f = 1/3); the same CPU draw of the first layer's ffn_hidden map
+# gave the zero fraction 0.43 at T_obj 1.4 and 0.544 at 1.5
+RGEMMA = dict(arch="recurrentgemma-2b", batch=2, prompt=2048, gen=32, t_obj=1.5)
+RGEMMA_STREAM_ROWS = {
+    f"{k} (recurrentgemma-2b prefill)": (k, src)
+    for k, src in (("zebra_bitmap_kernel", "ffn"), ("zebra_mask_kernel", "kv"),
+                   ("zebra_pack_kernel", "ffn"))}
+REC_ZF_BAND = (0.3, 0.8)
+# both trained R and C at full width and depth: batch 2 x 2048 in two
+# microbatches, remat block, 2 steps of AdamW warmup_cosine(3e-4, 1, 2), bf16
+# gradients, clip 1.0, float32 parameters, bf16 compute, the serving T_obj
+REC_TRAIN = dict(batch=2, seq=2048, grad_accum=2, steps=2)
+
+
+def run_mamba2_serve(device, edge_errs, arch=MAMBA2["arch"], batch=MAMBA2["batch"],
+                     prompt=MAMBA2["prompt"], gen=MAMBA2["gen"], t_obj=MAMBA2["t_obj"],
+                     zf_band=REC_ZF_BAND) -> list[dict]:
+    """Phase 14 (a): mamba2-2.7b served on stream through ``launch.serve.main``:
+    launch counts per phase (prefill: the three stream kernels once a
+    ``layer_out`` site; the handoff: ``zebra_pack`` a cache leaf, the float32
+    SSD state ``H`` among them; decode: only the expander of those leaves),
+    every site's bytes equal to Eq. 2/3 of the comparator's plain bitmap and
+    inside the band, every leaf lossless, the last logits and every greedy
+    token equal to a ``reference`` run on the same weights bit for bit.
+    Returns the kernel rows: the stream kernels per prefill, pack and the
+    expander on the handoff's leaves."""
+    import torch
+    from repro_torch.compress import CompressedMap, decompress
+    from repro_torch.compress.stream import _leaf_dims
+    from repro_torch.core.engine import stream_bytes
+    from repro_torch.kernels import mask_pack, reset_launch_counts
+    from repro_torch.launch import serve, steps
+    from repro_torch.utils import map_tree
+
+    argv = ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
+            "--gen", str(gen), "--t-obj", str(t_obj), "--backend", "stream"]
+    cfg = serve.build_config(arch, t_obj=t_obj, backend="stream")
+    L = cfg.n_layers
+    print(f"mamba2 serving: python -m repro_torch.launch.serve {' '.join(argv)}: {L} SSD "
+          f"layers, d_inner {cfg.d_inner}, {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}; one layer_out site a layer")
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    with FFNSiteRecorder(keep=L, site="layer_out") as rec, PhaseCounts(serve) as phases:
+        out = serve.main(argv)
+    torch.cuda.synchronize()
+    final = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    leaves = [r for r in out["meter"].records if r.compressed]
+    check_launches(phases.at["prefill"], {k: L for k in STREAM_KERNELS},
+                   f"{arch} prefill ({L} layer_out sites)")
+    check_launches(diff_counts(phases.at["handoff"], phases.at["prefill"]),
+                   {"zebra_pack": len(leaves), "zebra_unpack_kernel": 1}, f"{arch} handoff")
+    check_launches(diff_counts(final, phases.at["handoff"]),
+                   {"zebra_unpack_kernel": len(leaves)}, f"{arch} decode (no Zebra site)")
+    # every cache leaf that divides into 8 x 128 blocks goes compressed: at
+    # full width all four, H (64, B, 80, 128, 64) as (64·B·80, 8192)
+    names = sorted(r.site.rsplit("/", 1)[-1] for r in leaves)
+    want = sorted(n for n, leaf in out["dense_state"][0][0]["sub0"].items()
+                  if _leaf_dims(leaf, BS, BC) is not None)
+    check("H" in names and names == want, f"compressed handoff leaves {names}, want {want}")
+    check(len(rec.records) == L and rec.kv == 0
+          and {r[2] for r in rec.records} == {"stream"}
+          and {r[0] for r in rec.records} == {(batch, prompt, cfg.d_model)},
+          f"{len(rec.records)} layer_out sites {set(r[:3] for r in rec.records)}, "
+          f"{rec.kv} kv_cache sites")
+    for i, (h, r) in enumerate(zip(rec.maps, rec.records)):
+        keep = mask_pack.bitmap_plain(h.reshape(-1, h.shape[-1]), t_obj, BS, BC)
+        check(int(r[4]) == int(stream_bytes(keep.sum(), BS, BC, h.dtype, keep.numel())),
+              f"layer_out map {i}: stream bytes {int(r[4])} != Eq. 2/3 of its bitmap")
+    worst = check_token_band(rec.records, f"{arch} serve")
+    zfs = [float(r[3]) for r in rec.records]
+    zf = sum(zfs) / L
+    print(f"  layer_out: {L} maps {rec.records[0][0]} bf16, zero fraction {zf:.4f} (layers 1-4 "
+          f"{[round(z, 4) for z in zfs[:4]]}, last {zfs[-1]:.4f}) at T_obj {t_obj}; stream "
+          f"bytes {sum(int(r[4]) for r in rec.records)} of "
+          f"{L * math.prod(rec.records[0][0]) * 2} dense, each == Eq. 2/3 of its plain "
+          f"bitmap, all inside the band (worst |delta| {worst} B)")
+    check((zf_band is None or zf_band[0] <= zfs[0] <= zf_band[1]) and 0.0 < zf < 1.0,
+          f"layer_out zero fraction: layer 1 {zfs[0]} outside {zf_band}, mean {zf}")
+    # the handoff: every leaf lossless; the float32 SSD state's bytes
+    dense, comp = [], []
+    map_tree(lambda _, leaf: dense.append(leaf), out["dense_state"][0])
+    map_tree(lambda _, leaf: comp.append(leaf), out["handoff_state"][0])
+    pairs = [(d, c) for d, c in zip(dense, comp) if isinstance(c, CompressedMap)]
+    check(len(pairs) == len(leaves) and all(same_bits(decompress(c), d) for d, c in pairs),
+          "a handoff leaf did not round-trip losslessly")
+    h_rec = next(r for r in leaves if r.site.endswith("/H"))
+    h_leaf = next(d for d, c in pairs if d.dtype == torch.float32)
+    print(f"  handoff: {len(leaves)} leaves lossless, max |measured - predicted| "
+          f"{out['reconcile']['max_abs_delta_bytes']} B; H {tuple(h_leaf.shape)} float32 "
+          f"as ({h_rec.spec.s}, {h_rec.spec.d}): measured {h_rec.measured_bytes} B, "
+          f"predicted {h_rec.predicted_bytes} B, dense {h_rec.dense_bytes} B (zero "
+          f"fraction {h_rec.zero_frac:.6f}); all leaves {out['meter'].measured_bytes()} of "
+          f"{out['meter'].dense_bytes()} B")
+    model, prompts = out["model"], out["prompts"]
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"  weights {weight_bytes / 1e9:.3f} GB (bf16; float32 A_log, D, dt_bias, "
+          f"out_norm); max_memory_allocated {peak / 2 ** 30:.2f} GiB; prefill "
+          f"{out['prefill_ms']:.3f} ms, decode {out['decode_ms_per_token']:.3f} ms/token (cold)")
+
+    def served(**kw) -> dict:
+        r = serve.serve_one_shot(model, prompts, gen, log=lambda *_: None, **kw)
+        return {k: r[k] for k in ("tokens", "logits", "prefill_ms", "decode_ms_per_token")}
+
+    reset_launch_counts()
+    ref = served(backend="reference")
+    check(not any(launch_counts().values()), "the reference run launched a kernel")
+    check(same_bits(ref["logits"], out["logits"]),
+          f"last logits differ from reference (max abs err "
+          f"{max_abs_err(ref['logits'], out['logits'])})")
+    agree = int((ref["tokens"] == out["tokens"]).sum())
+    check(agree == out["tokens"].numel(), f"{agree} of {out['tokens'].numel()} greedy tokens "
+                                          f"== reference")
+    check(bool(torch.isfinite(out["logits"]).all())
+          and tuple(out["logits"].shape) == (batch, cfg.vocab), "logits not finite")
+    print(f"  == reference: last logits (bitwise) and {agree} of {agree} greedy tokens")
+    again, ref, third = served(), served(backend="reference"), served()
+    check(torch.equal(again["tokens"], out["tokens"])
+          and torch.equal(third["tokens"], out["tokens"]), "a later run's tokens differ")
+    print(f"  warm, in turns: stream prefill {again['prefill_ms']:.3f} / "
+          f"{third['prefill_ms']:.3f} ms, decode {again['decode_ms_per_token']:.3f} / "
+          f"{third['decode_ms_per_token']:.3f} ms/token; reference prefill "
+          f"{ref['prefill_ms']:.3f} ms, decode {ref['decode_ms_per_token']:.3f} ms/token (host "
+          f"clock, synchronised)")
+    t0 = time.perf_counter()
+    busy = profile_calls(lambda: steps.prefill(model, prompts), 2, "stream prefills", "prefill")
+    if busy is not None:
+        print(f"  stream prefill: device busy {100 * busy / again['prefill_ms']:.1f} % of an "
+              f"unprofiled prefill ({busy:.3f} of {again['prefill_ms']:.3f} ms)")
+    state = steps.prefill(model, prompts)[1]
+    tok = out["tokens"][:, :1]
+    busy = profile_calls(lambda: steps.generate(model, tok, state, prompt, 4), 1,
+                         "4-token decodes", "4 tokens")
+    if busy is not None:
+        print(f"  decode: device busy {100 * busy / 4 / again['decode_ms_per_token']:.1f} % of "
+              f"an unprofiled token ({busy / 4:.3f} of {again['decode_ms_per_token']:.3f} ms)")
+    print(f"  (the profiles took {time.perf_counter() - t0:.1f} s)")
+    del out, ref, again, third, model, prompts, state
+    torch.cuda.empty_cache()
+    lm = {"arch": arch, "t_obj": t_obj, "maps": [(h, None) for h in rec.maps],
+          "dense": [d for d, _ in pairs], "comp": [c for _, c in pairs],
+          "launches": final, "replay_launches": {}}
+    return time_lm_kernels(
+        lm, edge_errs, device, gemms=(), codec=True, suffix=f" ({arch} handoff)",
+        stream_rows={**{f"{k} ({arch} prefill)": (k, "ffn") for k in STREAM_KERNELS},
+                     f"zebra_unpack_kernel ({arch} handoff)": ("zebra_unpack_kernel",
+                                                               "leaves")})
+
+
+def run_recurrent_training(device, arch, t_obj, site, batch=REC_TRAIN["batch"],
+                           seq=REC_TRAIN["seq"], grad_accum=REC_TRAIN["grad_accum"],
+                           steps=REC_TRAIN["steps"]) -> list[dict]:
+    """Phase 14 (c): ``arch`` trained R and C at full width and depth through
+    the harness of 10 (C's parameters equal R's bit for bit, each stream
+    kernel sites x microbatches x steps x 2 times, forward and recompute,
+    every site on ``stream`` and in the band); returns the stream kernels'
+    rows per training step on C's maps of step 1."""
+    import torch
+    from repro_torch import configs
+    L, K, n = configs.get(arch).n_layers, grad_accum, steps
+    per_run = L * K * n * 2
+    counts, maps = run_train_parity(
+        device, arch, t_obj, {"reference": {}, "stream": {k: per_run for k in STREAM_KERNELS}},
+        batch, seq, grad_accum, steps, keep=2 * L * K, site=site, profiled=("stream",))
+    print(f"  C: each stream kernel {per_run} launches = {L} {site} sites x {K} microbatches "
+          f"x {n} steps x 2 (forward + recompute)")
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)   # 256 MB
+    t0 = time.perf_counter()
+    print(f"{arch} training kernel times per step ({len(maps)} {site} maps of C's step 1, "
+          f"forward and recompute):")
+    rows = time_lm_stream_kernels(
+        {"maps": [(h, None) for h in maps], "t_obj": t_obj, "launches": counts["stream"]},
+        flush, {f"{k} ({arch} training)": (k, "ffn") for k in STREAM_KERNELS})
+    print(f"  (timing took {time.perf_counter() - t0:.1f} s)")
+    del maps
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_recurrent(device, edge_errs) -> list[dict]:
+    """Phase 14: mamba2-2.7b served on stream, recurrentgemma-2b served on
+    fused (``run_lm``: launches, replays, tokens beside ``reference``), both
+    trained R and C; returns their kernel rows."""
+    import torch
+    t = [time.perf_counter()]
+    with torch.inference_mode():
+        rows = run_mamba2_serve(device, edge_errs)
+        torch.cuda.empty_cache()
+        t.append(time.perf_counter())
+        lm = run_lm(device, **RGEMMA, zf_band=REC_ZF_BAND)
+        rows += time_lm_kernels(lm, edge_errs, device, gemms=("zebra_spmm_cs_kernel",),
+                                codec=False, stream_rows=RGEMMA_STREAM_ROWS)
+        del lm
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    rows += run_recurrent_training(device, MAMBA2["arch"], MAMBA2["t_obj"], "layer_out")
+    t.append(time.perf_counter())
+    rows += run_recurrent_training(device, RGEMMA["arch"], RGEMMA["t_obj"], "ffn_hidden")
+    t.append(time.perf_counter())
+    print("phase 14 times: " + ", ".join(
+        f"{what} {b - a:.1f} s" for what, a, b in zip(
+            ("mamba2 serving", "recurrentgemma serving", "mamba2 training",
+             "recurrentgemma training"), t, t[1:])))
+    return rows
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; run it from "
@@ -2890,7 +3188,7 @@ def main() -> int:
         t8 = time.perf_counter()
         run_lm_depth(device)
         torch.cuda.empty_cache()
-        run_lm_ckpt(device)
+        kernels += run_lm_ckpt(device)
         # no reference cycle holds device memory: a full collection frees
         # nothing (llama4's 18 layers need all but 4.4 GiB of the card)
         held = torch.cuda.memory_allocated(device)
@@ -2918,11 +3216,15 @@ def main() -> int:
         run_scanned(device)
         torch.cuda.empty_cache()
         t11 = time.perf_counter()
+        kernels += run_recurrent(device, lm_errs)
+        torch.cuda.empty_cache()
+        t12 = time.perf_counter()
         print(f"phase times: edge cases {t1 - t0:.1f} s, CNN {t2 - t1:.1f} s, "
               f"CNN zoo {t3 - t2:.1f} s, LM {t4 - t3:.1f} s, starcoder2-15b {t5 - t4:.1f} s, "
               f"arch runs {t6 - t5:.1f} s, validated {t7 - t6:.1f} s, "
               f"LM training {t8 - t7:.1f} s, remat and checkpoints {t9 - t8:.1f} s, "
-              f"MoE {t10 - t9:.1f} s, whisper and scanned {t11 - t10:.1f} s")
+              f"MoE {t10 - t9:.1f} s, whisper and scanned {t11 - t10:.1f} s, "
+              f"mamba2 and recurrentgemma {t12 - t11:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
         print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,11 @@
 """Architecture registry of the port (``repro.configs``).
 
 ``get(arch)`` -> LMConfig; ``reduced(arch)`` -> the smoke-test config.
-Eight architectures are ported: the five dense ones (gemma3-4b,
-command-r-35b, qwen2.5-14b, starcoder2-15b, chameleon-34b), the two MoE
-ones (granite-moe-1b-a400m, llama4-scout-17b-a16e) and the encoder-decoder
-whisper-medium. The reference's SSM and RG-LRU architectures wait in
-ROADMAP.md's module queue and raise ``NotImplementedError`` here.
+All ten of the reference's architectures are ported: the five dense ones
+(gemma3-4b, command-r-35b, qwen2.5-14b, starcoder2-15b, chameleon-34b), the
+two MoE ones (granite-moe-1b-a400m, llama4-scout-17b-a16e), the
+encoder-decoder whisper-medium, the SSM mamba2-2.7b and the hybrid
+recurrentgemma-2b (RG-LRU and local attention).
 """
 from __future__ import annotations
 
@@ -20,19 +20,14 @@ _ARCH_MODULES = {
     "whisper-medium": "whisper_medium",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "mamba2-2.7b": "mamba2_2_7b",
+    "recurrentgemma-2b": "recurrentgemma_2b",
 }
-
-# registered in the reference, not yet ported
-_WAITING = ("recurrentgemma-2b", "mamba2-2.7b")
 
 ARCHS = tuple(_ARCH_MODULES)
 
 
 def _mod(arch: str):
-    if arch in _WAITING:
-        raise NotImplementedError(
-            f"arch {arch!r} is not yet ported to repro_torch (ROADMAP.md, module "
-            f"queue, item 1 (b): the SSM and RG-LRU layers)")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
     return importlib.import_module(f".{_ARCH_MODULES[arch]}", __package__)

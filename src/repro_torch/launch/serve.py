@@ -8,9 +8,11 @@ observables and the bytes the handoff moved.
 
 ``--arch`` takes the ported architectures: the dense ones (gemma3-4b,
 command-r-35b, qwen2.5-14b, starcoder2-15b, chameleon-34b), the MoE ones
-(granite-moe-1b-a400m, llama4-scout-17b-a16e) and the encoder-decoder
+(granite-moe-1b-a400m, llama4-scout-17b-a16e), the encoder-decoder
 whisper-medium, whose encoder is fed zero frames (B, enc_seq, d) in bf16,
-as the reference's server feeds it; ``--layers N`` keeps the first N
+as the reference's server feeds it, and the recurrent ones, mamba2-2.7b
+(its handoff carries the float32 SSD state and the conv buffers) and
+recurrentgemma-2b (the RG-LRU states beside the local K/V); ``--layers N`` keeps the first N
 layers at full width (for a model whose full depth does not fit one
 card). It runs on the card; ``--device cpu`` runs it on the CPU (the
 kernels' plain versions). Weights are random from seed 0, prompts come
@@ -299,7 +301,9 @@ def _map_leaves(fn, tree):
 
 def model_prefill_pad(prefill_fn, prompts: torch.Tensor, cache_len: int):
     """Prefill builds caches sized to the prompt; pad every attention cache
-    (a leaf whose third axis from the end is the prompt length) to
+    (a leaf of four or more axes whose third from the end is the prompt
+    length, the reference's rule: an SSD state (.., B, heads, state,
+    head_dim) with as many heads as prompt tokens is padded too, as there) to
     ``cache_len`` bucketed up the power-of-two ladder
     (``serve.bucket.pow2_bucket``), as the reference does, so decode can
     run. End padding is position-correct: decode never attends past its

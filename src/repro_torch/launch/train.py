@@ -11,8 +11,8 @@ steps under ``ft.StepSupervisor``, logging as the reference does. It runs
 on the card; ``--device cpu`` runs it on the CPU (the kernels' plain
 versions). ``--layers N`` keeps the first N layers at full width. ``--arch`` takes
 every ported architecture (``configs.ARCHS``: the dense ones, the MoE
-ones, whose loss adds ``router_aux_coef · router_aux``, and
-whisper-medium); the CLI feeds tokens only, as the reference's does, so
+ones, whose loss adds ``router_aux_coef · router_aux``, whisper-medium,
+mamba2-2.7b and recurrentgemma-2b); the CLI feeds tokens only, as the reference's does, so
 an encoder-decoder trains its decoder without cross-attention there, and
 :func:`train_lm` takes a per-step source of encoder frames.
 ``--backend`` picks the Zebra site backend: with the default threshold

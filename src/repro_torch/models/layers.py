@@ -162,6 +162,17 @@ class Dense(nn.Module):
         return dense_apply(self.w, self.b, x)
 
 
+def mul_add(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` as the reference's compiled form computes it. XLA's CPU
+    contracts a float32 product and sum into one fused multiply-add, so
+    in float32 the product and the sum run in float64 (the product of two
+    float32 values is exact there) and round once; a 16-bit dtype rounds
+    after each op, as XLA's CPU does there."""
+    if a.dtype != torch.float32:
+        return a * b + c
+    return (a.double() * b.double() + c.double()).float()
+
+
 # ----------------------------------------------------------------------------
 # Norms for the LM side
 # ----------------------------------------------------------------------------

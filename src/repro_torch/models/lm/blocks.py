@@ -1,15 +1,17 @@
-"""Layer assembly for the LM stack (``repro.models.lm.blocks``): one
-attention layer ("global" or "local"), in an encoder-decoder also
-cross-attention to the encoder's output, then its FFN (dense or MoE), in
-three forms: the full-sequence forward (causal, or not for the encoder),
-the prefill that also emits the decode cache, and the one-token decode
+"""Layer assembly for the LM stack (``repro.models.lm.blocks``): one layer
+of the pattern, an attention layer ("global" or "local"), Griffin's
+recurrent block ("rglru") or Mamba-2's SSD block ("ssm"), in an
+encoder-decoder also cross-attention to the encoder's output, then its
+FFN (dense or MoE; none after an "ssm" block or with ``d_ff`` 0), in three
+forms: the full-sequence forward (causal, or not for the encoder), the
+prefill that also emits the decode cache (K/V for attention, the
+recurrent state and the conv buffer otherwise), and the one-token decode
 step against that cache.
 
 Every layer returns a ``core.engine.LayerAux`` accumulated over its Zebra
 sites (``kv_cache`` in prefill, ``ffn_hidden``, ``layer_out``), which all
 run through the site engine, and an MoE layer's ``router_aux``.
-``Layer`` is the counterpart of the reference's ``init_layer``. "rglru"
-and "ssm" layers wait (ROADMAP.md, module queue).
+``Layer`` is the counterpart of the reference's ``init_layer``.
 """
 from __future__ import annotations
 
@@ -23,10 +25,10 @@ from . import attention as attn
 from .config import LMConfig
 from .ffn import FFN, MoE, eff_block_ch, ffn_apply, moe_apply, zebra_cfg_for
 from .remat import checkpoint_name
+from .rglru import RGLRU, rglru_apply, rglru_decode_step, rglru_init_cache, rglru_prefill
+from .ssm import SSM, ssm_apply, ssm_decode_step, ssm_init_cache, ssm_prefill_state
 
-LAYER_TYPES = ("global", "local")
-NOT_PORTED = ("layer type {!r} is not yet ported to repro_torch (ROADMAP.md, "
-              "module queue, item 1 (b): the SSM and RG-LRU layers)")
+LAYER_TYPES = ("global", "local", "rglru", "ssm")
 
 
 class Attention(nn.Module):
@@ -51,28 +53,36 @@ class Attention(nn.Module):
 
 
 class Layer(nn.Module):
-    """``norm1``, ``attn``, with ``cross`` also ``norm_c`` and ``cross`` (the
-    cross-attention projections), ``norm2``, then ``moe`` when
-    ``cfg.is_moe``, else ``ffn`` (and ``zebra_out_tnet``, the layer-output
-    site's threshold net, when that site trains one)."""
+    """``norm1``, then ``attn`` ("global", "local"), ``rec`` ("rglru") or
+    ``ssm`` ("ssm"), with ``cross`` also ``norm_c`` and ``cross`` (the
+    cross-attention projections), then, unless the layer is "ssm" or
+    ``d_ff`` is 0, ``norm2`` and ``moe`` when ``cfg.is_moe``, else ``ffn``
+    (and ``zebra_out_tnet``, the layer-output site's threshold net, when
+    that site trains one)."""
 
     def __init__(self, typ: str, cfg: LMConfig, *, cross: bool = False, generator=None,
                  dtype=torch.float32, device=None):
         super().__init__()
         if typ not in LAYER_TYPES:
-            raise NotImplementedError(NOT_PORTED.format(typ))
+            raise ValueError(f"unknown layer type {typ!r}; known: {LAYER_TYPES}")
         self.typ = typ
         kw = dict(generator=generator, dtype=dtype, device=device)
         self.norm1 = Norm(cfg.d_model, cfg.norm, device=device)
-        self.attn = Attention(cfg, **kw)
+        if typ == "rglru":
+            self.rec = RGLRU(cfg, **kw)
+        elif typ == "ssm":
+            self.ssm = SSM(cfg, **kw)
+        else:
+            self.attn = Attention(cfg, **kw)
         if cross:
             self.norm_c = Norm(cfg.d_model, cfg.norm, device=device)
             self.cross = Attention(cfg, **kw)
-        self.norm2 = Norm(cfg.d_model, cfg.norm, device=device)
-        if cfg.is_moe:
-            self.moe = MoE(cfg, **kw)
-        else:
-            self.ffn = FFN(cfg, **kw)
+        if typ != "ssm" and cfg.d_ff > 0:
+            self.norm2 = Norm(cfg.d_model, cfg.norm, device=device)
+            if cfg.is_moe:
+                self.moe = MoE(cfg, **kw)
+            else:
+                self.ffn = FFN(cfg, **kw)
         if cfg.zebra_enabled and "layer_out" in cfg.zebra_sites and cfg.zebra_tnet:
             nblk = cfg.d_model // eff_block_ch(cfg.d_model, cfg)
             self.zebra_out_tnet = ThresholdNet(cfg.d_model, nblk, generator=generator,
@@ -150,6 +160,9 @@ def _ffn(p: Layer, h: torch.Tensor, cfg: LMConfig, mode: str):
 
 
 def _ffn_residual(p: Layer, x: torch.Tensor, cfg: LMConfig, mode: str, aux: LayerAux):
+    """x plus the layer's FFN of its ``norm2``, if it has one."""
+    if not hasattr(p, "norm2"):
+        return x, aux
     y, zaux, raux = _ffn(p, p.norm2(x), cfg, mode)
     return x + y, aux + LayerAux.of_site(zaux, raux)
 
@@ -159,9 +172,14 @@ def apply_layer(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, mode: str, r
                 ) -> tuple[torch.Tensor, LayerAux]:
     aux = LayerAux.zero(x.device)
     h = p.norm1(x)
-    q, k, v = _qkv(p.attn, h, cfg, rope)
-    o = checkpoint_name(_attend(q, k, v, typ, cfg, causal), "attn_out", cfg.remat)
-    x = x + _out_proj(o, p.attn.wo)
+    if typ == "rglru":
+        x = x + rglru_apply(p.rec, h, cfg)
+    elif typ == "ssm":
+        x = x + ssm_apply(p.ssm, h, cfg)
+    else:
+        q, k, v = _qkv(p.attn, h, cfg, rope)
+        o = checkpoint_name(_attend(q, k, v, typ, cfg, causal), "attn_out", cfg.remat)
+        x = x + _out_proj(o, p.attn.wo)
     x = _cross_attention(p, x, enc_out)
     x, aux = _ffn_residual(p, x, cfg, mode, aux)
     x, zo = _layer_out_zebra(p, x, cfg, mode)
@@ -174,8 +192,15 @@ def apply_layer(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, mode: str, r
 
 def init_layer_cache(typ: str, cfg: LMConfig, batch: int, cache_len: int, dtype,
                      device=None) -> dict:
+    """A layer's empty decode cache: K/V (B, T, Hkv, hd) in ``dtype`` for
+    attention, the float32 state and the ``dtype`` conv buffers for
+    "rglru" and "ssm"."""
+    if typ == "rglru":
+        return rglru_init_cache(cfg, batch, dtype, device)
+    if typ == "ssm":
+        return ssm_init_cache(cfg, batch, dtype, device)
     if typ not in LAYER_TYPES:
-        raise NotImplementedError(NOT_PORTED.format(typ))
+        raise ValueError(f"unknown layer type {typ!r}; known: {LAYER_TYPES}")
     T = min(cfg.window, cache_len) if typ == "local" else cache_len
     shape = (batch, T, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -193,28 +218,59 @@ def _cache_write(cache: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Ten
 def apply_layer_decode(p: Layer, x: torch.Tensor, cache: dict, typ: str, cfg: LMConfig,
                        pos: int, rope1, enc_out: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, dict]:
-    """x (B, 1, d) at position ``pos``. Returns (x, cache), the cache
-    updated in place."""
+    """x (B, 1, d) at position ``pos``. Returns (x, cache): an attention
+    layer's K/V updated in place, a recurrent layer's new state in new
+    tensors (the caller writes them back where the cache is a slice of a
+    stack)."""
     h = p.norm1(x)
-    q, k, v = _qkv(p.attn, h, cfg, rope1)
-    T = cache["k"].shape[1]
-    slot = pos % T if typ == "local" else pos
-    kc = _cache_write(cache["k"], k, slot)
-    vc = _cache_write(cache["v"], v, slot)
-    o = attn.attend_decode(q, kc, vc, pos, window=cfg.window if typ == "local" else 0)
-    x = x + _out_proj(o, p.attn.wo)
+    if typ == "rglru":
+        y, cache = rglru_decode_step(p.rec, h, cache, cfg)
+        x = x + y
+    elif typ == "ssm":
+        y, cache = ssm_decode_step(p.ssm, h, cache, cfg)
+        x = x + y
+    else:
+        q, k, v = _qkv(p.attn, h, cfg, rope1)
+        T = cache["k"].shape[1]
+        slot = pos % T if typ == "local" else pos
+        kc = _cache_write(cache["k"], k, slot)
+        vc = _cache_write(cache["v"], v, slot)
+        o = attn.attend_decode(q, kc, vc, pos, window=cfg.window if typ == "local" else 0)
+        x = x + _out_proj(o, p.attn.wo)
+        cache = {"k": kc, "v": vc}
     x = _cross_attention(p, x, enc_out)
-    y, *_ = _ffn(p, p.norm2(x), cfg, "infer")
-    return x + y, {"k": kc, "v": vc}
+    if hasattr(p, "norm2"):
+        y, *_ = _ffn(p, p.norm2(x), cfg, "infer")
+        x = x + y
+    return x, cache
 
 
 def apply_layer_prefill(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, rope,
                         cache_len: int, enc_out: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, dict, LayerAux]:
     """Forward + the decode cache. Returns (x, cache, aux)."""
-    B, S, _ = x.shape
     aux = LayerAux.zero(x.device)
     h = p.norm1(x)
+    if typ == "rglru":
+        y, cache = rglru_prefill(p.rec, h, cfg)
+        x = x + y
+    elif typ == "ssm":
+        # the full SSD, then the final state rebuilt from the whole sequence
+        x = x + ssm_apply(p.ssm, h, cfg)
+        cache = ssm_prefill_state(p.ssm, h, cfg)
+    else:
+        x, cache, aux = _attention_prefill(p, x, h, typ, cfg, rope, cache_len, aux)
+    x = _cross_attention(p, x, enc_out)
+    x, aux = _ffn_residual(p, x, cfg, "infer", aux)
+    x, zo = _layer_out_zebra(p, x, cfg, "infer")
+    return x, cache, aux + LayerAux.of_site(zo)
+
+
+def _attention_prefill(p: Layer, x: torch.Tensor, h: torch.Tensor, typ: str, cfg: LMConfig,
+                       rope, cache_len: int, aux: LayerAux):
+    """The attention layer's prefill: x plus its attention of ``h``, its K/V
+    cache (through the ``kv_cache`` site when Zebra runs there) and aux."""
+    S = x.shape[1]
     q, k, v = _qkv(p.attn, h, cfg, rope)
     x = x + _out_proj(_attend(q, k, v, typ, cfg), p.attn.wo)
     if cfg.zebra_enabled and "kv_cache" in cfg.zebra_sites:
@@ -231,7 +287,4 @@ def apply_layer_prefill(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, rope
     else:
         cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, cache_len - S)).to(x.dtype)
                  for n, c in (("k", k), ("v", v))}
-    x = _cross_attention(p, x, enc_out)
-    x, aux = _ffn_residual(p, x, cfg, "infer", aux)
-    x, zo = _layer_out_zebra(p, x, cfg, "infer")
-    return x, cache, aux + LayerAux.of_site(zo)
+    return x, cache, aux

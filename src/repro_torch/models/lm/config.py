@@ -1,20 +1,24 @@
 """LM architecture config (``repro.models.lm.config``): one frozen dataclass
 drives the whole stack.
 
-``layer_pattern`` is cycled over ``n_layers``. The port runs the attention
-layers: "global" (full causal self-attention) and "local" (sliding window
-of ``window``, banded or, with ``local_impl="scanned"``, one chunk at a
-time), with optional Q/K/V biases, each followed by its FFN: dense
-(SwiGLU, or the GELU MLP with biases) or, with ``n_experts`` > 0, the
-top-k MoE (``top_k``, ``capacity_factor``, ``router_aux_coef``); a tied or
-untied vocabulary head. ``encoder_layers`` > 0 adds whisper's non-causal
-encoder over ``enc_seq`` precomputed frames and cross-attention in every
-decoder layer. The reference's fields for "rglru"/"ssm" layers come with
-the code that reads them (ROADMAP.md, module queue). ``ce_chunk`` (the
-chunked cross-entropy of ``LM.loss``), ``grad_accum`` (the microbatches of
-``launch.steps.train_step``) and ``remat`` (what the backward keeps of a
-layer unit, ``remat.run_unit``) are the reference's. Its TPU knobs (scan
-unrolling, sharding profiles) have no counterpart.
+``layer_pattern`` is cycled over ``n_layers``; its element types:
+"global" (full causal self-attention), "local" (sliding window of
+``window``, banded or, with ``local_impl="scanned"``, one chunk at a
+time), both with optional Q/K/V biases, "rglru" (Griffin's recurrent
+block: a temporal conv of ``conv_width`` and the gated linear recurrence
+over ``lru_dim`` channels) and "ssm" (Mamba-2's SSD block: ``ssm_heads``
+heads of ``ssm_head_dim`` over ``d_inner = ssm_expand · d_model``, a state
+of ``ssm_state``, chunks of at most ``ssm_chunk``). Every layer but an
+"ssm" one is followed by its FFN when ``d_ff`` > 0: dense (SwiGLU, or the
+GELU MLP with biases) or, with ``n_experts`` > 0, the top-k MoE
+(``top_k``, ``capacity_factor``, ``router_aux_coef``); a tied or untied
+vocabulary head. ``encoder_layers`` > 0 adds whisper's non-causal encoder
+over ``enc_seq`` precomputed frames and cross-attention in every decoder
+layer. ``ce_chunk`` (the chunked cross-entropy of ``LM.loss``),
+``grad_accum`` (the microbatches of ``launch.steps.train_step``) and
+``remat`` (what the backward keeps of a layer unit, ``remat.run_unit``)
+are the reference's. Its TPU knobs (scan unrolling, sharding profiles)
+have no counterpart.
 """
 from __future__ import annotations
 
@@ -43,6 +47,14 @@ class LMConfig:
     top_k: int = 0
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
+    # --- Mamba-2 ---
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    # --- RG-LRU ---
+    lru_dim: int = 0                 # 0 => d_model
+    conv_width: int = 4
     # --- encoder-decoder (whisper) ---
     encoder_layers: int = 0
     enc_seq: int = 1500              # stub frontend frames
@@ -71,10 +83,20 @@ class LMConfig:
     def __post_init__(self):
         if self.head_dim == 0:
             object.__setattr__(self, "head_dim", self.d_model // max(self.n_heads, 1))
+        if self.lru_dim == 0:
+            object.__setattr__(self, "lru_dim", self.d_model)
 
     @property
     def is_moe(self) -> bool:
         return self.n_experts > 0
+
+    @property
+    def d_inner(self) -> int:        # Mamba-2's inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
 
     def replace(self, **kw) -> "LMConfig":
         return dataclasses.replace(self, **kw)

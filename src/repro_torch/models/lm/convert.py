@@ -9,10 +9,13 @@ holds one module per layer, named ``run{ri}.{c}.sub{j}...`` and
 ``encoder.{i}...``, with every weight in the reference's own layout
 (attention (d, H, hd) / (H, hd, d) and its biases ``bq``/``bk``/``bv``
 (H, hd), FFN (in, out) with the GELU MLP's ``b_up``/``b_down``, the MoE's
-float32 ``router`` (d, E) and expert stacks (E, in, out), an untied
-``lm_head`` (d, vocab), threshold nets ``w`` (in, out)), so conversion
-only unstacks the runs and the encoder. Key sets and shapes must match
-exactly.
+float32 ``router`` (d, E) and expert stacks (E, in, out), the RG-LRU's
+``rec.*`` (projections (in, out), ``conv_w`` (W, C), float32 ``b_a``,
+``b_x``, ``lam``), the SSD's ``ssm.*`` (projections (in, out), conv
+weights (W, C), float32 ``A_log``, ``D``, ``dt_bias`` and
+``ssm.out_norm.scale``), an untied ``lm_head`` (d, vocab), threshold nets
+``w`` (in, out)), so conversion only unstacks the runs and the encoder.
+Key sets and shapes must match exactly.
 """
 from __future__ import annotations
 

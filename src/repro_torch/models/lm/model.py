@@ -8,9 +8,12 @@ reference does; with gradients on, ``cfg.remat`` checkpoints each repeat
 (``remat.run_unit``). The reference stacks a run's parameters on a leading axis
 and scans over it; the port keeps one module per layer (``run{ri}[c]
 ["sub{j}"]``) and loops, and ``convert.from_jax_params`` unstacks. The
-caches keep the reference's grouping: run -> ``sub{j}`` -> k/v, stacked
-over the run's count when it is above one, so a cache tree has the same
-leaves as the reference's (the codec's index bytes are counted per leaf).
+caches keep the reference's grouping: run -> ``sub{j}`` -> the layer's
+leaves (k/v; h/conv for "rglru"; H/conv_x/conv_b/conv_c for "ssm"),
+stacked over the run's count when it is above one, so a cache tree has
+the same leaves and dtypes as the reference's (the codec's index bytes
+are counted per leaf). Decode updates K/V in place; a recurrent layer's
+new state is written back into its slice of the stack.
 
 Encoder-decoder (whisper, ``cfg.encoder_layers`` > 0): ``enc_feats`` are
 the stub frontend's precomputed frame embeddings (B, enc_seq, d_model);
@@ -213,6 +216,8 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int) -> list[dict]:
+        """Empty caches in the prefill's tree: K/V and conv buffers in the
+        compute dtype, the recurrent states float32."""
         caches = []
         for pattern, count in self.runs:
             sub = {f"sub{j}": init_layer_cache(t, self.cfg, batch, cache_len, self.cdt,
@@ -245,7 +250,7 @@ class LM(nn.Module):
             for j in range(len(pattern)):
                 cs = [per_layer.pop((ri, c, j)) for c in range(count)]
                 run[f"sub{j}"] = (cs[0] if count == 1 else
-                                  {n: torch.stack([cc[n] for cc in cs]) for n in ("k", "v")})
+                                  {n: torch.stack([cc[n] for cc in cs]) for n in cs[0]})
             caches.append(run)
         logits = self._project_vocab(self.final_norm(x[:, -1:]))
         return logits[:, 0], (caches, enc_out), aux
@@ -253,13 +258,21 @@ class LM(nn.Module):
     def decode_step(self, token: torch.Tensor, state, pos: int):
         """token (B, 1) int; ``pos`` the position of that token (one for the
         whole batch). Returns (logits (B, V), state), the caches updated in
-        place."""
+        place: K/V where they lie, a recurrent layer's new state copied into
+        its slice of a stacked run or put in its run's dict."""
         caches, enc_out = state
         x = self._embed(token)
         rope1 = self._rope(torch.tensor([pos], device=x.device))
         for ri, c, j, t, layer in self._layers():
-            kv = caches[ri][f"sub{j}"]
-            lc = kv if self.runs[ri][1] == 1 else {n: kv[n][c] for n in ("k", "v")}
-            x, _ = apply_layer_decode(layer, x, lc, t, self.cfg, pos, rope1, enc_out)
+            sub = caches[ri][f"sub{j}"]
+            stacked = self.runs[ri][1] > 1
+            lc = {n: sub[n][c] for n in sub} if stacked else sub
+            x, new = apply_layer_decode(layer, x, lc, t, self.cfg, pos, rope1, enc_out)
+            if not stacked:
+                caches[ri][f"sub{j}"] = new
+                continue
+            for n, leaf in new.items():
+                if leaf is not lc[n]:
+                    sub[n][c].copy_(leaf)
         logits = self._project_vocab(self.final_norm(x))[:, 0]
         return logits, (caches, enc_out)

@@ -258,10 +258,18 @@ def test_forward_and_init_cache_match_reference():
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-2b", "gemma3-4b:ssm",
                                   "gemma3-4b:rglru"])
 def test_unported_configs_raise(arch):
-    """The registry refuses the architectures the port does not run yet,
-    and a layer kind outside global/local raises when the model is built."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if arch.startswith("gemma3-4b:"):
-            LM(configs.reduced("gemma3-4b").replace(layer_pattern=(arch.split(":")[1],)))
-        else:
-            configs.get(arch)
+    """What the port does not run raises: the two recurrent architectures
+    are registered now, and a name beside theirs is refused; their layer
+    kinds build (here inside gemma3-4b's reduced config), and a kind outside
+    the four is refused when the model is built."""
+    if arch.startswith("gemma3-4b:"):
+        kind = arch.split(":")[1]
+        cfg = configs.reduced("gemma3-4b").replace(layer_pattern=(kind,), ssm_state=16,
+                                                    ssm_head_dim=32)
+        assert {t for *_, t, _ in LM(cfg)._layers()} == {kind}
+        with pytest.raises(ValueError, match="layer type"):
+            LM(cfg.replace(layer_pattern=(kind + "2",)))
+    else:
+        assert configs.get(arch).name == arch
+        with pytest.raises(KeyError, match="unknown arch"):
+            configs.get(arch + "-x")

@@ -1,19 +1,24 @@
 """The LM architectures the port adds beside gemma3-4b (``configs.ARCHS``:
 command-r-35b, qwen2.5-14b, starcoder2-15b, chameleon-34b, whisper-medium,
-llama4-scout-17b-a16e, granite-moe-1b-a400m) at their ``reduced()``
-configs against the reference package: the forward logits, and the
-serving slice on ``fused`` (prefill, the compressed KV handoff, greedy
-decode) with its Zebra observables. Between them they exercise layernorm
-with SwiGLU (command-r), the Q/K/V biases (qwen2.5, starcoder2, whisper),
-the GELU MLP with its biases (starcoder2, whisper), the untied vocabulary
-head (chameleon), the MoE FFN with its sites on the dispatch buffer, in
-prefill and in decode (llama4, granite), and whisper's encoder and
-cross-attention, fed frames ~ N(0, 0.1²) from numpy.
+llama4-scout-17b-a16e, granite-moe-1b-a400m, mamba2-2.7b,
+recurrentgemma-2b) at their ``reduced()`` configs against the reference
+package: the forward logits, and the serving slice (prefill, the
+compressed cache handoff, greedy decode) on ``fused`` (mamba2: ``stream``,
+the backend it is served on; its one site is ``layer_out``, which hands
+the engine no weight) with its Zebra observables. Between them they
+exercise layernorm with SwiGLU (command-r), the Q/K/V biases (qwen2.5,
+starcoder2, whisper), the GELU MLP with its biases (starcoder2, whisper),
+the untied vocabulary head (chameleon), the MoE FFN with its sites on the
+dispatch buffer, in prefill and in decode (llama4, granite), whisper's
+encoder and cross-attention, fed frames ~ N(0, 0.1²) from numpy, the SSD
+block with its float32 state through the handoff (mamba2), and the RG-LRU
+beside local attention (recurrentgemma).
 
-The reference initialises the biases to zero and draws its own head, so
-every test draws ``bq``/``bk``/``bv``, ``b_up``/``b_down`` and ``lm_head``
-from numpy and feeds the same values to both packages: a bias that is
-dropped or added in the wrong place shows. Tolerances: everything runs in
+The reference initialises the biases, the SSD's ``A_log``/``D``/
+``dt_bias`` and the RG-LRU's ``b_a``/``b_x`` to constants, draws its own
+head and its own Λ (``lam``), so every test draws those from numpy and
+feeds the same values to both packages: a parameter that is dropped or
+applied in the wrong place shows. Tolerances: everything runs in
 float32; logits allclose at rtol/atol 1e-4 (the same products summed in
 another order through two layers); bitmaps, byte counts, zero fractions,
 the meter's records and the greedy tokens exact.
@@ -59,15 +64,28 @@ FIELDS = {"command-r-35b": dict(norm="layernorm", act="swiglu", qkv_bias=False,
           "llama4-scout-17b-a16e": dict(norm="rmsnorm", act="swiglu", qkv_bias=False,
                                         tie_embeddings=True),
           "granite-moe-1b-a400m": dict(norm="rmsnorm", act="swiglu", qkv_bias=False,
-                                       tie_embeddings=True)}
+                                       tie_embeddings=True),
+          "mamba2-2.7b": dict(norm="rmsnorm", qkv_bias=False, tie_embeddings=True, d_ff=0,
+                              layer_pattern=("ssm",), zebra_sites=("layer_out",)),
+          "recurrentgemma-2b": dict(norm="rmsnorm", act="swiglu", qkv_bias=False,
+                                    tie_embeddings=True,
+                                    layer_pattern=("rglru", "rglru", "local"))}
 # ffn_hidden T_obj of the reduced configs on these weights: zero fractions
 # 0.26 (starcoder2) to 0.61 (command-r) in the forward at 2.5; the MoE
-# experts are drawn with fan-in d·f, so their hidden maps are ~100x smaller
+# experts are drawn with fan-in d·f, so their hidden maps are ~100x smaller;
+# mamba2's layer_out map is the residual stream plus the SSD's output, whose
+# 8 x 128 block maxima sit at 4.2-7.0 on these weights (zero fractions 0.5
+# in the forward, 0.625 served at 4.8)
 T_OBJ = 2.5
 T_OBJS = {**dict.fromkeys(ARCHS, T_OBJ), "llama4-scout-17b-a16e": 0.025,
-          "granite-moe-1b-a400m": 0.025}
+          "granite-moe-1b-a400m": 0.025, "mamba2-2.7b": 4.8}
+# the served sites and backend: the kv_cache site on top of the
+# architecture's own, as the server adds it
+SITES = {a: ("ffn_hidden", "kv_cache") for a in ARCHS} | {"mamba2-2.7b": ("layer_out",
+                                                                          "kv_cache")}
+BACKEND = {a: "fused" for a in ARCHS} | {"mamba2-2.7b": "stream"}
 B, S, GEN = 2, 64, 4
-BIASES = ("bq", "bk", "bv", "b_up", "b_down")
+BIASES = ("bq", "bk", "bv", "b_up", "b_down", "b_a", "b_x")
 
 
 def close(a, b, **tol):
@@ -81,16 +99,25 @@ def cfgs(arch, **kw):
 
 
 def with_drawn_extras(params, seed: int):
-    """The reference's params with every bias and the untied head replaced
-    by numpy draws (the reference initialises them to zero / its own)."""
+    """The reference's params with every bias, the untied head, the SSD's
+    ``A_log``/``D``/``dt_bias`` and the RG-LRU's ``lam`` replaced by numpy
+    draws (the reference initialises them to constants / its own)."""
     rng = np.random.default_rng(seed)
 
     def draw(path, leaf):
         name = getattr(path[-1], "key", None)
+        normal = functools.partial(rng.normal, size=leaf.shape)
         if name in BIASES:
-            return (rng.normal(size=leaf.shape) * 0.5).astype(np.float32)
+            return (normal() * 0.5).astype(np.float32)
         if name == "lm_head":
-            return (rng.normal(size=leaf.shape) * leaf.shape[0] ** -0.5).astype(np.float32)
+            return (normal() * leaf.shape[0] ** -0.5).astype(np.float32)
+        if name in ("A_log", "dt_bias"):
+            return (normal() * 0.5 - (name == "dt_bias")).astype(np.float32)
+        if name == "D":
+            return normal().astype(np.float32)
+        if name == "lam":       # softplus^-1(-log(u) / 8), u ~ U(0.9, 0.999)
+            u = rng.uniform(0.9, 0.999, size=leaf.shape)
+            return np.log(np.expm1(-np.log(u) / 8.0)).astype(np.float32)
         return np.asarray(leaf)
     return jax.tree_util.tree_map_with_path(draw, params)
 
@@ -144,10 +171,14 @@ def test_params_carry_biases_and_head(arch):
     names = set(model.state_dict())
     has_bias = FIELDS[arch]["qkv_bias"]
     moe, enc = tcfg.is_moe, tcfg.encoder_layers > 0
-    assert ("run0.0.sub0.attn.bq" in names) == has_bias
-    assert ("run0.1.sub0.ffn.b_up" in names) == (FIELDS[arch]["act"] == "gelu")
-    assert ("run0.0.sub0.ffn.w_gate" in names) == (FIELDS[arch]["act"] == "swiglu"
-                                                   and not moe)
+    first = tcfg.layer_pattern[0]
+    ffn = first != "ssm" and not moe
+    assert ("run0.0.sub0.attn.bq" in names) == (has_bias and first in ("global", "local"))
+    assert ("run0.1.sub0.ffn.b_up" in names) == (FIELDS[arch].get("act") == "gelu")
+    assert ("run0.0.sub0.ffn.w_gate" in names) == (ffn and FIELDS[arch]["act"] == "swiglu")
+    assert ("run0.0.sub0.ssm.A_log" in names) == (first == "ssm")
+    assert ("run0.0.sub0.rec.lam" in names) == ("run0.0.sub1.rec.b_x" in names) == (
+        first == "rglru")
     assert ("run0.1.sub0.moe.router" in names) == moe
     assert ("run0.1.sub0.cross.wq" in names) == ("encoder.1.ffn.b_up" in names) == enc
     assert ("lm_head" in names) == (not FIELDS[arch]["tie_embeddings"])
@@ -157,7 +188,14 @@ def test_params_carry_biases_and_head(arch):
     if enc:
         got = model.encoder[1].attn.bq.detach().numpy()
         assert np.array_equal(got, params["encoder"]["attn"]["bq"][1]) and got.any()
-    if has_bias:
+    if first == "ssm":
+        got = model.run0[1]["sub0"].ssm.dt_bias.detach().numpy()
+        assert np.array_equal(got, params["run0"]["sub0"]["ssm"]["dt_bias"][1])
+        assert not np.array_equal(got, np.full_like(got, -2.0))
+    if first == "rglru":
+        got = model.run0[0]["sub1"].rec.b_a.detach().numpy()
+        assert np.array_equal(got, params["run0"]["sub1"]["rec"]["b_a"]) and got.any()
+    if has_bias and first in ("global", "local"):
         got = model.run0[1]["sub0"].attn.bk.detach().numpy()
         assert np.array_equal(got, params["run0"]["sub0"]["attn"]["bk"][1]) and got.any()
     if "lm_head" in names:
@@ -184,10 +222,10 @@ def test_forward_matches_reference(arch):
 
 @functools.lru_cache(maxsize=None)
 def reference_slice(arch):
-    """The reference server's one-shot path on ``fused``: prefill, pad, the
-    compressed handoff metered per leaf, greedy tokens."""
-    jcfg, _ = cfgs(arch, zebra_sites=("ffn_hidden", "kv_cache"), zebra_t_obj=T_OBJS[arch],
-                   zebra_backend="fused")
+    """The reference server's one-shot path on the architecture's backend:
+    prefill, pad, the compressed handoff metered per leaf, greedy tokens."""
+    jcfg, _ = cfgs(arch, zebra_sites=SITES[arch], zebra_t_obj=T_OBJS[arch],
+                   zebra_backend=BACKEND[arch])
     mesh = make_host_mesh(model=1)
     model = JLM(jcfg)
     params = jax.tree_util.tree_map(jnp.asarray, reference_params(arch))
@@ -206,12 +244,13 @@ def reference_slice(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_slice_serves_like_reference(arch):
-    """``serve.serve_one_shot`` on ``fused``: the prefill's last logits, the
-    Zebra observables of every prefill site, the handoff's meter and the
-    greedy tokens of prefill + decode."""
+    """``serve.serve_one_shot`` on the architecture's backend: the prefill's
+    last logits, the Zebra observables of every prefill site, the handoff's
+    meter (mamba2: its float32 SSD state and conv buffers) and the greedy
+    tokens of prefill + decode."""
     prompts, jlogits, jaux, jmeter, jtokens = reference_slice(arch)
-    _, tcfg = cfgs(arch, zebra_sites=("ffn_hidden", "kv_cache"), zebra_t_obj=T_OBJS[arch],
-                   zebra_backend="fused")
+    _, tcfg = cfgs(arch, zebra_sites=SITES[arch], zebra_t_obj=T_OBJS[arch],
+                   zebra_backend=BACKEND[arch])
     model = from_jax_params(LM(tcfg), reference_params(arch)).requires_grad_(False)
     out = serve.serve_one_shot(model, torch.from_numpy(prompts.copy()).long(), GEN,
                                log=lambda *_: None, enc_feats=_t(enc_feats(arch, B)))
@@ -234,7 +273,7 @@ def test_slice_serves_like_reference(arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_serve_cli_runs_on_cpu(arch, capsys):
-    out = serve.main(["--arch", arch, "--reduced", "--backend", "fused", "--device", "cpu",
+    out = serve.main(["--arch", arch, "--reduced", "--backend", BACKEND[arch], "--device", "cpu",
                       "--batch", "2", "--prompt-len", "32", "--gen", "3", "--t-obj",
                       str(T_OBJS[arch])])
     assert "compressed KV-cache transport" in capsys.readouterr().out

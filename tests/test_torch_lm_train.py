@@ -208,18 +208,23 @@ def _key(tokens):
 
 def port_steps(tcfg: LMConfig, init_params, tokens, n_steps: int = 2, lr=(1e-3, 1, 10)):
     """The port's metrics per step from the reference's initial params,
-    the trained model, and the site backends that ran."""
+    the trained model, and the site backends that ran (the FFN's sites and
+    the enabled ``layer_out`` sites)."""
+    import repro_torch.models.lm.blocks as blocks
     import repro_torch.models.lm.ffn as ffn
     model = from_jax_params(LM(tcfg), init_params)
     opt = optim.adamw(optim.warmup_cosine(*lr))
     state = steps.init_train_state(model, opt)
-    labels, inner = [], ffn.zebra_site
+    labels, inner = [], (ffn.zebra_site, blocks.zebra_site)
 
-    def site(x, cfg, **kw):
-        y, aux = inner(x, cfg, **kw)
-        labels.append(aux.backend)
-        return y, aux
-    ffn.zebra_site = site
+    def recorded(fn):
+        def site(x, cfg, **kw):
+            y, aux = fn(x, cfg, **kw)
+            if cfg.enabled:
+                labels.append(aux.backend)
+            return y, aux
+        return site
+    ffn.zebra_site, blocks.zebra_site = map(recorded, inner)
     try:
         ms = []
         for _ in range(n_steps):
@@ -227,7 +232,7 @@ def port_steps(tcfg: LMConfig, init_params, tokens, n_steps: int = 2, lr=(1e-3, 
                                         {"tokens": torch.from_numpy(tokens).long()})
             ms.append(m)
     finally:
-        ffn.zebra_site = inner
+        ffn.zebra_site, blocks.zebra_site = inner
     assert state["step"] == n_steps
     return ms, model, set(labels)
 
@@ -273,6 +278,31 @@ def test_train_step_matches_reference(backend):
         _metrics_close(m, jm)
         assert 0.3 < float(m["zero_frac"]) < 0.7
         assert (int(m["measured_bytes"]) > 0) == (backend == "stream")
+    _params_close(model, jout[-1][0], atol=1e-4)
+
+
+# the reduced recurrent architectures on stream: mamba2's one site is
+# layer_out (the residual stream plus the SSD's output; zero fraction 0.47
+# in the forward at 4.75), recurrentgemma's ffn_hidden (two RG-LRU layers
+# and one local attention layer, S 128 > window 32)
+ARCH_T_OBJ = {"mamba2-2.7b": 4.75, "recurrentgemma-2b": 2.45}
+
+
+@pytest.mark.parametrize("arch", list(ARCH_T_OBJ))
+def test_recurrent_arch_train_step_matches_reference(arch):
+    """Two ``train_step``s of the reduced mamba2-2.7b and recurrentgemma-2b on
+    ``stream`` against the jitted reference's on ``stream``: the metrics of
+    each step (the stream bytes exact), the parameters after both, every
+    site on ``stream``."""
+    kw = dict(STEP_KW, zebra_t_obj=ARCH_T_OBJ[arch], zebra_backend="stream")
+    jcfg, tcfg = jconfigs.reduced(arch).replace(**kw), configs.reduced(arch).replace(**kw)
+    tokens = _tokens(jcfg.vocab)
+    jout = jax_steps(jcfg, _key(tokens))
+    ms, model, labels = port_steps(tcfg, jout[0][0], tokens)
+    assert labels == {"stream"}
+    for m, (_, jm) in zip(ms, jout[1:]):
+        _metrics_close(m, jm)
+        assert 0.2 < float(m["zero_frac"]) < 0.8 and int(m["measured_bytes"]) > 0
     _params_close(model, jout[-1][0], atol=1e-4)
 
 
