@@ -248,7 +248,36 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     each step's ``measured_bytes`` the sum over its forward sites, every
     recorded site in the band; ms per step, the busy share,
     ``max_memory_allocated``; the stream kernels timed on C's maps of step 1;
-15. prints one JSON line listing the kernels (the seven CUDA kernels, the
+15. serves continuously (``serve.ServeEngine``: the slotted decode at
+    per-lane positions, the scheduler, the paged compressed-KV pool, the
+    supervised engine):
+    (a) gemma3-4b at full width and depth on ``fused`` through ``python -m
+    repro_torch.launch.serve --requests 16 --slots 8 --prompt-len 512 --gen
+    32 --t-obj 1.05 --validate structural --preempt-after 64`` (prompts
+    128-512 tokens, 8-32 generated, all at tick 0; the hot set (8, 1024)):
+    every request done, the report's per-page Eq. 2/3 reconcile, the
+    dispatch shapes inside their ladders, evictions; the codec's pack
+    launched once a compressed page out and the expander once a page in,
+    each prefill's 34 ffn_hidden sites (comparator, pack, the payload GEMM)
+    and 68 validated kv_cache sites (comparator, pack, expander: a
+    validated site without a weight runs the checked stream, not the
+    masking pass); one lane paged out and
+    back in bit for bit, its pages' host time, kernels 5 and 3 held and
+    timed on its pages;
+    (b) the trace again without preemption: each request's tokens (and
+    logits) bit for bit while both runs decoded it at the same ``Bb``
+    sequence, the near-tie rule after (at the first differing token the
+    yardstick's logit gap between the two candidates is no larger than the
+    max |Δlogit| of the two rows); the first 3 requests one-shot
+    (``serve_one_shot``) against the engine under the near-tie rule; every
+    divergence printed; kernels 1, 2 and 7 (ffn_hidden) and 1, 2 and 3
+    (kv_cache) held and timed on a largest-bucket prefill's maps;
+    (c) the supervised engine at 6 layers (one pattern period) under the
+    storm of ``benchmarks/serve_chaos_bench.py`` (a crash at tick 12, 6
+    corrupt pages, the bench's breaker) against its clean run: 7 faults
+    injected and each detected once, 1 crash recovery, the page breaker
+    tripped and closed again, goodput 1.0, the tokens bit for bit;
+16. prints one JSON line listing the kernels (the seven CUDA kernels, the
     three stream kernels per VGG-16 and per MobileNetV1 evaluate batch,
     named ``... (vgg16 evaluate)`` and ``... (mobilenet evaluate)``, the
     masking kernel per training step of each, ``... (vgg16 training)`` and
@@ -261,7 +290,9 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     and the expander on phase 11's ``save_acts`` maps, ``... (gemma3-4b
     save_acts)`` and ``... (gemma3-4b restore_acts)``, and phase 14's,
     ``... (mamba2-2.7b prefill)``, ``... (mamba2-2.7b handoff)``, ``...
-    (recurrentgemma-2b prefill)`` and ``... (<arch> training)``; the GEMM
+    (recurrentgemma-2b prefill)`` and ``... (<arch> training)``, and phase
+    15's, ``... (gemma3-4b continuous prefill <bucket>[, kv_cache])`` and ``zebra_pack
+    (gemma3-4b continuous, per lane)``/``zebra_unpack_kernel (...)``; the GEMM
     rows also carry ms per launch, TFLOP/s of live work and the device
     body that ran, the stream rows their ``amax_ms`` or ``copy_ms``
     yardstick), the card line again, and ``{"ok": true, "device": ...}``
@@ -3106,6 +3137,424 @@ def run_recurrent(device, edge_errs) -> list[dict]:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: continuous serving (the slotted decode, the scheduler, the paged
+# compressed-KV pool and the supervised engine)
+# ---------------------------------------------------------------------------
+
+# gemma3-4b at full width and depth on fused, through the continuous CLI: 16
+# requests (prompts 128-512, 8-32 tokens, all at tick 0) in 8 slots, pages of
+# 16 positions, a lane evicted after 64 steps while others wait; the ring's
+# window 1024 is the cache ladder's floor, so the hot set is (8, 1024)
+SV = dict(requests=16, slots=8, prompt=512, gen=32, t_obj=LM_T_OBJ, preempt_after=64,
+          page_tokens=16, one_shot=3)
+# benchmarks/serve_chaos_bench.py's storm at full width and one pattern period
+# (5 local + 1 global layers): 6 requests arriving one a tick, 4 slots, queue
+# bound 4, a 96-tick deadline, a crash at tick 12 and 6 corrupt pages, its
+# breaker; pages of 64 positions and a snapshot every 4 ticks keep the
+# snapshots' page traffic affordable. The bench truncates its pages; at full
+# width 15 of the first 16 pages it reaches are all dead (the window's unused
+# tail), where a truncation has nothing to cut and passes unseen, so the
+# storm corrupts each page's live count instead (seen at any page)
+SV_STORM = dict(layers=6, requests=6, slots=4, max_cache=128, page_tokens=64,
+                snapshot_every=4, deadline=96, queue_bound=4, crash_tick=12, page_faults=6,
+                fault="count")
+SV_BREAKER = dict(trip_after=3, window=64, probe_after=1, probe_backoff=2.0, probe_cap=8,
+                  close_after=2)
+
+
+class StepRecorder:
+    """Records every engine step's batch bucket ``Bb`` by request (every
+    step the request took part in, teacher-forced ones too) and, for every
+    token a ``ServeEngine`` run generates, the logits row it was chosen
+    from, the ``Bb`` and the request's step count. Wraps
+    ``serve.engine.decode_slotted`` and ``ServeEngine._step``; launches
+    nothing."""
+
+    def __init__(self):
+        self.bb, self.rows = {}, {}
+
+    def __enter__(self):
+        import repro_torch.serve.engine as engine
+        from repro_torch.launch import steps
+        self._engine = engine
+        self._decode, self._step = engine.decode_slotted, engine.ServeEngine._step
+        last = {}
+
+        def decode(model, token, state, pos, temperature=0.0, generator=None):
+            logits, state = model.decode_step(token, state, pos)
+            last["logits"] = logits
+            return steps._next_token(logits, temperature, generator), state
+
+        def step(eng, now):
+            before = [(lane, r, len(r.out)) for lane, r in enumerate(eng._lanes) if r]
+            Bb = eng._Bb
+            now = self._step(eng, now)
+            for lane, r, n in before:
+                hist = self.bb.setdefault(r.rid, [])
+                hist.append(Bb)
+                if len(r.out) > n:
+                    self.rows.setdefault(r.rid, []).append(
+                        (last["logits"][lane].clone(), Bb, len(hist)))
+            return now
+        engine.decode_slotted, engine.ServeEngine._step = decode, step
+        return self
+
+    def __exit__(self, *exc):
+        self._engine.decode_slotted = self._decode
+        self._engine.ServeEngine._step = self._step
+
+
+def near_tie(label, yard, got) -> dict | None:
+    """The first token where ``got`` differs from ``yard``, each a (tokens,
+    logits rows) pair, under the near-tie rule: the gap between the two
+    candidates' logits in the yardstick's row is no larger than the max
+    |Δlogit| between the two rows at that token. Returns the divergence
+    (None if the tokens agree); fails if the rule does not hold."""
+    (ya, ra), (yb, rb) = yard, got
+    check(len(ya) == len(yb), f"{label}: {len(ya)} vs {len(yb)} tokens")
+    for t, (a, b) in enumerate(zip(ya, yb)):
+        if a == b:
+            continue
+        row_a, row_b = ra[t].float(), rb[t].float()
+        gap = float(row_a[a] - row_a[b])
+        delta = float((row_a - row_b).abs().max())
+        check(0.0 <= gap <= delta, f"{label}: token {t} is {b}, the yardstick's {a}, logit "
+                                   f"gap {gap} > max |Δlogit| {delta}: not a near tie")
+        return {"token": t, "yard": a, "got": b, "gap": gap, "delta": delta}
+    return None
+
+
+def hold_engine_runs(label, a_eng, a_rec, b_eng, b_rec) -> list:
+    """Each request's tokens in run b against run a: bit for bit up to the
+    first token whose steps ran at another ``Bb`` sequence in the two runs
+    (there the logits rows must also agree bit for bit), the near-tie rule
+    from there. Returns the divergences."""
+    a = {r.rid: r for r in a_eng.scheduler.completed}
+    b = {r.rid: r for r in b_eng.scheduler.completed}
+    check(set(a) == set(b), f"{label}: the runs completed other requests")
+    out, same_bb_tokens = [], 0
+    for rid in sorted(a):
+        ra, rb = a_rec.rows[rid], b_rec.rows[rid]
+        n_same = 0
+        for (la, _, na), (lb, _, nb) in zip(ra, rb):
+            if na != nb or a_rec.bb[rid][:na] != b_rec.bb[rid][:nb]:
+                break
+            check(same_bits(la, lb), f"{label}: request {rid} token {n_same}: logits differ "
+                                     f"at the same Bb sequence")
+            n_same += 1
+        check(a[rid].out[:n_same] == b[rid].out[:n_same],
+              f"{label}: request {rid} tokens differ at the same Bb sequence")
+        same_bb_tokens += n_same
+        d = near_tie(f"{label} request {rid}", (a[rid].out[n_same:], [x[0] for x in ra[n_same:]]),
+                     (b[rid].out[n_same:], [x[0] for x in rb[n_same:]]))
+        if d is not None:
+            d = dict(d, rid=rid, token=d["token"] + n_same)
+            out.append(d)
+            print(f"  divergence ({label}): request {rid} token {d['token']}: {d['got']} for "
+                  f"{d['yard']}, logit gap {d['gap']} <= max |Δlogit| {d['delta']}")
+    print(f"  {label}: {same_bb_tokens} tokens at the same Bb sequence, bit for bit (tokens "
+          f"and logits); {len(out)} requests diverged, each a near tie")
+    return out
+
+
+def time_page_kernels(pool, lane, flush) -> tuple[dict, int]:
+    """Kernels 5 and 3 on one lane's compressed pages (``pool`` holds the
+    lane paged out): each page held bit for bit against its plain version
+    (and the expander's output against the page that left), timed with its
+    plain version, its bound and ``copy_`` of the page; summed per lane.
+    Returns the rows' numbers and the count of pages."""
+    import torch
+    from repro_torch.compress import CompressedMap
+    from repro_torch.compress.stream import nonzero_bitmap, unpack_bitmap
+    from repro_torch.kernels import mask_pack, pack
+    from repro_torch.kernels.schedule import slot_map
+    from repro_torch.kernels.stream_timing import bound_bytes
+    from repro_torch.utils import map_tree
+    dense = []
+    map_tree(lambda _, leaf: dense.append(leaf), lane)
+    slab = pool._slabs["lane"]
+    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
+                "copy_ms": 0.0} for k in ("zebra_pack", "zebra_unpack_kernel")}
+    n = 0
+    for leaf, (kind, pages), pshape in zip(dense, slab.leaves, slab.page_shapes):
+        if kind != "paged":
+            continue
+        ax = leaf.dim() - 3
+        for p, c in enumerate(pages):
+            if not isinstance(c, CompressedMap):
+                continue
+            x2 = leaf.narrow(ax, p * pool.page_tokens, pool.page_tokens).reshape(c.m, c.k)
+            bs, bc, item = c.bs, c.bc, x2.element_size()
+            compare_zebra_pack(x2, bs, bc, f"page {tuple(x2.shape)}")
+            bitmap = nonzero_bitmap(x2, bs, bc)
+            keep, slot = slot_map(bitmap)
+            n_live_t = keep.sum(dtype=torch.int32)
+            nm, nk = bitmap.shape
+            ubitmap = unpack_bitmap(c.index, nm, nk)
+            got = pack.unpack_cuda(c.payload, ubitmap, slot, bs, bc)
+            want = pack.expand_payload(c.payload, keep, slot, nm, nk, bs, bc)
+            torch.cuda.synchronize()
+            check(same_bits(got, want) and same_bits(got, x2),
+                  f"page {n}: the expander != its plain version or the page that left")
+            y = torch.empty_like(x2)
+            copy = time_ms(lambda: y.copy_(x2), flush, iters=3, warmup=1)
+            timed = {
+                "zebra_pack": (
+                    lambda: mask_pack.pack_launch(x2, bitmap, slot, n_live_t, bs, bc,
+                                                  "zebra_pack"),
+                    lambda: mask_pack.pack_plain(x2, bitmap, slot, n_live_t, bs, bc),
+                    "zebra_pack_kernel"),
+                "zebra_unpack_kernel": (
+                    lambda: pack.unpack_cuda(c.payload, ubitmap, slot, bs, bc),
+                    lambda: pack.expand_payload(c.payload, keep, slot, nm, nk, bs, bc),
+                    "zebra_unpack_kernel")}
+            for k, (kern, plain, bname) in timed.items():
+                r = rows[k]
+                r["ms"] += time_ms(kern, flush, iters=3, warmup=1)
+                r["plain_ms"] += time_ms(plain, flush, iters=3, warmup=1)
+                r["copy_ms"] += copy
+                r["bound_ms"] += bound_bytes(bname, c.m, c.k, bs, bc, item,
+                                             int(c.n_live)) / HBM_BYTES_PER_S * 1e3
+            n += 1
+    print(f"  kernels 5 and 3 per lane ({n} compressed pages; CUDA events, L2 flushed):")
+    for k, r in rows.items():
+        print(f"    {k:20s} {r['ms']:.4f} ms ({1e3 * r['ms'] / n:.2f} µs a page)  plain "
+              f"{r['plain_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms  copy {r['copy_ms']:.4f} ms")
+    return rows, n
+
+
+def run_continuous(device, edge_errs=None, layers=0, prompt=SV["prompt"], gen=SV["gen"],
+                   requests=SV["requests"], slots=SV["slots"],
+                   preempt_after=SV["preempt_after"], one_shot=SV["one_shot"],
+                   storm=SV_STORM) -> list[dict]:
+    """Phase 15: continuous serving. (a) gemma3-4b (full width; ``layers``
+    > 0 cuts the depth) served to a 16-request trace through ``python -m
+    repro_torch.launch.serve --requests``; (b) the tokens against the run
+    without preemption and against one-shot serving; (c) the supervised
+    engine under the chaos storm against its clean run. Returns the kernel
+    rows."""
+    import torch
+    from repro_torch.ft import ENGINE_TICK_SITE, BreakerConfig, Fault, FTConfig, inject
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import serve, steps
+    from repro_torch.models.lm import LM
+    from repro_torch.serve import PagedKVPool, ServeEngine, synthetic_trace
+    from repro_torch.serve.bucket import pow2_floor
+    t = [time.perf_counter()]
+    t_obj = SV["t_obj"]
+    argv = ["--arch", LM_ARCH, "--backend", "fused", "--requests", str(requests),
+            "--slots", str(slots), "--prompt-len", str(prompt), "--gen", str(gen),
+            "--t-obj", str(t_obj), "--validate", "structural", "--preempt-after",
+            str(preempt_after), "--page-tokens", str(SV["page_tokens"]), "--layers",
+            str(layers)]
+    cfg = serve.build_config(LM_ARCH, t_obj=t_obj, backend="fused", validation="structural",
+                             n_layers=layers)
+    L = cfg.n_layers
+    n_kv = 2 * sum(cfg.layer_pattern[i % len(cfg.layer_pattern)] in ("global", "local")
+                   for i in range(L))
+    print(f"continuous serving: python -m repro_torch.launch.serve {' '.join(argv)} ({L} "
+          f"layers, window {cfg.window})")
+    with StepRecorder() as rec_a:
+        reset_launch_counts()
+        out = serve.main(argv)
+        torch.cuda.synchronize()
+        final = launch_counts()
+    eng, rep, model = out["engine"], out["report"], out["model"]
+    pool = eng.pool
+    done = {r.rid: r for r in eng.scheduler.completed}
+    check(len(done) == requests and all(r.status == "done" for r in done.values()),
+          f"{len(done)} requests completed: {[(r.rid, r.status) for r in done.values()]}")
+    check(rep["decode_shapes"] <= rep["decode_shape_bound"]
+          and rep["prefill_shapes"] <= rep["prefill_shape_bound"],
+          f"shapes: decode {rep['decode_shapes']}/{rep['decode_shape_bound']}, prefill "
+          f"{rep['prefill_shapes']}/{rep['prefill_shape_bound']}")
+    check(rep["evictions"] > 0, "no lane was evicted")
+    # each prefill: every site validated (--validate structural), so the
+    # kv_cache sites (no weight) run the checked stream, comparator + pack +
+    # expander, not the masking pass; the ffn_hidden sites comparator + pack +
+    # the payload GEMM. Then the codec's pack once a compressed page out, the
+    # expander once a page in
+    n_prefill = sum(pow2_floor(r.prompt_len) >= eng.p_lo for r in out["trace"])
+    check_launches(final, {"zebra_pack": pool.n_pages_out,
+                           "zebra_unpack_kernel": pool.n_pages_in + n_kv * n_prefill,
+                           "zebra_spmm_cs_kernel": L * n_prefill,
+                           "zebra_bitmap_kernel": (L + n_kv) * n_prefill,
+                           "zebra_pack_kernel": (L + n_kv) * n_prefill},
+                   f"continuous ({n_prefill} prefills of {L} ffn_hidden and {n_kv} kv_cache "
+                   f"sites, {pool.n_pages_out} compressed pages out, {pool.n_pages_in} in)")
+    hot = sum(x.numel() * x.element_size() for x in _tensors(eng._hot))
+    print(f"  hot set ({eng._Bb}, {eng._C}): {hot} B; ladders: batch {eng.batch_ladder}, "
+          f"cache {eng.cache_ladder}, prefill {eng.prefill_ladder}; {rep['steps']} ticks, "
+          f"{sum(len(h) for h in rec_a.bb.values())} lane steps, {rep['evictions']} "
+          f"evictions; {rep['kv_pages']} pages metered for the completed requests, every page "
+          f"inside the Eq. 2/3 band (max |measured - predicted| "
+          f"{rep['reconcile_max_delta_bytes']} B); {pool.n_pages_out} compressed pages out, "
+          f"{pool.n_pages_in} in, {pool.bytes_out} / {pool.bytes_in} B")
+    print(f"  wall {rep['wall_s']:.3f} s: {rep['tokens_per_s']:.2f} tokens/s, p50 "
+          f"{rep['p50_token_ms']:.3f} ms, p95 {rep['p95_token_ms']:.3f} ms a token (host "
+          f"clock)")
+
+    # one lane paged out and back in through a pool of the engine's settings
+    lane = eng._take_lane(0)
+    lane_pool = PagedKVPool(page_tokens=pool.page_tokens, bs=pool.bs, bc=pool.bc,
+                            validation=pool.validation)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lane_pool.page_out("lane", lane)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    back = lane_pool.page_in("lane")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n_pages = lane_pool.n_pages_out
+    check(all(same_bits(a, b) for a, b in zip(_tensors(back), _tensors(lane))),
+          "a lane paged out and in differs from what left the hot set")
+    lane_bytes = sum(x.numel() * x.element_size() for x in _tensors(lane))
+    print(f"  one lane ({len(_tensors(lane))} leaves, {lane_bytes} B dense) paged out and "
+          f"back in bit for bit: {n_pages} pages, zero fraction {lane_pool.zero_frac():.4f}, "
+          f"{lane_pool.bytes_out} B on the wire; page out {(t1 - t0) * 1e3:.1f} ms "
+          f"({(t1 - t0) * 1e6 / n_pages:.1f} µs a page), page in {(t2 - t1) * 1e3:.1f} ms "
+          f"({(t2 - t1) * 1e6 / n_pages:.1f} µs a page) (host clock, synchronised)")
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)   # 256 MB
+    page_rows, n_timed = time_page_kernels(lane_pool, lane, flush)
+    del back, lane_pool
+    t.append(time.perf_counter())
+
+    # (b) the same trace without preemption, and the first requests alone
+    with StepRecorder() as rec_b:
+        eng0 = ServeEngine(model, n_slots=slots, max_cache_len=eng.cache_ladder[-1],
+                           page_tokens=pool.page_tokens, validation=pool.validation)
+        rep0 = eng0.run(serve.continuous_trace(requests, cfg.vocab, prompt, gen))
+    check(rep0["evictions"] == 0 and rep0["n_requests"] == requests, "the run without "
+          "preemption")
+    div = hold_engine_runs("without preemption", eng, rec_a, eng0, rec_b)
+    print(f"  without preemption: {rep0['steps']} ticks, wall {rep0['wall_s']:.3f} s; "
+          f"{len(div)} divergences")
+    del eng0
+    one_div = []
+    for r in sorted(out["trace"], key=lambda r: r.rid)[:one_shot]:
+        rows = []
+
+        def capture(tok, state, pos, model=model):
+            logits, state = LM.decode_step(model, tok, state, pos)
+            rows.append(logits[0].clone())
+            return logits, state
+        model.decode_step = capture
+        try:
+            prompt_t = torch.as_tensor(r.prompt, dtype=torch.int64, device=device)[None]
+            res = serve.serve_one_shot(model, prompt_t, r.max_new, log=lambda *_: None)
+        finally:
+            del model.decode_step
+        toks = res["tokens"][0].tolist()
+        d = near_tie(f"one-shot request {r.rid}", (toks, [res["logits"][0]] + rows),
+                     (done[r.rid].out, [x[0] for x in rec_a.rows[r.rid]]))
+        agree = sum(a == b for a, b in zip(toks, done[r.rid].out))
+        print(f"  one-shot request {r.rid} (prompt {r.prompt_len}, {r.max_new} tokens): "
+              f"{agree} of {len(toks)} tokens == the engine's"
+              + ("" if d is None else f"; divergence at token {d['token']}: {d['got']} for "
+                 f"{d['yard']}, logit gap {d['gap']} <= max |Δlogit| {d['delta']}"))
+        if d is not None:
+            one_div.append(dict(d, rid=r.rid))
+        del res
+    t.append(time.perf_counter())
+
+    # the prefill kernels on one largest-bucket prefill's maps (kernel rows)
+    pb = max(eng._prefill_shapes)
+    first = next(r for r in sorted(out["trace"], key=lambda r: r.rid)
+                 if pow2_floor(r.prompt_len) == pb)
+    with LMSiteRecorder() as rec_p:
+        steps.prefill(model, torch.as_tensor(first.prompt[:pb], dtype=torch.int64,
+                                             device=device)[None])
+    lm = {"arch": LM_ARCH, "t_obj": t_obj, "maps": [(h, w) for h, w, *_ in rec_p.ffn],
+          "kv": [x for x, *_ in rec_p.kv], "dense": [], "comp": [], "launches": final,
+          "replay_launches": {}}
+    suffix = f" (gemma3-4b continuous prefill {pb})"
+    kv = f" (gemma3-4b continuous prefill {pb}, kv_cache)"
+    rows = time_lm_kernels(lm, edge_errs or {"zebra_spmm_cs_kernel": 0.0}, device,
+                           gemms=("zebra_spmm_cs_kernel",), codec=False, suffix=suffix,
+                           stream_rows={
+                               f"zebra_bitmap_kernel{suffix}": ("zebra_bitmap_kernel", "ffn"),
+                               f"zebra_pack_kernel{suffix}": ("zebra_pack_kernel", "ffn"),
+                               **{f"{k}{kv}": (k, "kv") for k in STREAM_KERNELS}})
+    for k, r in page_rows.items():
+        rows.append({"name": f"{k} (gemma3-4b continuous, per lane)", "route": "cuda",
+                     "source": SOURCE, "replaces": {**LM_KERNELS, **KERNELS}[k],
+                     "launches": final[k], **r, "bound_by": "bytes", "library_ms": None,
+                     "pages_per_lane": n_timed})
+    del lm, rec_p, rec_a, rec_b, done, out, eng, pool, model, lane
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+
+    # (c) the supervised engine under the storm, against its clean run
+    st = storm
+    cfg6 = serve.build_config(LM_ARCH, t_obj=t_obj, backend="fused", validation="structural",
+                              n_layers=st["layers"])
+    model6 = LM(cfg6, generator=torch.Generator(device=device).manual_seed(0),
+                device=device).requires_grad_(False)
+    print(f"supervised engine at {st['layers']} layers: {st['requests']} requests arriving one "
+          f"a tick into {st['slots']} slots, queue bound {st['queue_bound']}, deadline "
+          f"{st['deadline']} ticks, pages of {st['page_tokens']}, a snapshot every "
+          f"{st['snapshot_every']} ticks")
+
+    def storm_run(*faults):
+        e = ServeEngine(model6, n_slots=st["slots"], max_cache_len=st["max_cache"],
+                        page_tokens=st["page_tokens"], validation="structural",
+                        queue_bound=st["queue_bound"], breaker=BreakerConfig(**SV_BREAKER))
+        trace = synthetic_trace(st["requests"], vocab=cfg6.vocab, seed=0, prompt_lo=8,
+                                prompt_hi=48, gen_lo=8, gen_hi=16, arrival_every=1,
+                                deadline_ticks=st["deadline"])
+        with inject(*faults) as plan:
+            r = e.run(trace, ft_cfg=FTConfig(max_failures=4, backoff_base_s=0.0,
+                                             jitter_seed=0),
+                      snapshot_every=st["snapshot_every"])
+        return e, r, list(plan.injected)
+    clean, crep, _ = storm_run()
+    storm_eng, srep, injected = storm_run(
+        Fault("crash", site=ENGINE_TICK_SITE, arg=st["crash_tick"]),
+        Fault(st["fault"], site="page", times=st["page_faults"]))
+    n_page = sum(s == "page" for _, s in injected)
+    n_crash = sum(s == ENGINE_TICK_SITE for _, s in injected)
+    page_state = srep["breakers"].get("page", {}).get("state", "closed")
+    goodput = srep["n_requests"] / max(crep["n_requests"], 1)
+    print(f"  clean: {crep['n_requests']} done, {crep['steps']} ticks, {crep['kv_pages']} "
+          f"pages, wall {crep['wall_s']:.3f} s; storm: {len(injected)} faults injected "
+          f"({n_crash} crash, {n_page} pages), {srep['pages_recovered']} pages detected and "
+          f"kept dense, {srep['crash_recoveries']} crash recoveries, {srep['retries']} "
+          f"re-admissions, breaker trips {srep['breaker_trips']}, probes "
+          f"{srep['breaker_probes']}, {srep['pages_breaker_dense']} pages dense while open, "
+          f"page breaker {page_state} at the end; goodput {goodput}; wall "
+          f"{srep['wall_s']:.3f} s")
+    check(len(injected) == st["page_faults"] + 1 and n_crash == 1, f"injected {injected}")
+    check(srep["pages_recovered"] == n_page and srep["crash_recoveries"] == n_crash,
+          "a fault was not detected exactly once")
+    check(srep["breaker_trips"] >= 1 and page_state == "closed",
+          f"the page breaker: {srep['breaker_trips']} trips, {page_state} at the end")
+    check(goodput == 1.0 and crep["n_requests"] == st["requests"], f"goodput {goodput}")
+    storm_out = {r.rid: r.out for r in storm_eng.scheduler.completed}
+    clean_out = {r.rid: r.out for r in clean.scheduler.completed}
+    check(storm_out == clean_out, "the storm's tokens differ from the clean run's")
+    print(f"  storm tokens == clean tokens, bit for bit ({sum(map(len, storm_out.values()))} "
+          f"tokens of {len(storm_out)} requests)")
+    del clean, storm_eng, model6
+    torch.cuda.empty_cache()
+    t.append(time.perf_counter())
+    print("phase 15 times: " + ", ".join(
+        f"{what} {b - a:.1f} s" for what, a, b in zip(
+            ("continuous run and lane pages", "parity runs", "kernel timing",
+             "supervised storm"), t, t[1:])))
+    print(f"phase 15 divergences: {len(div)} without preemption, {len(one_div)} against "
+          f"one-shot: {div + one_div}")
+    return rows
+
+
+def _tensors(tree) -> list:
+    from repro_torch.utils import map_tree
+    out = []
+    map_tree(lambda _, leaf: out.append(leaf), tree)
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script; run it from "
@@ -3219,12 +3668,17 @@ def main() -> int:
         kernels += run_recurrent(device, lm_errs)
         torch.cuda.empty_cache()
         t12 = time.perf_counter()
+        with torch.inference_mode():
+            kernels += run_continuous(device, lm_errs)
+        torch.cuda.empty_cache()
+        t13 = time.perf_counter()
         print(f"phase times: edge cases {t1 - t0:.1f} s, CNN {t2 - t1:.1f} s, "
               f"CNN zoo {t3 - t2:.1f} s, LM {t4 - t3:.1f} s, starcoder2-15b {t5 - t4:.1f} s, "
               f"arch runs {t6 - t5:.1f} s, validated {t7 - t6:.1f} s, "
               f"LM training {t8 - t7:.1f} s, remat and checkpoints {t9 - t8:.1f} s, "
               f"MoE {t10 - t9:.1f} s, whisper and scanned {t11 - t10:.1f} s, "
-              f"mamba2 and recurrentgemma {t12 - t11:.1f} s")
+              f"mamba2 and recurrentgemma {t12 - t11:.1f} s, continuous serving "
+              f"{t13 - t12:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
         print(json.dumps({"ok": True, "device": {

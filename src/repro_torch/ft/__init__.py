@@ -1,7 +1,9 @@
 """Fault tolerance (``repro.ft``): the failure taxonomy, the per-site
-circuit breaker, deterministic fault injection and the training step
-supervisor. The supervisor's remesh and the ring-hop and engine-tick taps
-wait for the distributed and serving items (ROADMAP.md, module queue)."""
+circuit breaker, deterministic fault injection (the stream taps, the
+checkpoint and step faults, and the serving engine's tick tap
+``crash_tap``) and the training step supervisor, whose ``FailurePolicy``
+the serving engine shares. The supervisor's remesh and the ring-hop tap
+wait for the distributed item (ROADMAP.md, module queue)."""
 from .faults import (  # noqa: F401
     CorruptStream,
     DeadlineExceeded,
@@ -21,11 +23,13 @@ from .breaker import (  # noqa: F401
     breaker_scope,
 )
 from .inject import (  # noqa: F401
+    ENGINE_TICK_SITE,
     Fault,
     FaultPlan,
     active_plan,
     corrupt_file,
     corrupt_map,
+    crash_tap,
     crashing_step,
     inject,
     stream_tap,

@@ -10,9 +10,11 @@ and fire at taps on the stream paths:
 * :func:`corrupt_map` corrupts a ``CompressedMap`` (serve's prefill ->
   decode handoff).
 
-Two helpers act outside the stream: :func:`corrupt_file` flips a byte of a
-file on disk (a checkpoint shard), and :func:`crashing_step` makes a step
-function raise at a given call (the supervisor's restore path).
+Three act outside the stream: :func:`corrupt_file` flips a byte of a file
+on disk (a checkpoint shard), :func:`crashing_step` makes a step function
+raise at a given call (the supervisor's restore path), and
+:func:`crash_tap` kills the serving engine's tick loop at a named tick
+(``Fault("crash", site=ENGINE_TICK_SITE, arg=tick)``).
 
 A fault names its target position (``arg``) outright, so a run injects
 the same corruption every time. PyTorch runs eagerly, so a tap consults
@@ -43,6 +45,8 @@ import torch
 from .faults import TransientStep
 
 STREAM_KINDS = ("bitflip", "truncate", "nan", "value", "count")
+CRASH_KINDS = ("crash",)
+ENGINE_TICK_SITE = "engine_tick"   # crash_tap's site in the serve loop
 
 
 @dataclasses.dataclass
@@ -214,6 +218,22 @@ def corrupt_file(path: str, *, offset: int | None = None) -> None:
         b = f.read(1)
         f.seek(pos)
         f.write(bytes([b[0] ^ 0xFF]))
+
+
+def crash_tap(tick: int, *, site: str = ENGINE_TICK_SITE) -> None:
+    """Kill point in the serving engine's tick loop: raises
+    ``TransientStep`` when the armed plan carries a
+    ``Fault("crash", site="engine_tick", arg=<tick>)`` for exactly this
+    tick. The supervised engine classifies it, restores its last snapshot
+    and re-admits the in-flight lanes from their paged KV."""
+    plan = active_plan()
+    if plan is None:
+        return
+    f = plan.take(CRASH_KINDS, site, arg=int(tick))
+    if f is None:
+        return
+    plan.note(f.kind, site)
+    raise TransientStep(f"injected engine crash at {site} tick {int(tick)}")
 
 
 def crashing_step(step_fn: Callable, crash_at: int,

@@ -1,10 +1,21 @@
-"""LM serving, one-shot batch (``repro.launch.serve``): prefill a batch of
-prompts, hand the KV caches to decode in compressed form (on the
-``stream`` and ``fused`` backends), decode, and report the Zebra
-observables and the bytes the handoff moved.
+"""LM serving (``repro.launch.serve``), a thin CLI over two paths:
+
+* one-shot batch (default): prefill a batch of prompts, hand the KV caches
+  to decode in compressed form (on the ``stream`` and ``fused``
+  backends), decode, and report the Zebra observables and the bytes the
+  handoff moved;
+* continuous batching (``--requests N``): serve a synthetic trace of N
+  requests through ``serve.ServeEngine``: admission, the slotted decode
+  across in-flight requests at different positions, and a paged pool of
+  compressed KV slabs, with deadlines (``--deadline-ticks``), a bounded
+  queue (``--queue-bound``) and the crash-recoverable loop
+  (``--supervise``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
         --backend fused --batch 2 --prompt-len 2048 --gen 32 --t-obj 1.05
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
+        --backend fused --requests 16 --slots 8 --prompt-len 512 --gen 32 \\
+        --t-obj 1.05 --validate structural --preempt-after 64
 
 ``--arch`` takes the ported architectures: the dense ones (gemma3-4b,
 command-r-35b, qwen2.5-14b, starcoder2-15b, chameleon-34b), the MoE ones
@@ -19,9 +30,9 @@ kernels' plain versions). Weights are random from seed 0, prompts come
 from ``data.lm_batch``. ``--validate structural|checksum`` checks every
 stream at its producer -> consumer boundary (``core.engine``) and every
 compressed cache leaf of the handoff (:func:`validate_state_ingest`),
-recovering a failed one from its dense source. Continuous batching
-(``--requests``) and model parallelism wait (ROADMAP.md, module queue)
-and raise.
+recovering a failed one from its dense source, and the continuous
+engine's pages at ingest. Model parallelism waits (ROADMAP.md, module
+queue) and raises.
 """
 from __future__ import annotations
 
@@ -125,7 +136,7 @@ def serve_one_shot(model: LM, prompts: torch.Tensor, gen: int, *, backend: str |
 
 def main(argv=None) -> dict:
     """The CLI; returns ``serve_one_shot``'s result with the model and the
-    prompts."""
+    prompts, or with ``--requests`` :func:`serve_continuous`'s."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3-4b")
     ap.add_argument("--reduced", action="store_true")
@@ -153,14 +164,32 @@ def main(argv=None) -> dict:
                          "prefill->decode cache handoff, each failure recovered "
                          "from its dense source")
     ap.add_argument("--requests", type=int, default=0,
-                    help="continuous batching (not yet ported)")
+                    help="continuous-batching mode: serve a synthetic trace of N "
+                         "requests (serve.ServeEngine) instead of the one-shot batch")
+    ap.add_argument("--slots", type=int, default=4,
+                    help="in-flight request lanes (continuous mode)")
+    ap.add_argument("--page-tokens", type=int, default=16,
+                    help="cache positions per compressed KV page")
+    ap.add_argument("--preempt-after", type=int, default=0,
+                    help="evict a lane to the compressed pool after this many "
+                         "consecutive steps while requests wait (0 = never)")
+    ap.add_argument("--deadline-ticks", type=int, default=0,
+                    help="per-request TTL in engine ticks (continuous mode): a "
+                         "request that cannot finish by arrival + TTL given the "
+                         "slot clock is shed at admission, and a lane past its TTL "
+                         "is cancelled mid-flight (0 = no deadlines)")
+    ap.add_argument("--queue-bound", type=int, default=0,
+                    help="bounded pending queue (continuous mode): arrived "
+                         "waiters beyond this count are shed, newest fresh "
+                         "arrivals first (0 = unbounded)")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run the continuous engine loop under the "
+                         "crash-recoverable supervisor (per-tick snapshots and "
+                         "classified restore with backoff)")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (no fallback); 'cpu' runs the "
                          "kernels' plain versions on the CPU")
     args = ap.parse_args(argv)
-    if args.requests:
-        raise NotImplementedError("continuous batching (--requests) is not yet ported "
-                                  "to repro_torch (ROADMAP.md, module queue: serving)")
     if args.model_parallel != 1:
         raise NotImplementedError("--model-parallel > 1 is not yet ported to "
                                   "repro_torch (ROADMAP.md, module queue: distributed)")
@@ -175,6 +204,8 @@ def main(argv=None) -> dict:
                        n_layers=args.layers)
     model = LM(cfg, generator=torch.Generator(device=device).manual_seed(0),
                device=device).requires_grad_(False)
+    if args.requests:
+        return serve_continuous(args, model)
 
     B, S = args.batch, args.prompt_len
     prompts = torch.from_numpy(lm_batch(LMDatasetConfig(vocab=cfg.vocab), B, S, 0)[:, :S])
@@ -199,6 +230,57 @@ def main(argv=None) -> dict:
     print("  sample continuation:", out["tokens"][0, :16].tolist())
     out["model"], out["prompts"] = model, prompts
     return out
+
+
+def continuous_trace(requests: int, vocab: int, prompt_len: int, gen: int, *, seed: int = 0,
+                     deadline_ticks: int = 0) -> list:
+    """The CLI's synthetic trace: ``requests`` prompts of prompt_len/4 to
+    prompt_len tokens, each generating gen/4 to gen, all arriving at tick 0
+    (``serve.synthetic_trace``, as the reference's CLI draws it)."""
+    from ..serve import synthetic_trace
+    return synthetic_trace(requests, vocab=vocab, seed=seed,
+                           prompt_lo=max(prompt_len // 4, 4), prompt_hi=prompt_len,
+                           gen_lo=max(gen // 4, 1), gen_hi=gen,
+                           deadline_ticks=deadline_ticks or None)
+
+
+def serve_continuous(args, model: LM) -> dict:
+    """``--requests N``: run a synthetic trace through the continuous-batching
+    engine and print its report. Returns the report, the engine (its
+    scheduler holds the served requests, its pool the meter), the trace
+    and the model."""
+    from ..ft import FTConfig
+    from ..serve import ServeEngine
+    from ..serve.bucket import pow2_ceil
+
+    cfg = model.cfg
+    eng = ServeEngine(model, n_slots=args.slots,
+                      max_cache_len=pow2_ceil(args.prompt_len + args.gen),
+                      page_tokens=args.page_tokens, validation=args.validate,
+                      temperature=args.temperature, seed=args.seed,
+                      queue_bound=args.queue_bound)
+    trace = continuous_trace(args.requests, cfg.vocab, args.prompt_len, args.gen,
+                             seed=args.seed, deadline_ticks=args.deadline_ticks)
+    ft_cfg = FTConfig(jitter_seed=args.seed) if args.supervise else None
+    rep = eng.run(trace, preempt_after=args.preempt_after, ft_cfg=ft_cfg)
+    print(f"[serve] {cfg.name} continuous: {rep['n_requests']} requests "
+          f"({rep['n_rejected']} rejected, {rep['n_shed']} shed, "
+          f"{rep['deadline_misses']} deadline misses) in "
+          f"{rep['wall_s']:.2f} s over {args.slots} slots on {eng.device}")
+    print(f"  {rep['requests_per_s']:.2f} req/s  {rep['tokens_per_s']:.1f} "
+          f"tok/s  p50 {rep['p50_token_ms']:.1f} ms/token  "
+          f"p95 {rep['p95_token_ms']:.1f} ms/token  "
+          f"evictions {rep['evictions']}")
+    print(f"  KV stream: {rep['kv_bytes_measured']/1e6:.3f} MB measured "
+          f"(dense {rep['kv_bytes_dense']/1e6:.3f} MB) over "
+          f"{rep['kv_pages']} pages, zero-block fraction "
+          f"{rep['zero_frac']:.3f}, {rep['pages_recovered']} pages "
+          f"recovered dense")
+    print(f"  dispatch shapes: decode {rep['decode_shapes']}"
+          f"/{rep['decode_shape_bound']}  prefill {rep['prefill_shapes']}"
+          f"/{rep['prefill_shape_bound']}  reconcile max "
+          f"|measured-predicted| {rep['reconcile_max_delta_bytes']:.2f} B")
+    return {"report": rep, "engine": eng, "trace": trace, "model": model}
 
 
 def validate_state_ingest(cstate, dense_state, level: str, site: str = "serve",

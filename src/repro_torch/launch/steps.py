@@ -11,7 +11,8 @@ runs), which the step updates in place with the optimizer's ``update_``,
 as it does the optimizer state and the int8 compression residual: at
 gemma3-4b's width every copy of the parameters is 7.4 GB.
 
-Serving: prefill, next-token choice and the generate loop, under
+Serving: prefill, next-token choice, the generate loop and the slotted
+decode step of the continuous-batching engine, under
 ``torch.inference_mode``.
 """
 from __future__ import annotations
@@ -160,3 +161,15 @@ def generate(model: LM, tok0: torch.Tensor, state, pos0: int, steps: int,
         out.append(tok)
     toks = torch.cat(out, dim=1) if out else tok0.new_zeros((tok0.shape[0], 0))
     return toks, state
+
+
+@torch.inference_mode()
+def decode_slotted(model: LM, token: torch.Tensor, state, pos: torch.Tensor,
+                   temperature: float = 0.0, generator: torch.Generator | None = None):
+    """One continuous-batching decode step across B independent request
+    lanes (``serve/engine.py``'s hot path): ``token`` (B, 1), ``pos`` (B,),
+    each lane at its own sequence position. Returns (the next token of
+    every lane (B, 1), state), the caches updated in place. Greedy at
+    temperature 0.0; a draw from ``generator`` otherwise."""
+    logits, state = model.decode_step(token, state, pos)
+    return _next_token(logits, temperature, generator), state

@@ -225,9 +225,11 @@ def zebra_kv_site(k: torch.Tensor, v: torch.Tensor, zc):
 # Decode (single query token vs cache)
 # ---------------------------------------------------------------------------
 
-def attend_decode(q, k_cache, v_cache, pos: int, *, window: int = 0):
+def attend_decode(q, k_cache, v_cache, pos, *, window: int = 0):
     """q (B,1,Hq,hd); caches (B,T,Hkv,hd); ``pos``: the position of the
-    query (one for the whole batch). With ``window`` the cache is a ring of
+    query, an ``int`` (the whole batch at one position) or a (B,) tensor
+    (per-lane positions: the slotted continuous-batching decode, where
+    every lane is another request). With ``window`` the cache is a ring of
     size T."""
     B, _, Hq, hd = q.shape
     T, Hkv = k_cache.shape[1], k_cache.shape[2]
@@ -235,7 +237,11 @@ def attend_decode(q, k_cache, v_cache, pos: int, *, window: int = 0):
     qg = _scale(q.reshape(B, Hkv, G, hd))
     s = torch.einsum("bhgd,bthd->bhgt", qg.float(), k_cache.float())
     idx = torch.arange(T, device=q.device)
-    valid = idx < min(pos + 1, T) if window else idx <= pos
+    if isinstance(pos, torch.Tensor):
+        lim = torch.clamp(pos + 1, max=T) if window else pos + 1       # (B,)
+        valid = (idx[None, :] < lim[:, None])[:, None, None, :]      # (B,1,1,T)
+    else:
+        valid = idx < min(pos + 1, T) if window else idx <= pos
     s = torch.where(valid, s, torch.tensor(NEG_INF, device=q.device))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgt,bthd->bhgd", p.to(v_cache.dtype), v_cache)

@@ -207,21 +207,29 @@ def init_layer_cache(typ: str, cfg: LMConfig, batch: int, cache_len: int, dtype,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _cache_write(cache: torch.Tensor, new: torch.Tensor, slot: int) -> torch.Tensor:
-    """Write one token's K or V (B, 1, Hkv, hd) at position ``slot`` of
-    every lane, in place (the reference's ``dynamic_update_slice``
-    returns a new cache; the port updates the one it has)."""
+def _cache_write(cache: torch.Tensor, new: torch.Tensor, slot) -> torch.Tensor:
+    """Write one token's K or V (B, 1, Hkv, hd) at ``slot``, in place: an
+    ``int`` (every lane writes the same position) or a (B,) tensor of
+    per-lane slots (the slotted continuous-batching decode: lane b writes
+    its own position, ``cache[b, slot[b]]``). The reference's
+    ``dynamic_update_slice`` and ``where(hit, new, cache)`` return a new
+    cache; the port updates the one it has."""
+    if isinstance(slot, torch.Tensor):
+        lanes = torch.arange(cache.shape[0], device=cache.device)
+        cache[lanes, slot] = new[:, 0].to(cache.dtype)
+        return cache
     cache[:, slot:slot + 1] = new.to(cache.dtype)
     return cache
 
 
 def apply_layer_decode(p: Layer, x: torch.Tensor, cache: dict, typ: str, cfg: LMConfig,
-                       pos: int, rope1, enc_out: torch.Tensor | None = None
+                       pos, rope1, enc_out: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, dict]:
-    """x (B, 1, d) at position ``pos``. Returns (x, cache): an attention
-    layer's K/V updated in place, a recurrent layer's new state in new
-    tensors (the caller writes them back where the cache is a slice of a
-    stack)."""
+    """x (B, 1, d) at position ``pos``, an ``int`` or (B,) per-lane
+    positions (a local layer's ring slot is ``pos % T`` per lane). Returns
+    (x, cache): an attention layer's K/V updated in place, a recurrent
+    layer's new state in new tensors (the caller writes them back where the
+    cache is a slice of a stack)."""
     h = p.norm1(x)
     if typ == "rglru":
         y, cache = rglru_decode_step(p.rec, h, cache, cfg)

@@ -215,13 +215,15 @@ class LM(nn.Module):
         return total, metrics
 
     # ------------------------------------------------------------------
-    def init_cache(self, batch: int, cache_len: int) -> list[dict]:
+    def init_cache(self, batch: int, cache_len: int, device=None) -> list[dict]:
         """Empty caches in the prefill's tree: K/V and conv buffers in the
-        compute dtype, the recurrent states float32."""
+        compute dtype, the recurrent states float32; on the model's device
+        unless ``device`` says otherwise (``"meta"``: the shapes alone)."""
+        device = self.embed.device if device is None else torch.device(device)
         caches = []
         for pattern, count in self.runs:
             sub = {f"sub{j}": init_layer_cache(t, self.cfg, batch, cache_len, self.cdt,
-                                               self.embed.device)
+                                               device)
                    for j, t in enumerate(pattern)}
             if count > 1:
                 sub = {s: {n: c[None].expand(count, *c.shape).clone() for n, c in kv.items()}
@@ -255,14 +257,19 @@ class LM(nn.Module):
         logits = self._project_vocab(self.final_norm(x[:, -1:]))
         return logits[:, 0], (caches, enc_out), aux
 
-    def decode_step(self, token: torch.Tensor, state, pos: int):
-        """token (B, 1) int; ``pos`` the position of that token (one for the
-        whole batch). Returns (logits (B, V), state), the caches updated in
+    def decode_step(self, token: torch.Tensor, state, pos):
+        """token (B, 1) int; ``pos`` the position of that token: an ``int``
+        (one for the whole batch) or a (B,) int tensor of per-lane positions
+        (the slotted continuous-batching decode, each lane an independent
+        request). Returns (logits (B, V), state), the caches updated in
         place: K/V where they lie, a recurrent layer's new state copied into
         its slice of a stacked run or put in its run's dict."""
         caches, enc_out = state
         x = self._embed(token)
-        rope1 = self._rope(torch.tensor([pos], device=x.device))
+        if isinstance(pos, torch.Tensor):
+            rope1 = self._rope(pos.to(x.device)[:, None])          # (B, 1, hd/2)
+        else:
+            rope1 = self._rope(torch.tensor([pos], device=x.device))
         for ri, c, j, t, layer in self._layers():
             sub = caches[ri][f"sub{j}"]
             stacked = self.runs[ri][1] > 1

@@ -223,9 +223,11 @@ def test_serve_cli_runs_on_cpu(capsys):
                           "3", "--t-obj", "3.0", "--validate", "checksum"])
     assert "ingest validation (checksum): clean" in capsys.readouterr().out
     assert torch.equal(checked["tokens"], out["tokens"]) and checked["ingest_recovered"] == 0
-    for flags in (["--requests", "2"], ["--model-parallel", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve.main(["--reduced", "--device", "cpu", *flags])
+    served = serve.main(["--reduced", "--device", "cpu", "--requests", "2", "--slots", "2",
+                         "--prompt-len", "16", "--gen", "2"])      # continuous batching
+    assert served["report"]["n_requests"] == 2
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.main(["--reduced", "--device", "cpu", "--model-parallel", "2"])
 
 
 def test_forward_and_init_cache_match_reference():
