@@ -277,7 +277,42 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     corrupt pages, the bench's breaker) against its clean run: 7 faults
     injected and each detected once, 1 crash recovery, the page breaker
     tripped and closed again, goodput 1.0, the tokens bit for bit;
-16. prints one JSON line listing the kernels (the seven CUDA kernels, the
+16. runs the compressed collectives (``repro_torch.distributed``) over 8
+    ranks spawned on this host, a (data 2, model 4) mesh as the reference's
+    collectives bench; one card gives ``gloo`` with the wire tensors copied
+    through host memory (NCCL refuses two ranks on one device), the pack
+    and the rebuild on the card:
+    (a) ``BENCH_collectives.json``'s 12 byte rows from the bench's seeds
+    (7 on the model axis, 11 on the data axis; (256, 1024) float32
+    shards): every rank's axis totals of ``ici_bytes`` and
+    ``ici_dense_bytes`` equal to the record, each compressed result equal
+    by value to the dense ``all_gather``, ``all_reduce`` and
+    ``reduce_scatter_tensor``, kernel 5 launched once and kernel 3 ``n - 1``
+    times an all-gather (once a psum or reduce-scatter), the payload bytes
+    a rank takes from the ring equal to its link's moved bytes less the
+    packed indices (only live prefixes travel);
+    (b) the three ``detect.ring.*`` rows of ``BENCH_faults.json``: a
+    dropped hop on the all-gather at ``structural`` and ``checksum`` and on
+    the psum at ``checksum``, each injected 1, detected 1 and recovered by
+    the dense retry on every rank, its bytes on the link;
+    (c) gemma3-4b at full width: a (2, 2048, 2560) bf16 prefill activation
+    sequence-sharded at 512 tokens a rank through the dense FFN under
+    ``comm_context`` on ``stream``, ``layer_out`` masked at T_obj 0.475 and
+    exchanged (zero fraction 0.5-0.8 on every exchanged map), and
+    ``gather_kv_shards`` on (2, 512, 4, 320) K and V at T_obj 3.5: every
+    gathered map equal bit for bit to a dense gather of the masked shards,
+    ``moved`` equal to Eq. 2/3 and the meter's link records reconciled;
+    (d) granite-moe-1b-a400m at full width and depth under
+    ``sharding_profile="dp"`` on ``stream`` (T_obj 0.0064), 8 x 2048 prompt
+    tokens one row a rank: each rank's logits and site bytes equal to a
+    single-process forward of its row bit for bit, the summed bytes equal
+    to the sum over the ranks;
+    (e) host-clock times of each compressed collective beside its dense
+    counterpart (on the host wire: they say nothing of NVLink), and
+    kernels 5 and 3 on the ring's maps (CUDA events, L2 flushed), rows
+    ``... (collectives ring, bench shard)`` and ``... (collectives ring,
+    gemma3-4b layer_out)``;
+17. prints one JSON line listing the kernels (the seven CUDA kernels, the
     three stream kernels per VGG-16 and per MobileNetV1 evaluate batch,
     named ``... (vgg16 evaluate)`` and ``... (mobilenet evaluate)``, the
     masking kernel per training step of each, ``... (vgg16 training)`` and
@@ -292,7 +327,8 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     ``... (mamba2-2.7b prefill)``, ``... (mamba2-2.7b handoff)``, ``...
     (recurrentgemma-2b prefill)`` and ``... (<arch> training)``, and phase
     15's, ``... (gemma3-4b continuous prefill <bucket>[, kv_cache])`` and ``zebra_pack
-    (gemma3-4b continuous, per lane)``/``zebra_unpack_kernel (...)``; the GEMM
+    (gemma3-4b continuous, per lane)``/``zebra_unpack_kernel (...)``, and phase 16's
+    ``... (collectives ring, ...)``; the GEMM
     rows also carry ms per launch, TFLOP/s of live work and the device
     body that ran, the stream rows their ``amax_ms`` or ``copy_ms``
     yardstick), the card line again, and ``{"ok": true, "device": ...}``
@@ -3548,6 +3584,428 @@ def run_continuous(device, edge_errs=None, layers=0, prompt=SV["prompt"], gen=SV
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the compressed collectives over 8 ranks
+# ---------------------------------------------------------------------------
+
+COLL = dict(world=8, data=2, model=4, bs=8, bc=128)
+# BENCH_collectives.json's shards (benchmarks/collectives_bench.py): (n, seed)
+COLL_BENCH = dict(M=256, K=1024, zero_frac=0.64, seeds={"model": (4, 7), "data": (2, 11)})
+# BENCH_faults.json's ring rows (benchmarks/faults_bench.py::bench_ring):
+# (row, collective, level, site, hop)
+COLL_FAULTS = (("drop_hop_structural", "all_gather", "structural", "bench", 2),
+               ("drop_hop_checksum", "all_gather", "checksum", "bench", 2),
+               ("psum_drop_hop", "psum", "checksum", "p", 1))
+# gemma3-4b's prefill activation, sequence-sharded over "model"; T_obj of
+# the layer_out maps (the FFN output of a N(0, 1) input on random weights,
+# std ~0.134: 0.475 kills ~0.62 of its blocks) and of the N(0, 1) K/V
+COLL_G3 = dict(batch=2, seq=2048, t_obj=0.475, kv_t_obj=3.5)
+COLL_GRANITE = dict(arch="granite-moe-1b-a400m", batch=8, prompt=2048, t_obj=0.0064)
+COLL_ZF_BAND = (0.5, 0.8)
+COLL_TIMED = 5
+
+
+def coll_shards(M, K, bs, bc, zero_frac, n, seed, integer=True):
+    """(n, M, K) float32 shards with ~zero_frac dead (bs, bc) blocks, by the
+    collectives bench's rule (integer-valued), or the faults bench's
+    (N(0, 1))."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    keep = (rng.random((n, M // bs, K // bc)) > zero_frac).astype(np.float32)
+    vals = (rng.integers(-8, 9, size=(n, M, K)).astype(np.float32) if integer
+            else rng.normal(size=(n, M, K)).astype(np.float32))
+    return vals * np.repeat(np.repeat(keep, bs, axis=1), bc, axis=2)
+
+
+def collectives_rank(rank: int, out_dir: str, opts: dict) -> None:
+    """One rank of phase 16: (a) the bench rows, (b) the ring faults, (c)
+    gemma3-4b's layer_out and K/V exchanges, (d) granite's data-parallel
+    MoE, (e) the collectives' host-clock times. Checks what one rank can
+    see and saves the rest for the parent (``rank<r>.pt``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.compress import BandwidthMeter, integrity
+    from repro_torch.compress.stream import nonzero_bitmap
+    from repro_torch.core.engine import zebra_site
+    from repro_torch.core.zebra import ZebraConfig
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.ctx import CommAxis, axis_of, comm_context, sharding_hints
+    from repro_torch.ft import Fault, inject
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM
+    from repro_torch.models.lm.attention import gather_kv_shards
+    from repro_torch.models.lm.ffn import FFN, ffn_apply, zebra_cfg_for
+
+    device = torch.device(opts["device"], torch.cuda.current_device()) \
+        if opts["device"] == "cuda" else torch.device("cpu")
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    bs, bc = COLL["bs"], COLL["bc"]
+    mesh = make_host_mesh(opts["data"], opts["model"], device=device.type)
+    axes = {"model": axis_of(mesh, "model"), "data": axis_of(mesh, "data")}
+    world = CommAxis("world", dist.get_world_size(), dist.group.WORLD, rank)
+    res = {"wire": coll.wire_name(axes["model"].group), "times": {}}
+
+    ring = {"bench shard": {}, "gemma3-4b layer_out": {}}
+
+    def launched(fn, on_ring=None):
+        """fn's result and the launches it made (on the card), added to
+        ``ring[on_ring]``'s count."""
+        sync()
+        before = launch_counts()
+        out = fn()
+        sync()
+        got = {k: v for k, v in diff_counts(launch_counts(), before).items() if v}
+        if on_ring is not None:
+            for k, v in got.items():
+                ring[on_ring][k] = ring[on_ring].get(k, 0) + v
+        return out, got
+
+    def want_counts(got, want, label):
+        if on_card:          # the plain versions count nothing
+            check(got == want, f"rank {rank} {label}: launches {got}, want {want}")
+
+    def wall_ms(fn, group) -> float:
+        fn()
+        sync()
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        for _ in range(COLL_TIMED):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3 / COLL_TIMED
+
+    def index_bytes(m, k):
+        return ((m // bs) * (k // bc) + 7) // 8
+
+    # (a) BENCH_collectives.json's rows, from the bench's seeds
+    B = COLL_BENCH
+    bench = {}
+    for name, ax in axes.items():
+        n, seed = B["seeds"][name]
+        x = torch.from_numpy(coll_shards(B["M"], B["K"], bs, bc, B["zero_frac"], n, seed)
+                             [ax.index]).to(device)
+        wire = coll.Wire(ax)
+        coll.PAYLOAD_BYTES.update(sent=0, received=0)
+        (ag, l_ag), got = launched(lambda: coll.zebra_all_gather(x, ax, bs=bs, bc=bc,
+                                                                 tiled=True), "bench shard")
+        want_counts(got, {"zebra_pack": 1, "zebra_unpack_kernel": n - 1}, f"all_gather.{name}")
+        check(coll.PAYLOAD_BYTES["received"] == int(l_ag.moved) - (n - 1) * index_bytes(
+            B["M"], B["K"]), f"rank {rank}: the ring's payload bytes != moved's payload part")
+        sent = coll.psum_exact_bytes(coll.PAYLOAD_BYTES["sent"], ax)
+        received = coll.psum_exact_bytes(coll.PAYLOAD_BYTES["received"], ax)
+        check(int(sent) == int(received), f"rank {rank}: the ring sent {int(sent)} B, "
+                                          f"received {int(received)} B")
+        (ps, _, l_ps), got = launched(lambda: coll.zebra_psum_stream(x, ax, bs=bs, bc=bc),
+                                      "bench shard")
+        want_counts(got, {"zebra_pack": 1, "zebra_unpack_kernel": 1}, f"psum_stream.{name}")
+        (rs, l_rs), got = launched(lambda: coll.zebra_reduce_scatter(x, ax, bs=bs, bc=bc),
+                                   "bench shard")
+        want_counts(got, {"zebra_pack": 1, "zebra_unpack_kernel": 1}, f"reduce_scatter.{name}")
+        check(torch.equal(ag, wire.all_gather(x).reshape(-1, B["K"])), "all_gather != dense")
+        check(torch.equal(ps, wire.all_reduce(x)), "psum_stream != all_reduce")
+        check(torch.equal(rs, wire.reduce_scatter(x)), "reduce_scatter != reduce_scatter_tensor")
+        for op, link in (("all_gather", l_ag), ("psum_stream", l_ps), ("reduce_scatter", l_rs)):
+            bench[f"{op}.{name}"] = (int(coll.psum_exact_bytes(link.moved, ax)),
+                                     int(coll.psum_exact_bytes(link.dense, ax)))
+        # (e) host-clock times, compressed beside dense, on this wire
+        for op, comp, dense in (
+                ("all_gather", lambda: coll.zebra_all_gather(x, ax, bs=bs, bc=bc),
+                 lambda: wire.all_gather(x)),
+                ("psum_stream", lambda: coll.zebra_psum_stream(x, ax, bs=bs, bc=bc),
+                 lambda: wire.all_reduce(x)),
+                ("reduce_scatter", lambda: coll.zebra_reduce_scatter(x, ax, bs=bs, bc=bc),
+                 lambda: wire.reduce_scatter(x))):
+            res["times"][f"{op}.{name}"] = (wall_ms(comp, ax.group), wall_ms(dense, ax.group))
+    res["bench"] = bench
+
+    # (b) the three ring faults: injected, detected, recovered by the dense retry
+    ax = axes["model"]
+    x = torch.from_numpy(coll_shards(B["M"], B["K"], bs, bc, B["zero_frac"], 4, 6,
+                                     integer=False)[ax.index]).to(device)
+    wire = coll.Wire(ax)
+    dense = {"all_gather": wire.all_gather(x).reshape(-1, B["K"]),
+             "psum": wire.all_reduce(x)}
+    faults = {}
+    for row, op, level, site, hop in COLL_FAULTS:
+        def run(op=op, level=level, site=site):
+            if op == "all_gather":
+                return coll.zebra_all_gather(x, ax, bs=bs, bc=bc, tiled=True, validation=level,
+                                             site=site)
+            y, _, link = coll.zebra_psum_stream(x, ax, bs=bs, bc=bc, validation=level,
+                                                site=site)
+            return y, link
+        integrity.clear_failures()
+        y_clean, l_clean = run()
+        check(not integrity.failures(), f"rank {rank} {row}: a clean ring detected "
+                                        f"{integrity.failures()}")
+        with inject(Fault("drop_hop", site=f"ring:{site}", arg=hop)) as plan:
+            (y, link), got = launched(run, "bench shard")
+        want_counts(got, {"zebra_pack": 1,
+                          "zebra_unpack_kernel": 3 if op == "all_gather" else 1}, row)
+        detected = len(integrity.failures())
+        check(len(plan.injected) == 1 and detected == 1,
+              f"rank {rank} {row}: injected {plan.injected}, detected {detected}")
+        check(torch.equal(y, dense[op]), f"rank {rank} {row}: the retry != the dense result")
+        check(int(link.moved) == int(l_clean.moved) + int(link.dense),
+              f"rank {rank} {row}: the retry's bytes are not on the link")
+        if op == "all_gather":
+            check(torch.equal(y, y_clean), f"rank {rank} {row}: output != the clean run's")
+        faults[row] = (len(plan.injected), detected, 1)
+    res["faults"] = faults
+
+    # (c) gemma3-4b at full width: the layer_out exchange and the K/V gather
+    G = COLL_G3
+    g3 = configs.reduced("gemma3-4b") if opts["reduced"] else configs.get("gemma3-4b")
+    cfg = g3.replace(param_dtype="bfloat16", zebra_backend="stream", zebra_sites=("layer_out",),
+                     zebra_t_obj=G["t_obj"], zebra_tnet=False)
+    n, m = ax.size, ax.index
+    S = opts["seq"] // n
+    d, hkv, hd = cfg.d_model, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=device).manual_seed(100 + axes["data"].index)
+    x_full = torch.randn(G["batch"], opts["seq"], d, generator=gen, device=device)
+    k_full, v_full = (torch.randn(G["batch"], opts["seq"], hkv, hd, generator=gen,
+                                  device=device) for _ in range(2))
+    x, k, v = (t[:, m * S:(m + 1) * S].to(torch.bfloat16).contiguous()
+               for t in (x_full, k_full, v_full))
+    ffn = FFN(cfg, generator=torch.Generator(device=device).manual_seed(0),
+              dtype=torch.bfloat16, device=device).requires_grad_(False)
+    meter = BandwidthMeter()
+    with torch.inference_mode():
+        y_local, _ = ffn_apply(ffn, x, cfg, "infer")
+        zc = zebra_cfg_for(cfg, "infer").replace(use_tnet=False)
+        masked, site = zebra_site(y_local, zc, site="layer_out")
+        with comm_context("model", mesh=mesh):
+            (y_full, aux), got = launched(lambda: ffn_apply(ffn, x, cfg, "infer"),
+                                          "gemma3-4b layer_out")
+        want_counts(got, {"zebra_bitmap_kernel": 1, "zebra_pack_kernel": 1, "zebra_pack": 1,
+                          "zebra_unpack_kernel": n}, "layer_out exchange")
+        zc_kv = ZebraConfig(enabled=True, t_obj=G["kv_t_obj"], mode="infer", backend="stream",
+                            use_tnet=False)
+        with comm_context("model", mesh=mesh):
+            (kf, vf, kv_aux), got = launched(lambda: gather_kv_shards(k, v, zc_kv),
+                                             "gemma3-4b layer_out")
+        want_counts(got, {"zebra_bitmap_kernel": 2, "zebra_pack_kernel": 2, "zebra_pack": 2,
+                          "zebra_unpack_kernel": 2 * n}, "kv gather")
+        exch = {}
+        for label, got_full, shard, a, D in (
+                ("layer_out", y_full, masked, aux, d),
+                ("k", kf, zebra_site(k.reshape(G["batch"], S, -1), zc_kv, site="kv_cache")[0],
+                 kv_aux[0], hkv * hd),
+                ("v", vf, zebra_site(v.reshape(G["batch"], S, -1), zc_kv, site="kv_cache")[0],
+                 kv_aux[1], hkv * hd)):
+            gathered = wire.all_gather(shard.reshape(G["batch"], S, D))
+            want = gathered.transpose(0, 1).reshape(got_full.shape)
+            check(same_bits(got_full, want), f"rank {rank} {label}: the gathered map != a dense "
+                                             f"gather of the masked shards")
+            lives = [int(nonzero_bitmap(gathered[s].reshape(-1, D), bs, bc).sum())
+                     for s in range(n)]
+            nb = (G["batch"] * S // bs) * (D // bc)
+            others = sum(lv for s, lv in enumerate(lives) if s != m)
+            pred = others * bs * bc * 2 + (n - 1) * ((nb + 7) // 8)
+            check(int(a.ici_bytes) == pred, f"rank {rank} {label}: moved {int(a.ici_bytes)} B "
+                                            f"!= Eq. 2/3 {pred} B")
+            r = meter.record_link(label, "model", m=G["batch"] * S, k=D, bs=bs, bc=bc,
+                                  dtype_bits=16, n_live=others, n_maps=n - 1)
+            check(r.measured_bytes == int(a.ici_bytes) and r.dense_bytes ==
+                  int(a.ici_dense_bytes), f"rank {rank} {label}: the link record != the aux")
+            exch[label] = {"moved": int(a.ici_bytes), "dense": int(a.ici_dense_bytes),
+                           "zero_frac": [1 - lv / nb for lv in lives], "label": a.backend}
+        rec = meter.reconcile()
+        res["exchange"] = exch
+        res["reconcile"] = rec["max_abs_delta_bytes"]
+        res["exchange_aux"] = {"label": aux.backend, "measured": int(aux.measured_bytes),
+                               "site_measured": int(site.measured_bytes)}
+        del ffn, x_full, k_full, v_full, y_full, kf, vf
+
+    # (d) granite-moe-1b-a400m at full width and depth under the "dp" profile
+    R = COLL_GRANITE
+    gcfg = serve.build_config(R["arch"], reduced=opts["reduced"], t_obj=opts["granite_t_obj"],
+                              backend="stream").replace(sharding_profile="dp")
+    model = LM(gcfg, generator=torch.Generator(device=device).manual_seed(0),
+               device=device).requires_grad_(False)
+    tokens = torch.randint(gcfg.vocab, (R["batch"], opts["prompt"]), device=device,
+                           generator=torch.Generator(device=device).manual_seed(1))
+    row = tokens[rank:rank + 1]
+    with torch.inference_mode():
+        with FFNSiteRecorder() as rec_dp, sharding_hints(mesh, dp=("data", "model")):
+            (logits_dp, aux_dp), got = launched(lambda: model(row, "infer"))
+        n_sites = gcfg.n_layers
+        want_counts(got, {k: n_sites for k in STREAM_KERNELS}, "dp forward")
+        with FFNSiteRecorder() as rec_1:
+            logits_1, aux_1 = model(row, "infer")
+        check(same_bits(logits_dp, logits_1), f"rank {rank}: dp logits != the single-process "
+                                              f"forward of its row")
+        b_dp = [int(r_[4]) for r_ in rec_dp.records]
+        b_1 = [int(r_[4]) for r_ in rec_1.records]
+        check(b_dp == b_1 and len(b_1) == n_sites, f"rank {rank}: site bytes {b_dp} != {b_1}")
+        check(all(r_[2] == "stream" for r_ in rec_dp.records), "a dp site left stream")
+        total = int(coll.psum_exact_bytes(aux_1.measured_bytes, world))
+        check(aux_dp.measured_bytes_exact() == total,
+              f"rank {rank}: dp bytes {aux_dp.measured_bytes_exact()} != the ranks' sum {total}")
+        res["dp"] = {"bytes": aux_dp.measured_bytes_exact(), "rank_bytes":
+                     aux_1.measured_bytes_exact(), "zero_frac": float(aux_dp.zero_frac),
+                     "rank_zero_frac": float(aux_1.zero_frac), "launches": got,
+                     "finite": bool(torch.isfinite(logits_dp).all())}
+        del model, logits_dp, logits_1
+    res["ring_launches"] = ring
+    torch.save(res, f"{out_dir}/rank{rank}.pt")
+
+
+def time_ring_kernels(device, launches: dict) -> list[dict]:
+    """Kernels 5 and 3 on the ring's shapes, one process: the bench's
+    model-axis shard 0 ((256, 1024) float32) and a map shaped as one rank's
+    gemma3-4b layer_out shard ((1024, 2560) bf16 N(0, 1) masked at T_obj
+    3.5: ~0.6 of its blocks dead). Each kernel is held bit for bit against
+    its plain version and timed with CUDA events, L2 flushed, beside the
+    plain version, its byte bound and ``copy_`` of the map. ``launches``:
+    rank 0's launches of each on the ring path of that map's part."""
+    import torch
+    from repro_torch.compress.stream import nonzero_bitmap
+    from repro_torch.kernels import mask_pack, pack
+    from repro_torch.kernels.schedule import slot_map
+    from repro_torch.kernels.stream_timing import bound_bytes
+    bs, bc = COLL["bs"], COLL["bc"]
+    B = COLL_BENCH
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)   # 256 MB
+    gen = torch.Generator(device=device).manual_seed(3)
+    g3 = torch.randn(1024, 2560, generator=gen, device=device).to(torch.bfloat16)
+    keep = mask_pack.bitmap_plain(g3, COLL_G3["kv_t_obj"], bs, bc).bool()
+    g3 = torch.where(keep.repeat_interleave(bs, 0).repeat_interleave(bc, 1), g3,
+                     torch.zeros((), dtype=g3.dtype, device=device))
+    maps = {"bench shard": torch.from_numpy(coll_shards(B["M"], B["K"], bs, bc, B["zero_frac"],
+                                                       4, 7)[0]).to(device),
+            "gemma3-4b layer_out": g3}
+    rows = []
+    for what, x in maps.items():
+        bitmap = nonzero_bitmap(x, bs, bc)
+        keep, slot = slot_map(bitmap)
+        n_live = keep.sum(dtype=torch.int32)
+        nm, nk = bitmap.shape
+        payload = mask_pack.pack_launch(x, bitmap, slot, n_live, bs, bc, "zebra_pack")
+        plain_payload = mask_pack.pack_plain(x, bitmap, slot, n_live, bs, bc)
+        dense = pack.unpack_cuda(payload, bitmap, slot, bs, bc)
+        plain_dense = pack.expand_payload(payload, keep, slot, nm, nk, bs, bc)
+        torch.cuda.synchronize()
+        check(same_bits(payload, plain_payload), f"ring {what}: pack != its plain version")
+        check(same_bits(dense, plain_dense) and torch.equal(dense, x),
+              f"ring {what}: unpack != its plain version or the map")
+        y = torch.empty_like(x)
+        copy = time_ms(lambda: y.copy_(x), flush)
+        item, live = x.element_size(), int(n_live)
+        for name, kern, plain, bname, src in (
+                ("zebra_pack", lambda: mask_pack.pack_launch(x, bitmap, slot, n_live, bs, bc,
+                                                             "zebra_pack"),
+                 lambda: mask_pack.pack_plain(x, bitmap, slot, n_live, bs, bc),
+                 "zebra_pack_kernel", LM_KERNELS["zebra_pack"]),
+                ("zebra_unpack_kernel", lambda: pack.unpack_cuda(payload, bitmap, slot, bs, bc),
+                 lambda: pack.expand_payload(payload, keep, slot, nm, nk, bs, bc),
+                 "zebra_unpack_kernel", KERNELS["zebra_unpack_kernel"])):
+            rows.append({"name": f"{name} (collectives ring, {what})", "route": "cuda",
+                         "source": SOURCE, "replaces": src,
+                         "launches": launches[what].get(name, 0), "max_abs_err": 0.0,
+                         "ms": time_ms(kern, flush), "plain_ms": time_ms(plain, flush),
+                         "bound_ms": bound_bytes(bname, *x.shape, bs, bc, item, live)
+                         / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+                         "copy_ms": copy, "map": f"{tuple(x.shape)} {x.dtype}",
+                         "zero_frac": 1 - live / bitmap.numel()})
+    print("  kernels 5 and 3 on the ring's maps (CUDA events, L2 flushed, one process):")
+    for r in rows:
+        print(f"    {r['name']:58s} {r['ms']:.4f} ms  plain {r['plain_ms']:.4f} ms  bound "
+              f"{r['bound_ms']:.4f} ms  copy {r['copy_ms']:.4f} ms  ({r['map']}, zero_frac "
+              f"{r['zero_frac']:.4f}, {r['launches']} launches a rank)")
+    return rows
+
+
+def run_collectives(device, *, reduced=False, seq=COLL_G3["seq"],
+                    prompt=COLL_GRANITE["prompt"], granite_t_obj=COLL_GRANITE["t_obj"]
+                    ) -> list[dict]:
+    """Phase 16: 8 ranks on a (data 2, model 4) mesh (the reference bench's)
+    run :func:`collectives_rank`; the parent holds the ranks' results
+    together, then times kernels 5 and 3 on the ring's maps. ``reduced``
+    (with ``device`` the CPU) rehearses the flow at the reduced configs."""
+    import shutil
+
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import backend_for, spawn
+    world = COLL["world"]
+    out = ROOT / "build" / "collectives"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    if device.type == "cuda":
+        build.load_library()         # built once here: the ranks only load it
+    opts = dict(device=device.type, data=COLL["data"], model=COLL["model"], reduced=reduced,
+                seq=seq, prompt=prompt, granite_t_obj=granite_t_obj)
+    print(f"collectives: {world} ranks, mesh (data {COLL['data']}, model {COLL['model']}), "
+          f"process group {backend_for(device, world)} on {device.type} "
+          f"({torch.cuda.device_count() if device.type == 'cuda' else 0} card(s))")
+    t0 = time.perf_counter()
+    try:
+        spawn(collectives_rank, world, (str(out), opts), device=device.type)
+    except Exception as e:     # a rank that raised: its traceback is in e
+        raise SmokeFailure(f"phase 16: a rank failed:\n{e}") from None
+    res = [torch.load(out / f"rank{r}.pt") for r in range(world)]
+    t1 = time.perf_counter()
+    print(f"  the ranks ran in {t1 - t0:.1f} s (start-up included); wire: {res[0]['wire']}")
+    # (a) the bench rows
+    rows = {r["name"]: r for r in json.loads((ROOT / "BENCH_collectives.json").read_text())
+            ["rows"]}
+    for key in res[0]["bench"]:
+        op, axis = key.split(".")
+        comp, dense = rows[f"collectives/{op}.{axis}.compressed"], \
+            rows[f"collectives/{op}.{axis}.dense"]
+        for r in res:
+            moved, dn = r["bench"][key]
+            check(moved == comp["ici_bytes"] and dn == comp["ici_dense_bytes"] ==
+                  dense["ici_bytes"], f"{key}: {moved} / {dn} B != BENCH_collectives.json's "
+                                      f"{comp['ici_bytes']} / {comp['ici_dense_bytes']} B")
+        ms_c, ms_d = res[0]["times"][key]
+        print(f"  (a) {key:22s} ici_bytes {moved:>9d} of {dn:>9d} dense == BENCH_collectives."
+              f"json on every rank; equal to the dense collective; host clock {ms_c:.3f} ms "
+              f"compressed vs {ms_d:.3f} ms dense ({res[0]['wire']}, rank 0)")
+    # (b) the fault rows
+    faults = {r["name"]: r for r in json.loads((ROOT / "BENCH_faults.json").read_text())
+              ["rows"]}
+    for row in res[0]["faults"]:
+        rec = faults[f"faults/detect.ring.{row}"]
+        for r in res:
+            check(r["faults"][row] == (rec["injected"], rec["detected"], rec["recovered"]),
+                  f"{row}: {r['faults'][row]} != the record's")
+        print(f"  (b) detect.ring.{row}: injected 1, detected 1, recovered 1 (dense retry) "
+              f"on each of the {world} ranks, as BENCH_faults.json")
+    # (c) the exchanges
+    for label in ("layer_out", "k", "v"):
+        zfs = [z for r in res for z in r["exchange"][label]["zero_frac"]]
+        moved = sum(r["exchange"][label]["moved"] for r in res)
+        dense = sum(r["exchange"][label]["dense"] for r in res)
+        print(f"  (c) gemma3-4b {label}: {res[0]['exchange'][label]['label']}, moved {moved} "
+              f"of {dense} B dense over the {world} inbound links (Eq. 2/3 exact, reconciled),"
+              f" exchanged maps' zero fraction {min(zfs):.4f}-{max(zfs):.4f}, gathered == "
+              f"dense gather of the masked shards bit for bit")
+        if label == "layer_out" and not reduced:
+            check(all(COLL_ZF_BAND[0] <= z <= COLL_ZF_BAND[1] for z in zfs),
+                  f"layer_out zero fractions {min(zfs)}-{max(zfs)} outside {COLL_ZF_BAND}")
+    # (d) granite
+    dp = [r["dp"] for r in res]
+    total = sum(x["rank_bytes"] for x in dp)
+    check(all(x["bytes"] == total for x in dp), "dp bytes != the sum over the ranks")
+    check(all(x["finite"] for x in dp), "dp logits not finite")
+    print(f"  (d) {COLL_GRANITE['arch']} dp, {COLL_GRANITE['batch']} x {prompt} tokens one row "
+          f"a rank: logits and site bytes of every rank == its single-process forward bit for "
+          f"bit; bytes {total} == the ranks' sum; zero fraction {dp[0]['zero_frac']:.4f} "
+          f"(rank 0 alone {dp[0]['rank_zero_frac']:.4f}); launches a rank {dp[0]['launches']}")
+    shutil.rmtree(out, ignore_errors=True)
+    if device.type != "cuda":
+        return []
+    rows = time_ring_kernels(device, res[0]["ring_launches"])
+    print(f"  phase 16 times: ranks {t1 - t0:.1f} s, kernel timing "
+          f"{time.perf_counter() - t1:.1f} s")
+    return rows
+
+
 def _tensors(tree) -> list:
     from repro_torch.utils import map_tree
     out = []
@@ -3672,13 +4130,16 @@ def main() -> int:
             kernels += run_continuous(device, lm_errs)
         torch.cuda.empty_cache()
         t13 = time.perf_counter()
+        kernels += run_collectives(device)
+        torch.cuda.empty_cache()
+        t14 = time.perf_counter()
         print(f"phase times: edge cases {t1 - t0:.1f} s, CNN {t2 - t1:.1f} s, "
               f"CNN zoo {t3 - t2:.1f} s, LM {t4 - t3:.1f} s, starcoder2-15b {t5 - t4:.1f} s, "
               f"arch runs {t6 - t5:.1f} s, validated {t7 - t6:.1f} s, "
               f"LM training {t8 - t7:.1f} s, remat and checkpoints {t9 - t8:.1f} s, "
               f"MoE {t10 - t9:.1f} s, whisper and scanned {t11 - t10:.1f} s, "
               f"mamba2 and recurrentgemma {t12 - t11:.1f} s, continuous serving "
-              f"{t13 - t12:.1f} s")
+              f"{t13 - t12:.1f} s, collectives {t14 - t13:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
         print(json.dumps({"ok": True, "device": {

@@ -72,7 +72,16 @@ class SiteAux:
     ``n_blocks``        per-sample block count (0 when disabled).
     ``thresholds``      threshold-net outputs (None in infer mode).
     ``backend``         which backend actually executed, with a degrade
-                        surfaced as ``"reference(<reason>)"``.
+                        surfaced as ``"reference(<reason>)"``; a degraded
+                        layer exchange appends ``"+dense-comms(<reason>)"``.
+    ``ici_bytes``       interconnect bytes this site's layer exchanges put
+                        on one inbound link (the compressed stream, or the
+                        dense size of a degraded exchange), an int64 tensor
+                        once ``distributed.collectives.attach_link`` has
+                        added a link; 0 outside a comm context.
+    ``ici_dense_bytes`` the dense-equivalent bytes of the same exchanges
+                        (the plain all-gather the compression is measured
+                        against).
     """
     reg: Any = 0.0
     zero_frac: Any = 0.0
@@ -80,6 +89,8 @@ class SiteAux:
     n_blocks: Any = 0
     thresholds: Any = None
     backend: str = "reference"
+    ici_bytes: Any = 0
+    ici_dense_bytes: Any = 0
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -101,12 +112,18 @@ class LayerAux:
     exact to 2**63 (the reference carries an f32 base-2**24 pair only
     because JAX runs 32-bit); ``measured_bytes_exact`` returns the same
     integer. ``router_aux`` is an MoE layer's load-balancing loss (float32,
-    0 elsewhere), summed over the layers as the reference's carry sums it."""
+    0 elsewhere), summed over the layers as the reference's carry sums it.
+    ``ici_bytes``/``ici_dense_bytes`` total the per-link interconnect bytes
+    of every layer exchange the sites ran (``SiteAux`` of the same names);
+    they stay the Python int 0 until a site brings a link, so a run without
+    a comm context adds no tensor for them. ``ici_bytes_exact`` reads both."""
     reg: torch.Tensor
     zf_blocks: torch.Tensor
     n_blocks: torch.Tensor
     measured_bytes: torch.Tensor
     router_aux: torch.Tensor
+    ici_bytes: Any = 0
+    ici_dense_bytes: Any = 0
 
     @classmethod
     def zero(cls, device=None) -> "LayerAux":
@@ -124,13 +141,16 @@ class LayerAux:
                    measured_bytes=torch.as_tensor(site.measured_bytes,
                                                   device=zf.device).to(torch.int64),
                    router_aux=torch.as_tensor(router_aux, dtype=torch.float32,
-                                              device=zf.device))
+                                              device=zf.device),
+                   ici_bytes=_int64(site.ici_bytes), ici_dense_bytes=_int64(site.ici_dense_bytes))
 
     def __add__(self, other: "LayerAux") -> "LayerAux":
         return LayerAux(self.reg + other.reg, self.zf_blocks + other.zf_blocks,
                         self.n_blocks + other.n_blocks,
                         self.measured_bytes + other.measured_bytes,
-                        self.router_aux + other.router_aux)
+                        self.router_aux + other.router_aux,
+                        self.ici_bytes + other.ici_bytes,
+                        self.ici_dense_bytes + other.ici_dense_bytes)
 
     @property
     def zero_frac(self) -> torch.Tensor:
@@ -140,6 +160,38 @@ class LayerAux:
     def measured_bytes_exact(self) -> int:
         """Exact host-side readout (one device-to-host copy)."""
         return int(self.measured_bytes.item())
+
+    def ici_bytes_exact(self) -> tuple[int, int]:
+        """Exact host-side (moved, dense-equivalent) per-link totals."""
+        return int(self.ici_bytes), int(self.ici_dense_bytes)
+
+
+def _int64(v):
+    """A byte count as an int64 tensor, or the Python int it is."""
+    return v if isinstance(v, int) else torch.as_tensor(v).to(torch.int64)
+
+
+def merge_site_aux(a: SiteAux, b: SiteAux) -> SiteAux:
+    """Fold two sites' aux into one ``SiteAux``: the block-weighted zero
+    fraction, summed reg, measured and ici bytes, the joined backend label.
+    For a call site whose contract is one aux but that runs an auxiliary
+    site: ``ffn_apply`` masking its layer output for the exchange under a
+    comm context. Thresholds keep ``a``'s (the primary site's). The zero
+    fraction is rounded as the reference's compiled form rounds it: ``a``'s
+    product fused into the sum (one rounding), times the float32
+    reciprocal of the block count."""
+    na, nb = int(a.n_blocks), int(b.n_blocks)
+    nt = max(na + nb, 1)
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32)
+    part_b = f32(b.zero_frac) * nb
+    zf = ((f32(a.zero_frac).double() * na + part_b.double()).float()
+          * (torch.ones((), dtype=torch.float32) / nt))
+    return SiteAux(reg=a.reg + b.reg, zero_frac=zf,
+                   measured_bytes=_int64(a.measured_bytes) + _int64(b.measured_bytes),
+                   n_blocks=na + nb, thresholds=a.thresholds,
+                   backend=f"{a.backend}+{b.backend}",
+                   ici_bytes=_int64(a.ici_bytes) + _int64(b.ici_bytes),
+                   ici_dense_bytes=_int64(a.ici_dense_bytes) + _int64(b.ici_dense_bytes))
 
 
 # ---------------------------------------------------------------------------

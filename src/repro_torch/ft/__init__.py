@@ -1,9 +1,10 @@
 """Fault tolerance (``repro.ft``): the failure taxonomy, the per-site
 circuit breaker, deterministic fault injection (the stream taps, the
 checkpoint and step faults, and the serving engine's tick tap
-``crash_tap``) and the training step supervisor, whose ``FailurePolicy``
-the serving engine shares. The supervisor's remesh and the ring-hop tap
-wait for the distributed item (ROADMAP.md, module queue)."""
+``crash_tap``, and the collectives' ring-hop tap ``ring_hop_tap``) and the
+training step supervisor, whose ``FailurePolicy`` the serving engine
+shares. The supervisor's remesh waits for the tensor-parallel slice of the
+distributed item (ROADMAP.md, item 3)."""
 from .faults import (  # noqa: F401
     CorruptStream,
     DeadlineExceeded,
@@ -32,6 +33,7 @@ from .inject import (  # noqa: F401
     crash_tap,
     crashing_step,
     inject,
+    ring_hop_tap,
     stream_tap,
 )
 from .supervisor import FailurePolicy, FTConfig, StepSupervisor  # noqa: F401

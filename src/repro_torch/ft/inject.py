@@ -7,6 +7,9 @@ and fire at taps on the stream paths:
 * :func:`stream_tap` sits where the engine has the raw ``(payload, bitmap,
   n_live)`` triple in hand (between the producer and the check) and
   corrupts it on the stream's device;
+* :func:`ring_hop_tap` sits in the collectives' ring loop
+  (``distributed.collectives``) and zeroes the payload that arrives at one
+  chosen hop;
 * :func:`corrupt_map` corrupts a ``CompressedMap`` (serve's prefill ->
   decode handoff).
 
@@ -31,6 +34,8 @@ Fault kinds over one stream (all detected by ``compress.integrity``):
 ``value``      add 1.0 to element (0, 0) of live slot ``arg``: still
                finite and nonzero, so only the checksum level sees it
 ``count``      ``n_live += 1`` (a corrupt counter; popcount mismatch)
+``drop_hop``   zero the payload arriving at ring hop ``arg``
+               (:func:`ring_hop_tap` only)
 =============  ==========================================================
 """
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 from .faults import TransientStep
 
 STREAM_KINDS = ("bitflip", "truncate", "nan", "value", "count")
+HOP_KINDS = ("drop_hop",)
 CRASH_KINDS = ("crash",)
 ENGINE_TICK_SITE = "engine_tick"   # crash_tap's site in the serve loop
 
@@ -162,6 +168,22 @@ def stream_tap(payload: torch.Tensor, bitmap: torch.Tensor, n_live: torch.Tensor
         applied.add(id(f))
         payload, bitmap, n_live = _corrupt_stream(payload, bitmap, n_live, f.kind, f.arg)
         plan.note(f.kind, site)
+
+
+def ring_hop_tap(payload: torch.Tensor, hop: int, *, site: str) -> torch.Tensor:
+    """Corruption point in a ring's hop loop: zero the payload arriving at
+    hop ``arg`` (1-based, the collectives' hop numbering). The hops are a
+    host loop, so the hop is a plain comparison: a fault is taken (and
+    noted) at the hop it names, and a ring with fewer hops never takes
+    it."""
+    plan = active_plan()
+    if plan is None:
+        return payload
+    f = plan.take(HOP_KINDS, site, arg=int(hop))
+    if f is None:
+        return payload
+    plan.note(f.kind, site)
+    return torch.zeros_like(payload)
 
 
 # ---------------------------------------------------------------------------

@@ -192,7 +192,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.model_parallel != 1:
         raise NotImplementedError("--model-parallel > 1 is not yet ported to "
-                                  "repro_torch (ROADMAP.md, module queue: distributed)")
+                                  "repro_torch (ROADMAP.md, item 3, distributed: the "
+                                  "tensor-parallel LM)")
 
     device = resolve_device(args.device)
     if device.type == "cuda":

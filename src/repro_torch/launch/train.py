@@ -157,8 +157,8 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     if args.model_parallel != 1:
         raise NotImplementedError("--model-parallel > 1 is not yet ported to "
-                                  "repro_torch (ROADMAP.md, module queue: "
-                                  "distributed)")
+                                  "repro_torch (ROADMAP.md, item 3, distributed: the "
+                                  "tensor-parallel LM)")
     device = resolve_device(args.device)
     cfg = build_config(args.arch, reduced=args.reduced, t_obj=args.t_obj,
                        backend=args.backend, n_layers=args.layers)

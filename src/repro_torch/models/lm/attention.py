@@ -11,6 +11,8 @@
   chunk under ``torch.utils.checkpoint`` when gradients are on: one chunk's
   (B, H, G, W, 2W) scores alive at a time, recomputed in the backward.
 * ``attend_decode``  — one query token against a KV cache.
+* ``gather_kv_shards`` — sequence-sharded K/V gathered over the comm axis
+  (``distributed.ctx.comm_context``); a no-op without one.
 
 Plain PyTorch, with the reference's numerics: scores in float32 (the
 products of the compute dtype summed in float32), softmax in float32, the
@@ -218,6 +220,46 @@ def zebra_kv_site(k: torch.Tensor, v: torch.Tensor, zc):
         tz, aux = zebra_site(t.reshape(B, S, -1), zc, site="kv_cache", layout="tokens")
         out.append(tz.reshape(t.shape))
         auxes.append(aux)
+    return out[0], out[1], auxes
+
+
+def gather_kv_shards(k: torch.Tensor, v: torch.Tensor, zc):
+    """Gather sequence-sharded K/V (B, S_local, Hkv, hd) into the full (B,
+    n·S_local, Hkv, hd) pair over the active comm axis: in Zebra stream
+    form when the ``kv_cache`` site's backend declares the ``comms``
+    capability, else a dense all-gather with its reason logged and on the
+    label. Heads fold onto the channel axis as in :func:`zebra_kv_site`,
+    so the wire blocks are the (block_seq, block_ch) tiles the cache
+    moves. Returns (k', v', [SiteAux_k, SiteAux_v]).
+
+    No comm context: ``(k, v, [])``, the single-process semantics."""
+    from ...core.engine import zebra_site
+    from ...distributed import collectives as coll
+    from ...distributed.ctx import comm_axis
+    info = comm_axis()
+    if info is None:
+        return k, v, []
+    n = info.size
+    B, S, Hkv, hd = k.shape
+    D = Hkv * hd
+    bs = zc.block_seq if S % zc.block_seq == 0 else 1
+    bc = zc.block_ch if D % zc.block_ch == 0 else D
+    backend = zc.backend_for("kv_cache")
+    comms, reason = coll.resolve_comms(backend, rows=B * S, cols=D, bs=bs, bc=bc)
+    out, auxes = [], []
+    for t in (k, v):
+        tz, sa = zebra_site(t.reshape(B, S, D), zc, site="kv_cache", layout="tokens")
+        if comms == "compressed":
+            g, link = coll.zebra_all_gather(tz.reshape(B * S, D), info, bs=bs, bc=bc,
+                                            validation=zc.validation, site="kv_cache")
+            sa = coll.attach_link(sa, link)
+        else:
+            coll.log_comm_degrade("kv_cache", backend, reason)
+            g = coll.gather_dense(tz, info)
+            sa = coll.attach_link(sa, coll.dense_link(tz.numel() * tz.element_size(), n,
+                                                      device=tz.device), reason=reason)
+        out.append(g.reshape(n, B, S, D).transpose(0, 1).reshape(B, n * S, Hkv, hd))
+        auxes.append(sa)
     return out[0], out[1], auxes
 
 

@@ -23,7 +23,8 @@ from ...core.zebra import ThresholdNet
 from ..layers import Norm, lecun_normal
 from . import attention as attn
 from .config import LMConfig
-from .ffn import FFN, MoE, eff_block_ch, ffn_apply, moe_apply, zebra_cfg_for
+from .ffn import (FFN, MoE, eff_block_ch, ffn_apply, moe_apply, moe_apply_dp,
+                  zebra_cfg_for)
 from .remat import checkpoint_name
 from .rglru import RGLRU, rglru_apply, rglru_decode_step, rglru_init_cache, rglru_prefill
 from .ssm import SSM, ssm_apply, ssm_decode_step, ssm_init_cache, ssm_prefill_state
@@ -159,12 +160,31 @@ def _ffn(p: Layer, h: torch.Tensor, cfg: LMConfig, mode: str):
     return (*ffn_apply(p.ffn, h, cfg, mode), 0.0)
 
 
-def _ffn_residual(p: Layer, x: torch.Tensor, cfg: LMConfig, mode: str, aux: LayerAux):
-    """x plus the layer's FFN of its ``norm2``, if it has one."""
+def _ffn_residual(p: Layer, x: torch.Tensor, cfg: LMConfig, mode: str, aux: LayerAux,
+                  dp_moe: bool = False):
+    """x plus the layer's FFN of its ``norm2``, if it has one. With
+    ``dp_moe`` an MoE layer goes through :func:`_moe` (the forward's
+    dispatch, as the reference's ``apply_layer``)."""
     if not hasattr(p, "norm2"):
         return x, aux
+    if dp_moe and hasattr(p, "moe"):
+        y, moe_aux = _moe(p.moe, p.norm2(x), cfg, mode)
+        return x + y, aux + moe_aux
     y, zaux, raux = _ffn(p, p.norm2(x), cfg, mode)
     return x + y, aux + LayerAux.of_site(zaux, raux)
+
+
+def _moe(p: MoE, h2: torch.Tensor, cfg: LMConfig, mode: str) -> tuple[torch.Tensor, LayerAux]:
+    """The data-parallel dispatch (``moe_apply_dp``) when the profile asks
+    for it and ``distributed.ctx.sharding_hints`` declares a mesh; the
+    single-process dispatch otherwise."""
+    if cfg.sharding_profile == "dp":
+        from ...distributed.ctx import active_mesh, dp_axes
+        mesh = active_mesh()
+        if mesh is not None:
+            return moe_apply_dp(p, h2, cfg, mode, mesh, dp_axes())
+    y, zaux, raux = moe_apply(p, h2, cfg, mode)
+    return y, LayerAux.of_site(zaux, raux)
 
 
 def apply_layer(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, mode: str, rope,
@@ -181,7 +201,7 @@ def apply_layer(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, mode: str, r
         o = checkpoint_name(_attend(q, k, v, typ, cfg, causal), "attn_out", cfg.remat)
         x = x + _out_proj(o, p.attn.wo)
     x = _cross_attention(p, x, enc_out)
-    x, aux = _ffn_residual(p, x, cfg, mode, aux)
+    x, aux = _ffn_residual(p, x, cfg, mode, aux, dp_moe=True)
     x, zo = _layer_out_zebra(p, x, cfg, mode)
     return x, aux + LayerAux.of_site(zo)
 

@@ -17,8 +17,11 @@ over ``enc_seq`` precomputed frames and cross-attention in every decoder
 layer. ``ce_chunk`` (the chunked cross-entropy of ``LM.loss``),
 ``grad_accum`` (the microbatches of ``launch.steps.train_step``) and
 ``remat`` (what the backward keeps of a layer unit, ``remat.run_unit``)
-are the reference's. Its TPU knobs (scan unrolling, sharding profiles)
-have no counterpart.
+are the reference's, and so is ``sharding_profile``: "tp" (FSDP + tensor
+and expert parallelism) or "dp" (pure data parallelism over every mesh
+axis: the MoE routes each rank's rows against replicated experts,
+``ffn.moe_apply_dp``; ``distributed.sharding`` reads it too). Its TPU
+knob for scan unrolling has no counterpart.
 """
 from __future__ import annotations
 
@@ -64,6 +67,8 @@ class LMConfig:
                                      # buffer alive at a time)
     grad_accum: int = 1              # microbatches per train step
     remat: str = "block"             # none | block | save_acts
+    sharding_profile: str = "tp"     # "tp" (FSDP+TP/EP) | "dp" (pure data
+                                     # parallel over data x model)
     local_impl: str = "banded"       # "banded" | "scanned" local attention
                                      # (scanned: one chunk's scores alive at
                                      # a time, recomputed in the backward)

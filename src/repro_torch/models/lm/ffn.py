@@ -10,10 +10,15 @@ buffer, (E·cap, d_ff) rows of capacity slots, and hands the engine no
 weight (the per-expert products are batched GEMMs), so ``fused`` runs the
 masking pass there.
 
-The data-parallel MoE (``moe_apply_dp``, a ``shard_map``) and the
-sequence-parallel layer-output exchange (``ffn_layer_out_exchange``) wait
-for the distributed item (ROADMAP.md); without a mesh or a comm context
-the reference runs neither.
+Under a comm context (``distributed.ctx.comm_context``) ``ffn_apply``
+treats its rows as this rank's sequence shard and gathers the output over
+the context's axis (``ffn_layer_out_exchange``: masked at the
+``layer_out`` site, then the compressed all-gather when the backend
+declares the capability). Under the "dp" sharding profile with a mesh
+declared (``sharding_hints``), the MoE of ``blocks.apply_layer`` runs
+``moe_apply_dp``: each rank routes its own rows, its aux averaged and its
+bytes summed over the data-parallel ranks. With neither context both are
+no-ops and every path is the single-process one.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...core.engine import wants_fused, zebra_site
+from ...core.engine import LayerAux, merge_site_aux, wants_fused, zebra_site
 from ...core.zebra import ThresholdNet, ZebraConfig
 from ..layers import lecun_normal
 from .config import LMConfig
@@ -139,7 +144,9 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def ffn_apply(p: FFN, x: torch.Tensor, cfg: LMConfig, mode: str):
-    """x (B, S, d) -> (y (B, S, d), SiteAux of the hidden site)."""
+    """x (B, S, d) -> (y (B, S, d), SiteAux of the hidden site); under a
+    comm context y is the gathered (B, n·S, d) and the aux the hidden
+    site's merged with the exchange's (``ffn_layer_out_exchange``)."""
     cdt = x.dtype
     if cfg.act == "swiglu":
         h = silu(x @ p.w_gate.to(cdt)) * (x @ p.w_up.to(cdt))
@@ -156,7 +163,54 @@ def ffn_apply(p: FFN, x: torch.Tensor, cfg: LMConfig, mode: str):
         y = h @ p.w_down.to(cdt)
     if cfg.act == "gelu":
         y = y + p.b_down.to(cdt)
+    y, xaux = ffn_layer_out_exchange(y, cfg, mode)
+    if xaux is not None:
+        zaux = merge_site_aux(zaux, xaux)
     return y, zaux
+
+
+def ffn_layer_out_exchange(y: torch.Tensor, cfg: LMConfig, mode: str):
+    """The sequence-parallel exchange of the FFN output.
+
+    Inside ``distributed.ctx.comm_context`` the token rows are this rank's
+    sequence shard: the output is masked at the ``layer_out`` site (by the
+    constant T_obj: the wire format is the deployed comparator's, so no
+    threshold net), then every shard's map is gathered over the context's
+    axis in Zebra stream form (``collectives.zebra_all_gather``). Returns
+    the full-sequence (B, n·S, d) output, equal to a dense all-gather of
+    the masked shards bit for bit, and a SiteAux carrying the per-link
+    ``ici_bytes``/``ici_dense_bytes``. Without ``layer_out`` in
+    ``cfg.zebra_sites`` the map crosses unmasked (lossless).
+
+    No comm context: ``(y, None)``, the single-process semantics. A
+    capability miss (a backend without ``comms="compressed"``, a size-1
+    axis, blocks that do not tile) is a dense all-gather, its reason on
+    the aux's backend label."""
+    from ...distributed import collectives as coll
+    from ...distributed.ctx import comm_axis
+    info = comm_axis()
+    if info is None:
+        return y, None
+    n = info.size
+    B, S, d = y.shape
+    zc = zebra_cfg_for(cfg, mode).replace(use_tnet=False)
+    if "layer_out" not in cfg.zebra_sites:
+        zc = zc.replace(enabled=False)
+    bs = zc.block_seq if S % zc.block_seq == 0 else 1
+    bc = eff_block_ch(d, cfg)
+    backend = zc.backend_for("layer_out")
+    comms, reason = coll.resolve_comms(backend, rows=B * S, cols=d, bs=bs, bc=bc)
+    yz, sa = zebra_site(y, zc, site="layer_out")
+    if comms == "compressed":
+        g, link = coll.zebra_all_gather(yz.reshape(B * S, d), info, bs=bs, bc=bc,
+                                        validation=zc.validation, site="layer_out")
+        sa = coll.attach_link(sa, link)
+    else:
+        coll.log_comm_degrade("layer_out", backend, reason)
+        g = coll.gather_dense(yz, info)
+        sa = coll.attach_link(sa, coll.dense_link(yz.numel() * yz.element_size(), n,
+                                                  device=yz.device), reason=reason)
+    return g.reshape(n, B, S, d).transpose(0, 1).reshape(B, n * S, d), sa
 
 
 # ---------------------------------------------------------------------------
@@ -263,3 +317,25 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: LMConfig, mode: str):
     per_choice = y_flat.index_select(0, r.slot_of).reshape(T, k, d)
     y = (per_choice.float() * r.gate.to(cdt).float()[..., None]).sum(dim=1).to(cdt)
     return y.reshape(B, S, d), zaux, r.router_aux
+
+
+def moe_apply_dp(p: MoE, x: torch.Tensor, cfg: LMConfig, mode: str, mesh,
+                 dp_axes_t: tuple[str, ...]):
+    """The pure data-parallel MoE (small-expert models): ``x`` is this
+    rank's rows of the global batch, routed and dispatched here against
+    the replicated expert stack, with no expert-parallel traffic; the
+    capacity is per shard, so the dispatch buffer is 1/n_shards of the
+    global one. Returns (y of the local rows, LayerAux): ``reg``, the
+    zero-block count and ``router_aux`` are means over the ranks of
+    ``dp_axes_t`` (``collectives.shard_mean``, every rank the same bits),
+    the measured bytes their exact sum (each shard moves its own
+    stream)."""
+    from ...distributed.collectives import psum_exact_bytes, shard_mean
+    from ...distributed.ctx import axis_of
+    dp = axis_of(mesh, dp_axes_t[0] if len(dp_axes_t) == 1 else tuple(dp_axes_t))
+    y, sa, raux = moe_apply(p, x, cfg, mode)
+    la = LayerAux.of_site(sa)
+    reg, zfb, raux = shard_mean(torch.stack([la.reg, la.zf_blocks, raux.float()]), dp)
+    return y, LayerAux(reg=reg, zf_blocks=zfb, n_blocks=la.n_blocks,
+                       measured_bytes=psum_exact_bytes(sa.measured_bytes, dp),
+                       router_aux=raux)
