@@ -251,15 +251,16 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
 15. serves continuously (``serve.ServeEngine``: the slotted decode at
     per-lane positions, the scheduler, the paged compressed-KV pool, the
     supervised engine):
-    (a) gemma3-4b at full width and depth on ``fused`` through ``python -m
+    (a) gemma3-4b at full width cut to 12 layers (two pattern periods;
+    34 until phase 17 needed the time) on ``fused`` through ``python -m
     repro_torch.launch.serve --requests 16 --slots 8 --prompt-len 512 --gen
     32 --t-obj 1.05 --validate structural --preempt-after 64`` (prompts
     128-512 tokens, 8-32 generated, all at tick 0; the hot set (8, 1024)):
     every request done, the report's per-page Eq. 2/3 reconcile, the
     dispatch shapes inside their ladders, evictions; the codec's pack
     launched once a compressed page out and the expander once a page in,
-    each prefill's 34 ffn_hidden sites (comparator, pack, the payload GEMM)
-    and 68 validated kv_cache sites (comparator, pack, expander: a
+    each prefill's 12 ffn_hidden sites (comparator, pack, the payload GEMM)
+    and 24 validated kv_cache sites (comparator, pack, expander: a
     validated site without a weight runs the checked stream, not the
     masking pass); one lane paged out and
     back in bit for bit, its pages' host time, kernels 5 and 3 held and
@@ -312,7 +313,34 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     kernels 5 and 3 on the ring's maps (CUDA events, L2 flushed), rows
     ``... (collectives ring, bench shard)`` and ``... (collectives ring,
     gemma3-4b layer_out)``;
-17. prints one JSON line listing the kernels (the seven CUDA kernels, the
+17. serves tensor-parallel (``launch.serve --model-parallel 4``: the CLI
+    spawns 4 ranks on this host, (data 1, model 4), ``gloo`` with host
+    copies on one card; each rank builds the model from seed 0 and cuts
+    its shards) on ``fused``, batch 2, prompt 2048, 32 greedy tokens:
+    (a) gemma3-4b at full width and depth, T_obj 1.05, held against phase
+    7's single-process run: the 4 ranks' logits and tokens bit for bit
+    alike; the 34 ``ffn_hidden`` sites on block edges (d_ff 2560 a rank,
+    kernels 1, 2 and 7 on each rank's shard) and the 68 ``kv_cache`` sites
+    gathered (one KV head of 320 a rank cuts the 128-wide blocks: kernel 4
+    on the whole (4096, 1280) map), every stream site and handoff leaf in
+    the Eq. 2/3 band, the zero fraction per site kind within 1e-3 of one
+    process's (the blocks that differ counted), the prefill logits within
+    1.5 (PERF.md), the tokens equal but for near ties; each rank's
+    launches per phase (prefill 34 / 34 / 34 GEMMs / 68 masking, the
+    handoff one ``zebra_pack`` a leaf and one expander, decode one
+    expander a leaf); times, each rank's ``max_memory_allocated`` and the
+    tensor-parallel collectives per prefill and per token;
+    (b) starcoder2-15b at full width cut to 8 layers, T_obj 1.55, held the
+    same way against its own single-process run at 8 layers (every map on
+    block edges: d_ff 6144 and one KV head of 128 a rank; its biases cross
+    the row-parallel sums);
+    (c) kernels 1, 2, 4 and 7 held against their plain versions on a
+    rank's maps of (a) (rank 0's d_ff columns of phase 7's maps with its
+    rows of w_down, the whole kv_cache maps) and timed;
+    phase 11 also takes one int8-compressed train step at 34 layers under
+    remat, and fewer layers until one fits, with the state's bytes by
+    component;
+18. prints one JSON line listing the kernels (the seven CUDA kernels, the
     three stream kernels per VGG-16 and per MobileNetV1 evaluate batch,
     named ``... (vgg16 evaluate)`` and ``... (mobilenet evaluate)``, the
     masking kernel per training step of each, ``... (vgg16 training)`` and
@@ -327,8 +355,9 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     ``... (mamba2-2.7b prefill)``, ``... (mamba2-2.7b handoff)``, ``...
     (recurrentgemma-2b prefill)`` and ``... (<arch> training)``, and phase
     15's, ``... (gemma3-4b continuous prefill <bucket>[, kv_cache])`` and ``zebra_pack
-    (gemma3-4b continuous, per lane)``/``zebra_unpack_kernel (...)``, and phase 16's
-    ``... (collectives ring, ...)``; the GEMM
+    (gemma3-4b continuous, per lane)``/``zebra_unpack_kernel (...)``, phase 16's
+    ``... (collectives ring, ...)`` and phase 17's ``... (gemma3-4b
+    tensor-parallel prefill, a rank)``; the GEMM
     rows also carry ms per launch, TFLOP/s of live work and the device
     body that ran, the stream rows their ``amax_ms`` or ``copy_ms``
     yardstick), the card line again, and ``{"ok": true, "device": ...}``
@@ -1232,14 +1261,18 @@ class LMSiteRecorder:
 class PhaseCounts:
     """Launch counts read at the serving path's phase boundaries: before
     the compressed handoff (prefill done) and before the decode loop
-    (handoff done). Wraps the two calls and launches nothing."""
+    (handoff done); and the logits each decode step chose its token from
+    (``logits``). Wraps the calls and launches nothing."""
 
     def __init__(self, serve):
-        self.serve, self.at = serve, {}
+        self.serve, self.at, self.logits = serve, {}, []
 
     def __enter__(self):
+        from repro_torch.launch import steps
         s = self.serve
+        self._steps = steps
         self._handoff, self._generate = s.transport_state_compressed, s.generate
+        self._next = steps._next_token
 
         def handoff(*a, **k):
             self.at["prefill"] = launch_counts()
@@ -1248,12 +1281,18 @@ class PhaseCounts:
         def generate(*a, **k):
             self.at["handoff"] = launch_counts()
             return self._generate(*a, **k)
+
+        def next_token(logits, *a, **k):
+            self.logits.append(logits)
+            return self._next(logits, *a, **k)
         s.transport_state_compressed, s.generate = handoff, generate
+        steps._next_token = next_token
         return self
 
     def __exit__(self, *exc):
         self.serve.transport_state_compressed = self._handoff
         self.serve.generate = self._generate
+        self._steps._next_token = self._next
 
 
 def diff_counts(after: dict, before: dict) -> dict:
@@ -1461,6 +1500,13 @@ def run_lm(device, arch=LM_ARCH, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
     # launches from the served run alone; the dense twin is off the path (0
     # there) and its replay launches are reported beside, under their own name
     return {"arch": arch, "t_obj": t_obj, "agree": agree, "warm_ms": warm,
+            "logits": out["logits"].float().cpu(),
+            "step_logits": torch.stack([out["logits"].float().cpu()]
+                                       + [x.float().cpu() for x in phases.logits]),
+            "records": [(r.site, r.payload_bytes, r.index_bytes, r.dense_bytes, r.n_live)
+                        for r in out["meter"].records],
+            "ffn_zf": [float(a.zero_frac) for *_, a in rec.ffn],
+            "kv_zf": [float(a.zero_frac) for *_, a in rec.kv],
             "maps": [(h, w) for h, w, *_ in rec.ffn], "kv": [x for x, *_ in rec.kv],
             "dense": dense, "comp": comp, "tokens": out["tokens"].cpu(),
             "launches": {k: final[k] for k in (*LM_KERNELS, *KERNELS)},
@@ -2354,6 +2400,70 @@ def run_lm_depth(device, arch=LM_ARCH, layers=LMD["layers"], batch=LMD["batch"],
           f"remat block vs none at {check_layers} layers: {bad[:4]}")
     print(f"  {check_layers} layers: remat block == none, loss and all "
           f"{len(grads['none'][0])} gradients (bitwise)")
+    del grads
+    torch.cuda.empty_cache()
+    run_int8_depth(device, base.replace(grad_accum=1), tokens0)
+
+
+def run_int8_depth(device, cfg, tokens) -> None:
+    """One train step with int8 gradient compression under remat block at
+    ``cfg``'s depth, then a pattern's length fewer layers at a time until a
+    step fits the card: each attempt's ``max_memory_allocated`` and the
+    bytes of the state by component (parameters, float32 gradients, the
+    AdamW moments, the int8 residual); the step's extra memory above the
+    state and the gradients is the compression's temporaries, a few
+    ``compress.CHUNK``s. The loss must be finite."""
+    import torch
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import adamw, compress, warmup_cosine
+
+    def nbytes(ts) -> int:
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    print(f"  int8 gradient compression at depth: one step, batch {tokens.shape[0]} x "
+          f"{tokens.shape[1] - 1}, remat block, from {cfg.n_layers} layers down")
+    for layers in range(cfg.n_layers, 0, -len(cfg.layer_pattern)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        parts, err = {}, None
+        try:
+            model = LM(cfg.replace(n_layers=layers),
+                       generator=torch.Generator(device=device).manual_seed(0), device=device)
+            opt = adamw(warmup_cosine(3e-4, 1, 1))
+            state = lm_steps.init_train_state(model, opt, "int8")
+            params = list(state["params"].values())
+            parts = {"params": nbytes(params), "grads": 4 * sum(p.numel() for p in params),
+                     "adamw": nbytes([t for b in state["opt"].values() for t in b.values()]),
+                     "int8 residual": nbytes(state["compress"].error.values())}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, m = lm_steps.train_step(model, opt, state, {"tokens": tokens}, compress="int8")
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        except torch.cuda.OutOfMemoryError as e:
+            err = str(e).splitlines()[0]
+        peak = torch.cuda.max_memory_allocated(device)
+        model = opt = state = params = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        comp = ", ".join(f"{k} {v / 2 ** 30:.2f}" for k, v in parts.items())
+        if err is not None:
+            print(f"  int8 at {layers} layers: out of memory ({err[:90]}...); peak "
+                  f"{peak / 2 ** 30:.2f} GiB; state GiB: {comp} (sum "
+                  f"{sum(parts.values()) / 2 ** 30:.2f})")
+            continue
+        check(math.isfinite(loss), f"int8 step at {layers} layers: loss {loss}")
+        extra = peak - sum(parts.values())
+        print(f"  int8 at {layers} layers: fits, {ms:.1f} ms, loss {loss:.4f}; "
+              f"max_memory_allocated {peak / 2 ** 30:.2f} GiB; state GiB: {comp} (sum "
+              f"{sum(parts.values()) / 2 ** 30:.2f}); above it {extra / 2 ** 30:.2f} GiB "
+              f"(activations under remat and the compression's chunks of "
+              f"{compress.CHUNK * 4 / 2 ** 20:.0f} MiB)")
+        return
+    raise SmokeFailure("no depth fits an int8 step")
 
 
 class CkptTimer:
@@ -3184,6 +3294,9 @@ def run_recurrent(device, edge_errs) -> list[dict]:
 # window 1024 is the cache ladder's floor, so the hot set is (8, 1024)
 SV = dict(requests=16, slots=8, prompt=512, gen=32, t_obj=LM_T_OBJ, preempt_after=64,
           page_tokens=16, one_shot=3)
+# the depth phase 15 serves at: two pattern periods (10 local + 2 global),
+# cut from 34 when phase 17 joined, to keep the smoke inside its time limit
+SV_LAYERS = 12
 # benchmarks/serve_chaos_bench.py's storm at full width and one pattern period
 # (5 local + 1 global layers): 6 requests arriving one a tick, 4 slots, queue
 # bound 4, a 96-tick deadline, a crash at tick 12 and 6 corrupt pages, its
@@ -4006,6 +4119,246 @@ def run_collectives(device, *, reduced=False, seq=COLL_G3["seq"],
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: tensor-parallel serving (--model-parallel)
+# ---------------------------------------------------------------------------
+
+TP = dict(model=4, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
+          g3_rules={"ffn_hidden": "blocks", "kv_cache": "gather"},
+          sc2_rules={"ffn_hidden": "blocks", "kv_cache": "blocks"})
+# the second, shorter run (8 of 40 layers, 8 tokens): the yardstick is its
+# own single-process run at this depth
+TP_SC2 = dict(arch="starcoder2-15b", layers=8, t_obj=SC2["t_obj"], sc2_gen=8)
+# max |Δlogit| of the tensor-parallel prefill against the single-process one
+# (bf16 compute; the row-parallel sums add in another order), written in
+# PERF.md before the phase first ran
+TP_LOGIT_BOUND = 1.5
+TP_ZF_TOL = 1e-3             # per site kind, against the single-process run
+TP_ROWS = {"zebra_bitmap_kernel (gemma3-4b tensor-parallel prefill, a rank)":
+           ("zebra_bitmap_kernel", "ffn"),
+           "zebra_pack_kernel (gemma3-4b tensor-parallel prefill, a rank)":
+           ("zebra_pack_kernel", "ffn"),
+           "zebra_mask_kernel (gemma3-4b tensor-parallel prefill, a rank)":
+           ("zebra_mask_kernel", "kv")}
+
+
+def tp_yardstick(lm: dict, model: int = TP["model"]) -> dict:
+    """Host copies of phase 7's single-process run that phase 17 holds the
+    tensor-parallel run against: its tokens, the logits of every token,
+    the handoff's records, each site's zero fraction and keep flags; and
+    the maps a tensor-parallel rank's kernels take: rank 0's d_ff columns
+    of every ffn_hidden map with its rows of w_down, and the whole
+    kv_cache maps (the K/V sites gather them)."""
+    from repro_torch.kernels import mask_pack, zebra_mask
+    t = lm["t_obj"]
+    ffn_keep, shards, kv_keep, kv = [], [], [], []
+    for h, w in lm["maps"]:
+        x2 = h.reshape(-1, h.shape[-1])
+        ffn_keep.append(mask_pack.bitmap_plain(x2, t, BS, BC).cpu())
+        f = x2.shape[1] // model
+        shards.append((x2[:, :f].contiguous().cpu(), w[:f].contiguous().cpu()))
+    for x in lm["kv"]:
+        x2 = x.reshape(-1, x.shape[-1])
+        bs = BS if x.shape[-2] % BS == 0 else 1
+        bc = BC if x2.shape[1] % BC == 0 else x2.shape[1]
+        kv_keep.append(zebra_mask.mask_plain(x2, t, bs, bc)[1].cpu())
+        kv.append(x2.cpu())
+    return {k: lm[k] for k in ("arch", "t_obj", "tokens", "logits", "step_logits", "records",
+                               "ffn_zf", "kv_zf")} | {
+        "ffn_keep": ffn_keep, "kv_keep": kv_keep, "ffn_shards": shards, "kv": kv,
+        "prefill_ms": lm["warm_ms"][0], "decode_ms": lm["warm_ms"][1]}
+
+
+def tp_argv(tp: dict, arch: str, layers: int, t_obj: float) -> list:
+    return ["--arch", arch, "--backend", "fused", "--batch", str(tp["batch"]),
+            "--prompt-len", str(tp["prompt"]), "--gen", str(tp["gen"]), "--t-obj", str(t_obj),
+            "--layers", str(layers), *(["--reduced", "--device", "cpu"] if tp.get("reduced")
+                                        else [])]
+
+
+def single_yardstick(tp: dict, arch, layers, t_obj) -> dict:
+    """A single-process served run of ``arch`` (``layers`` deep) through
+    ``serve.main``: the host copies :func:`tp_yardstick` keeps, without the
+    maps."""
+    import torch
+    from repro_torch.launch import serve
+    argv = tp_argv(tp, arch, layers, t_obj)
+    with LMSiteRecorder() as rec, PhaseCounts(serve) as phases:
+        out = serve.main(argv)
+    from repro_torch.kernels import mask_pack
+    yard = {"arch": arch, "t_obj": t_obj, "tokens": out["tokens"].cpu(),
+            "logits": out["logits"].float().cpu(),
+            "step_logits": torch.stack([out["logits"].float().cpu()]
+                                       + [x.float().cpu() for x in phases.logits]),
+            "records": [(r.site, r.payload_bytes, r.index_bytes, r.dense_bytes, r.n_live)
+                        for r in out["meter"].records],
+            "ffn_zf": [float(a.zero_frac) for *_, a in rec.ffn],
+            "kv_zf": [float(a.zero_frac) for *_, a in rec.kv],
+            "ffn_keep": [mask_pack.bitmap_plain(h.reshape(-1, h.shape[-1]), t_obj, BS,
+                                                BC).cpu() for h, *_ in rec.ffn],
+            "kv_keep": [mask_pack.bitmap_plain(x.reshape(-1, x.shape[-1]), t_obj, BS,
+                                               BC).cpu() for x, *_ in rec.kv],
+            "prefill_ms": out["prefill_ms"], "decode_ms": out["decode_ms_per_token"]}
+    del out, rec, phases
+    torch.cuda.empty_cache()
+    return yard
+
+
+def hold_tp_run(label: str, ranks: list, yard: dict, rules: dict, n_layers: int,
+                n_kv: int, tp: dict) -> None:
+    """One tensor-parallel served run (its ranks' reports) against its
+    single-process yardstick: the ranks agree bit for bit; the sites ran by
+    ``rules``, every stream site and handoff leaf inside the Eq. 2/3 band;
+    the zero fraction per site kind within TP_ZF_TOL of the yardstick's
+    (the blocks that differ counted); the prefill logits within
+    TP_LOGIT_BOUND; the tokens equal but for near ties; each rank's
+    launches per phase. Prints times, memory and the collectives."""
+    import torch
+    r0 = ranks[0]
+    check(sorted(r["model_index"] for r in ranks) == list(range(tp["model"]))
+          and all(r["data_index"] == 0 for r in ranks), f"{label}: mesh coordinates")
+    check(all(same_bits(r["logits"], r0["logits"]) and torch.equal(r["tokens"], r0["tokens"])
+              for r in ranks), f"{label}: the ranks' logits or tokens differ")
+    sites = r0["sites"]
+    for kind, rule in rules.items():
+        got = {(s["rule"], s["backend"]) for s in sites if s["site"] == kind}
+        check(got == {(rule, "fused")}, f"{label}: {kind} sites ran {got}, want {rule}")
+    ffn = [s for s in sites if s["site"] == "ffn_hidden"]
+    kv = [s for s in sites if s["site"] == "kv_cache"]
+    check(len(ffn) == n_layers and len(kv) == n_kv, f"{label}: {len(ffn)} ffn_hidden and "
+                                                    f"{len(kv)} kv_cache sites")
+    for r in ranks[1:]:
+        check([{k: v for k, v in s.items() if k != "keep"} for s in r["sites"]] ==
+              [{k: v for k, v in s.items() if k != "keep"} for s in sites],
+              f"{label}: rank {r['rank']}'s sites differ from rank 0's")
+    band = check_token_band([((s["rows"], s["width"]), 2, None, s["zero_frac"],
+                              s["measured_bytes"]) for s in ffn], f"{label} ffn_hidden")
+    check(all(s["measured_bytes"] == 0 for s in kv), f"{label}: a masking-pass kv site "
+                                                     f"reported stream bytes")
+    leaves = [x for x in r0["records"] if x["n_blocks"]]
+    worst_leaf = max(x["payload_bytes"] + x["index_bytes"] - x["predicted"] for x in leaves)
+    check(all(0 <= x["payload_bytes"] + x["index_bytes"] - x["predicted"] < 1 for x in leaves)
+          and r0["reconcile"]["n_sites"] == len(leaves) > 0,
+          f"{label}: a handoff leaf outside the Eq. 2/3 band")
+    # against the single-process run
+    for kind, got, zf_yard, keep_yard in (("ffn_hidden", ffn, yard["ffn_zf"], yard["ffn_keep"]),
+                                          ("kv_cache", kv, yard["kv_zf"], yard["kv_keep"])):
+        nb = [s["n_total"] for s in got]
+        zf_tp = sum(s["zero_frac"] * n for s, n in zip(got, nb)) / sum(nb)
+        zf_1 = sum(z * n for z, n in zip(zf_yard, nb)) / sum(nb)
+        flips = sum(int((s["keep"] != k).sum()) for s, k in zip(got, keep_yard))
+        print(f"  {label} {kind}: {len(got)} sites ({got[0]['rule']}), zero fraction "
+              f"{zf_tp:.6f} vs {zf_1:.6f} in one process; {flips} of {sum(nb)} blocks differ")
+        check(abs(zf_tp - zf_1) <= TP_ZF_TOL, f"{label} {kind}: zero fraction {zf_tp} vs "
+                                              f"{zf_1} beyond {TP_ZF_TOL}")
+    moved = sum(x["payload_bytes"] + x["index_bytes"] for x in r0["records"])
+    moved_1 = sum(p + i for _, p, i, *_ in yard["records"])
+    print(f"  {label} handoff: {len(leaves)} compressed leaves, {moved} B (one process "
+          f"{moved_1} B), every leaf in the Eq. 2/3 band (worst {worst_leaf:.3f} B); stream "
+          f"sites in the band (worst {band:.3f} B)")
+    err = float((r0["logits"] - yard["logits"]).abs().max())
+    print(f"  {label} prefill logits: max |Δ| {err} against one process (bound "
+          f"{TP_LOGIT_BOUND}, max |logit| {float(yard['logits'].abs().max())})")
+    check(err <= TP_LOGIT_BOUND, f"{label}: prefill logits {err} off one process's")
+    for b in range(r0["tokens"].shape[0]):
+        d = near_tie(f"{label} lane {b}",
+                     (yard["tokens"][b].tolist(), yard["step_logits"][:, b]),
+                     (r0["tokens"][b].tolist(), r0["step_logits"][:, b]))
+        print(f"  {label} lane {b}: tokens "
+              + ("equal to one process's" if d is None else
+                 f"part at token {d['token']} ({d['got']} for {d['yard']}), a near tie: "
+                 f"gap {d['gap']} <= max |Δlogit| {d['delta']}"))
+    # launches and collectives, per rank
+    n_leaves = len(leaves)
+    want = {"prefill": {"zebra_bitmap_kernel": n_layers, "zebra_pack_kernel": n_layers,
+                        "zebra_spmm_cs_kernel": n_layers, "zebra_mask_kernel": n_kv},
+            "handoff": {"zebra_pack": n_leaves, "zebra_unpack_kernel": 1},
+            "decode": {"zebra_unpack_kernel": n_leaves}}
+    for r in ranks if not tp.get("reduced") else ():   # the CPU's plain versions count nothing
+        for phase, counts in want.items():
+            got = {k: v for k, v in r["phases"][phase].items() if not k.startswith("tp_")}
+            if r is r0:
+                check_launches(got, counts, f"{label} rank 0 {phase}")
+            else:
+                check(all(got[k] == counts.get(k, 0) for k in got),
+                      f"{label} rank {r['rank']} {phase}: {got}")
+    ph = r0["phases"]
+    steps_ = tp["gen"] - 1
+    print(f"  {label}: prefill {r0['prefill_ms']:.3f} ms (one process {yard['prefill_ms']:.3f}),"
+          f" decode {r0['decode_ms_per_token']:.3f} ms a token (one process "
+          f"{yard['decode_ms']:.3f}); host clock, rank 0, {r0['wire']}")
+    print(f"  {label}: max_memory_allocated by rank "
+          f"{[round(r['max_memory_allocated'] / 2 ** 30, 3) for r in ranks]} GiB")
+    print(f"  {label}: tensor-parallel collectives a rank: prefill {ph['prefill']['tp_calls']} "
+          f"calls, {ph['prefill']['tp_bytes']} B handed in; handoff "
+          f"{ph['handoff']['tp_calls']} calls, {ph['handoff']['tp_bytes']} B; decode "
+          f"{ph['decode']['tp_calls'] / steps_:.1f} calls, {ph['decode']['tp_bytes'] / steps_:.0f}"
+          f" B a token")
+
+
+def tp_serve(tp: dict, arch, layers, t_obj) -> list:
+    """``python -m repro_torch.launch.serve --model-parallel 4`` from this
+    process (it spawns the ranks); returns the ranks' reports."""
+    from repro_torch.launch import serve
+    argv = [*tp_argv(tp, arch, layers, t_obj), "--model-parallel", str(tp["model"])]
+    print(f"  python -m repro_torch.launch.serve {' '.join(argv)}")
+    t0 = time.perf_counter()
+    try:
+        res = serve.main(argv)
+    except Exception as e:     # a rank that raised: its traceback is in e
+        raise SmokeFailure(f"phase 17: {arch}: a rank failed:\n{e}") from None
+    print(f"  {arch}: {len(res['ranks'])} ranks served in {time.perf_counter() - t0:.1f} s "
+          f"(spawn, build and cut included)")
+    return res["ranks"]
+
+
+def run_tensor_parallel(device, yard: dict, edge_errs: dict, **over) -> list[dict]:
+    """Phase 17: gemma3-4b at full width and depth and starcoder2-15b at
+    full width cut to 8 layers, each served by ``launch.serve.main
+    --model-parallel 4`` (4 ranks spawned on this host, (data 1, model 4),
+    ``gloo`` with host copies on one card) on ``fused``, held against its
+    single-process run (phase 7's, kept as ``yard``, and one of
+    starcoder2-15b's at 8 layers here) by :func:`hold_tp_run`; then kernels
+    1, 2, 4 and 7 held bit for bit (7: to GEMM_TOL) against their plain
+    versions on a rank's maps and timed. ``over`` replaces entries of TP and
+    TP_SC2 (``reduced=True`` with the CPU as ``device`` rehearses the flow
+    on the reduced configs: no launch checks, no timing)."""
+    import torch
+    tp = {**TP, **TP_SC2, **over}
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    print(f"tensor-parallel serving: {tp['model']} ranks on {cards} card(s), batch "
+          f"{tp['batch']} x {tp['prompt']}, {tp['gen']} greedy tokens, fused")
+    ranks = tp_serve(tp, LM_ARCH, 0, yard["t_obj"])
+    n_layers = len(yard["ffn_zf"])
+    hold_tp_run(LM_ARCH, ranks, yard, tp["g3_rules"], n_layers, len(yard["kv_zf"]), tp)
+    launches = ranks[0]["phases"]["prefill"]
+    del ranks
+    t1 = time.perf_counter()
+    tp = {**tp, "gen": tp["sc2_gen"]}
+    sc2 = single_yardstick(tp, tp["arch"], tp["layers"], tp["t_obj"])
+    ranks = tp_serve(tp, tp["arch"], tp["layers"], tp["t_obj"])
+    hold_tp_run(tp["arch"], ranks, sc2, tp["sc2_rules"], len(sc2["ffn_zf"]),
+                len(sc2["kv_zf"]), tp)
+    del ranks, sc2
+    t2 = time.perf_counter()
+    if device.type != "cuda":
+        return []
+    # kernels 1, 2, 4 and 7 on a rank's maps of the gemma3-4b prefill
+    lm = {"arch": LM_ARCH, "t_obj": yard["t_obj"],
+          "maps": [(h.to(device), w.to(device)) for h, w in yard["ffn_shards"]],
+          "kv": [x.to(device) for x in yard["kv"]], "replay_launches": {},
+          "launches": {k: launches[k] for k in (*LM_KERNELS, *KERNELS)}}
+    rows = time_lm_kernels(lm, edge_errs, device, gemms=("zebra_spmm_cs_kernel",),
+                           codec=False, stream_rows=TP_ROWS,
+                           suffix=" (gemma3-4b tensor-parallel prefill, a rank)")
+    del lm
+    torch.cuda.empty_cache()
+    print(f"  phase 17 times: gemma3-4b {t1 - t0:.1f} s, starcoder2-15b {t2 - t1:.1f} s, "
+          f"kernel timing {time.perf_counter() - t2:.1f} s")
+    return rows
+
+
 def _tensors(tree) -> list:
     from repro_torch.utils import map_tree
     out = []
@@ -4063,6 +4416,7 @@ def main() -> int:
         with torch.inference_mode():
             lm = run_lm(device)
             kernels += time_lm_kernels(lm, lm_errs, device)
+            tp_yard = tp_yardstick(lm)      # phase 17's yardstick, on the host
         off_tokens = lm["tokens"]
         del lm
         torch.cuda.empty_cache()
@@ -4127,19 +4481,25 @@ def main() -> int:
         torch.cuda.empty_cache()
         t12 = time.perf_counter()
         with torch.inference_mode():
-            kernels += run_continuous(device, lm_errs)
+            kernels += run_continuous(device, lm_errs, layers=SV_LAYERS)
         torch.cuda.empty_cache()
         t13 = time.perf_counter()
         kernels += run_collectives(device)
         torch.cuda.empty_cache()
         t14 = time.perf_counter()
+        with torch.inference_mode():
+            kernels += run_tensor_parallel(device, tp_yard, lm_errs)
+        del tp_yard
+        torch.cuda.empty_cache()
+        t15 = time.perf_counter()
         print(f"phase times: edge cases {t1 - t0:.1f} s, CNN {t2 - t1:.1f} s, "
               f"CNN zoo {t3 - t2:.1f} s, LM {t4 - t3:.1f} s, starcoder2-15b {t5 - t4:.1f} s, "
               f"arch runs {t6 - t5:.1f} s, validated {t7 - t6:.1f} s, "
               f"LM training {t8 - t7:.1f} s, remat and checkpoints {t9 - t8:.1f} s, "
               f"MoE {t10 - t9:.1f} s, whisper and scanned {t11 - t10:.1f} s, "
               f"mamba2 and recurrentgemma {t12 - t11:.1f} s, continuous serving "
-              f"{t13 - t12:.1f} s, collectives {t14 - t13:.1f} s")
+              f"{t13 - t12:.1f} s, collectives {t14 - t13:.1f} s, tensor-parallel "
+              f"serving {t15 - t14:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
         print(json.dumps({"ok": True, "device": {

@@ -107,6 +107,20 @@ class BandwidthMeter:
         self.records.append(r)
         return r
 
+    def record_counts(self, site: str, *, m: int, k: int, bs: int, bc: int,
+                      itemsize: int, n_live: int) -> SiteRecord:
+        """A compressed (m, k) map in (bs, bc) blocks known by its counts
+        alone: a map whose shards several ranks hold, counted once with
+        its whole block count (one packed index, as one stream)."""
+        nb = (m // bs) * (k // bc)
+        r = SiteRecord(site=site, dense_bytes=m * k * itemsize,
+                       payload_bytes=int(n_live) * bs * bc * itemsize,
+                       index_bytes=(nb + 7) // 8, n_blocks=nb, n_live=int(n_live),
+                       spec=TokenMapSpec(s=m, d=k, bits=itemsize * 8, block_seq=bs,
+                                         block_ch=bc))
+        self.records.append(r)
+        return r
+
     def record_dense(self, site: str, nbytes: int) -> SiteRecord:
         """An uncompressed transport (incompatible leaf), moved as it is."""
         r = SiteRecord(site=site, dense_bytes=int(nbytes), payload_bytes=int(nbytes),

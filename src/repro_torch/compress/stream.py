@@ -68,6 +68,9 @@ class CompressedMap:
     bs: int
     bc: int
     checksum: torch.Tensor | None = None   # () int64 in [0, 2**32), or None
+    # (dim, start, length): the part of the expanded map its holder keeps
+    # (a tensor-parallel rank's heads of a gathered cache leaf), or None
+    part: tuple[int, int, int] | None = None
 
     # --- measured stream accounting (host side: reads n_live back) ---
     @property
@@ -133,25 +136,30 @@ def compress(x: torch.Tensor, bitmap: torch.Tensor | None = None, *, bs: int = 8
 
 def decompress(cm: CompressedMap) -> torch.Tensor:
     bitmap = unpack_bitmap(cm.index, cm.m // cm.bs, cm.k // cm.bc)
-    return zebra_unpack(cm.payload, bitmap, bs=cm.bs, bc=cm.bc).reshape(cm.shape)
+    x = zebra_unpack(cm.payload, bitmap, bs=cm.bs, bc=cm.bc).reshape(cm.shape)
+    return x if cm.part is None else x.narrow(*cm.part).contiguous()
 
 
 # ---------------------------------------------------------------------------
 # Tree transport (the prefill -> decode KV-cache handoff)
 # ---------------------------------------------------------------------------
 
-def _leaf_dims(leaf, bs: int, bc: int) -> tuple[int, int] | None:
-    """The (m, k) flattening a leaf compresses under: the last axis, else
-    the last two, whichever first divides into (bs, bc) blocks."""
-    if not (isinstance(leaf, torch.Tensor) and leaf.dim() >= 2
-            and leaf.is_floating_point()):
-        return None
+def leaf_dims(shape: tuple[int, ...], bs: int, bc: int) -> tuple[int, int] | None:
+    """The (m, k) flattening a leaf of ``shape`` compresses under: the last
+    axis, else the last two, whichever first divides into (bs, bc) blocks."""
     for nd in (1, 2):
-        k = math.prod(leaf.shape[-nd:])
-        m = math.prod(leaf.shape[:-nd]) if leaf.dim() > nd else 0
+        k = math.prod(shape[-nd:])
+        m = math.prod(shape[:-nd]) if len(shape) > nd else 0
         if m and k % bc == 0 and m % bs == 0:
             return m, k
     return None
+
+
+def _leaf_dims(leaf, bs: int, bc: int) -> tuple[int, int] | None:
+    if not (isinstance(leaf, torch.Tensor) and leaf.dim() >= 2
+            and leaf.is_floating_point()):
+        return None
+    return leaf_dims(tuple(leaf.shape), bs, bc)
 
 
 def compress_tree(tree: Any, *, bs: int = 8, bc: int = 128, meter=None,

@@ -38,6 +38,8 @@ kernels' 2-D grid as ``(B*C*H, W)`` with ``bs = bc = b``, so every
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import logging
 from typing import Any
@@ -54,7 +56,7 @@ from ..kernels.spmm_cs import spmm_cs_with_slots
 from ..kernels.zebra_mask import zebra_mask
 from .backends import BackendSpec, backend_spec
 from .zebra import (ZebraConfig, effective_tnet, require_tnet, zebra_cnn,
-                    zebra_tokens, zero_fraction)
+                    zebra_tokens, zero_fraction, zero_fraction_of)
 
 _log = logging.getLogger("repro_torch.engine")
 _DEGRADE_LOGGED: set[tuple[str, str, str]] = set()
@@ -82,6 +84,10 @@ class SiteAux:
     ``ici_dense_bytes`` the dense-equivalent bytes of the same exchanges
                         (the plain all-gather the compression is measured
                         against).
+    ``keep``            the site's block keep flags as it computed them
+                        (the kernels' (rows/bs, D/bc) bitmap, or the
+                        reference's block mask), None where no block ran;
+                        the tensor-parallel path sums it over the ranks.
     """
     reg: Any = 0.0
     zero_frac: Any = 0.0
@@ -91,6 +97,7 @@ class SiteAux:
     backend: str = "reference"
     ici_bytes: Any = 0
     ici_dense_bytes: Any = 0
+    keep: Any = None
 
     def __getitem__(self, key: str):
         return getattr(self, key)
@@ -387,8 +394,8 @@ def wants_fused(cfg: ZebraConfig, site: str = "") -> bool:
 # ---------------------------------------------------------------------------
 
 def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
-               layout: str = "tokens", tnet=None, w: torch.Tensor | None = None
-               ) -> tuple[torch.Tensor, SiteAux]:
+               layout: str = "tokens", tnet=None, w: torch.Tensor | None = None,
+               split: bool = False) -> tuple[torch.Tensor, SiteAux]:
     """Execute one Zebra activation site through the configured backend.
 
     x       ``tokens``: (..., S, D) activation map (leading dims = batch);
@@ -399,9 +406,29 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
     w       downstream weight (K, N), for backends that consume one
             (reference, fused): the site then returns ``mask(x) @ w``.
 
+    split   tensor parallelism only: x is this rank's equal slice of the
+            map's last axis over the ``model`` axis (else every model
+            rank holds the whole map).
+
     Returns ``(y, SiteAux)``. Without ``w``, y is the masked map (bitwise
     identical on reference, pallas and stream); with ``w``, the product,
-    dead blocks skipped on fused."""
+    dead blocks skipped on fused. Under a tensor-parallel layout
+    (``distributed.ctx.tensor_parallel``) the site is that of the logical
+    whole map (:func:`_tp_site`)."""
+    if layout == "tokens":
+        from ..distributed.ctx import tensor_parallel
+        tp = tensor_parallel()
+        if tp is not None:
+            return _tp_site(x, cfg, tp, site=site, tnet=tnet, w=w, split=split)
+    if split:
+        raise ValueError("zebra_site(split=True) needs a tensor-parallel layout "
+                         "(distributed.ctx.sharding_hints on a mesh)")
+    return _site(x, cfg, site=site, layout=layout, tnet=tnet, w=w)
+
+
+def _site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "", layout: str = "tokens",
+          tnet=None, w: torch.Tensor | None = None) -> tuple[torch.Tensor, SiteAux]:
+    """One site in one process: :func:`zebra_site`'s backends."""
     spec = backend_spec(cfg.backend_for(site))
     if w is not None and not spec.consumes_w:
         raise ValueError(
@@ -422,8 +449,7 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
         degenerate = False
     elif layout == "tokens":
         if x.dim() == 2:                # bare (M, K) map: one-sample batch
-            y, aux = zebra_site(x[None], cfg, site=site, layout=layout, tnet=tnet,
-                                w=w)
+            y, aux = _site(x[None], cfg, site=site, layout=layout, tnet=tnet, w=w)
             return y[0], aux
         bs, bc, degenerate = _tokens_blocks(x, cfg)
         cfg = cfg.replace(block_seq=bs, block_ch=bc)
@@ -448,7 +474,7 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
                           measured_bytes=torch.zeros((), dtype=torch.int64,
                                                      device=x.device),
                           n_blocks=aux["n_blocks"],
-                          thresholds=aux["thresholds"], backend=label)
+                          thresholds=aux["thresholds"], backend=label, keep=aux.get("keep"))
 
     x2 = x.contiguous().reshape(dims)
     no_bytes = torch.zeros((), dtype=torch.int64, device=x.device)
@@ -460,7 +486,7 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
              else y2.reshape(*x.shape[:-1], n_cols))
         return y, SiteAux(reg=torch.zeros((), dtype=torch.float32, device=x.device),
                           zero_frac=zero_fraction(bitmap), measured_bytes=measured,
-                          n_blocks=nb_sample, thresholds=None, backend=label)
+                          n_blocks=nb_sample, thresholds=None, backend=label, keep=bitmap)
     if backend == "fused":
         # infer only (fused is not trainable). With w: the payload GEMM;
         # without: the pallas masking pass, which moves no stream bytes
@@ -472,7 +498,7 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
             y, measured = y2.reshape(x.shape), no_bytes
         return y, SiteAux(reg=torch.zeros((), dtype=torch.float32, device=x.device),
                           zero_frac=zero_fraction(bitmap), measured_bytes=measured,
-                          n_blocks=nb_sample, thresholds=None, backend=label)
+                          n_blocks=nb_sample, thresholds=None, backend=label, keep=bitmap)
     # pallas: one masking pass ("mask"); stream: mask_pack -> unpack with
     # only the (payload, bitmap) stream in between ("stream"). In train
     # mode the same launches run under the configured gradient mode.
@@ -489,4 +515,130 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
            else torch.zeros((), dtype=torch.float32, device=x.device))
     return y2.reshape(x.shape), SiteAux(
         reg=reg, zero_frac=zero_frac, measured_bytes=measured,
-        n_blocks=nb_sample, thresholds=None, backend=label)
+        n_blocks=nb_sample, thresholds=None, backend=label, keep=bitmap)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: a site of the logical whole map
+# ---------------------------------------------------------------------------
+
+_TP_SITE_LOG: contextvars.ContextVar = contextvars.ContextVar("repro_torch_tp_sites",
+                                                            default=None)
+
+
+_AUX_UNREAD: contextvars.ContextVar = contextvars.ContextVar("repro_torch_aux_unread",
+                                                             default=False)
+
+
+@contextlib.contextmanager
+def aux_unread():
+    """The sites run inside have their aux dropped by their caller (a
+    decode step): the tensor-parallel path does not sum their block counts
+    over the mesh, and returns each rank's own aux."""
+    tok = _AUX_UNREAD.set(True)
+    try:
+        yield
+    finally:
+        _AUX_UNREAD.reset(tok)
+
+
+@contextlib.contextmanager
+def record_tp_sites(bitmaps: bool = False):
+    """Record every tensor-parallel site run inside: a dict per site (name,
+    rule, label, the whole map's live and total block counts, per-sample
+    block count, zero fraction, bytes; with ``bitmaps`` the map's keep
+    flags gathered over the model axis, on the host). Yields the list."""
+    log: list[dict] = []
+    tok = _TP_SITE_LOG.set((log, bitmaps))
+    try:
+        yield log
+    finally:
+        _TP_SITE_LOG.reset(tok)
+
+
+def tp_site_rule(width: int, split: bool, m: int, block_ch: int) -> str:
+    """How a tensor-parallel site runs its map of local width ``width``:
+    ``"whole"`` (the map is replicated over the model axis: counted once),
+    ``"blocks"`` (split on Zebra block edges: each rank runs its shard) or
+    ``"gather"`` (a shard would cut a block: the map is gathered, the site
+    runs on it whole and each rank keeps its own columns)."""
+    if not split or m == 1:
+        return "whole"
+    D = width * m
+    bc = block_ch if D % block_ch == 0 else D
+    return "blocks" if width % bc == 0 else "gather"
+
+
+def _tp_site(x: torch.Tensor, cfg: ZebraConfig, tp, *, site: str, tnet, w, split: bool):
+    """One site under tensor parallelism, with the observables of the
+    logical whole map, the one the reference's partitioned program masks.
+
+    The map is (..., S, D) with its rows this rank's share of the batch
+    and, with ``split``, its columns this rank's slice over the model
+    axis. :func:`tp_site_rule` picks how it runs. With ``w`` (a w-consuming
+    backend) the product returned is the whole ``mask(x) @ w`` on every
+    rank: on ``"blocks"`` ``w`` is this rank's rows and the partial
+    products are summed over the model axis; on ``"gather"`` and
+    ``"whole"`` ``w`` is whole. Without ``w`` the masked map comes back in
+    x's layout.
+
+    The aux is the whole map's: the live blocks every rank owns (its shard
+    on ``"blocks"``, the model axis's first rank's map otherwise) summed
+    over the mesh, the zero fraction rounded as :func:`zero_fraction`
+    rounds it, the stream bytes by :func:`stream_bytes` with the global
+    block count (summing per-rank bytes would count the index padding once
+    a rank). Serving only: a train-mode site raises."""
+    from ..distributed.ctx import gather_model, psum_model
+    if cfg.mode == "train":
+        raise NotImplementedError("tensor-parallel training waits for the sharded train "
+                                  "step (ROADMAP.md, queue 1)")
+    if not cfg.enabled:
+        if w is not None:
+            raise ValueError("a disabled site takes no weight under tensor parallelism")
+        return x, SiteAux.empty(device=x.device)
+    m = tp.model.size
+    width = x.shape[-1]
+    rule = tp_site_rule(width, split, m, cfg.block_ch)
+    D = width * m if split else width
+    if rule == "gather":
+        if w is not None and w.shape[0] != D:
+            raise ValueError(f"site {site!r}: a gathered map of width {D} needs the whole "
+                             f"weight, got {tuple(w.shape)}")
+        y, aux = _site(gather_model(x, -1), cfg, site=site, tnet=tnet, w=w)
+        if w is None:
+            y = y.narrow(-1, tp.model.index * width, width).contiguous()
+    else:
+        y, aux = _site(x, cfg, site=site, tnet=tnet, w=w)
+        if w is not None and rule == "blocks":
+            y = psum_model(y)
+    if aux.keep is None or _AUX_UNREAD.get():   # nothing ran, or nobody reads it
+        return y, aux
+    owned = rule == "blocks" or tp.model.index == 0
+    keep = aux.keep.reshape(-1, aux.keep.shape[-1])
+    live = keep.sum(dtype=torch.int64) if owned else torch.zeros((), dtype=torch.int64,
+                                                                  device=x.device)
+    from ..distributed.collectives import Wire
+    live = Wire(tp.world).all_reduce(live)
+    S = x.shape[-2] if x.dim() > 1 else 1
+    bs = cfg.block_seq if S % cfg.block_seq == 0 else 1
+    bc = cfg.block_ch if D % cfg.block_ch == 0 else D
+    n_total = (x.numel() // width * tp.data.size // bs) * (D // bc)
+    zero_frac = zero_fraction_of(live, n_total)
+    measured = (stream_bytes(live, bs, bc, x.dtype, n_total)
+                if int(aux.measured_bytes) > 0 else torch.zeros_like(live))
+    out = dataclasses.replace(aux, zero_frac=zero_frac, measured_bytes=measured,
+                              n_blocks=(S // bs) * (D // bc))
+    rec = _TP_SITE_LOG.get()
+    if rec is not None:
+        log, bitmaps = rec
+        entry = {"site": site, "rule": rule, "backend": aux.backend, "n_total": n_total,
+                 "n_blocks": out.n_blocks, "zero_frac": float(zero_frac),
+                 "measured_bytes": int(measured),
+                 "rows": x.numel() // width * tp.data.size, "width": D}
+        if bitmaps:                     # the map's flags across the model axis
+            k8 = keep.to(torch.int8)
+            if rule == "blocks" and m > 1:
+                k8 = torch.cat(Wire(tp.model).all_gather(k8).unbind(0), dim=-1)
+            entry["keep"] = k8.cpu()
+        log.append(entry)
+    return y, out

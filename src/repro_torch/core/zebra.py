@@ -136,9 +136,13 @@ def zero_fraction(keep: torch.Tensor) -> torch.Tensor:
     difference are exact in float64 (live < 2**29, r of 24 bits), then
     rounded to float32: equal bit for bit, also when the block count is
     not a power of two."""
-    live = keep.sum(dtype=torch.int64).to(torch.float64)
-    inv_n = float(np.float32(1.0) / np.float32(keep.numel()))
-    return (1.0 - live * inv_n).to(torch.float32)
+    return zero_fraction_of(keep.sum(dtype=torch.int64), keep.numel())
+
+
+def zero_fraction_of(live: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`zero_fraction` from a live block count and the block count."""
+    inv_n = float(np.float32(1.0) / np.float32(n))
+    return (1.0 - live.to(torch.float64) * inv_n).to(torch.float32)
 
 
 def effective_tnet(cfg: ZebraConfig, tnet):
@@ -242,7 +246,8 @@ def zebra_cnn(x: torch.Tensor, cfg: ZebraConfig, tnet=None) -> tuple[torch.Tenso
 def zebra_tokens(x: torch.Tensor, cfg: ZebraConfig, tnet=None) -> tuple[torch.Tensor, Aux]:
     """Zebra over a (B, S, D) token activation map (tile blocks). With a
     net, thresholds are per channel block, from the GAP of ``|x|`` over
-    the sequence."""
+    the sequence. The aux also carries ``keep``, the (B, S/bs, D/bc) block
+    mask."""
     if not cfg.enabled:
         return _disabled(x)
     B, S, D = x.shape
@@ -273,7 +278,7 @@ def zebra_tokens(x: torch.Tensor, cfg: ZebraConfig, tnet=None) -> tuple[torch.Te
     if reg is None:
         reg = zero_frac.detach() * n_blocks
     return y, {"reg": reg, "zero_frac": zero_frac, "n_blocks": n_blocks,
-               "thresholds": thr_ch}
+               "thresholds": thr_ch, "keep": keep}
 
 
 def collect_zebra_loss(auxes) -> torch.Tensor:

@@ -51,8 +51,8 @@ axis and shape allow it (:func:`resolve_comms`); otherwise it is a dense
 ``all_gather`` with the reason logged once and shown on the ``SiteAux``
 backend label. The reference's ``shard_map_compat`` and ``axis_size`` are
 JAX machinery with no counterpart: the ranks of the group are the shards.
-The exchanges move values only: they carry no gradient (the
-tensor-parallel training slice adds the backward; ROADMAP.md, item 3).
+The exchanges move values only: they carry no gradient (the sharded
+train step adds the backward; ROADMAP.md, queue 1, item 1).
 """
 from __future__ import annotations
 
@@ -194,6 +194,38 @@ class Wire:
 def gather_dense(t: torch.Tensor, axis: CommAxis) -> torch.Tensor:
     """(n, *t.shape): the plain all-gather a degraded exchange runs."""
     return t[None] if axis.size == 1 else Wire(axis).all_gather(t)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-parallel LM's dense collectives
+# ---------------------------------------------------------------------------
+
+# calls and the bytes each rank handed in, of the tensor-parallel LM's dense
+# collectives (the row-parallel sums, the site, K/V and logit gathers)
+TP_TRAFFIC = {"calls": 0, "bytes": 0}
+
+
+def _tp_count(t: torch.Tensor) -> None:
+    TP_TRAFFIC["calls"] += 1
+    TP_TRAFFIC["bytes"] += t.numel() * t.element_size()
+
+
+def tp_all_reduce(t: torch.Tensor, axis: CommAxis) -> torch.Tensor:
+    """The sum over ``axis`` of a row-parallel product's partial sums, in
+    ``t``'s dtype. A 16-bit tensor is summed in float32 and rounded once:
+    gloo's sums of 16-bit values round after every add. Every rank gets the
+    same bytes (the collective hands each rank the one reduced buffer)."""
+    _tp_count(t)
+    wide = t if t.element_size() >= 4 else t.float()
+    return Wire(axis).all_reduce(wide).to(t.dtype)
+
+
+def tp_all_gather(t: torch.Tensor, axis: CommAxis, dim: int) -> torch.Tensor:
+    """Every rank's ``t`` of ``axis`` concatenated along ``dim``, in the
+    group's rank order."""
+    _tp_count(t)
+    g = Wire(axis).all_gather(t.contiguous())                 # (n, *t.shape)
+    return torch.cat(g.unbind(0), dim=dim)
 
 
 # ---------------------------------------------------------------------------

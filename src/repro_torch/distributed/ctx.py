@@ -10,9 +10,19 @@ program; here each rank is a process holding its own shard, so the
 context carries the axis's process group, its size and this rank's index
 in it (:class:`CommAxis`).
 
-The reference's ``hint``/``hint_tokens`` (GSPMD sharding constraints) wait
-for the tensor-parallel slice (ROADMAP.md, item 3); nothing in the port
-calls them yet.
+Tensor parallelism (:func:`tensor_parallel`): under ``sharding_hints``
+with a tensor-parallel axis that does not carry the batch (the "tp"
+profile), each rank holds its shards of a model cut by
+``sharding.shard_state_dict`` and its rows of the batch. The reference
+pins layouts with ``hint``/``hint_tokens`` and lets GSPMD insert the
+collectives; the port has no partitioner, so its ``hint``/``hint_tokens``
+take the tensor's local layout over the tensor-parallel axis (``local``:
+replicated, a partial sum, or this rank's slice of one dimension) and run
+the collective that brings it to the pinned layout, or nothing where the
+two already match. The batch dimension is local on every rank and is never
+moved. The other tensor-parallel collectives (the row-parallel sums, the
+gathers a site or the vocabulary needs) are :func:`psum_model` and
+:func:`gather_model`.
 """
 from __future__ import annotations
 
@@ -124,3 +134,98 @@ def tp_axis():
 def _axis_names(mesh) -> tuple[str, ...]:
     names = getattr(mesh, "mesh_dim_names", None)
     return tuple(names) if names is not None else tuple(mesh.axis_names)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: the layout, the pins and the dense collectives
+# ---------------------------------------------------------------------------
+
+class TensorParallel(NamedTuple):
+    """The tensor-parallel layout a rank runs under: its ``model`` axis
+    (the weights' and heads' shards), its ``data`` axis (the batch's rows)
+    and ``world``, every rank of the mesh, over which a site's block counts
+    are summed."""
+    model: CommAxis
+    data: CommAxis
+    world: CommAxis
+
+
+def tensor_parallel() -> TensorParallel | None:
+    """The active tensor-parallel layout: a ``DeviceMesh`` declared by
+    ``sharding_hints`` with a tensor-parallel axis that is not among the
+    data-parallel ones; None otherwise (no mesh, pure DP, or a stand-in
+    mesh). The first call on a mesh makes its groups: every rank reaches it
+    at the same point of the same program."""
+    mesh, tp = _MESH.get(), _TP.get()
+    if mesh is None or tp is None or tp in dp_axes() or not hasattr(mesh, "get_group"):
+        return None
+    cache = mesh.__dict__.setdefault("_repro_tp", {})
+    if tp not in cache:
+        cache[tp] = TensorParallel(axis_of(mesh, tp), axis_of(mesh, "data"),
+                                   axis_of(mesh, tuple(mesh.mesh_dim_names)))
+    return cache[tp]
+
+
+def psum_model(t):
+    """The sum of ``t`` over the tensor-parallel axis (a row-parallel
+    product's partial sums), identical on every rank; ``t`` itself outside
+    tensor parallelism."""
+    tp = tensor_parallel()
+    if tp is None or tp.model.size == 1:
+        return t
+    from .collectives import tp_all_reduce
+    return tp_all_reduce(t, tp.model)
+
+
+def gather_model(t, dim: int):
+    """Every model rank's ``t`` concatenated along ``dim`` in rank order;
+    ``t`` itself outside tensor parallelism."""
+    tp = tensor_parallel()
+    if tp is None or tp.model.size == 1:
+        return t
+    from .collectives import tp_all_gather
+    return tp_all_gather(t, tp.model, dim)
+
+
+def _own_slice(t, dim: int, axis: CommAxis):
+    n = t.shape[dim] // axis.size
+    return t.narrow(dim, axis.index * n, n)
+
+
+def hint(x, *spec, local=None):
+    """Bring ``x`` to the layout ``spec`` pins over the tensor-parallel
+    axis (per dimension an axis name, a tuple of names or None; names the
+    mesh lacks, and an axis whose size does not divide the dimension, drop
+    as in the reference). ``local`` is x's layout on this rank: None
+    (replicated: the whole tensor), ``"partial"`` (a partial sum) or a
+    dimension (this rank's slice of it). A no-op outside tensor
+    parallelism; the batch's axes move nothing."""
+    tp = tensor_parallel()
+    if tp is None:
+        return x
+    nd = x.dim()
+    local = local % nd if isinstance(local, int) else local
+    m = tp.model
+    want = None
+    for i, s in enumerate(spec):
+        axes = s if isinstance(s, (tuple, list)) else (s,)
+        size = x.shape[i] * (m.size if local == i else 1)
+        if m.name in axes and size % m.size == 0:
+            want = i
+    if local == want:
+        return x
+    if local == "partial":
+        x = psum_model(x)
+    elif local is not None:
+        x = gather_model(x, local)
+    return x if want is None else _own_slice(x, want, m)
+
+
+def hint_tokens(x, *trailing, local=None):
+    """A batch-sharded activation pin: dim 0 over the data-parallel axes,
+    ``trailing`` for the last dimensions, None between; a trailing
+    ``"model"`` is the active tensor-parallel axis. See :func:`hint`."""
+    tp = _TP.get()
+    trailing = tuple(tp if t == "model" else t for t in trailing)
+    mid = (None,) * (x.dim() - 1 - len(trailing))
+    return hint(x, dp_axes(), *mid, *trailing, local=local)

@@ -15,9 +15,15 @@ names are the reference's (``models.lm.convert``).
 
 A spec is a :class:`Spec`: per dimension one axis name, a tuple of names,
 or None. A mesh is a ``DeviceMesh`` or any object with an
-``{axis: size}`` ``shape`` mapping and ``axis_names``. Turning specs into
-DTensor placements (the reference's ``to_shardings``) waits for the
-tensor-parallel slice, the first to consume them (ROADMAP.md, item 3).
+``{axis: size}`` ``shape`` mapping and ``axis_names``.
+:func:`to_shardings` and :func:`param_shardings` (the reference's
+``NamedSharding`` trees) give each Spec as DTensor placements, one
+``Shard(dim)`` or ``Replicate()`` per mesh axis, and :func:`local_shard`
+cuts a rank's shard out of a whole tensor by them. Serving
+(:func:`serving_shardings`, :func:`shard_model_`) materialises the
+``model`` axis and keeps every parameter whole across ``data``: the
+reference's FSDP split over ``data`` is a memory layout that changes no
+value, and waits for the sharded train step (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -201,3 +207,114 @@ def cache_specs(cache_tree, cfg: LMConfig, mesh):
     return map_tree(lambda path, leaf: cache_spec_for(tuple(map(str, path)),
                                                       tuple(leaf.shape), cfg, mesh),
                     cache_tree)
+
+
+
+# ---------------------------------------------------------------------------
+# Placements: the reference's NamedShardings as DTensor placements
+# ---------------------------------------------------------------------------
+
+def placements(spec: Spec, mesh) -> tuple:
+    """``spec`` as DTensor placements over the mesh's axes, in their order:
+    ``Shard(dim)`` for the axis a dimension is split over (an axis named
+    by two dimensions keeps the first), ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = tuple(mesh_shape(mesh))
+    dims: dict[str, int] = {}
+    for d, ax in enumerate(spec):
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            if a is not None:
+                dims.setdefault(a, d)
+    return tuple(Shard(dims[a]) if a in dims else Replicate() for a in names)
+
+
+def to_shardings(spec_tree, mesh):
+    """A {name: Spec} mapping (or one Spec) as {name: placements}."""
+    if isinstance(spec_tree, Spec):
+        return placements(spec_tree, mesh)
+    return {k: to_shardings(v, mesh) for k, v in spec_tree.items()}
+
+
+def param_shardings(params, cfg: LMConfig, mesh) -> dict:
+    """{dotted name: placements} over a model's parameters (the
+    reference's ``param_shardings``)."""
+    return to_shardings(param_specs(params, cfg, mesh), mesh)
+
+
+def local_shard(t, places: tuple, mesh, coords: dict[str, int] | None = None,
+                axes: tuple[str, ...] | None = None):
+    """This rank's shard of the whole tensor ``t`` under ``places``: for
+    every mesh axis in ``axes`` (default: all) split as ``Shard(dim)``, the
+    ``coords[axis]``-th of its equal parts along ``dim`` (the rank's
+    coordinate on a ``DeviceMesh`` by default), nested in mesh order. A
+    view of ``t``."""
+    sizes = mesh_shape(mesh)
+    for name, pl in zip(sizes, places):
+        if axes is not None and name not in axes or not hasattr(pl, "dim"):
+            continue
+        n = sizes[name]
+        if t.shape[pl.dim] % n:
+            raise ValueError(f"dim {pl.dim} of {tuple(t.shape)} does not split over "
+                             f"{name!r} ({n})")
+        i = coords[name] if coords is not None else mesh.get_local_rank(name)
+        part = t.shape[pl.dim] // n
+        t = t.narrow(pl.dim, i * part, part)
+    return t
+
+
+def serving_shardings(params, cfg: LMConfig, mesh) -> dict:
+    """The placements a served model's parameters take: the reference's
+    specs over ``model``, every parameter whole over ``data``, and, where
+    the FFN's hidden map would be gathered (a ``model`` shard of ``d_ff``
+    would cut a Zebra block: ``core.engine.tp_site_rule``), ``w_down``
+    whole on every rank, since the site then runs on the whole map."""
+    from torch.distributed.tensor import Replicate
+
+    from ..core.engine import tp_site_rule
+    m = mesh_shape(mesh).get("model", 1)
+    out = {}
+    for name, places in param_shardings(params, cfg, mesh).items():
+        places = tuple(Replicate() if a != "model" else pl
+                       for a, pl in zip(mesh_shape(mesh), places))
+        if name.endswith("ffn.w_down") and cfg.d_ff % m == 0 and \
+                tp_site_rule(cfg.d_ff // m, True, m, cfg.zebra_block_ch) == "gather":
+            places = tuple(Replicate() for _ in places)
+        out[name] = places
+    return out
+
+
+def tp_unported(cfg: LMConfig) -> str | None:
+    """Why ``cfg`` cannot be served tensor-parallel yet, or None: the slice
+    serves the dense-FFN attention LMs."""
+    if cfg.is_moe:
+        return "MoE FFNs (expert parallelism)"
+    if cfg.encoder_layers:
+        return "encoder-decoder models"
+    kinds = set(cfg.layer_pattern) - {"global", "local"}
+    if kinds:
+        return f"{'/'.join(sorted(kinds))} layers"
+    return None
+
+
+def shard_model_(model, mesh, coords: dict[str, int] | None = None):
+    """Cut a whole model's parameters to this rank's serving shards
+    (:func:`serving_shardings`), in place: each becomes a copy of its
+    shard, and the whole tensors go. Records the mesh on the model
+    (``model.mesh``), where the serving steps read it. Returns the model."""
+    import torch
+    cfg = model.cfg
+    why = tp_unported(cfg)
+    if why is not None:
+        raise NotImplementedError(f"tensor-parallel serving of {why} is not ported yet "
+                                  f"(ROADMAP.md, queue 1, item 1)")
+    m = mesh_shape(mesh).get("model", 1)
+    if cfg.n_heads % m:
+        raise NotImplementedError(f"{cfg.n_heads} query heads do not split over "
+                                  f"{m} model ranks")
+    places = serving_shardings(model, cfg, mesh)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.data = local_shard(p.data, places[name], mesh, coords,
+                                 axes=("model",)).clone()
+    model.mesh = mesh
+    return model

@@ -3,8 +3,8 @@ circuit breaker, deterministic fault injection (the stream taps, the
 checkpoint and step faults, and the serving engine's tick tap
 ``crash_tap``, and the collectives' ring-hop tap ``ring_hop_tap``) and the
 training step supervisor, whose ``FailurePolicy`` the serving engine
-shares. The supervisor's remesh waits for the tensor-parallel slice of the
-distributed item (ROADMAP.md, item 3)."""
+shares. The supervisor's remesh waits for the sharded train step
+(``remesh_state``: ROADMAP.md, queue 1, item 2)."""
 from .faults import (  # noqa: F401
     CorruptStream,
     DeadlineExceeded,

@@ -14,7 +14,7 @@ and from host memory; the packing and rebuilding still run on each
 rank's card.
 
 ``make_production_mesh`` (16x16 and 2x16x16) waits for the dry run
-(ROADMAP.md, item 3).
+(ROADMAP.md, queue 1, item 4).
 """
 from __future__ import annotations
 

@@ -31,13 +31,30 @@ from ``data.lm_batch``. ``--validate structural|checksum`` checks every
 stream at its producer -> consumer boundary (``core.engine``) and every
 compressed cache leaf of the handoff (:func:`validate_state_ingest`),
 recovering a failed one from its dense source, and the continuous
-engine's pages at ingest. Model parallelism waits (ROADMAP.md, module
-queue) and raises.
+engine's pages at ingest.
+
+``--model-parallel N`` serves the dense-FFN attention LMs (gemma3-4b,
+starcoder2-15b, qwen2.5-14b, command-r-35b, chameleon-34b) one-shot on a
+``("data", "model")`` mesh (:func:`serve_tensor_parallel`): the weights,
+heads, ``d_ff`` and vocabulary over ``model``, the batch over ``data``, on
+every backend, with the compressed handoff and ``--validate``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
+        --model-parallel 4 --backend fused --batch 2 --prompt-len 2048 \
+        --gen 32 --t-obj 1.05
+
+From a plain shell it spawns N ranks on this host (on one card they share
+it, over ``gloo``); inside a joined world of a multiple of N ranks each
+process serves as its rank. ``--requests`` and the MoE, SSM, RG-LRU and
+encoder-decoder architectures raise under it (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
+import math
+import os
 import time
 
 import torch
@@ -52,7 +69,8 @@ from ..data import LMDatasetConfig, lm_batch
 from ..models.lm import LM, LMConfig
 from ..serve.bucket import pow2_bucket
 from ..utils import map_tree, resolve_device
-from .steps import _next_token, generate, prefill
+from ..distributed.ctx import tensor_parallel
+from .steps import _next_token, generate, model_hints, prefill
 
 COMPRESSED_BACKENDS = ("stream", "fused")
 
@@ -79,7 +97,7 @@ def _sync(device: torch.device) -> None:
 @torch.inference_mode()
 def serve_one_shot(model: LM, prompts: torch.Tensor, gen: int, *, backend: str | None = None,
                    temperature: float = 0.0, seed: int = 0, log=print,
-                   enc_feats: torch.Tensor | None = None) -> dict:
+                   enc_feats: torch.Tensor | None = None, keep_logits: bool = False) -> dict:
     """Prefill ``prompts`` (B, S) (an encoder-decoder encodes its frames
     ``enc_feats`` first), hand the caches over (compressed on the
     stream/fused backends; the encoder output goes on dense), decode
@@ -92,13 +110,18 @@ def serve_one_shot(model: LM, prompts: torch.Tensor, gen: int, *, backend: str |
     and were recovered dense, and the host-clock times (synchronised on
     the card). ``backend`` serves this call on another site backend with
     the same weights: the model reads its config at every call, so the
-    call swaps it in and restores the model's own after."""
+    call swaps it in and restores the model's own after. With
+    ``keep_logits`` the logits each token was chosen from come back as
+    ``step_logits`` (the prefill's, then each decode step's). Under a
+    tensor-parallel model's mesh it also returns ``phases``, each phase's
+    kernel launches and tensor-parallel collectives, and checks that every
+    model rank holds the same logits and tokens bit for bit."""
     if backend is not None and backend != model.cfg.zebra_backend:
         own = model.cfg
         model.cfg = own.replace(zebra_backend=backend)
         try:
             return serve_one_shot(model, prompts, gen, temperature=temperature, seed=seed,
-                                  log=log, enc_feats=enc_feats)
+                                  log=log, enc_feats=enc_feats, keep_logits=keep_logits)
         finally:
             model.cfg = own
     cfg = model.cfg
@@ -107,31 +130,77 @@ def serve_one_shot(model: LM, prompts: torch.Tensor, gen: int, *, backend: str |
     generator = torch.Generator(device=device).manual_seed(seed)
     B, S = prompts.shape
 
-    _sync(device)
-    t0 = time.perf_counter()
-    logits, state, aux = model_prefill_pad(lambda t: prefill(model, t, enc_feats), prompts,
-                                           S + gen)
-    _sync(device)
-    t_pref = time.perf_counter() - t0
-    dense_state = handoff = state
-    meter, rec, recovered = None, None, 0
-    if backend in COMPRESSED_BACKENDS:
-        meter = BandwidthMeter()
-        handoff, rec, recovered = transport_state_compressed(
-            state, cfg, meter=meter, log=log, validation=cfg.zebra_validation)
-    tok = _next_token(logits, temperature, generator)
+    with model_hints(model):
+        tp = tensor_parallel()
+        phases = _PhaseMarks(tp is not None)
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, state, aux = model_prefill_pad(lambda t: prefill(model, t, enc_feats),
+                                               prompts, S + gen)
+        _sync(device)
+        t_pref = time.perf_counter() - t0
+        phases.mark("prefill")
+        if tp is not None:
+            check_replicated(logits, tp.model, "prefill logits")
+        dense_state = handoff = state
+        meter, rec, recovered = None, None, 0
+        if backend in COMPRESSED_BACKENDS:
+            meter = BandwidthMeter()
+            handoff, rec, recovered = transport_state_compressed(
+                state, cfg, meter=meter, log=log, validation=cfg.zebra_validation)
+        phases.mark("handoff")
+        tok = _next_token(logits, temperature, generator)
 
-    _sync(device)
-    t0 = time.perf_counter()
-    toks, _ = generate(model, tok, handoff, S, max(gen - 1, 0), temperature, generator)
-    _sync(device)
-    t_dec = time.perf_counter() - t0
-    tokens = torch.cat([tok, toks], dim=1)[:, :gen]
+        step_logits = [logits] if keep_logits else None
+        _sync(device)
+        t0 = time.perf_counter()
+        toks, _ = generate(model, tok, handoff, S, max(gen - 1, 0), temperature, generator,
+                           step_logits)
+        _sync(device)
+        t_dec = time.perf_counter() - t0
+        phases.mark("decode")
+        tokens = torch.cat([tok, toks], dim=1)[:, :gen]
+        if tp is not None:
+            check_replicated(tokens, tp.model, "tokens")
     return {"tokens": tokens, "logits": logits, "aux": aux, "meter": meter,
             "reconcile": rec, "dense_state": dense_state, "handoff_state": handoff,
             "ingest_recovered": recovered,
             "prefill_ms": t_pref * 1e3,
-            "decode_ms_per_token": t_dec / max(gen - 1, 1) * 1e3}
+            "decode_ms_per_token": t_dec / max(gen - 1, 1) * 1e3,
+            "phases": phases.deltas, "step_logits": step_logits}
+
+
+class _PhaseMarks:
+    """Under tensor parallelism, the kernel launches and the tensor-parallel
+    collectives (calls and the bytes a rank handed in) of each serving
+    phase; empty otherwise."""
+
+    def __init__(self, on: bool):
+        self.on, self.deltas = on, {}
+        self._last = self._read() if on else None
+
+    @staticmethod
+    def _read() -> dict:
+        from ..distributed.collectives import TP_TRAFFIC
+        from ..kernels import launch_counters
+        return {**{k: w.launches for k, w in launch_counters().items()},
+                **{f"tp_{k}": v for k, v in TP_TRAFFIC.items()}}
+
+    def mark(self, phase: str) -> None:
+        if self.on:
+            now = self._read()
+            self.deltas[phase] = {k: now[k] - self._last[k] for k in now}
+            self._last = now
+
+
+def check_replicated(t: torch.Tensor, axis, what: str) -> None:
+    """Raise unless every rank of ``axis`` holds ``t`` bit for bit: a model
+    rank that drifted would take other tokens and desynchronise decode."""
+    from ..distributed.collectives import Wire
+    g = Wire(axis).all_gather(t.contiguous())
+    raw = g.reshape(g.shape[0], -1).view(torch.uint8)
+    if not bool((raw == raw[axis.index]).all()):
+        raise RuntimeError(f"{what} differ between the ranks of the {axis.name!r} axis")
 
 
 def main(argv=None) -> dict:
@@ -189,38 +258,54 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (no fallback); 'cpu' runs the "
                          "kernels' plain versions on the CPU")
+    ap.add_argument("--save", default=None,
+                    help="--model-parallel: each rank also saves its report (tokens, "
+                         "logits, sites, handoff records, times, memory, launches and "
+                         "collectives by phase) to DIR/rank<r>.pt")
     args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise NotImplementedError("--model-parallel > 1 is not yet ported to "
-                                  "repro_torch (ROADMAP.md, item 3, distributed: the "
-                                  "tensor-parallel LM)")
-
-    device = resolve_device(args.device)
-    if device.type == "cuda":
-        # full float32 for every float32 matmul, as the reference computes it
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
     cfg = build_config(args.arch, reduced=args.reduced, t_obj=args.t_obj,
                        backend=args.backend, validation=args.validate,
                        n_layers=args.layers)
+    if args.model_parallel != 1:
+        return serve_tensor_parallel(args, cfg, argv)
+
+    device = resolve_device(args.device)
+    _no_tf32(device)
     model = LM(cfg, generator=torch.Generator(device=device).manual_seed(0),
                device=device).requires_grad_(False)
     if args.requests:
         return serve_continuous(args, model)
 
     B, S = args.batch, args.prompt_len
-    prompts = torch.from_numpy(lm_batch(LMDatasetConfig(vocab=cfg.vocab), B, S, 0)[:, :S])
-    prompts = prompts.to(device=device, dtype=torch.int64)
+    prompts = _prompts(cfg, B, S, device)
     enc = (torch.zeros((B, cfg.enc_seq, cfg.d_model), dtype=torch.bfloat16, device=device)
            if cfg.encoder_layers else None)
     out = serve_one_shot(model, prompts, args.gen, temperature=args.temperature,
                          seed=args.seed, enc_feats=enc)
+    _print_report(cfg, out, B, S, args.gen, device)
+    out["model"], out["prompts"] = model, prompts
+    return out
+
+
+def _no_tf32(device: torch.device) -> None:
+    if device.type == "cuda":
+        # full float32 for every float32 matmul, as the reference computes it
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def _prompts(cfg: LMConfig, B: int, S: int, device) -> torch.Tensor:
+    prompts = torch.from_numpy(lm_batch(LMDatasetConfig(vocab=cfg.vocab), B, S, 0)[:, :S])
+    return prompts.to(device=device, dtype=torch.int64)
+
+
+def _print_report(cfg: LMConfig, out: dict, B: int, S: int, gen: int, device,
+                  where: str = "") -> None:
     aux = out["aux"]
-    n_blocks = float(aux.n_blocks)
-    print(f"[serve] {cfg.name} batch={B} prompt={S} gen={args.gen} on {device}")
+    print(f"[serve] {cfg.name} batch={B} prompt={S} gen={gen} on {device}{where}")
     print(f"  prefill: {out['prefill_ms']:.1f} ms  decode: "
           f"{out['decode_ms_per_token']:.2f} ms/token")
-    if n_blocks > 0:
+    if float(aux.n_blocks) > 0:
         print(f"  zebra zero-block fraction, all prefill sites: {float(aux.zero_frac):.3f}")
     else:
         print("  zebra: no block-divisible site this shape — zero-block fraction n/a")
@@ -229,8 +314,131 @@ def main(argv=None) -> dict:
         print(f"  zebra in-model transport: {measured / 1e6:.3f} MB measured "
               f"compressed stream bytes (prefill sites)")
     print("  sample continuation:", out["tokens"][0, :16].tolist())
-    out["model"], out["prompts"] = model, prompts
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel one-shot serving (--model-parallel N)
+# ---------------------------------------------------------------------------
+
+TP_QUEUE = "ROADMAP.md, queue 1, item 1"
+
+
+def serve_tensor_parallel(args, cfg: LMConfig, argv=None) -> dict:
+    """``--model-parallel N``: one-shot serving on a ``("data", "model")``
+    mesh, N ranks a model replica, the batch split over ``data``. Inside a
+    joined world (``launch.mesh.init_world`` or ``spawn``) this process
+    serves as its rank (:func:`serve_rank`); from a plain process it
+    spawns N ranks on this host (data 1), building the kernels first, and
+    returns rank 0's report with every rank's under ``"ranks"``. What the
+    slice does not serve raises here, before anything launches."""
+    import torch.distributed as dist
+
+    from ..distributed.sharding import tp_unported
+    if args.model_parallel < 1:
+        raise ValueError(f"--model-parallel {args.model_parallel}: at least 1")
+    if args.requests:
+        raise NotImplementedError(f"--requests under --model-parallel: continuous serving "
+                                  f"under tensor parallelism is not ported yet ({TP_QUEUE})")
+    why = tp_unported(cfg)
+    if why is not None:
+        raise NotImplementedError(f"--model-parallel: tensor-parallel serving of {why} "
+                                  f"({cfg.name}) is not ported yet ({TP_QUEUE})")
+    if dist.is_initialized():
+        return serve_rank(args, cfg)
+    import sys
+    import tempfile
+
+    from ..kernels import build
+    from .mesh import spawn
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        build.load_library()            # once, before the ranks load it
+    argv = list(sys.argv[1:] if argv is None else argv)
+    with tempfile.TemporaryDirectory() as tmp:
+        save = args.save or tmp
+        spawn(_spawned_rank, args.model_parallel, (argv, save), device=str(device))
+        reports = [torch.load(f"{save}/rank{r}.pt") for r in range(args.model_parallel)]
+    return {**reports[0], "ranks": reports}
+
+
+def _spawned_rank(rank: int, argv: list, save: str) -> None:
+    main([*argv, "--save", save])           # the last --save wins
+
+
+def serve_rank(args, cfg: LMConfig) -> dict:
+    """This rank's part of ``--model-parallel N`` inside a joined world
+    whose size N divides: the mesh (``make_host_mesh(model=N)``), the model
+    built whole from seed 0 and cut to this rank's shards
+    (``sharding.shard_model_``), this data rank's rows of the prompts,
+    then :func:`serve_one_shot` with its sites recorded. Rank 0 prints the
+    report; with ``--save`` every rank saves :func:`tp_report` (rank 0's
+    with the logits of every token)."""
+    import torch.distributed as dist
+
+    from ..core.engine import record_tp_sites
+    from ..distributed.sharding import shard_model_
+    from .mesh import make_host_mesh
+    N, world = args.model_parallel, dist.get_world_size()
+    if world % N:
+        raise ValueError(f"--model-parallel {N} does not divide the world of {world} ranks")
+    device = resolve_device(args.device)
+    _no_tf32(device)
+    if device.type == "cpu":            # the ranks share this host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = make_host_mesh(model=N, device=device)
+    data = world // N
+    B, S = args.batch, args.prompt_len
+    if B % data:
+        raise ValueError(f"batch {B} does not split over {data} data ranks")
+    model = LM(cfg, generator=torch.Generator(device=device).manual_seed(0),
+               device=device).requires_grad_(False)
+    shard_model_(model, mesh)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    rows = B // data
+    di = mesh.get_local_rank("data")
+    prompts = _prompts(cfg, B, S, device)[di * rows:(di + 1) * rows]
+    rank0 = dist.get_rank() == 0
+    with record_tp_sites(bitmaps=args.save is not None) as sites:
+        out = serve_one_shot(model, prompts, args.gen, temperature=args.temperature,
+                             seed=args.seed, log=print if rank0 else (lambda *_: None),
+                             keep_logits=args.save is not None and rank0)
+    out["sites"] = sites
+    out["max_memory_allocated"] = (torch.cuda.max_memory_allocated(device)
+                                   if device.type == "cuda" else 0)
+    if rank0:
+        _print_report(cfg, out, B, S, args.gen, device,
+                      f", {world} ranks (data {data}, model {N})")
+    if args.save is not None:
+        torch.save(tp_report(out, mesh), f"{args.save}/rank{dist.get_rank()}.pt")
+    out["model"], out["prompts"], out["mesh"] = model, prompts, mesh
     return out
+
+
+def tp_report(out: dict, mesh) -> dict:
+    """A rank's serving result on the host, for the process that spawned it."""
+    import torch.distributed as dist
+
+    from ..distributed.collectives import wire_name
+    aux = out["aux"]
+    meter = out["meter"]
+    return {"rank": dist.get_rank(), "data_index": mesh.get_local_rank("data"),
+            "model_index": mesh.get_local_rank("model"),
+            "wire": wire_name(mesh.get_group("model")),
+            "tokens": out["tokens"].cpu(), "logits": out["logits"].float().cpu(),
+            "n_blocks": float(aux.n_blocks), "zero_frac": aux.zero_frac.cpu(),
+            "measured_bytes": aux.measured_bytes_exact(),
+            "records": [] if meter is None else [dataclasses.asdict(
+                dataclasses.replace(r, spec=None)) | {"predicted": r.predicted_bytes}
+                for r in meter.records],
+            "reconcile": out["reconcile"], "ingest_recovered": out["ingest_recovered"],
+            "prefill_ms": out["prefill_ms"],
+            "decode_ms_per_token": out["decode_ms_per_token"],
+            "phases": out["phases"], "sites": out["sites"],
+            "max_memory_allocated": out["max_memory_allocated"],
+            "step_logits": (None if out["step_logits"] is None else
+                            torch.stack([x.float().cpu() for x in out["step_logits"]]))}
 
 
 def continuous_trace(requests: int, vocab: int, prompt_len: int, gen: int, *, seed: int = 0,
@@ -345,8 +553,13 @@ def transport_state_compressed(state, cfg: LMConfig, meter: BandwidthMeter | Non
     sealed with its checksum when packed."""
     caches, enc_out = state
     meter = BandwidthMeter() if meter is None else meter
-    ccaches = compress_tree(caches, bs=cfg.zebra_block_seq, bc=cfg.zebra_block_ch,
-                            meter=meter, site="kv", checksum=(validation == "checksum"))
+    tp = tensor_parallel()
+    if tp is None:
+        ccaches = compress_tree(caches, bs=cfg.zebra_block_seq, bc=cfg.zebra_block_ch,
+                                meter=meter, site="kv", checksum=(validation == "checksum"))
+    else:
+        ccaches = compress_tree_tp(caches, cfg, tp, meter=meter,
+                                   checksum=(validation == "checksum"))
     sampled = [(a, c) for a, c in zip(_leaves(caches), _leaves(ccaches))
                if isinstance(c, CompressedMap)]
     ok = not sampled or bool(torch.equal(sampled[0][0], decompress(sampled[0][1])))
@@ -367,6 +580,69 @@ def transport_state_compressed(state, cfg: LMConfig, meter: BandwidthMeter | Non
         log(f"  ingest validation ({validation}): "
             f"{'clean' if n_bad == 0 else f'{n_bad} leaf(s) recovered dense'}")
     return (ccaches, enc_out), rec, n_bad
+
+
+def compress_tree_tp(caches, cfg: LMConfig, tp, *, meter: BandwidthMeter,
+                     checksum: bool = False):
+    """The handoff's compression under tensor parallelism. Each K/V leaf
+    (..., B, T, Hkv, hd) holds this rank's rows of the batch and its KV
+    heads (or all of them, where K/V are replicated over the model axis);
+    it is compressed as the reference compresses the whole leaf, its
+    flattening (``stream.leaf_dims``) taken from the whole leaf's shape, by
+    the engine's three rules (``core.engine.tp_site_rule``): a replicated
+    leaf is packed as it is and counted once; a leaf whose heads fall on
+    block edges of the (rows, Hkv·hd) flattening is packed shard by shard;
+    any other is gathered over the model axis, packed whole (kernel 5) and
+    expanded whole at decode (kernel 3), each rank keeping its heads
+    (``CompressedMap.part``). Every leaf goes on ``meter`` once, with the
+    whole leaf's counts (its live blocks summed over the mesh)."""
+    from ..compress.stream import compress as compress_map, leaf_dims
+    from ..distributed.collectives import Wire
+    from ..distributed.ctx import gather_model
+    bs, bc = cfg.zebra_block_seq, cfg.zebra_block_ch
+    m = tp.model
+    pending = []                        # (name, dims, itemsize, owned live)
+
+    def one(path, leaf):
+        name = "/".join(["kv", *map(str, path)])
+        split = leaf.shape[-2] != cfg.n_kv_heads
+        shape = list(leaf.shape)
+        shape[-4] *= tp.data.size
+        shape[-2] *= m.size if split else 1
+        dims = leaf_dims(tuple(shape), bs, bc)
+        if dims is None:
+            pending.append((name, None, leaf.element_size(), math.prod(shape)))
+            return leaf
+        k = dims[1]
+        heads_k = leaf.shape[-2] * leaf.shape[-1]
+        part = None
+        if not split:
+            x = leaf
+        elif k == shape[-2] * shape[-1] and heads_k % bc == 0:
+            x, k = leaf, heads_k
+        else:
+            x = gather_model(leaf, -2)
+            part = (leaf.dim() - 2, m.index * leaf.shape[-2], leaf.shape[-2])
+        cm = compress_map(x.reshape(-1, k), bs=bs, bc=bc, checksum=checksum)
+        cm = dataclasses.replace(cm, shape=tuple(x.shape), part=part)
+        owned = (split and part is None) or m.index == 0
+        pending.append((name, dims, leaf.element_size(),
+                        cm.n_live.to(torch.int64) if owned else torch.zeros(
+                            (), dtype=torch.int64, device=leaf.device)))
+        return cm
+
+    out = map_tree(one, caches)
+    comp = [p for p in pending if p[1] is not None]
+    if comp:
+        lives = Wire(tp.world).all_reduce(torch.stack([p[3].reshape(()) for p in comp]))
+        lives = iter(lives.tolist())
+    for name, dims, item, extra in pending:
+        if dims is None:
+            meter.record_dense(name, extra * item)
+        else:
+            meter.record_counts(name, m=dims[0], k=dims[1], bs=bs, bc=bc, itemsize=item,
+                                n_live=next(lives))
+    return out
 
 
 def _leaves(tree) -> list:

@@ -13,10 +13,14 @@ gemma3-4b's width every copy of the parameters is 7.4 GB.
 
 Serving: prefill, next-token choice, the generate loop and the slotted
 decode step of the continuous-batching engine, under
-``torch.inference_mode``.
+``torch.inference_mode``. A model cut for tensor parallelism
+(``distributed.sharding.shard_model_``) carries its mesh, and its steps
+run under ``sharding_hints`` of it (:func:`model_hints`), as the
+reference's ``make_prefill``/``make_decode_step`` do.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -125,11 +129,26 @@ def train_step(model: LM, opt: Optimizer, state: dict, batch: dict, *,
 # Serve steps
 # ---------------------------------------------------------------------------
 
+def model_hints(model: LM):
+    """``sharding_hints`` of the mesh a tensor-parallel model was cut for
+    (the reference's ``_hint_args``: the batch over the data-parallel axes,
+    the "model" axis tensor-parallel unless the profile is pure DP); a
+    null context for a model in one process."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return contextlib.nullcontext()
+    from ..distributed.ctx import sharding_hints
+    from ..distributed.sharding import dp
+    pure_dp = model.cfg.sharding_profile == "dp"
+    return sharding_hints(mesh, dp=dp(mesh, model.cfg), tp=None if pure_dp else "model")
+
+
 @torch.inference_mode()
 def prefill(model: LM, tokens: torch.Tensor, enc_feats: torch.Tensor | None = None):
     """Prefill a batch of prompts with a cache sized to the prompt (an
     encoder-decoder encodes its frames ``enc_feats`` first)."""
-    return model.prefill(tokens, tokens.shape[1], enc_feats)
+    with model_hints(model):
+        return model.prefill(tokens, tokens.shape[1], enc_feats)
 
 
 def _next_token(logits: torch.Tensor, temperature: float,
@@ -147,18 +166,23 @@ def _next_token(logits: torch.Tensor, temperature: float,
 
 @torch.inference_mode()
 def generate(model: LM, tok0: torch.Tensor, state, pos0: int, steps: int,
-             temperature: float = 0.0, generator: torch.Generator | None = None):
+             temperature: float = 0.0, generator: torch.Generator | None = None,
+             logits_out: list | None = None):
     """``steps`` decode steps from ``tok0`` (B, 1) at position ``pos0``.
 
     ``state`` may hold its KV caches in compressed form (``CompressedMap``
     leaves from the serve handoff): they are expanded here, before the
-    first step. Returns (tokens (B, steps), state)."""
+    first step. Each step's logits are appended to ``logits_out`` when
+    given. Returns (tokens (B, steps), state)."""
     state = decompress_tree(state)         # a no-op for dense caches
     tok, out = tok0, []
-    for i in range(steps):
-        logits, state = model.decode_step(tok, state, pos0 + i)
-        tok = _next_token(logits, temperature, generator)
-        out.append(tok)
+    with model_hints(model):
+        for i in range(steps):
+            logits, state = model.decode_step(tok, state, pos0 + i)
+            if logits_out is not None:
+                logits_out.append(logits)
+            tok = _next_token(logits, temperature, generator)
+            out.append(tok)
     toks = torch.cat(out, dim=1) if out else tok0.new_zeros((tok0.shape[0], 0))
     return toks, state
 
@@ -171,5 +195,6 @@ def decode_slotted(model: LM, token: torch.Tensor, state, pos: torch.Tensor,
     each lane at its own sequence position. Returns (the next token of
     every lane (B, 1), state), the caches updated in place. Greedy at
     temperature 0.0; a draw from ``generator`` otherwise."""
-    logits, state = model.decode_step(token, state, pos)
+    with model_hints(model):
+        logits, state = model.decode_step(token, state, pos)
     return _next_token(logits, temperature, generator), state

@@ -27,7 +27,8 @@ checkpoint there: a crashed run restores and goes on (the supervisor's
 restore-and-retry), and a run started again continues where the last one
 stopped. Without ``--ckpt`` nothing is written (the reference defaults to a
 directory under ``/tmp``, which every later run would resume from). Model
-parallelism waits for the distributed item (ROADMAP.md) and raises.
+parallelism waits for the sharded train step (ROADMAP.md, queue 1, item 1)
+and raises.
 """
 from __future__ import annotations
 
@@ -156,9 +157,9 @@ def main(argv=None) -> dict:
                          "kernels' plain versions on the CPU")
     args = ap.parse_args(argv)
     if args.model_parallel != 1:
-        raise NotImplementedError("--model-parallel > 1 is not yet ported to "
-                                  "repro_torch (ROADMAP.md, item 3, distributed: the "
-                                  "tensor-parallel LM)")
+        raise NotImplementedError("--model-parallel > 1: the sharded train step of the "
+                                  "distributed LM is not ported yet (ROADMAP.md, queue 1, "
+                                  "item 1; serving runs tensor-parallel: launch.serve)")
     device = resolve_device(args.device)
     cfg = build_config(args.arch, reduced=args.reduced, t_obj=args.t_obj,
                        backend=args.backend, n_layers=args.layers)

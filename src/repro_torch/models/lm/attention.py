@@ -208,16 +208,18 @@ def attend_local_scanned(q, k, v, *, window: int):
 # Zebra kv_cache site: block-compress K/V at the cache write
 # ---------------------------------------------------------------------------
 
-def zebra_kv_site(k: torch.Tensor, v: torch.Tensor, zc):
+def zebra_kv_site(k: torch.Tensor, v: torch.Tensor, zc, split: bool = False):
     """The engine's ``kv_cache`` site over freshly computed K/V ``(B, S,
     Hkv, hd)``: heads fold onto the channel axis, so the (block_seq,
     block_ch) tiles are those of the cache layout and of the prefill ->
-    decode handoff. Returns (k', v', [SiteAux_k, SiteAux_v])."""
+    decode handoff. ``split``: the heads are this rank's over the
+    tensor-parallel axis. Returns (k', v', [SiteAux_k, SiteAux_v])."""
     from ...core.engine import zebra_site
     B, S = k.shape[0], k.shape[1]
     out, auxes = [], []
     for t in (k, v):
-        tz, aux = zebra_site(t.reshape(B, S, -1), zc, site="kv_cache", layout="tokens")
+        tz, aux = zebra_site(t.reshape(B, S, -1), zc, site="kv_cache", layout="tokens",
+                             split=split)
         out.append(tz.reshape(t.shape))
         auxes.append(aux)
     return out[0], out[1], auxes

@@ -20,6 +20,7 @@ from torch import nn
 
 from ...core.engine import LayerAux, zebra_site
 from ...core.zebra import ThresholdNet
+from ...distributed.ctx import hint_tokens
 from ..layers import Norm, lecun_normal
 from . import attention as attn
 from .config import LMConfig
@@ -104,6 +105,35 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """``einsum("bshk,hkd->bsd", o, wo)``."""
     h, k, d = wo.shape
     return o.reshape(*o.shape[:-2], h * k) @ wo.to(o.dtype).reshape(h * k, d)
+
+
+def _attn_out(o: torch.Tensor, p: Attention) -> torch.Tensor:
+    """The attention output projection; under tensor parallelism ``wo`` is
+    row-parallel (this rank's heads), so its partial products are summed
+    over the model axis (a no-op otherwise)."""
+    from ...distributed.ctx import psum_model
+    return psum_model(_out_proj(o, p.wo))
+
+
+def _kv_heads(p: Attention, cfg: LMConfig, k: torch.Tensor, v: torch.Tensor):
+    """K/V for this rank's query heads. Without tensor parallelism, or with
+    K/V split with the queries (``n_kv_heads`` divisible by the model
+    axis), they are the heads in hand: the GQA grouping holds. Where the
+    queries are split but K/V are replicated, the KV heads of this rank's
+    query heads: a slice when they group evenly, else one per query
+    head."""
+    hq = p.wq.shape[1]
+    if hq == cfg.n_heads or k.shape[2] != cfg.n_kv_heads:
+        return k, v
+    from ...distributed.ctx import tensor_parallel
+    G = cfg.n_heads // cfg.n_kv_heads
+    q0 = tensor_parallel().model.index * hq
+    idx = [(q0 + i) // G for i in range(hq)]
+    lo, n = idx[0], idx[-1] + 1 - idx[0]
+    if hq % n == 0 and idx == [lo + i // (hq // n) for i in range(hq)]:
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
 
 
 def _qkv(p: Attention, x: torch.Tensor, cfg: LMConfig, rope):
@@ -198,8 +228,10 @@ def apply_layer(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, mode: str, r
         x = x + ssm_apply(p.ssm, h, cfg)
     else:
         q, k, v = _qkv(p.attn, h, cfg, rope)
-        o = checkpoint_name(_attend(q, k, v, typ, cfg, causal), "attn_out", cfg.remat)
-        x = x + _out_proj(o, p.attn.wo)
+        q = hint_tokens(q, "model", None, local=-2)    # heads over the model axis
+        o = checkpoint_name(_attend(q, *_kv_heads(p.attn, cfg, k, v), typ, cfg, causal),
+                            "attn_out", cfg.remat)
+        x = x + _attn_out(o, p.attn)
     x = _cross_attention(p, x, enc_out)
     x, aux = _ffn_residual(p, x, cfg, mode, aux, dp_moe=True)
     x, zo = _layer_out_zebra(p, x, cfg, mode)
@@ -263,8 +295,9 @@ def apply_layer_decode(p: Layer, x: torch.Tensor, cache: dict, typ: str, cfg: LM
         slot = pos % T if typ == "local" else pos
         kc = _cache_write(cache["k"], k, slot)
         vc = _cache_write(cache["v"], v, slot)
-        o = attn.attend_decode(q, kc, vc, pos, window=cfg.window if typ == "local" else 0)
-        x = x + _out_proj(o, p.attn.wo)
+        o = attn.attend_decode(q, *_kv_heads(p.attn, cfg, kc, vc), pos,
+                               window=cfg.window if typ == "local" else 0)
+        x = x + _attn_out(o, p.attn)
         cache = {"k": kc, "v": vc}
     x = _cross_attention(p, x, enc_out)
     if hasattr(p, "norm2"):
@@ -300,10 +333,12 @@ def _attention_prefill(p: Layer, x: torch.Tensor, h: torch.Tensor, typ: str, cfg
     cache (through the ``kv_cache`` site when Zebra runs there) and aux."""
     S = x.shape[1]
     q, k, v = _qkv(p.attn, h, cfg, rope)
-    x = x + _out_proj(_attend(q, k, v, typ, cfg), p.attn.wo)
+    x = x + _attn_out(_attend(q, *_kv_heads(p.attn, cfg, k, v), typ, cfg), p.attn)
     if cfg.zebra_enabled and "kv_cache" in cfg.zebra_sites:
-        # Zebra block-compress the cache at its write
-        k, v, kv_auxes = attn.zebra_kv_site(k, v, zebra_cfg_for(cfg, "infer"))
+        # Zebra block-compress the cache at its write (tensor-parallel: the
+        # heads this rank holds, a split map where K/V split with the queries)
+        k, v, kv_auxes = attn.zebra_kv_site(k, v, zebra_cfg_for(cfg, "infer"),
+                                            split=k.shape[2] != cfg.n_kv_heads)
         for a in kv_auxes:
             aux = aux + LayerAux.of_site(a)
     if typ == "local":

@@ -146,27 +146,52 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 def ffn_apply(p: FFN, x: torch.Tensor, cfg: LMConfig, mode: str):
     """x (B, S, d) -> (y (B, S, d), SiteAux of the hidden site); under a
     comm context y is the gathered (B, n·S, d) and the aux the hidden
-    site's merged with the exchange's (``ffn_layer_out_exchange``)."""
+    site's merged with the exchange's (``ffn_layer_out_exchange``).
+
+    Tensor-parallel (a model cut by ``distributed.sharding.shard_model_``):
+    ``w_gate``/``w_up``/``b_up`` are column-parallel, so the hidden map is
+    this rank's d_ff columns; the site runs as ``core.engine._tp_site``
+    says, and ``w_down`` is row-parallel, its partial products summed over
+    the model axis (on ``fused`` inside the site), then ``b_down`` added
+    once."""
+    from ...distributed.ctx import hint_tokens, psum_model
     cdt = x.dtype
     if cfg.act == "swiglu":
         h = silu(x @ p.w_gate.to(cdt)) * (x @ p.w_up.to(cdt))
     else:
         h = gelu(x @ p.w_up.to(cdt) + p.b_up.to(cdt))
+    # the hidden map's d_ff over the tensor-parallel axis: the columns of
+    # w_gate/w_up a rank holds are already that layout
+    split = p.w_up.shape[-1] != cfg.d_ff
+    h = hint_tokens(h, "model", local=-1 if split else None)
     zc = _hidden_site_cfg(cfg, mode)
     if wants_fused(zc, "ffn_hidden"):
         # fused: w_down consumes the compressed hidden map (dead blocks
         # skipped); capability resolution decides legality, not a mode check
-        y, zaux = zebra_site(h, zc, site="ffn_hidden", w=p.w_down.to(cdt))
+        y, zaux = zebra_site(h, zc, site="ffn_hidden", w=p.w_down.to(cdt), split=split)
     else:
-        h, zaux = zebra_site(h, zc, site="ffn_hidden", tnet=getattr(p, "zebra_tnet", None))
+        h, zaux = zebra_site(h, zc, site="ffn_hidden", tnet=getattr(p, "zebra_tnet", None),
+                             split=split)
         h = checkpoint_name(h, "ffn_hidden", cfg.remat)
-        y = h @ p.w_down.to(cdt)
-    if cfg.act == "gelu":
+        y = h @ _rows(p.w_down, h.shape[-1]).to(cdt)
+        if split:               # row-parallel w_down: the partial sums added
+            y = psum_model(y)
+    if cfg.act == "gelu":       # once, after any reduction
         y = y + p.b_down.to(cdt)
     y, xaux = ffn_layer_out_exchange(y, cfg, mode)
     if xaux is not None:
         zaux = merge_site_aux(zaux, xaux)
     return y, zaux
+
+
+def _rows(w: torch.Tensor, n: int) -> torch.Tensor:
+    """The rows of ``w`` this rank's ``n`` hidden columns meet: ``w`` itself
+    when it has ``n`` rows, else this rank's slice over the model axis (a
+    whole ``w_down`` kept for a gathered hidden map)."""
+    if w.shape[0] == n:
+        return w
+    from ...distributed.ctx import tensor_parallel
+    return w.narrow(0, tensor_parallel().model.index * n, n)
 
 
 def ffn_layer_out_exchange(y: torch.Tensor, cfg: LMConfig, mode: str):

@@ -38,7 +38,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ...core.engine import LayerAux
+from ...core.engine import LayerAux, aux_unread
+from ...distributed.ctx import gather_model, hint_tokens, tensor_parallel
 from ..layers import Norm
 from .attention import rope_frequencies
 from .blocks import (Layer, apply_layer, apply_layer_decode, apply_layer_prefill,
@@ -104,7 +105,18 @@ class LM(nn.Module):
         # F.embedding, not indexing: the CPU backward of an index sums the
         # rows of repeated tokens with atomic adds across threads, in no
         # fixed order; the embedding's backward sums each row in token order
-        x = F.embedding(tokens, self.embed).to(self.cdt)
+        rows = self.embed.shape[0]
+        if rows == self.cfg.vocab:
+            x = F.embedding(tokens, self.embed).to(self.cdt)
+        else:
+            # the vocabulary's rows over the model axis: each rank looks up
+            # the tokens in its range, zero elsewhere, and the sum over the
+            # ranks is exact (one rank holds each row); the reference pins
+            # the embedded tokens batch-sharded here
+            local = tokens - tensor_parallel().model.index * rows
+            inside = ((local >= 0) & (local < rows))[..., None]
+            x = F.embedding(local.clamp(0, rows - 1), self.embed).to(self.cdt)
+            x = hint_tokens(torch.where(inside, x, torch.zeros_like(x)), local="partial")
         return x * torch.tensor(self.cfg.d_model ** 0.5, dtype=self.cdt, device=x.device)
 
     def _rope(self, positions: torch.Tensor):
@@ -112,7 +124,12 @@ class LM(nn.Module):
 
     def _project_vocab(self, x: torch.Tensor) -> torch.Tensor:
         w = self.embed.t() if self.cfg.tie_embeddings else self.lm_head
-        return x @ w.to(self.cdt)
+        logits = x @ w.to(self.cdt)
+        if w.shape[-1] == self.cfg.vocab:
+            return logits
+        # this rank's vocabulary columns (the reference pins the logits
+        # vocab-sharded), gathered in rank order into the whole logits
+        return gather_model(hint_tokens(logits, "model", local=-1), -1)
 
     def _unit(self, layers: nn.ModuleDict, pattern: tuple[str, ...], mode: str, rope,
               enc_out, x: torch.Tensor, aux: LayerAux):
@@ -274,7 +291,8 @@ class LM(nn.Module):
             sub = caches[ri][f"sub{j}"]
             stacked = self.runs[ri][1] > 1
             lc = {n: sub[n][c] for n in sub} if stacked else sub
-            x, new = apply_layer_decode(layer, x, lc, t, self.cfg, pos, rope1, enc_out)
+            with aux_unread():          # a decode step reports no site
+                x, new = apply_layer_decode(layer, x, lc, t, self.cfg, pos, rope1, enc_out)
             if not stacked:
                 caches[ri][f"sub{j}"] = new
                 continue

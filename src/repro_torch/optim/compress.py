@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 MODES = ("none", "bf16", "int8")
+CHUNK = 1 << 24      # elements a chunk of the int8 pass: its temporaries' bound
 
 
 class CompressionState(NamedTuple):
@@ -35,6 +36,19 @@ def init_state(params: dict[str, torch.Tensor], mode: str = "bf16") -> Compressi
     return CompressionState(error=None)
 
 
+def _chunks(t: torch.Tensor):
+    """Views of ``CHUNK`` consecutive elements of a contiguous tensor (the
+    last one ragged)."""
+    flat = t.view(-1)
+    return flat.split(CHUNK)
+
+
+def _abs_max(e: torch.Tensor) -> torch.Tensor:
+    """``max |e|`` over the whole tensor, a chunk at a time (exact: a max
+    rounds nothing), so no full-size ``abs`` copy is made."""
+    return torch.stack([c.abs().amax() for c in _chunks(e)]).amax()
+
+
 @torch.no_grad()
 def compressed_gradients(grads: dict[str, torch.Tensor], state: CompressionState,
                          mode: str = "bf16"):
@@ -45,7 +59,10 @@ def compressed_gradients(grads: dict[str, torch.Tensor], state: CompressionState
     int8: ``g + e`` rounded once, the scale ``max(max|g + e|, 1e-12) /
     127`` in float32, ``round`` half to even (as ``jnp.round``), clipped to
     ±127, decoded as ``q · scale``; the residual is ``(g + e) - q · scale``
-    rounded once."""
+    rounded once. The pass after the scale walks the flat tensor in chunks
+    of ``CHUNK`` elements, so its temporaries (the float32 quotient, the
+    float64 residual) are a few chunks, not copies of the largest tensor.
+    A gradient that is not float32 is decoded into a new float32 tensor."""
     if mode == "none":
         return grads, state
     if mode == "bf16":
@@ -60,16 +77,17 @@ def compressed_gradients(grads: dict[str, torch.Tensor], state: CompressionState
         for k, g in grads.items():
             e = state.error[k]
             e.add_(g.to(torch.float32))               # g + e: the carried residual added
-            scale = torch.clamp(e.abs().amax(), min=1e-12) / 127.0
-            q = torch.round(e / scale).clamp_(-127, 127).to(torch.int8)
-            dec = q.to(torch.float32).mul_(scale)
-            # the new residual (g + e) - q·scale, rounded once: the compiled
-            # reference contracts it into a fused multiply-add. q·scale is
-            # exact in float64 and so is the difference (|residual| <=
-            # scale / 2), so one rounding to float32 remains
-            e.copy_(e.double().sub_(q.double().mul_(scale.double())))
-            del q
-            out[k] = g.copy_(dec) if g.dtype == torch.float32 else dec
-            del dec
+            scale = torch.clamp(_abs_max(e), min=1e-12) / 127.0
+            dec = g if g.dtype == torch.float32 else torch.empty_like(e)
+            for ec, dc in zip(_chunks(e), _chunks(dec)):
+                q = torch.round(ec / scale).clamp_(-127, 127).to(torch.int8)
+                dc.copy_(q.to(torch.float32).mul_(scale))   # the int8 value decoded
+                # the new residual (g + e) - q·scale, rounded once: the compiled
+                # reference contracts it into a fused multiply-add. q·scale is
+                # exact in float64 and so is the difference (|residual| <=
+                # scale / 2), so one rounding to float32 remains
+                ec.copy_(ec.double().sub_(q.double().mul_(scale.double())))
+                del q
+            out[k] = dec
         return out, state
     raise ValueError(f"unknown compression mode {mode!r}; known: {MODES}")

@@ -367,3 +367,24 @@ def test_gemm_wrappers_launch_count_and_never_fall_back(cuda, monkeypatch):
         zebra_spmm.spmm_cuda(x.double(), w.double(), bitmap, bs, bc)
     assert (zebra_spmm.zebra_spmm.launches, spmm_cs.zebra_spmm_cs.launches) == \
         (before[0] + 1, before[1] + 1)
+
+
+def test_int8_compression_temporaries_are_a_few_chunks(cuda):
+    """int8 gradient compression of a 1 GiB float32 gradient on the card:
+    the memory it allocates above the gradient and its residual
+    (``max_memory_allocated``) is a few chunks of ``compress.CHUNK``
+    elements, not copies of the tensor."""
+    from repro_torch.optim import compress
+    n = (1 << 28) + 12345                     # 1 GiB of float32 and a ragged tail
+    g = torch.randn(n, device=cuda)
+    state = compress.init_state({"w": g}, "int8")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    dec, state = compress.compressed_gradients({"w": g}, state, "int8")
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(cuda) - base
+    chunk_bytes = compress.CHUNK * 4
+    assert dec["w"] is g and torch.isfinite(state.error["w"]).all()
+    assert extra <= 6 * chunk_bytes, (extra, chunk_bytes)
+    assert extra < n * 4 // 2, extra          # the unchunked pass: 4x the tensor and more

@@ -121,6 +121,39 @@ def test_compressed_gradients_match_reference(mode):
         compress.compressed_gradients({}, state, "fp8")
 
 
+def test_int8_chunked_pass_equals_the_unchunked_rule(monkeypatch):
+    """The int8 pass walks each tensor in chunks of ``compress.CHUNK``
+    elements; on a tensor of three whole chunks and a ragged tail (and a
+    float32 and a bf16 gradient) two steps give the decoded gradient and
+    the residual of the unchunked rule bit for bit: the whole tensor's
+    scale, one rounding of ``(g + e) - q·scale`` from float64."""
+    monkeypatch.setattr(compress, "CHUNK", 1000)
+    rng = np.random.default_rng(4)
+    shapes = {"w": (3, 1000 + 250), "h": (37, 101)}       # 3750 and 3737 elements
+
+    def unchunked(g, e):
+        e = e + g.float()
+        scale = torch.clamp(e.abs().amax(), min=1e-12) / 127.0
+        q = torch.round(e / scale).clamp(-127, 127).to(torch.int8)
+        dec = q.float() * scale
+        return dec, (e.double() - q.double() * scale.double()).float()
+
+    state = compress.init_state({k: torch.zeros(s) for k, s in shapes.items()}, "int8")
+    err = {k: torch.zeros(s) for k, s in shapes.items()}
+    for step in range(2):
+        g = {k: torch.from_numpy((rng.normal(size=s) * 10.0 ** -step).astype(np.float32))
+             for k, s in shapes.items()}
+        g["h"] = g["h"].to(torch.bfloat16)
+        want = {k: unchunked(v, err[k]) for k, v in g.items()}
+        dec, state = compress.compressed_gradients({k: v.clone() for k, v in g.items()},
+                                                   state, "int8")
+        for k, (wd, we) in want.items():
+            assert dec[k].dtype == torch.float32
+            assert np.array_equal(bits(dec[k]), bits(wd)), (step, k)
+            assert np.array_equal(bits(state.error[k]), bits(we)), (step, k)
+            err[k] = we
+
+
 # ---------------------------------------------------------------------------
 # LM.loss
 # ---------------------------------------------------------------------------
