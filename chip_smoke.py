@@ -251,16 +251,15 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
 15. serves continuously (``serve.ServeEngine``: the slotted decode at
     per-lane positions, the scheduler, the paged compressed-KV pool, the
     supervised engine):
-    (a) gemma3-4b at full width cut to 12 layers (two pattern periods;
-    34 until phase 17 needed the time) on ``fused`` through ``python -m
+    (a) gemma3-4b at full width and depth on ``fused`` through ``python -m
     repro_torch.launch.serve --requests 16 --slots 8 --prompt-len 512 --gen
     32 --t-obj 1.05 --validate structural --preempt-after 64`` (prompts
     128-512 tokens, 8-32 generated, all at tick 0; the hot set (8, 1024)):
     every request done, the report's per-page Eq. 2/3 reconcile, the
     dispatch shapes inside their ladders, evictions; the codec's pack
     launched once a compressed page out and the expander once a page in,
-    each prefill's 12 ffn_hidden sites (comparator, pack, the payload GEMM)
-    and 24 validated kv_cache sites (comparator, pack, expander: a
+    each prefill's 34 ffn_hidden sites (comparator, pack, the payload GEMM)
+    and 68 validated kv_cache sites (comparator, pack, expander: a
     validated site without a weight runs the checked stream, not the
     masking pass); one lane paged out and
     back in bit for bit, its pages' host time, kernels 5 and 3 held and
@@ -2421,6 +2420,22 @@ def run_int8_depth(device, cfg, tokens) -> None:
     def nbytes(ts) -> int:
         return sum(t.numel() * t.element_size() for t in ts)
 
+    # the pass alone on a 1 GiB gradient and a ragged tail: what it holds
+    # above the gradient and its residual
+    g = torch.randn((1 << 28) + 12345, device=device)
+    st = compress.init_state({"w": g}, "int8")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    compress.compressed_gradients({"w": g}, st, "int8")
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(device) - base
+    chunk = compress.CHUNK * 4
+    print(f"  int8 pass on a 1 GiB float32 gradient (2**28 + 12345 elements): {extra} B above "
+          f"the gradient and its residual, {extra / chunk:.4f} chunks of {chunk} B")
+    check(extra <= 6 * chunk, f"the int8 pass held {extra} B, more than 6 chunks")
+    del g, st
+    torch.cuda.empty_cache()
     print(f"  int8 gradient compression at depth: one step, batch {tokens.shape[0]} x "
           f"{tokens.shape[1] - 1}, remat block, from {cfg.n_layers} layers down")
     for layers in range(cfg.n_layers, 0, -len(cfg.layer_pattern)):
@@ -3294,9 +3309,6 @@ def run_recurrent(device, edge_errs) -> list[dict]:
 # window 1024 is the cache ladder's floor, so the hot set is (8, 1024)
 SV = dict(requests=16, slots=8, prompt=512, gen=32, t_obj=LM_T_OBJ, preempt_after=64,
           page_tokens=16, one_shot=3)
-# the depth phase 15 serves at: two pattern periods (10 local + 2 global),
-# cut from 34 when phase 17 joined, to keep the smoke inside its time limit
-SV_LAYERS = 12
 # benchmarks/serve_chaos_bench.py's storm at full width and one pattern period
 # (5 local + 1 global layers): 6 requests arriving one a tick, 4 slots, queue
 # bound 4, a 96-tick deadline, a crash at tick 12 and 6 corrupt pages, its
@@ -4127,8 +4139,13 @@ TP = dict(model=4, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
           g3_rules={"ffn_hidden": "blocks", "kv_cache": "gather"},
           sc2_rules={"ffn_hidden": "blocks", "kv_cache": "blocks"})
 # the second, shorter run (8 of 40 layers, 8 tokens): the yardstick is its
-# own single-process run at this depth
-TP_SC2 = dict(arch="starcoder2-15b", layers=8, t_obj=SC2["t_obj"], sc2_gen=8)
+# own single-process run at this depth. Both serve nonzero biases (zero at
+# init, as in the reference, which would hide a b_down added on every rank
+# or a QKV bias cut wrongly): every bias leaf drawn N(0, bias_std) from
+# numpy's bias_seed and loaded over the seed-0 weights with --params
+TP_SC2 = dict(arch="starcoder2-15b", layers=8, t_obj=SC2["t_obj"], sc2_gen=8,
+              bias_std=0.25, bias_seed=1)
+TP_BIASES = ("bq", "bk", "bv", "b_up", "b_down", "bias")
 # max |Δlogit| of the tensor-parallel prefill against the single-process one
 # (bf16 compute; the row-parallel sums add in another order), written in
 # PERF.md before the phase first ran
@@ -4173,7 +4190,27 @@ def tp_argv(tp: dict, arch: str, layers: int, t_obj: float) -> list:
     return ["--arch", arch, "--backend", "fused", "--batch", str(tp["batch"]),
             "--prompt-len", str(tp["prompt"]), "--gen", str(tp["gen"]), "--t-obj", str(t_obj),
             "--layers", str(layers), *(["--reduced", "--device", "cpu"] if tp.get("reduced")
-                                        else [])]
+                                        else []),
+            *(["--params", tp["params"]] if tp.get("params") else [])]
+
+
+def tp_biases(tp: dict, arch: str, layers: int, path: str) -> int:
+    """Write to ``path`` every bias of ``arch`` at ``layers`` (whole, as
+    ``serve --params`` loads them) drawn N(0, bias_std) from numpy's
+    ``bias_seed``; returns how many values."""
+    import numpy as np
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import LM
+    cfg = serve.build_config(arch, reduced=bool(tp.get("reduced")), n_layers=layers)
+    rng = np.random.default_rng(tp["bias_seed"])
+    sd = {n: torch.from_numpy(rng.normal(0.0, tp["bias_std"], tuple(p.shape)).astype(np.float32))
+          for n, p in LM(cfg, device="meta").named_parameters()
+          if n.rsplit(".", 1)[-1] in TP_BIASES}
+    check(any(n.endswith("b_down") for n in sd) and any(n.endswith("bq") for n in sd),
+          f"{arch}: no b_down or bq to draw")
+    torch.save(sd, path)
+    return sum(t.numel() for t in sd.values())
 
 
 def single_yardstick(tp: dict, arch, layers, t_obj) -> dict:
@@ -4288,7 +4325,11 @@ def hold_tp_run(label: str, ranks: list, yard: dict, rules: dict, n_layers: int,
           f" decode {r0['decode_ms_per_token']:.3f} ms a token (one process "
           f"{yard['decode_ms']:.3f}); host clock, rank 0, {r0['wire']}")
     print(f"  {label}: max_memory_allocated by rank "
-          f"{[round(r['max_memory_allocated'] / 2 ** 30, 3) for r in ranks]} GiB")
+          f"{[round(r['max_memory_allocated'] / 2 ** 30, 3) for r in ranks]} GiB serving, "
+          f"{[round(r['build_peak_memory'] / 2 ** 30, 3) for r in ranks]} GiB building "
+          f"(drawn straight into the shards)")
+    print(f"  {label}: rank 0's stages: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in r0["stage_s"].items()))
     print(f"  {label}: tensor-parallel collectives a rank: prefill {ph['prefill']['tp_calls']} "
           f"calls, {ph['prefill']['tp_bytes']} B handed in; handoff "
           f"{ph['handoff']['tp_calls']} calls, {ph['handoff']['tp_bytes']} B; decode "
@@ -4300,7 +4341,8 @@ def tp_serve(tp: dict, arch, layers, t_obj) -> list:
     """``python -m repro_torch.launch.serve --model-parallel 4`` from this
     process (it spawns the ranks); returns the ranks' reports."""
     from repro_torch.launch import serve
-    argv = [*tp_argv(tp, arch, layers, t_obj), "--model-parallel", str(tp["model"])]
+    argv = [*tp_argv(tp, arch, layers, t_obj), "--model-parallel", str(tp["model"]),
+            "--record"]
     print(f"  python -m repro_torch.launch.serve {' '.join(argv)}")
     t0 = time.perf_counter()
     try:
@@ -4323,6 +4365,10 @@ def run_tensor_parallel(device, yard: dict, edge_errs: dict, **over) -> list[dic
     versions on a rank's maps and timed. ``over`` replaces entries of TP and
     TP_SC2 (``reduced=True`` with the CPU as ``device`` rehearses the flow
     on the reduced configs: no launch checks, no timing)."""
+    import os
+    import shutil
+    import tempfile
+
     import torch
     tp = {**TP, **TP_SC2, **over}
     t0 = time.perf_counter()
@@ -4335,9 +4381,14 @@ def run_tensor_parallel(device, yard: dict, edge_errs: dict, **over) -> list[dic
     launches = ranks[0]["phases"]["prefill"]
     del ranks
     t1 = time.perf_counter()
-    tp = {**tp, "gen": tp["sc2_gen"]}
+    tmp = tempfile.mkdtemp(prefix="zebra_tp_")
+    tp = {**tp, "gen": tp["sc2_gen"], "params": os.path.join(tmp, "biases.pt")}
+    n = tp_biases(tp, tp["arch"], tp["layers"], tp["params"])
+    print(f"  {tp['arch']}: {n} bias values drawn N(0, {tp['bias_std']}) from numpy seed "
+          f"{tp['bias_seed']}, served by both runs (--params)")
     sc2 = single_yardstick(tp, tp["arch"], tp["layers"], tp["t_obj"])
     ranks = tp_serve(tp, tp["arch"], tp["layers"], tp["t_obj"])
+    shutil.rmtree(tmp, ignore_errors=True)
     hold_tp_run(tp["arch"], ranks, sc2, tp["sc2_rules"], len(sc2["ffn_zf"]),
                 len(sc2["kv_zf"]), tp)
     del ranks, sc2
@@ -4481,7 +4532,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t12 = time.perf_counter()
         with torch.inference_mode():
-            kernels += run_continuous(device, lm_errs, layers=SV_LAYERS)
+            kernels += run_continuous(device, lm_errs)
         torch.cuda.empty_cache()
         t13 = time.perf_counter()
         kernels += run_collectives(device)

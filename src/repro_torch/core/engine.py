@@ -544,16 +544,40 @@ def aux_unread():
 
 @contextlib.contextmanager
 def record_tp_sites(bitmaps: bool = False):
-    """Record every tensor-parallel site run inside: a dict per site (name,
-    rule, label, the whole map's live and total block counts, per-sample
-    block count, zero fraction, bytes; with ``bitmaps`` the map's keep
-    flags gathered over the model axis, on the host). Yields the list."""
+    """Record every tensor-parallel site run inside (for checks: nothing
+    of it reaches the host, and no collective runs for it, until
+    :func:`tp_sites_on_host`). Yields the list, one entry a site; with
+    ``bitmaps`` each entry also keeps the site's keep flags on its
+    device."""
     log: list[dict] = []
     tok = _TP_SITE_LOG.set((log, bitmaps))
     try:
         yield log
     finally:
         _TP_SITE_LOG.reset(tok)
+
+
+def tp_sites_on_host(log: list[dict]) -> list[dict]:
+    """The sites :func:`record_tp_sites` recorded, on the host: a dict a
+    site (name, rule, label, the whole map's live and total block counts,
+    per-sample block count, zero fraction, bytes, rows and width; where
+    recorded, ``keep``, the whole map's flags as int8, a ``"blocks"``
+    site's shards gathered over the model axis in rank order). Every model
+    rank calls it at the same point after the run: it runs one
+    collective a recorded ``"blocks"`` site."""
+    from ..distributed.collectives import Wire
+    out = []
+    for e in log:
+        e = dict(e)
+        axis, keep = e.pop("axis"), e.pop("keep")
+        e["zero_frac"], e["measured_bytes"] = float(e["zero_frac"]), int(e["measured_bytes"])
+        if keep is not None:
+            k8 = keep.to(torch.int8)
+            if e["rule"] == "blocks" and axis.size > 1:
+                k8 = torch.cat(Wire(axis).all_gather(k8).unbind(0), dim=-1)
+            e["keep"] = k8.cpu()
+        out.append(e)
+    return out
 
 
 def tp_site_rule(width: int, split: bool, m: int, block_ch: int) -> str:
@@ -613,32 +637,28 @@ def _tp_site(x: torch.Tensor, cfg: ZebraConfig, tp, *, site: str, tnet, w, split
             y = psum_model(y)
     if aux.keep is None or _AUX_UNREAD.get():   # nothing ran, or nobody reads it
         return y, aux
+    from ..distributed.collectives import tp_all_reduce
     owned = rule == "blocks" or tp.model.index == 0
     keep = aux.keep.reshape(-1, aux.keep.shape[-1])
     live = keep.sum(dtype=torch.int64) if owned else torch.zeros((), dtype=torch.int64,
                                                                   device=x.device)
-    from ..distributed.collectives import Wire
-    live = Wire(tp.world).all_reduce(live)
+    live = tp_all_reduce(live, tp.world)
     S = x.shape[-2] if x.dim() > 1 else 1
     bs = cfg.block_seq if S % cfg.block_seq == 0 else 1
     bc = cfg.block_ch if D % cfg.block_ch == 0 else D
     n_total = (x.numel() // width * tp.data.size // bs) * (D // bc)
     zero_frac = zero_fraction_of(live, n_total)
-    measured = (stream_bytes(live, bs, bc, x.dtype, n_total)
-                if int(aux.measured_bytes) > 0 else torch.zeros_like(live))
+    # a backend that moves stream bytes reports them (the index alone is
+    # more than 0); the rest report none
+    measured = torch.where(aux.measured_bytes > 0, stream_bytes(live, bs, bc, x.dtype, n_total),
+                           torch.zeros_like(live))
     out = dataclasses.replace(aux, zero_frac=zero_frac, measured_bytes=measured,
                               n_blocks=(S // bs) * (D // bc))
     rec = _TP_SITE_LOG.get()
-    if rec is not None:
+    if rec is not None:                 # read on the host after the run: tp_sites_on_host
         log, bitmaps = rec
-        entry = {"site": site, "rule": rule, "backend": aux.backend, "n_total": n_total,
-                 "n_blocks": out.n_blocks, "zero_frac": float(zero_frac),
-                 "measured_bytes": int(measured),
-                 "rows": x.numel() // width * tp.data.size, "width": D}
-        if bitmaps:                     # the map's flags across the model axis
-            k8 = keep.to(torch.int8)
-            if rule == "blocks" and m > 1:
-                k8 = torch.cat(Wire(tp.model).all_gather(k8).unbind(0), dim=-1)
-            entry["keep"] = k8.cpu()
-        log.append(entry)
+        log.append({"site": site, "rule": rule, "backend": aux.backend, "n_total": n_total,
+                    "n_blocks": out.n_blocks, "zero_frac": zero_frac, "measured_bytes": measured,
+                    "rows": x.numel() // width * tp.data.size, "width": D,
+                    "keep": keep if bitmaps else None, "axis": tp.model})
     return y, out

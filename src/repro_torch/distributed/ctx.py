@@ -16,10 +16,10 @@ profile), each rank holds its shards of a model cut by
 ``sharding.shard_state_dict`` and its rows of the batch. The reference
 pins layouts with ``hint``/``hint_tokens`` and lets GSPMD insert the
 collectives; the port has no partitioner, so its ``hint``/``hint_tokens``
-take the tensor's local layout over the tensor-parallel axis (``local``:
-replicated, a partial sum, or this rank's slice of one dimension) and run
-the collective that brings it to the pinned layout, or nothing where the
-two already match. The batch dimension is local on every rank and is never
+sit where the reference's pins sit and take the tensor's local layout
+over the tensor-parallel axis (``local``: replicated, a partial sum, or
+this rank's slice of one dimension): a partial sum pinned replicated is
+summed there, a layout that already is the pinned one moves nothing. The batch dimension is local on every rank and is never
 moved. The other tensor-parallel collectives (the row-parallel sums, the
 gathers a site or the vocabulary needs) are :func:`psum_model` and
 :func:`gather_model`.
@@ -187,38 +187,42 @@ def gather_model(t, dim: int):
     return tp_all_gather(t, tp.model, dim)
 
 
-def _own_slice(t, dim: int, axis: CommAxis):
-    n = t.shape[dim] // axis.size
-    return t.narrow(dim, axis.index * n, n)
-
-
-def hint(x, *spec, local=None):
-    """Bring ``x`` to the layout ``spec`` pins over the tensor-parallel
-    axis (per dimension an axis name, a tuple of names or None; names the
-    mesh lacks, and an axis whose size does not divide the dimension, drop
-    as in the reference). ``local`` is x's layout on this rank: None
-    (replicated: the whole tensor), ``"partial"`` (a partial sum) or a
-    dimension (this rank's slice of it). A no-op outside tensor
-    parallelism; the batch's axes move nothing."""
-    tp = tensor_parallel()
-    if tp is None:
-        return x
-    nd = x.dim()
-    local = local % nd if isinstance(local, int) else local
-    m = tp.model
+def _pinned_dim(x, spec, local, axis: CommAxis):
+    """The dimension ``spec`` splits over ``axis`` for a tensor whose
+    local layout is ``local`` (None: replicated), as the reference's
+    partitioner reads the pin: an axis whose size does not divide the
+    whole dimension drops."""
     want = None
     for i, s in enumerate(spec):
         axes = s if isinstance(s, (tuple, list)) else (s,)
-        size = x.shape[i] * (m.size if local == i else 1)
-        if m.name in axes and size % m.size == 0:
+        size = x.shape[i] * (axis.size if local == i else 1)
+        if axis.name in axes and size % axis.size == 0:
             want = i
-    if local == want:
+    return want
+
+
+def hint(x, *spec, local=None):
+    """The reference's layout pin ``spec`` at this point of the model (per
+    dimension an axis name, a tuple of names or None; names the mesh
+    lacks, and an axis whose size does not divide the dimension, drop as
+    in the reference). ``local`` is x's layout on this rank: None (the
+    whole tensor), ``"partial"`` (a partial sum) or a dimension (this
+    rank's slice of it). A partial sum pinned replicated is summed over the
+    tensor-parallel axis here; a layout that already is the pinned one
+    moves nothing; any other pairing raises, since no pin of the port
+    needs it. A no-op outside tensor parallelism; the batch's axes move
+    nothing."""
+    tp = tensor_parallel()
+    if tp is None:
         return x
-    if local == "partial":
-        x = psum_model(x)
-    elif local is not None:
-        x = gather_model(x, local)
-    return x if want is None else _own_slice(x, want, m)
+    local = local % x.dim() if isinstance(local, int) else local
+    want = _pinned_dim(x, spec, local, tp.model)
+    if local == "partial" and want is None:
+        return psum_model(x)
+    if local != want:
+        raise NotImplementedError(f"hint: a tensor laid out as {local!r} over "
+                                  f"{tp.model.name!r} pinned to {spec}")
+    return x
 
 
 def hint_tokens(x, *trailing, local=None):

@@ -20,7 +20,8 @@ or None. A mesh is a ``DeviceMesh`` or any object with an
 ``NamedSharding`` trees) give each Spec as DTensor placements, one
 ``Shard(dim)`` or ``Replicate()`` per mesh axis, and :func:`local_shard`
 cuts a rank's shard out of a whole tensor by them. Serving
-(:func:`serving_shardings`, :func:`shard_model_`) materialises the
+(:func:`serving_shardings`; :func:`build_sharded` draws a model straight
+into its shards, :func:`shard_model_` cuts a whole one) materialises the
 ``model`` axis and keeps every parameter whole across ``data``: the
 reference's FSDP split over ``data`` is a memory layout that changes no
 value, and waits for the sharded train step (ROADMAP.md, queue 1).
@@ -296,13 +297,7 @@ def tp_unported(cfg: LMConfig) -> str | None:
     return None
 
 
-def shard_model_(model, mesh, coords: dict[str, int] | None = None):
-    """Cut a whole model's parameters to this rank's serving shards
-    (:func:`serving_shardings`), in place: each becomes a copy of its
-    shard, and the whole tensors go. Records the mesh on the model
-    (``model.mesh``), where the serving steps read it. Returns the model."""
-    import torch
-    cfg = model.cfg
+def _servable(cfg: LMConfig, mesh) -> dict:
     why = tp_unported(cfg)
     if why is not None:
         raise NotImplementedError(f"tensor-parallel serving of {why} is not ported yet "
@@ -311,10 +306,60 @@ def shard_model_(model, mesh, coords: dict[str, int] | None = None):
     if cfg.n_heads % m:
         raise NotImplementedError(f"{cfg.n_heads} query heads do not split over "
                                   f"{m} model ranks")
-    places = serving_shardings(model, cfg, mesh)
+    return mesh_shape(mesh)
+
+
+def _cut(p, places: tuple, mesh, coords):
+    return local_shard(p, places, mesh, coords, axes=("model",)).clone()
+
+
+def shard_model_(model, mesh, coords: dict[str, int] | None = None):
+    """Cut a whole model's parameters to this rank's serving shards
+    (:func:`serving_shardings`), in place: each becomes a copy of its
+    shard, and the whole tensors go. Records the mesh on the model
+    (``model.mesh``), where the serving steps read it. Returns the model."""
+    import torch
+    _servable(model.cfg, mesh)
+    places = serving_shardings(model, model.cfg, mesh)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            p.data = local_shard(p.data, places[name], mesh, coords,
-                                 axes=("model",)).clone()
+            p.data = _cut(p.data, places[name], mesh, coords)
+    model.mesh = mesh
+    return model
+
+
+def build_sharded(cfg: LMConfig, mesh, *, generator=None, device=None,
+                  coords: dict[str, int] | None = None):
+    """``models.lm.LM(cfg, generator=..., device=...)`` with every
+    parameter cut to this rank's serving shard as soon as it is drawn, so
+    a rank holds its shards and one whole parameter at most, never the
+    whole model. The values are those of building whole and cutting
+    (:func:`shard_model_`): each parameter is drawn whole, in the same
+    order from the same generator. A build on the meta device first names
+    the parameters in the order they are made."""
+    import torch
+    from torch.nn.modules.module import register_module_parameter_registration_hook
+
+    from ..models.lm import LM
+    _servable(cfg, mesh)
+    made = []
+    hook = register_module_parameter_registration_hook(
+        lambda mod, name, p: made.append((mod, name)))
+    try:
+        meta = LM(cfg, device="meta")
+    finally:
+        hook.remove()
+    prefix = {id(mod): f"{path}." if path else "" for path, mod in meta.named_modules()}
+    names = iter([prefix[id(mod)] + name for mod, name in made])
+    places = serving_shardings(dict(meta.named_parameters()), cfg, mesh)
+
+    def cut(mod, name, p):
+        return torch.nn.Parameter(_cut(p.data, places[next(names)], mesh, coords),
+                                  requires_grad=p.requires_grad)
+    hook = register_module_parameter_registration_hook(cut)
+    try:
+        model = LM(cfg, generator=generator, device=device)
+    finally:
+        hook.remove()
     model.mesh = mesh
     return model

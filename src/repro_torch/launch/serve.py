@@ -196,9 +196,8 @@ class _PhaseMarks:
 def check_replicated(t: torch.Tensor, axis, what: str) -> None:
     """Raise unless every rank of ``axis`` holds ``t`` bit for bit: a model
     rank that drifted would take other tokens and desynchronise decode."""
-    from ..distributed.collectives import Wire
-    g = Wire(axis).all_gather(t.contiguous())
-    raw = g.reshape(g.shape[0], -1).view(torch.uint8)
+    from ..distributed.collectives import tp_all_gather
+    raw = tp_all_gather(t.reshape(1, -1), axis, 0).view(torch.uint8)
     if not bool((raw == raw[axis.index]).all()):
         raise RuntimeError(f"{what} differ between the ranks of the {axis.name!r} axis")
 
@@ -258,10 +257,18 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (no fallback); 'cpu' runs the "
                          "kernels' plain versions on the CPU")
+    ap.add_argument("--params", default=None,
+                    help="a torch.save'd {dotted parameter name: whole tensor} dict "
+                         "loaded over the seed-0 weights (names it lacks keep their "
+                         "draws); under --model-parallel each rank keeps its shard")
     ap.add_argument("--save", default=None,
                     help="--model-parallel: each rank also saves its report (tokens, "
                          "logits, sites, handoff records, times, memory, launches and "
                          "collectives by phase) to DIR/rank<r>.pt")
+    ap.add_argument("--record", action="store_true",
+                    help="--model-parallel, for checks: the report also holds every "
+                         "site's keep flags and rank 0's logits of every token, kept "
+                         "on the card during the run and read after it")
     args = ap.parse_args(argv)
     cfg = build_config(args.arch, reduced=args.reduced, t_obj=args.t_obj,
                        backend=args.backend, validation=args.validate,
@@ -273,6 +280,8 @@ def main(argv=None) -> dict:
     _no_tf32(device)
     model = LM(cfg, generator=torch.Generator(device=device).manual_seed(0),
                device=device).requires_grad_(False)
+    if args.params is not None:
+        load_params_(model, args.params)
     if args.requests:
         return serve_continuous(args, model)
 
@@ -285,6 +294,29 @@ def main(argv=None) -> dict:
     _print_report(cfg, out, B, S, args.gen, device)
     out["model"], out["prompts"] = model, prompts
     return out
+
+
+def load_params_(model: LM, path: str, mesh=None) -> None:
+    """Load the whole tensors in ``path`` (a ``torch.save``'d {dotted
+    parameter name: tensor} dict, read through a memory map) over the
+    model's parameters of those names, in the parameters' dtype; under
+    ``mesh`` (a model cut to its serving shards) each takes this rank's
+    shard of its tensor. Every name must be a parameter of the model with
+    that whole shape."""
+    from ..distributed.sharding import local_shard, serving_shardings
+    sd = torch.load(path, map_location="cpu", mmap=True, weights_only=True)
+    params = dict(model.named_parameters())
+    unknown = sorted(set(sd) - set(params))
+    if unknown:
+        raise KeyError(f"--params {path}: not parameters of {model.cfg.name}: {unknown[:5]}")
+    places = None if mesh is None else serving_shardings(sd, model.cfg, mesh)
+    with torch.no_grad():
+        for name, t in sd.items():
+            part = t if mesh is None else local_shard(t, places[name], mesh, axes=("model",))
+            if part.shape != params[name].shape:
+                raise ValueError(f"--params {path}: {name} {tuple(t.shape)} does not make "
+                                 f"this rank's {tuple(params[name].shape)}")
+            params[name].copy_(part)
 
 
 def _no_tf32(device: torch.device) -> None:
@@ -368,16 +400,19 @@ def _spawned_rank(rank: int, argv: list, save: str) -> None:
 def serve_rank(args, cfg: LMConfig) -> dict:
     """This rank's part of ``--model-parallel N`` inside a joined world
     whose size N divides: the mesh (``make_host_mesh(model=N)``), the model
-    built whole from seed 0 and cut to this rank's shards
-    (``sharding.shard_model_``), this data rank's rows of the prompts,
-    then :func:`serve_one_shot` with its sites recorded. Rank 0 prints the
-    report; with ``--save`` every rank saves :func:`tp_report` (rank 0's
-    with the logits of every token)."""
+    drawn from seed 0 straight into this rank's shards
+    (``sharding.build_sharded``; ``--params`` loaded over it), this data
+    rank's rows of the prompts, then :func:`serve_one_shot` with its sites
+    recorded. Rank 0 prints the report; with ``--save`` every rank saves
+    :func:`tp_report` (with ``--record`` the sites' keep flags and rank
+    0's logits of every token). The peak memory of the build is reported
+    beside the serving peak."""
     import torch.distributed as dist
 
-    from ..core.engine import record_tp_sites
-    from ..distributed.sharding import shard_model_
+    from ..core.engine import record_tp_sites, tp_sites_on_host
+    from ..distributed.sharding import build_sharded
     from .mesh import make_host_mesh
+    t_start = time.perf_counter()
     N, world = args.model_parallel, dist.get_world_size()
     if world % N:
         raise ValueError(f"--model-parallel {N} does not divide the world of {world} ranks")
@@ -390,23 +425,32 @@ def serve_rank(args, cfg: LMConfig) -> dict:
     B, S = args.batch, args.prompt_len
     if B % data:
         raise ValueError(f"batch {B} does not split over {data} data ranks")
-    model = LM(cfg, generator=torch.Generator(device=device).manual_seed(0),
-               device=device).requires_grad_(False)
-    shard_model_(model, mesh)
+    t_mesh = time.perf_counter()
+    model = build_sharded(cfg, mesh, generator=torch.Generator(device=device).manual_seed(0),
+                          device=device).requires_grad_(False)
+    if args.params is not None:
+        load_params_(model, args.params, mesh)
+    build_peak = 0
     if device.type == "cuda":
+        build_peak = torch.cuda.max_memory_allocated(device)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
+    t_build = time.perf_counter()
     rows = B // data
     di = mesh.get_local_rank("data")
     prompts = _prompts(cfg, B, S, device)[di * rows:(di + 1) * rows]
     rank0 = dist.get_rank() == 0
-    with record_tp_sites(bitmaps=args.save is not None) as sites:
+    with record_tp_sites(bitmaps=args.record) as sites:
         out = serve_one_shot(model, prompts, args.gen, temperature=args.temperature,
                              seed=args.seed, log=print if rank0 else (lambda *_: None),
-                             keep_logits=args.save is not None and rank0)
-    out["sites"] = sites
+                             keep_logits=args.record and rank0)
+    t_serve = time.perf_counter()
+    out["sites"] = tp_sites_on_host(sites)
+    out["build_peak_memory"] = build_peak
     out["max_memory_allocated"] = (torch.cuda.max_memory_allocated(device)
                                    if device.type == "cuda" else 0)
+    out["stage_s"] = {"mesh": t_mesh - t_start, "build": t_build - t_mesh,
+                      "serve": t_serve - t_build}
     if rank0:
         _print_report(cfg, out, B, S, args.gen, device,
                       f", {world} ranks (data {data}, model {N})")
@@ -436,7 +480,8 @@ def tp_report(out: dict, mesh) -> dict:
             "prefill_ms": out["prefill_ms"],
             "decode_ms_per_token": out["decode_ms_per_token"],
             "phases": out["phases"], "sites": out["sites"],
-            "max_memory_allocated": out["max_memory_allocated"],
+            "build_peak_memory": out["build_peak_memory"],
+            "max_memory_allocated": out["max_memory_allocated"], "stage_s": out["stage_s"],
             "step_logits": (None if out["step_logits"] is None else
                             torch.stack([x.float().cpu() for x in out["step_logits"]]))}
 
@@ -597,7 +642,7 @@ def compress_tree_tp(caches, cfg: LMConfig, tp, *, meter: BandwidthMeter,
     (``CompressedMap.part``). Every leaf goes on ``meter`` once, with the
     whole leaf's counts (its live blocks summed over the mesh)."""
     from ..compress.stream import compress as compress_map, leaf_dims
-    from ..distributed.collectives import Wire
+    from ..distributed.collectives import tp_all_reduce
     from ..distributed.ctx import gather_model
     bs, bc = cfg.zebra_block_seq, cfg.zebra_block_ch
     m = tp.model
@@ -634,7 +679,7 @@ def compress_tree_tp(caches, cfg: LMConfig, tp, *, meter: BandwidthMeter,
     out = map_tree(one, caches)
     comp = [p for p in pending if p[1] is not None]
     if comp:
-        lives = Wire(tp.world).all_reduce(torch.stack([p[3].reshape(()) for p in comp]))
+        lives = tp_all_reduce(torch.stack([p[3].reshape(()) for p in comp]), tp.world)
         lives = iter(lives.tolist())
     for name, dims, item, extra in pending:
         if dims is None:

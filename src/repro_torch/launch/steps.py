@@ -14,7 +14,7 @@ gemma3-4b's width every copy of the parameters is 7.4 GB.
 Serving: prefill, next-token choice, the generate loop and the slotted
 decode step of the continuous-batching engine, under
 ``torch.inference_mode``. A model cut for tensor parallelism
-(``distributed.sharding.shard_model_``) carries its mesh, and its steps
+(``distributed.sharding.build_sharded`` or ``shard_model_``) carries its mesh, and its steps
 run under ``sharding_hints`` of it (:func:`model_hints`), as the
 reference's ``make_prefill``/``make_decode_step`` do.
 """

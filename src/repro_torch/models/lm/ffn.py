@@ -148,7 +148,7 @@ def ffn_apply(p: FFN, x: torch.Tensor, cfg: LMConfig, mode: str):
     comm context y is the gathered (B, n·S, d) and the aux the hidden
     site's merged with the exchange's (``ffn_layer_out_exchange``).
 
-    Tensor-parallel (a model cut by ``distributed.sharding.shard_model_``):
+    Tensor-parallel (a model cut to its shards by ``distributed.sharding``):
     ``w_gate``/``w_up``/``b_up`` are column-parallel, so the hidden map is
     this rank's d_ff columns; the site runs as ``core.engine._tp_site``
     says, and ``w_down`` is row-parallel, its partial products summed over

@@ -61,7 +61,8 @@ def compressed_gradients(grads: dict[str, torch.Tensor], state: CompressionState
     ±127, decoded as ``q · scale``; the residual is ``(g + e) - q · scale``
     rounded once. The pass after the scale walks the flat tensor in chunks
     of ``CHUNK`` elements, so its temporaries (the float32 quotient, the
-    float64 residual) are a few chunks, not copies of the largest tensor.
+    int8 chunk, one float64 chunk for the residual) are a few chunks, not
+    copies of the largest tensor.
     A gradient that is not float32 is decoded into a new float32 tensor."""
     if mode == "none":
         return grads, state
@@ -80,14 +81,16 @@ def compressed_gradients(grads: dict[str, torch.Tensor], state: CompressionState
             scale = torch.clamp(_abs_max(e), min=1e-12) / 127.0
             dec = g if g.dtype == torch.float32 else torch.empty_like(e)
             for ec, dc in zip(_chunks(e), _chunks(dec)):
-                q = torch.round(ec / scale).clamp_(-127, 127).to(torch.int8)
+                q = torch.div(ec, scale).round_().clamp_(-127, 127).to(torch.int8)
                 dc.copy_(q.to(torch.float32).mul_(scale))   # the int8 value decoded
                 # the new residual (g + e) - q·scale, rounded once: the compiled
                 # reference contracts it into a fused multiply-add. q·scale is
                 # exact in float64 and so is the difference (|residual| <=
-                # scale / 2), so one rounding to float32 remains
-                ec.copy_(ec.double().sub_(q.double().mul_(scale.double())))
-                del q
+                # scale / 2), so one rounding to float32 remains; one float64
+                # chunk holds it
+                r = q.double().mul_(scale.double())
+                ec.copy_(r.neg_().add_(ec))
+                del q, r
             out[k] = dec
         return out, state
     raise ValueError(f"unknown compression mode {mode!r}; known: {MODES}")

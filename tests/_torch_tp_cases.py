@@ -7,7 +7,9 @@ index).
 
 The reference draws its parameters once a configuration and writes them
 (as the port's dotted names, ``models.lm.convert.port_params``) before it
-compiles anything; the port's ranks wait for that file, build the model
+compiles anything, every bias drawn anew (:func:`draw_biases`: the
+reference's init sets them to zero, which would hide a bias added on every
+rank or cut wrongly); the port's ranks wait for that file, build the model
 whole, load the reference's values and cut their shards
 (``distributed.sharding.shard_model_``). Prompts come from the numpy
 ``lm_batch``. This module imports numpy only at the top: the port's ranks
@@ -34,6 +36,11 @@ CONFIGS = {"gemma3": ("gemma3-4b", {}),
            "starcoder2": ("starcoder2-15b", dict(head_dim=128, n_kv_heads=4, d_ff=512))}
 BACKENDS = ("fused", "stream")
 SEED = 0
+# the biases (zero at init, as in the reference) are drawn anew so that both
+# sides serve nonzero ones: QKV and GELU biases through the shards and the
+# row-parallel sums, ``b_down`` once after them
+BIASES = ("bq", "bk", "bv", "b_up", "b_down", "bias")
+BIAS_STD = 0.5
 
 
 def config(tag: str, backend: str, pkg):
@@ -49,6 +56,20 @@ def prompts() -> np.ndarray:
 def _records(meter) -> list:
     return [(r.site, r.payload_bytes, r.index_bytes, r.dense_bytes, r.n_live, r.n_blocks)
             for r in meter.records]
+
+
+def draw_biases(params, seed: int = SEED + 1):
+    """``params`` (a JAX tree) with every bias leaf (named in BIASES)
+    replaced by a numpy draw N(0, BIAS_STD) from ``seed``, in tree order."""
+    import jax
+    import jax.numpy as jnp
+    rng = np.random.default_rng(seed)
+
+    def one(path, leaf):
+        if getattr(path[-1], "key", None) not in BIASES:
+            return leaf
+        return jnp.asarray(rng.normal(0.0, BIAS_STD, leaf.shape), dtype=leaf.dtype)
+    return jax.tree_util.tree_map_with_path(one, params)
 
 
 def reference_main(out_dir: str, tag: str) -> None:
@@ -74,7 +95,7 @@ def reference_main(out_dir: str, tag: str) -> None:
     out = {}
     for tag in (tag,):
         cfg = config(tag, BACKENDS[0], configs)
-        params = jax.jit(LM(cfg).init)(jax.random.PRNGKey(SEED))
+        params = draw_biases(jax.jit(LM(cfg).init)(jax.random.PRNGKey(SEED)))
         flat = port_params(TLM(config(tag, BACKENDS[0], tconfigs)),
                            jax.tree_util.tree_map(np.asarray, params))
         np.savez(f"{out_dir}/params_{tag}.tmp.npz", **flat)
@@ -129,7 +150,7 @@ def port_rank(rank: int, out_dir: str) -> None:
     import torch
 
     from repro_torch import configs
-    from repro_torch.core.engine import record_tp_sites
+    from repro_torch.core.engine import record_tp_sites, tp_sites_on_host
     from repro_torch.distributed.sharding import shard_model_
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_host_mesh
@@ -163,7 +184,7 @@ def port_rank(rank: int, out_dir: str) -> None:
                         f"{k}_measured": aux.measured_bytes_exact(),
                         f"{k}_records": _records(out["meter"]),
                         f"{k}_deltas": sorted(out["reconcile"]["deltas"].items()),
-                        f"{k}_cache": leaves, f"{k}_sites": sites,
+                        f"{k}_cache": leaves, f"{k}_sites": tp_sites_on_host(sites),
                         f"{k}_heads": [leaf.shape[-2] for leaf in leaves],
                         f"{k}_w_down": tuple(model.run0[0]["sub0"].ffn.w_down.shape)})
             if backend == "stream":

@@ -385,6 +385,8 @@ def test_int8_compression_temporaries_are_a_few_chunks(cuda):
     torch.cuda.synchronize()
     extra = torch.cuda.max_memory_allocated(cuda) - base
     chunk_bytes = compress.CHUNK * 4
+    print(f"int8 pass on {n} float32 elements: {extra} B above the gradient and its "
+          f"residual ({extra / chunk_bytes:.4f} chunks)")
     assert dec["w"] is g and torch.isfinite(state.error["w"]).all()
     assert extra <= 6 * chunk_bytes, (extra, chunk_bytes)
     assert extra < n * 4 // 2, extra          # the unchunked pass: 4x the tensor and more

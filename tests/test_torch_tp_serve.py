@@ -41,6 +41,7 @@ ROOT = TESTS.parent
 RANKS = range(C.MODEL * C.DATA)
 CASES = [(t, b) for t in C.CONFIGS for b in C.BACKENDS]
 TOL = dict(rtol=1e-4, atol=1e-4)
+BF16 = dict(rtol=2e-2, atol=2e-2)       # the repo's bf16 LM tolerance
 
 
 @pytest.fixture(scope="module")
@@ -223,6 +224,61 @@ def test_placements_and_shard_cut_follow_the_specs():
     assert tuple(model.run0[0]["sub0"].attn.wq.shape) == (cfg.d_model, 1, cfg.head_dim)
     assert torch.equal(model.run0[0]["sub0"].ffn.w_up,
                        sd["run0.0.sub0.ffn.w_up"][:, 2 * 64:3 * 64])
+
+
+@pytest.mark.parametrize("tag", list(C.CONFIGS))
+def test_sharded_build_equals_building_whole_and_cutting(tag):
+    """``sharding.build_sharded`` draws each parameter whole and cuts it at
+    once: at every coordinate of a stand-in (data 2, model 4) mesh its
+    shards are those ``shard_model_`` cuts from the model built whole from
+    the same generator, bit for bit, and no parameter is left whole that
+    the cut splits."""
+    import types
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models.lm import LM
+    mesh = types.SimpleNamespace(shape={"data": 2, "model": 4}, axis_names=("data", "model"))
+    cfg = C.config(tag, "fused", configs)
+    for mi in range(C.MODEL):
+        coords = {"data": 1, "model": mi}
+        want = sh.shard_model_(LM(cfg, generator=torch.Generator().manual_seed(3)), mesh,
+                               coords).state_dict()
+        got = sh.build_sharded(cfg, mesh, generator=torch.Generator().manual_seed(3),
+                               coords=coords)
+        assert got.mesh is mesh and list(got.state_dict()) == list(want)
+        for name, t in got.state_dict().items():
+            assert np.array_equal(bits(t), bits(want[name])), (mi, name)
+    whole = dict(LM(cfg).named_parameters())
+    assert any(t.shape != whole[n].shape for n, t in got.named_parameters())
+
+
+def test_cli_params_load_over_the_draws_on_every_rank(tmp_path):
+    """``--params``: nonzero biases (zero at init) for the reduced
+    starcoder2-15b, loaded over the seed-0 draws by one process and by 2
+    spawned ranks that each keep their shard (``b_up`` and the QKV biases
+    split, ``b_down`` whole and added once): the same greedy tokens,
+    logits within BF16 (the served weights are bf16, and the row-parallel
+    sums add in another order), and logits that the biases moved by more
+    than ten times that."""
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import LM
+    argv = ["--arch", "starcoder2-15b", "--reduced", "--device", "cpu", "--backend",
+            "stream", "--batch", "2", "--prompt-len", "32", "--gen", "3", "--t-obj", "2.45"]
+    cfg = serve.build_config("starcoder2-15b", reduced=True)
+    rng = np.random.default_rng(1)
+    biases = {n: torch.from_numpy(rng.normal(0.0, C.BIAS_STD, tuple(t.shape))).float()
+              for n, t in LM(cfg, device="meta").named_parameters()
+              if n.rsplit(".", 1)[-1] in C.BIASES}
+    assert any(n.endswith("b_down") for n in biases) and any(n.endswith("bq") for n in biases)
+    torch.save(biases, tmp_path / "biases.pt")
+    plain = serve.main(argv)
+    one = serve.main([*argv, "--params", str(tmp_path / "biases.pt")])
+    tp = serve.main([*argv, "--params", str(tmp_path / "biases.pt"), "--model-parallel", "2"])
+    assert float((one["logits"] - plain["logits"]).abs().max()) > 10 * BF16["atol"]
+    assert torch.equal(tp["tokens"], one["tokens"].cpu())
+    for r in tp["ranks"]:
+        torch.testing.assert_close(r["logits"], one["logits"].float(), **BF16)
+    assert np.array_equal(bits(tp["ranks"][0]["logits"]), bits(tp["ranks"][1]["logits"]))
 
 
 @pytest.mark.parametrize("argv,match", [
