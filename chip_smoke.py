@@ -251,15 +251,16 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
 15. serves continuously (``serve.ServeEngine``: the slotted decode at
     per-lane positions, the scheduler, the paged compressed-KV pool, the
     supervised engine):
-    (a) gemma3-4b at full width and depth on ``fused`` through ``python -m
-    repro_torch.launch.serve --requests 16 --slots 8 --prompt-len 512 --gen
-    32 --t-obj 1.05 --validate structural --preempt-after 64`` (prompts
+    (a) gemma3-4b at full width cut to 6 layers (one pattern) on ``fused``
+    through ``python -m repro_torch.launch.serve --requests 16 --slots 8
+    --prompt-len 512 --gen 32 --t-obj 1.05 --validate structural
+    --preempt-after 64 --layers 6`` (prompts
     128-512 tokens, 8-32 generated, all at tick 0; the hot set (8, 1024)):
     every request done, the report's per-page Eq. 2/3 reconcile, the
     dispatch shapes inside their ladders, evictions; the codec's pack
     launched once a compressed page out and the expander once a page in,
-    each prefill's 34 ffn_hidden sites (comparator, pack, the payload GEMM)
-    and 68 validated kv_cache sites (comparator, pack, expander: a
+    each prefill's 6 ffn_hidden sites (comparator, pack, the payload GEMM)
+    and 12 validated kv_cache sites (comparator, pack, expander: a
     validated site without a weight runs the checked stream, not the
     masking pass); one lane paged out and
     back in bit for bit, its pages' host time, kernels 5 and 3 held and
@@ -316,16 +317,16 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     spawns 4 ranks on this host, (data 1, model 4), ``gloo`` with host
     copies on one card; each rank builds the model from seed 0 and cuts
     its shards) on ``fused``, batch 2, prompt 2048, 32 greedy tokens:
-    (a) gemma3-4b at full width and depth, T_obj 1.05, held against phase
-    7's single-process run: the 4 ranks' logits and tokens bit for bit
-    alike; the 34 ``ffn_hidden`` sites on block edges (d_ff 2560 a rank,
-    kernels 1, 2 and 7 on each rank's shard) and the 68 ``kv_cache`` sites
-    gathered (one KV head of 320 a rank cuts the 128-wide blocks: kernel 4
+    (a) gemma3-4b at full width cut to 12 layers, T_obj 1.05, held against
+    a single-process run at 12 layers: the 4 ranks' logits and tokens bit
+    for bit alike; the 12 ``ffn_hidden`` sites on block edges (d_ff 2560 a
+    rank, kernels 1, 2 and 7 on each rank's shard) and the 24 ``kv_cache``
+    sites gathered (one KV head of 320 a rank cuts the 128-wide blocks: kernel 4
     on the whole (4096, 1280) map), every stream site and handoff leaf in
     the Eq. 2/3 band, the zero fraction per site kind within 1e-3 of one
     process's (the blocks that differ counted), the prefill logits within
     1.5 (PERF.md), the tokens equal but for near ties; each rank's
-    launches per phase (prefill 34 / 34 / 34 GEMMs / 68 masking, the
+    launches per phase (prefill 12 / 12 / 12 GEMMs / 24 masking, the
     handoff one ``zebra_pack`` a leaf and one expander, decode one
     expander a leaf); times, each rank's ``max_memory_allocated`` and the
     tensor-parallel collectives per prefill and per token;
@@ -334,12 +335,28 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     block edges: d_ff 6144 and one KV head of 128 a rank; its biases cross
     the row-parallel sums);
     (c) kernels 1, 2, 4 and 7 held against their plain versions on a
-    rank's maps of (a) (rank 0's d_ff columns of phase 7's maps with its
-    rows of w_down, the whole kv_cache maps) and timed;
+    rank's maps of (a) (rank 0's d_ff columns of phase 7's maps of the 12
+    layers with its rows of w_down, the whole kv_cache maps) and timed;
     phase 11 also takes one int8-compressed train step at 34 layers under
     remat, and fewer layers until one fits, with the state's bytes by
     component;
-18. prints one JSON line listing the kernels (the seven CUDA kernels, the
+18. trains sharded (``launch.train.train_rank`` in 4 ranks spawned on this
+    host, (data 2, model 2), ``gloo`` with host copies on one card):
+    gemma3-4b at full width and 6 layers (one whole local/global pattern),
+    batch 4 x 1024 in 2 microbatches, ``stream`` at T_obj 1.05, the
+    config's remat, float32 state and bf16 compute, 2 bf16 steps, then one
+    int8 step from fresh seed-0 weights, each held against the same
+    training in one process on the card (run first, then freed): the
+    ranks' metrics alike, the losses within 1e-2, ``grad_norm`` within 2
+    %, the zero fraction within 1e-3 (the blocks that differ counted),
+    every ``stream`` site in the Eq. 2/3 band, every parameter after step
+    2 within 2.5 x lr (the share beyond lr/10 printed), the leaf shards
+    ranks share bit for bit alike, kernels 1-3 launched on every rank as
+    often as in one process; step times, each rank's peak memory and state
+    bytes by component, the collectives a step; then kernels 1-3 held
+    against their plain versions on rank 0's ``ffn_hidden`` shards
+    (1024, 5120) of one step and timed;
+19. prints one JSON line listing the kernels (the seven CUDA kernels, the
     three stream kernels per VGG-16 and per MobileNetV1 evaluate batch,
     named ``... (vgg16 evaluate)`` and ``... (mobilenet evaluate)``, the
     masking kernel per training step of each, ``... (vgg16 training)`` and
@@ -355,8 +372,9 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     (recurrentgemma-2b prefill)`` and ``... (<arch> training)``, and phase
     15's, ``... (gemma3-4b continuous prefill <bucket>[, kv_cache])`` and ``zebra_pack
     (gemma3-4b continuous, per lane)``/``zebra_unpack_kernel (...)``, phase 16's
-    ``... (collectives ring, ...)`` and phase 17's ``... (gemma3-4b
-    tensor-parallel prefill, a rank)``; the GEMM
+    ``... (collectives ring, ...)``, phase 17's ``... (gemma3-4b
+    tensor-parallel prefill, a rank)`` and phase 18's ``... (gemma3-4b
+    tensor-parallel training, a rank)``; the GEMM
     rows also carry ms per launch, TFLOP/s of live work and the device
     body that ran, the stream rows their ``amax_ms`` or ``copy_ms``
     yardstick), the card line again, and ``{"ok": true, "device": ...}``
@@ -3309,6 +3327,9 @@ def run_recurrent(device, edge_errs) -> list[dict]:
 # window 1024 is the cache ladder's floor, so the hot set is (8, 1024)
 SV = dict(requests=16, slots=8, prompt=512, gen=32, t_obj=LM_T_OBJ, preempt_after=64,
           page_tokens=16, one_shot=3)
+# the depth phase 15 serves: one whole pattern (5 local + 1 global) of the 34
+# layers, as the storm's; the smoke's time went to phase 18 (PERF.md)
+SV_LAYERS = 6
 # benchmarks/serve_chaos_bench.py's storm at full width and one pattern period
 # (5 local + 1 global layers): 6 requests arriving one a tick, 4 slots, queue
 # bound 4, a 96-tick deadline, a crash at tick 12 and 6 corrupt pages, its
@@ -4135,7 +4156,9 @@ def run_collectives(device, *, reduced=False, seq=COLL_G3["seq"],
 # Phase 17: tensor-parallel serving (--model-parallel)
 # ---------------------------------------------------------------------------
 
-TP = dict(model=4, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN,
+# gemma3-4b served at 12 of its 34 layers (two whole local/global patterns):
+# phase 18 took the time its full depth took (PERF.md)
+TP = dict(model=4, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN, g3_layers=12,
           g3_rules={"ffn_hidden": "blocks", "kv_cache": "gather"},
           sc2_rules={"ffn_hidden": "blocks", "kv_cache": "blocks"})
 # the second, shorter run (8 of 40 layers, 8 tokens): the yardstick is its
@@ -4355,14 +4378,14 @@ def tp_serve(tp: dict, arch, layers, t_obj) -> list:
 
 
 def run_tensor_parallel(device, yard: dict, edge_errs: dict, **over) -> list[dict]:
-    """Phase 17: gemma3-4b at full width and depth and starcoder2-15b at
-    full width cut to 8 layers, each served by ``launch.serve.main
-    --model-parallel 4`` (4 ranks spawned on this host, (data 1, model 4),
-    ``gloo`` with host copies on one card) on ``fused``, held against its
-    single-process run (phase 7's, kept as ``yard``, and one of
-    starcoder2-15b's at 8 layers here) by :func:`hold_tp_run`; then kernels
-    1, 2, 4 and 7 held bit for bit (7: to GEMM_TOL) against their plain
-    versions on a rank's maps and timed. ``over`` replaces entries of TP and
+    """Phase 17: gemma3-4b at full width cut to ``g3_layers`` (0: its depth)
+    and starcoder2-15b at full width cut to 8 layers, each served by
+    ``launch.serve.main --model-parallel 4`` (4 ranks spawned on this host,
+    (data 1, model 4), ``gloo`` with host copies on one card) on ``fused``,
+    held against its single-process run at that depth (at full depth phase
+    7's, kept as ``yard``) by :func:`hold_tp_run`; then kernels 1, 2, 4 and
+    7 held bit for bit (7: to GEMM_TOL) against their plain versions on a
+    rank's maps (phase 7's, of those layers) and timed. ``over`` replaces entries of TP and
     TP_SC2 (``reduced=True`` with the CPU as ``device`` rehearses the flow
     on the reduced configs: no launch checks, no timing)."""
     import os
@@ -4375,7 +4398,12 @@ def run_tensor_parallel(device, yard: dict, edge_errs: dict, **over) -> list[dic
     cards = torch.cuda.device_count() if device.type == "cuda" else 0
     print(f"tensor-parallel serving: {tp['model']} ranks on {cards} card(s), batch "
           f"{tp['batch']} x {tp['prompt']}, {tp['gen']} greedy tokens, fused")
-    ranks = tp_serve(tp, LM_ARCH, 0, yard["t_obj"])
+    g3 = tp["g3_layers"]
+    if g3:      # its own single-process run at that depth; phase 7's maps of those layers
+        yard = {**single_yardstick(tp, LM_ARCH, g3, yard["t_obj"]),
+                **{k: yard[k][:n] for k, n in (("ffn_shards", g3), ("kv", 2 * g3))
+                   if k in yard}}
+    ranks = tp_serve(tp, LM_ARCH, g3, yard["t_obj"])
     n_layers = len(yard["ffn_zf"])
     hold_tp_run(LM_ARCH, ranks, yard, tp["g3_rules"], n_layers, len(yard["kv_zf"]), tp)
     launches = ranks[0]["phases"]["prefill"]
@@ -4408,6 +4436,449 @@ def run_tensor_parallel(device, yard: dict, edge_errs: dict, **over) -> list[dic
     print(f"  phase 17 times: gemma3-4b {t1 - t0:.1f} s, starcoder2-15b {t2 - t1:.1f} s, "
           f"kernel timing {time.perf_counter() - t2:.1f} s")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the sharded train step (launch.train --model-parallel)
+# ---------------------------------------------------------------------------
+
+# gemma3-4b at full width and 6 layers (one whole pattern: 5 local, the
+# global), batch 4 x 1024 in 2 microbatches, stream, constant T_obj, the
+# config's remat, float32 state and bf16 compute: 2 bf16 steps, then one
+# int8 step from the same seed-0 weights; 4 ranks on the card, (data 2,
+# model 2), gloo with host copies. Bounds written in PERF.md before the
+# phase first ran.
+TPT = dict(world=4, model=2, layers=6, batch=4, seq=1024, grad_accum=2, steps=2, lr=3e-4,
+           t_obj=LM_T_OBJ)
+TPT_LOSS_TOL = 1e-2          # absolute, against the single-process run's
+TPT_GNORM_TOL = 0.02         # relative
+TPT_ZF_TOL = 1e-3
+TPT_PARAM_LR = 2.5           # |Δparam| after step 2 in units of that step's lr
+# the first AdamW moment after step 1 ((1 - b1) times the reduced, compressed
+# and clipped gradient), per leaf: ||m_ranks - m_one|| / ||m_one|| over every
+# rank's shard of the leaf. Step 1's lr is 0, so this, not the parameters
+# (Adam's first moving step moves any element by at most ~lr, so the 2.5 x
+# lr bound cannot fail), is the per-element check of the sharded backward
+# on the card. Set between two readings (PERF.md, PR 27): the sound run's
+# worst leaf 0.1156 (an FFN weight: 1.2 % of the stream's blocks cross
+# T_obj between the runs); with copy_model the identity every leaf
+# 0.859-1.373
+TPT_MOM_REL = 0.3
+TPT_STRIDE = 8               # the yardstick's 2-D leaves compared on every 8th row
+
+
+def row_sample(tensors: dict, stride: int = TPT_STRIDE) -> dict:
+    """A host copy of each leaf, one of two or more dimensions whose rows
+    are a multiple of 32 x ``stride`` on every ``stride``-th row only: a
+    rank's share of those rows (at most 32 parts) is then a multiple of
+    ``stride`` at an offset that is one, so the same sample of its shard is
+    its ``[::stride]``. Returns {"stride", "strided": names, "t": tensors}."""
+    out, names = {}, []
+    for k, v in tensors.items():
+        if v.dim() >= 2 and v.shape[0] % (32 * stride) == 0:
+            v = v[::stride]
+            names.append(k)
+        out[k] = v.detach().to("cpu", copy=True)
+    return {"stride": stride, "strided": names, "t": out}
+TPT_ROWS = {f"{k} (gemma3-4b tensor-parallel training, a rank)": (k, "ffn") for k in
+            ("zebra_bitmap_kernel", "zebra_pack_kernel", "zebra_unpack_kernel")}
+
+
+def tpt_config(tpt: dict):
+    from repro_torch.launch import train
+    cfg = train.build_config(LM_ARCH, reduced=bool(tpt.get("reduced")), t_obj=tpt["t_obj"],
+                             backend="stream", n_layers=tpt["layers"])
+    return cfg.replace(zebra_tnet=False, grad_accum=tpt["grad_accum"])
+
+
+def tpt_argv(tpt: dict, compress: str, steps: int) -> list:
+    return ["--arch", LM_ARCH, "--layers", str(tpt["layers"]), "--batch", str(tpt["batch"]),
+            "--seq", str(tpt["seq"]), "--steps", str(steps), "--lr", str(tpt["lr"]),
+            "--compress", compress, "--t-obj", str(tpt["t_obj"]), "--backend", "stream",
+            "--model-parallel", str(tpt["model"]),
+            *(["--reduced", "--device", "cpu"] if tpt.get("reduced") else [])]
+
+
+class SiteKeeps:
+    """Every forward ``ffn_hidden`` site of a one-process run (a remat
+    recompute inside the backward is skipped): its keep flags on the host,
+    its zero fraction and stream bytes; with ``maps`` also a copy of the
+    first that many input maps."""
+
+    def __init__(self, maps: int = 0):
+        self.keep, self.zf, self.bytes, self.maps, self.n_maps = [], [], [], [], maps
+
+    def __enter__(self):
+        import torch
+        import repro_torch.models.lm.ffn as ffn
+        self._inner = inner = ffn.zebra_site
+
+        def site(x, cfg, **kw):
+            y, aux = inner(x, cfg, **kw)
+            if cfg.enabled and torch._C._current_graph_task_id() == -1:
+                if len(self.maps) < self.n_maps:
+                    self.maps.append(x.detach().reshape(-1, x.shape[-1]).cpu())
+                if aux.keep is not None:
+                    k = aux.keep
+                    self.keep.append(k.reshape(-1, k.shape[-1]).to(torch.int8).cpu())
+                self.zf.append(float(aux.zero_frac))
+                self.bytes.append(int(aux.measured_bytes))
+            return y, aux
+        ffn.zebra_site = site
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.models.lm.ffn as ffn
+        ffn.zebra_site = self._inner
+
+
+class FirstMoment:
+    """Around ``launch.train.train_lm`` (if ``on``): ``self.m``, ``copy`` of
+    the first AdamW moment after step 1 (a host copy), taken when step 1 is
+    logged (after the step's timing), in ``self.s`` seconds."""
+
+    def __init__(self, on: bool = True, copy=host_copy):
+        self.on, self.copy, self.m, self.s = on, copy, None, 0.0
+
+    def __enter__(self):
+        from repro_torch.launch import train
+        if not self.on:
+            return self
+        self._step, self._log, last = train.train_step, train._log, []
+
+        def step(*a, **k):
+            out = self._step(*a, **k)
+            last[:] = [out[0]]
+            return out
+
+        def log(i, m, fn):
+            self._log(i, m, fn)
+            if i == 1:
+                t0 = time.perf_counter()
+                self.m = self.copy(last[0]["opt"]["m"])
+                self.s = time.perf_counter() - t0
+        train.train_step, train._log = step, log
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.launch import train
+        if self.on:
+            train.train_step, train._log = self._step, self._log
+
+
+def tpt_single(device, tpt: dict, path: str) -> dict:
+    """The yardstick: the same layers, batch and steps in one process on
+    this device (``launch.train.train_lm``): the bf16 run's history, sites
+    and launches, its parameters after the last step written whole to
+    ``path`` and its first moment after step 1 to ``tpt["yard_m1"]`` for
+    the ranks (``row_sample``s), then the int8 step from fresh seed-0
+    weights."""
+    import torch
+    from repro_torch.kernels import launch_counters
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    cfg = tpt_config(tpt)
+    out = {}
+    for compress, steps in (("bf16", tpt["steps"]), ("int8", 1)):
+        model = LM(cfg, generator=torch.Generator(device=device).manual_seed(0), device=device)
+        before = {k: w.launches for k, w in launch_counters().items()}
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        with SiteKeeps() as rec, FirstMoment(compress == "bf16", row_sample) as m1:
+            model, state, hist, _ = train.train_lm(
+                cfg, steps=steps, batch=tpt["batch"], seq=tpt["seq"], lr=tpt["lr"],
+                compress=compress, seed=0, device=device, model=model, log=lambda *_: None)
+        out[compress] = {"history": hist, "keep": rec.keep, "zf": rec.zf, "bytes": rec.bytes,
+                         "launches": {k: w.launches - before[k]
+                                      for k, w in launch_counters().items()},
+                         "peak": (torch.cuda.max_memory_allocated(device)
+                                  if device.type == "cuda" else 0)}
+        if compress == "bf16":
+            t0 = time.perf_counter()
+            torch.save(row_sample(dict(model.named_parameters())), path)
+            torch.save(m1.m, tpt["yard_m1"])
+            out["save_s"] = time.perf_counter() - t0 + m1.s
+        del model, state, rec, m1
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def replicated_mismatches(params: dict, places: dict, mesh, chunk: int = 1 << 24) -> tuple:
+    """Every leaf shard this rank shares with others (whole over ``data`` or
+    ``model``) against theirs, bit for bit, gathered a chunk at a time over
+    each such axis (every rank walks the leaves and axes in one order).
+    Returns (leaf shards compared, names that differ)."""
+    import torch
+    from repro_torch.distributed.collectives import Wire
+    from repro_torch.distributed.ctx import axis_of
+    from repro_torch.distributed.sharding import mesh_shape, split_dim
+    n, bad = 0, []
+    for axis_name in ("data", "model"):
+        if mesh_shape(mesh)[axis_name] == 1:
+            continue
+        wire = Wire(axis_of(mesh, axis_name))
+        for name, t in params.items():
+            if split_dim(places[name], mesh, axis_name) is not None:
+                continue
+            n += 1
+            ints = t.detach().reshape(-1).view(torch.int32 if t.element_size() == 4
+                                               else torch.int16)
+            same = True
+            for c in ints.split(chunk):
+                got = wire.all_gather(c)
+                same &= bool((got == c).all())
+            if not same:
+                bad.append(f"{name} over {axis_name}")
+    return n, bad
+
+
+def sampled_pairs(got: dict, path: str, places: dict, mesh):
+    """(name, this rank's shard, the same shard of the one-process run's
+    tensor) for each leaf of ``got``, on the rows the ``row_sample`` saved
+    at ``path`` keeps."""
+    import torch
+    from repro_torch.distributed.sharding import local_shard
+    saved = torch.load(path, map_location="cpu", mmap=True, weights_only=True)
+    stride, strided = saved["stride"], set(saved["strided"])
+    for name, t in got.items():
+        if name in strided:
+            check(t.shape[0] % stride == 0, f"{name}: {t.shape[0]} rows a rank, stride {stride}")
+            t = t[::stride]
+        yield name, t, local_shard(saved["t"][name], places[name], mesh)
+
+
+def shard_gaps(got: dict, path: str, places: dict, mesh, device,
+               chunk: int = 1 << 24) -> dict:
+    """{leaf: (||got - want||², ||want||², max |got - want|)} of this rank's
+    shards ``got`` against the same shards of the one-process run's saved
+    at ``path`` (``sampled_pairs``), a chunk at a time on ``device``."""
+    out = {}
+    for name, t, want in sampled_pairs(got, path, places, mesh):
+        d2 = w2 = top = 0.0
+        for a, b in zip(t.reshape(-1).split(chunk), want.reshape(-1).split(chunk)):
+            b = b.to(device).double()
+            d = a.to(device).double() - b
+            d2 += float(d.square().sum())
+            w2 += float(b.square().sum())
+            top = max(top, float(d.abs().max()))
+            del b, d
+        out[name] = (d2, w2, top)
+    return out
+
+
+def tpt_rank(rank: int, out_dir: str, tpt: dict) -> None:
+    """One rank of phase 18 (spawned, in the joined world): ``launch.train.
+    train_rank`` on the bf16 steps with its sites recorded, its first
+    moment after step 1 and its master shards after the last step against
+    the yardstick's, its shared leaves against the other ranks'; then the
+    int8 step from fresh weights. Rank 0 keeps its first step's
+    ffn_hidden input maps for the kernel rows. Saves ``rank<r>.pt``."""
+    import torch
+    from repro_torch.core.engine import record_tp_sites, tp_sites_on_host
+    from repro_torch.launch import train
+    cfg = tpt_config(tpt)
+    n_maps = cfg.n_layers * cfg.grad_accum if rank == 0 and not tpt.get("reduced") else 0
+    with SiteKeeps(maps=n_maps) as maps, record_tp_sites(bitmaps=True) as sites, \
+            FirstMoment() as m1:
+        res = train.train_rank(train.parse_args(tpt_argv(tpt, "bf16", tpt["steps"])), cfg)
+    rep = dict(res["report"], sites=tp_sites_on_host(sites))
+    state, model, mesh = res["state"], res["model"], res["mesh"]
+    device = next(model.parameters()).device
+    if device.type == "cuda":
+        torch.cuda.empty_cache()        # 4 ranks share the card
+    t0 = time.perf_counter()
+    rep["mom_gaps"] = shard_gaps(m1.m, tpt["yard_m1"], model.train_places, mesh, device)
+    rep["mom_s"] = time.perf_counter() - t0 + m1.s
+    del m1
+    lr = tpt["lr"]
+    worst, beyond, n = 0.0, 0, 0
+    for name, p, want in sampled_pairs(state["params"], tpt["yard_params"],
+                                       model.train_places, mesh):
+        d = (p.detach().float() - want.to(device).float()).abs()
+        worst = max(worst, float(d.max()))
+        beyond += int((d > lr / 10).sum())
+        n += d.numel()
+    rep["param_cmp"] = {"max_abs": worst, "beyond_lr10": beyond, "n": n}
+    rep["replicated"] = replicated_mismatches(state["params"], model.train_places, mesh)
+    rep["maps"] = maps.maps
+    del res, state, model
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    res = train.train_rank(train.parse_args(tpt_argv(tpt, "int8", 1)), cfg)
+    rep["int8"] = res["report"]
+    del res
+    torch.save(rep, f"{out_dir}/rank{rank}.pt")
+
+
+def run_sharded_training(device, edge_errs=None, **over) -> list[dict]:
+    """Phase 18: ``launch.train.train_rank`` in 4 spawned ranks on the card,
+    (data 2, model 2) (``TPT``), held against the same training in one
+    process: the losses within TPT_LOSS_TOL, grad_norm within
+    TPT_GNORM_TOL, the zero fraction within TPT_ZF_TOL with the blocks
+    that differ counted, every stream site in the Eq. 2/3 band, every
+    parameter after the last step within TPT_PARAM_LR x lr, the shared
+    leaves bit for bit alike, kernels 1-3 launched on every rank as often
+    as in one process; then kernels 1-3 held against their plain versions
+    on rank 0's maps and timed. ``over`` replaces entries of TPT
+    (``reduced=True`` with the CPU rehearses the flow: no launch checks, no
+    timing)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.launch import mesh as lm_mesh
+    tpt = {**TPT, **over}
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="zebra_tpt_")
+    try:
+        tpt["yard_params"] = os.path.join(tmp, "yard.pt")
+        tpt["yard_m1"] = os.path.join(tmp, "yard_m1.pt")
+        cfg = tpt_config(tpt)
+        print(f"sharded training: {LM_ARCH} {cfg.n_layers} layers at full width"
+              f"{' (reduced)' if tpt.get('reduced') else ''}, batch {tpt['batch']} x "
+              f"{tpt['seq']} in {tpt['grad_accum']} microbatches, stream at T_obj "
+              f"{tpt['t_obj']}, remat {cfg.remat}; {tpt['world']} ranks (data "
+              f"{tpt['world'] // tpt['model']}, model {tpt['model']}) against one process")
+        one = tpt_single(device, tpt, tpt["yard_params"])
+        t1 = time.perf_counter()
+        print(f"  launch.train.train_rank(parse_args({' '.join(tpt_argv(tpt, 'bf16', 2))}), "
+              f"cfg with zebra_tnet=False, grad_accum={tpt['grad_accum']}) in {tpt['world']} "
+              f"spawned ranks, then with "
+              f"--compress int8 --steps 1")
+        try:
+            lm_mesh.spawn(tpt_rank, tpt["world"], (tmp, tpt), device=str(device))
+        except Exception as e:     # a rank that raised: its traceback is in e
+            raise SmokeFailure(f"phase 18: a rank failed:\n{e}") from None
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(tpt["world"])]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t2 = time.perf_counter()
+    hold_sharded_training(ranks, one, tpt, cfg, device)
+    rows = []
+    if device.type == "cuda":
+        r0 = ranks[0]
+        lm = {"maps": [(h.to(device), None) for h in r0["maps"]], "t_obj": tpt["t_obj"],
+              "launches": r0["launches"]}
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)
+        print(f"sharded training kernel times per step ({len(lm['maps'])} ffn_hidden maps of "
+              f"rank 0's step 1, {tuple(r0['maps'][0].shape)}):")
+        rows = time_lm_stream_kernels(lm, flush, TPT_ROWS)
+        del lm, flush
+        torch.cuda.empty_cache()
+    print(f"  phase 18 times: one process {t1 - t0:.1f} s (of it {one['save_s']:.1f} s "
+          f"copying and saving the parameters and the first moment), {tpt['world']} ranks "
+          f"{t2 - t1:.1f} s (spawn, build, 3 steps, checks; the first-moment copy and "
+          f"comparison {max(r['mom_s'] for r in ranks):.1f} s at most a rank), kernel timing "
+          f"{time.perf_counter() - t2:.1f} s")
+    return rows
+
+
+def hold_sharded_training(ranks: list, one: dict, tpt: dict, cfg, device) -> None:
+    import torch
+    label = "sharded training"
+    data = tpt["world"] // tpt["model"]
+    check(sorted((r["data_index"], r["model_index"]) for r in ranks) ==
+          [(d, m) for d in range(data) for m in range(tpt["model"])], f"{label}: mesh")
+    # the first moment after step 1, leaf by leaf over every rank's shards
+    gaps = {}
+    for r in ranks:
+        for name, (d2, w2, top) in r["mom_gaps"].items():
+            g = gaps.setdefault(name, [0.0, 0.0, 0.0])
+            g[0], g[1], g[2] = g[0] + d2, g[1] + w2, max(g[2], top)
+    rel = {n: (d2 / w2 if w2 else d2) ** 0.5 for n, (d2, w2, _) in gaps.items()}
+    order = sorted(rel, key=rel.get)
+    print(f"  {label}: first moment after step 1 against one process's, ||Δ|| / ||m|| of "
+          f"each of {len(rel)} leaves over the ranks' shards (the 2-D leaves on every "
+          f"{TPT_STRIDE}th row): worst {rel[order[-1]]:.3e} "
+          f"({order[-1]}), median {rel[order[len(order) // 2]]:.3e}, best "
+          f"{rel[order[0]]:.3e} ({order[0]}); max |Δ| {max(g[2] for g in gaps.values()):.3e} "
+          f"(bound {TPT_MOM_REL} on the worst); the five worst: "
+          + ", ".join(f"{n} {rel[n]:.3e}" for n in order[-5:]))
+    check(rel[order[-1]] <= TPT_MOM_REL, f"{label}: the first moment of {order[-1]} is "
+                                         f"{rel[order[-1]]:.3e} off one process's")
+    for run, hist_1 in (("bf16", one["bf16"]["history"]), ("int8", one["int8"]["history"])):
+        hists = [r["history"] if run == "bf16" else r["int8"]["history"] for r in ranks]
+        keys = ("loss", "ce", "zero_frac", "zebra_reg", "grad_norm", "measured_bytes")
+        check(all([[h[k] for k in keys] for h in hs] == [[h[k] for k in keys] for h in hists[0]]
+                  for hs in hists), f"{label} {run}: the ranks' metrics differ")
+        for h, h1 in zip(hists[0], hist_1):
+            dl, dg = abs(h["loss"] - h1["loss"]), abs(h["grad_norm"] / h1["grad_norm"] - 1)
+            dz = abs(h["zero_frac"] - h1["zero_frac"])
+            print(f"  {label} {run} step {h['step']}: loss {h['loss']:.6f} (one process "
+                  f"{h1['loss']:.6f}), grad_norm {h['grad_norm']:.6f} ({h1['grad_norm']:.6f}), "
+                  f"zero fraction {h['zero_frac']:.6f} ({h1['zero_frac']:.6f}), "
+                  f"{h['measured_bytes']} B ({h1['measured_bytes']} B), {h['ms']:.1f} ms "
+                  f"(one process {h1['ms']:.1f} ms; host clock, rank 0)")
+            check(dl <= TPT_LOSS_TOL, f"{label} {run} step {h['step']}: loss off by {dl}")
+            check(dg <= TPT_GNORM_TOL, f"{label} {run} step {h['step']}: grad_norm off by "
+                                       f"{100 * dg:.3f} %")
+            check(dz <= TPT_ZF_TOL, f"{label} {run} step {h['step']}: zero fraction off by {dz}")
+    # the sites: per data rank its rows, gathered over the model axis
+    by_data = {r["data_index"]: r["sites"] for r in ranks if r["model_index"] == 0}
+    n_sites = len(one["bf16"]["keep"])
+    check(all(len(s) == n_sites for s in by_data.values()),
+          f"{label}: {[len(s) for s in by_data.values()]} sites a data rank, one process "
+          f"{n_sites}")
+    sites0 = by_data[0]
+    from repro_torch.core.engine import tp_site_rule
+    rule = tp_site_rule(cfg.d_ff // tpt["model"], True, tpt["model"], cfg.zebra_block_ch)
+    rules = {(s["rule"], s["backend"]) for s in sites0}
+    check(rules == {(rule, "stream")}, f"{label}: sites ran {rules}, want {rule}")
+    band = check_token_band([((s["rows"], s["width"]), 2, None, s["zero_frac"],
+                              s["measured_bytes"]) for s in sites0], f"{label} ffn_hidden")
+    flips = total = 0
+    for i in range(n_sites):
+        keep = torch.cat([by_data[d][i]["keep"] for d in range(data)], dim=0)
+        want = one["bf16"]["keep"][i]
+        check(keep.shape == want.shape, f"{label} site {i}: keep {tuple(keep.shape)} vs "
+                                        f"{tuple(want.shape)}")
+        flips += int((keep != want).sum())
+        total += want.numel()
+    print(f"  {label}: {n_sites} forward ffn_hidden sites ({sites0[0]['rule']}), every one in "
+          f"the Eq. 2/3 band (worst {band:.3f} B); {flips} of {total} blocks differ from one "
+          f"process's")
+    # the parameters after the last step, and the shared leaves
+    lr = tpt["lr"]
+    worst = max(r["param_cmp"]["max_abs"] for r in ranks)
+    beyond = sum(r["param_cmp"]["beyond_lr10"] for r in ranks)
+    n = sum(r["param_cmp"]["n"] for r in ranks)
+    print(f"  {label}: parameters after step {tpt['steps']} (the 2-D leaves on every "
+          f"{TPT_STRIDE}th row): max |Δ| {worst:.3e} against one process (a record: Adam's "
+          f"first moving step cannot pass its bound {TPT_PARAM_LR} x lr {lr} = "
+          f"{TPT_PARAM_LR * lr:.3e}); {beyond} of {n} shard elements beyond lr/10 "
+          f"({100 * beyond / max(n, 1):.4f} %)")
+    check(worst <= TPT_PARAM_LR * lr, f"{label}: a parameter {worst} off one process's")
+    compared = [r["replicated"][0] for r in ranks]
+    bad = [b for r in ranks for b in r["replicated"][1]]
+    print(f"  {label}: shared leaf shards compared bit for bit across the ranks that hold "
+          f"them: {compared} a rank, {len(bad)} differ")
+    check(not bad and min(compared) > 0, f"{label}: shared leaves differ: {bad[:4]}")
+    # launches, memory, collectives
+    want_l = {k: one["bf16"]["launches"][k] for k in STREAM_KERNELS}
+    for r in ranks:
+        got = {k: r["launches"][k] for k in STREAM_KERNELS}
+        if not tpt.get("reduced"):
+            check(got == want_l and min(got.values()) > 0,
+                  f"{label} rank {r['rank']}: launches {got}, one process {want_l}")
+    print(f"  {label}: kernels 1-3 launched by rank "
+          f"{[[r['launches'][k] for k in STREAM_KERNELS] for r in ranks]} (one process "
+          f"{[want_l[k] for k in STREAM_KERNELS]}; forward and remat recompute)")
+    print(f"  {label}: max_memory_allocated by rank "
+          f"{[round(r['max_memory_allocated'] / 2 ** 30, 3) for r in ranks]} GiB (one process "
+          f"{one['bf16']['peak'] / 2 ** 30:.3f} GiB); state by component, rank 0: "
+          + ", ".join(f"{k} {v / 2 ** 30:.3f} GiB" for k, v in ranks[0]["state_bytes"].items())
+          + "; int8 adds its residual: "
+          f"{ranks[0]['int8']['state_bytes']['compress'] / 2 ** 30:.3f} GiB")
+    r0 = ranks[0]
+    tp, dp = r0["tp_per_step"], r0["dp_per_step"]
+    print(f"  {label}: collectives a step, rank 0 ({r0['wire']}): tensor-parallel forward "
+          f"{tp['calls']:.0f} calls, {tp['bytes'] / 2 ** 20:.1f} MiB handed in; backward "
+          f"{tp['bwd_calls']:.0f} calls, {tp['bwd_bytes'] / 2 ** 20:.1f} MiB; data-parallel "
+          f"{dp['calls']:.0f} calls, {dp['bytes'] / 2 ** 20:.1f} MiB; rank 0's stages: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in r0["stage_s"].items()))
 
 
 def _tensors(tree) -> list:
@@ -4532,7 +5003,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         t12 = time.perf_counter()
         with torch.inference_mode():
-            kernels += run_continuous(device, lm_errs)
+            kernels += run_continuous(device, lm_errs, layers=SV_LAYERS)
         torch.cuda.empty_cache()
         t13 = time.perf_counter()
         kernels += run_collectives(device)
@@ -4543,6 +5014,9 @@ def main() -> int:
         del tp_yard
         torch.cuda.empty_cache()
         t15 = time.perf_counter()
+        kernels += run_sharded_training(device)
+        torch.cuda.empty_cache()
+        t16 = time.perf_counter()
         print(f"phase times: edge cases {t1 - t0:.1f} s, CNN {t2 - t1:.1f} s, "
               f"CNN zoo {t3 - t2:.1f} s, LM {t4 - t3:.1f} s, starcoder2-15b {t5 - t4:.1f} s, "
               f"arch runs {t6 - t5:.1f} s, validated {t7 - t6:.1f} s, "
@@ -4550,7 +5024,7 @@ def main() -> int:
               f"MoE {t10 - t9:.1f} s, whisper and scanned {t11 - t10:.1f} s, "
               f"mamba2 and recurrentgemma {t12 - t11:.1f} s, continuous serving "
               f"{t13 - t12:.1f} s, collectives {t14 - t13:.1f} s, tensor-parallel "
-              f"serving {t15 - t14:.1f} s")
+              f"serving {t15 - t14:.1f} s, sharded training {t16 - t15:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
         print(json.dumps({"ok": True, "device": {

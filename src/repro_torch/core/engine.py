@@ -611,11 +611,20 @@ def _tp_site(x: torch.Tensor, cfg: ZebraConfig, tp, *, site: str, tnet, w, split
     over the mesh, the zero fraction rounded as :func:`zero_fraction`
     rounds it, the stream bytes by :func:`stream_bytes` with the global
     block count (summing per-rank bytes would count the index padding once
-    a rank). Serving only: a train-mode site raises."""
+    a rank). Every rank reaches that sum, in the forward and in a
+    recompute alike, unless the caller drops the aux (:func:`aux_unread`).
+
+    Train mode: the forward is serving's; the backward follows the rule,
+    ``"blocks"`` local, ``"gather"`` the gathered map's gradient cut back
+    to this rank's columns (``distributed.ctx.gather_model``), ``"whole"``
+    as in one process. At a constant threshold the reg slot is the whole
+    map's realised zero-block count. A threshold net sees the whole map,
+    so a site with one gathers a split map whatever its block edges
+    (:class:`_TPNet`: its ``w``, cut over the model axis by rows, meets this
+    rank's channels of the GAP and the partial thresholds are summed); its
+    Eq. 1 term is that of this data rank's rows, replicated over the
+    model axis."""
     from ..distributed.ctx import gather_model, psum_model
-    if cfg.mode == "train":
-        raise NotImplementedError("tensor-parallel training waits for the sharded train "
-                                  "step (ROADMAP.md, queue 1)")
     if not cfg.enabled:
         if w is not None:
             raise ValueError("a disabled site takes no weight under tensor parallelism")
@@ -624,6 +633,12 @@ def _tp_site(x: torch.Tensor, cfg: ZebraConfig, tp, *, site: str, tnet, w, split
     width = x.shape[-1]
     rule = tp_site_rule(width, split, m, cfg.block_ch)
     D = width * m if split else width
+    tnet = effective_tnet(cfg, tnet) if cfg.mode == "train" else None
+    if tnet is not None:
+        if cfg.grad_mode == "soft":
+            raise NotImplementedError("a soft-gated threshold net under tensor parallelism")
+        rule = "gather" if rule == "blocks" else rule
+        tnet = _TPNet(tnet, tp.model)
     if rule == "gather":
         if w is not None and w.shape[0] != D:
             raise ValueError(f"site {site!r}: a gathered map of width {D} needs the whole "
@@ -652,13 +667,40 @@ def _tp_site(x: torch.Tensor, cfg: ZebraConfig, tp, *, site: str, tnet, w, split
     # more than 0); the rest report none
     measured = torch.where(aux.measured_bytes > 0, stream_bytes(live, bs, bc, x.dtype, n_total),
                            torch.zeros_like(live))
-    out = dataclasses.replace(aux, zero_frac=zero_frac, measured_bytes=measured,
-                              n_blocks=(S // bs) * (D // bc))
+    n_blocks = (S // bs) * (D // bc)
+    reg = aux.reg
+    if cfg.mode == "train" and tnet is None:
+        reg = zero_frac * n_blocks      # the whole map's realised zero-block count
+    out = dataclasses.replace(aux, reg=reg, zero_frac=zero_frac, measured_bytes=measured,
+                              n_blocks=n_blocks)
     rec = _TP_SITE_LOG.get()
-    if rec is not None:                 # read on the host after the run: tp_sites_on_host
+    if rec is not None and torch._C._current_graph_task_id() == -1:
+        # read on the host after the run (tp_sites_on_host); a recompute
+        # inside the backward records nothing
         log, bitmaps = rec
         log.append({"site": site, "rule": rule, "backend": aux.backend, "n_total": n_total,
                     "n_blocks": out.n_blocks, "zero_frac": zero_frac, "measured_bytes": measured,
                     "rows": x.numel() // width * tp.data.size, "width": D,
                     "keep": keep if bitmaps else None, "axis": tp.model})
     return y, out
+
+
+class _TPNet:
+    """A threshold net under tensor parallelism, applied to the GAP of the
+    whole map: a net whose ``w`` is cut over the model axis by rows (the
+    map's channels; ``distributed.sharding``) takes this rank's channels of
+    the GAP, and the partial thresholds are summed over the axis
+    (``psum_model``: the thresholds' consumers are replicated, so the
+    gradient passes through to each rank's rows of ``w``); a whole ``w``
+    is applied as in one process."""
+
+    def __init__(self, net, axis):
+        self.net, self.axis = net, axis
+
+    def __call__(self, gap: torch.Tensor) -> torch.Tensor:
+        from ..distributed.ctx import psum_model
+        w = self.net.w
+        if w.shape[0] == gap.shape[-1]:
+            return self.net(gap)
+        n = w.shape[0]
+        return psum_model(gap.narrow(-1, self.axis.index * n, n) @ w) + self.net.b

@@ -85,16 +85,23 @@ def lm_batch(cfg: LMDatasetConfig, batch: int, seq: int, step: int) -> np.ndarra
 class StreamingLoader:
     """Counter-indexed loader: batch ``step`` is ``make_fn(batch, step)``, so
     its state is the step counter and checkpoint and restore persist one
-    int. The reference's per-host sharding waits for the distributed item
-    (ROADMAP.md)."""
+    int. With ``n_hosts`` > 1 the global batch is split by host as the
+    reference splits it: each host draws ``batch // n_hosts`` rows from
+    the counter ``step · n_hosts + host_id``, so hosts draw disjoint data.
+    (The sharded train step's ranks are not hosts: they take their rows
+    of the one global batch, ``launch.steps.data_rows``.)"""
 
-    def __init__(self, make_fn, batch: int, start_step: int = 0):
+    def __init__(self, make_fn, batch: int, start_step: int = 0, *, host_id: int = 0,
+                 n_hosts: int = 1):
+        if batch % n_hosts:
+            raise ValueError(f"batch {batch} does not split over {n_hosts} hosts")
         self.make_fn = make_fn
-        self.batch = batch
+        self.batch = batch // n_hosts
+        self.host_id, self.n_hosts = host_id, n_hosts
         self.step = start_step
 
     def __next__(self):
-        out = self.make_fn(self.batch, self.step)
+        out = self.make_fn(self.batch, self.step * self.n_hosts + self.host_id)
         self.step += 1
         return out
 

@@ -51,8 +51,14 @@ axis and shape allow it (:func:`resolve_comms`); otherwise it is a dense
 ``all_gather`` with the reason logged once and shown on the ``SiteAux``
 backend label. The reference's ``shard_map_compat`` and ``axis_size`` are
 JAX machinery with no counterpart: the ranks of the group are the shards.
-The exchanges move values only: they carry no gradient (the sharded
-train step adds the backward; ROADMAP.md, queue 1, item 1).
+The layer exchanges move values only and carry no gradient: the
+reference's train step runs none of them (ROADMAP.md, queue 1, item
+1 (b)). The tensor-parallel LM's dense collectives (:func:`tp_all_reduce`,
+:func:`tp_all_gather`) carry one through ``distributed.ctx``'s autograd
+functions, and the sharded train step's data-parallel collectives
+(:func:`dp_all_gather`, :func:`dp_mean`, :func:`all_reduce_small`) move
+parameters, gradients and the step's global reductions, counted in
+:data:`DP_TRAFFIC`.
 """
 from __future__ import annotations
 
@@ -201,21 +207,25 @@ def gather_dense(t: torch.Tensor, axis: CommAxis) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 # calls and the bytes each rank handed in, of the tensor-parallel LM's dense
-# collectives (the row-parallel sums, the site, K/V and logit gathers)
-TP_TRAFFIC = {"calls": 0, "bytes": 0}
+# collectives (the row-parallel sums, the site, K/V and logit gathers), and
+# of the sums its backward runs (``bwd_``: the copies into the
+# tensor-parallel region, ``distributed.ctx.copy_model``)
+TP_TRAFFIC = {"calls": 0, "bytes": 0, "bwd_calls": 0, "bwd_bytes": 0}
 
 
-def _tp_count(t: torch.Tensor) -> None:
-    TP_TRAFFIC["calls"] += 1
-    TP_TRAFFIC["bytes"] += t.numel() * t.element_size()
+def _tp_count(t: torch.Tensor, backward: bool = False) -> None:
+    pre = "bwd_" if backward else ""
+    TP_TRAFFIC[pre + "calls"] += 1
+    TP_TRAFFIC[pre + "bytes"] += t.numel() * t.element_size()
 
 
-def tp_all_reduce(t: torch.Tensor, axis: CommAxis) -> torch.Tensor:
+def tp_all_reduce(t: torch.Tensor, axis: CommAxis, *, backward: bool = False) -> torch.Tensor:
     """The sum over ``axis`` of a row-parallel product's partial sums, in
     ``t``'s dtype. A 16-bit tensor is summed in float32 and rounded once:
     gloo's sums of 16-bit values round after every add. Every rank gets the
-    same bytes (the collective hands each rank the one reduced buffer)."""
-    _tp_count(t)
+    same bytes (the collective hands each rank the one reduced buffer).
+    ``backward``: counted as a backward's sum."""
+    _tp_count(t, backward)
     wide = t if t.element_size() >= 4 else t.float()
     return Wire(axis).all_reduce(wide).to(t.dtype)
 
@@ -226,6 +236,69 @@ def tp_all_gather(t: torch.Tensor, axis: CommAxis, dim: int) -> torch.Tensor:
     _tp_count(t)
     g = Wire(axis).all_gather(t.contiguous())                 # (n, *t.shape)
     return torch.cat(g.unbind(0), dim=dim)
+
+
+# ---------------------------------------------------------------------------
+# The sharded train step's data-parallel collectives
+# ---------------------------------------------------------------------------
+
+# calls and the bytes each rank handed in, of the sharded train step's
+# collectives outside the model: the parameters' gather over ``data``, the
+# gradients' reduction and the step's global maxima, norms and metrics
+DP_TRAFFIC = {"calls": 0, "bytes": 0}
+DP_CHUNK = 1 << 24      # elements an all-reduce moves at a time: its host copies' bound
+
+
+def _dp_count(t: torch.Tensor) -> None:
+    DP_TRAFFIC["calls"] += 1
+    DP_TRAFFIC["bytes"] += t.numel() * t.element_size()
+
+
+def dp_all_gather(shard: torch.Tensor, axis: CommAxis, dim: int) -> torch.Tensor:
+    """Every rank's ``shard`` of ``axis`` concatenated along ``dim`` in rank
+    order (an FSDP parameter made whole over ``data``)."""
+    if axis.size == 1:
+        return shard
+    _dp_count(shard)
+    g = Wire(axis).all_gather(shard.contiguous())
+    return torch.cat(g.unbind(0), dim=dim)
+
+
+def dp_mean(g: torch.Tensor, axis: CommAxis, dim: int | None) -> torch.Tensor:
+    """The mean over ``axis`` of every rank's float32 ``g``: with ``dim``,
+    this rank's chunk of it along ``dim`` (a reduce-scatter: the leaf is
+    split over ``axis`` there); with None the whole mean (an all-reduce,
+    ``DP_CHUNK`` elements at a time). The sum is float32, then divided by
+    the rank count."""
+    if g.dtype != torch.float32:
+        raise ValueError(f"dp_mean sums float32 gradients, got {g.dtype}")
+    n = axis.size
+    if n == 1:
+        return g
+    wire = Wire(axis)
+    if dim is None:
+        out = torch.empty_like(g)
+        for src, dst in zip(g.reshape(-1).split(DP_CHUNK), out.view(-1).split(DP_CHUNK)):
+            _dp_count(src)
+            dst.copy_(wire.all_reduce(src))
+        return out.div_(n)
+    _dp_count(g)
+    front = g.movedim(dim, 0).contiguous()
+    return wire.reduce_scatter(front).div_(n).movedim(0, dim).contiguous()
+
+
+def all_reduce_small(t: torch.Tensor, axis: CommAxis, op: str = "sum") -> torch.Tensor:
+    """``t`` (a few values: metrics, maxima, norms) reduced over ``axis``
+    by ``op`` (``"sum"`` or ``"max"``), the same bytes on every rank."""
+    if axis.size == 1:
+        return t
+    import torch.distributed as dist
+    _dp_count(t)
+    wire = Wire(axis)
+    buf = wire._out(t).clone()
+    dist.all_reduce(buf, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op],
+                    group=axis.group)
+    return buf.to(t.device)
 
 
 # ---------------------------------------------------------------------------

@@ -22,13 +22,25 @@ this rank's slice of one dimension): a partial sum pinned replicated is
 summed there, a layout that already is the pinned one moves nothing. The batch dimension is local on every rank and is never
 moved. The other tensor-parallel collectives (the row-parallel sums, the
 gathers a site or the vocabulary needs) are :func:`psum_model` and
-:func:`gather_model`.
+:func:`gather_model`, and :func:`copy_model` marks where a replicated
+tensor enters a column-parallel product.
+
+Each of the three is an autograd function whose backward is what the
+train step needs when every rank computes the loss from the replicated
+result: the sum passes its gradient through (each rank's partial sum
+meets the whole gradient), the gather keeps this rank's slice of its
+gradient, and the copy (the identity forward) sums its gradient over the
+model axis, since each rank's product saw only its columns. The
+backward's collectives are counted in ``collectives.TP_TRAFFIC`` beside
+the forward's.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
 from typing import Any, NamedTuple
+
+import torch
 
 _MESH = contextvars.ContextVar("repro_torch_mesh", default=None)
 _DP = contextvars.ContextVar("repro_torch_dp_axes", default=None)
@@ -166,25 +178,82 @@ def tensor_parallel() -> TensorParallel | None:
     return cache[tp]
 
 
+class _SumModel(torch.autograd.Function):
+    """The row-parallel sum: the partial sums added over the axis; the
+    gradient passes through, since every rank's consumer of the sum is
+    replicated."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        from .collectives import tp_all_reduce
+        return tp_all_reduce(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherModel(torch.autograd.Function):
+    """Every rank's slice concatenated along ``dim``; the gradient of the
+    (replicated) result cut back to this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        from .collectives import tp_all_gather
+        ctx.dim, ctx.start, ctx.n = dim, axis.index * t.shape[dim], t.shape[dim]
+        return tp_all_gather(t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.start, ctx.n), None, None
+
+
+class _CopyModel(torch.autograd.Function):
+    """A replicated tensor entering a tensor-parallel product: the identity,
+    whose gradient (each rank's, from its own columns) is summed over the
+    axis."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .collectives import tp_all_reduce
+        return tp_all_reduce(g, ctx.axis, backward=True), None
+
+
 def psum_model(t):
     """The sum of ``t`` over the tensor-parallel axis (a row-parallel
     product's partial sums), identical on every rank; ``t`` itself outside
-    tensor parallelism."""
+    tensor parallelism. The backward passes the gradient through."""
     tp = tensor_parallel()
     if tp is None or tp.model.size == 1:
         return t
-    from .collectives import tp_all_reduce
-    return tp_all_reduce(t, tp.model)
+    return _SumModel.apply(t, tp.model)
 
 
 def gather_model(t, dim: int):
     """Every model rank's ``t`` concatenated along ``dim`` in rank order;
-    ``t`` itself outside tensor parallelism."""
+    ``t`` itself outside tensor parallelism. The backward keeps this
+    rank's slice of the gradient."""
     tp = tensor_parallel()
     if tp is None or tp.model.size == 1:
         return t
-    from .collectives import tp_all_gather
-    return tp_all_gather(t, tp.model, dim)
+    return _GatherModel.apply(t, tp.model, dim % t.dim())
+
+
+def copy_model(t):
+    """``t``, a tensor every model rank holds whole, where it enters a
+    column-parallel product (or, as a weight, a computation cut by the
+    model axis): the identity, whose backward sums the gradient over the
+    tensor-parallel axis. ``t`` itself outside tensor parallelism or
+    without a gradient to carry."""
+    tp = tensor_parallel()
+    if tp is None or tp.model.size == 1 or not (torch.is_grad_enabled() and t.requires_grad):
+        return t
+    return _CopyModel.apply(t, tp.model)
 
 
 def _pinned_dim(x, spec, local, axis: CommAxis):

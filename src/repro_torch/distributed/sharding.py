@@ -19,12 +19,16 @@ or None. A mesh is a ``DeviceMesh`` or any object with an
 :func:`to_shardings` and :func:`param_shardings` (the reference's
 ``NamedSharding`` trees) give each Spec as DTensor placements, one
 ``Shard(dim)`` or ``Replicate()`` per mesh axis, and :func:`local_shard`
-cuts a rank's shard out of a whole tensor by them. Serving
-(:func:`serving_shardings`; :func:`build_sharded` draws a model straight
-into its shards, :func:`shard_model_` cuts a whole one) materialises the
-``model`` axis and keeps every parameter whole across ``data``: the
-reference's FSDP split over ``data`` is a memory layout that changes no
-value, and waits for the sharded train step (ROADMAP.md, queue 1).
+cuts a rank's shard out of a whole tensor by them. :func:`build_sharded`
+draws a model straight into a rank's shards and :func:`shard_model_` cuts
+a whole one. Serving (:func:`serving_shardings`) materialises the
+``model`` axis and keeps every parameter whole across ``data``. Training
+keeps the full specs (:func:`param_shardings`; the reference's
+``train_state_specs``: :func:`train_state_specs`): the module a rank runs
+holds its ``model`` shards whole over ``data``, and the train state (the
+float32 master parameters, both AdamW moments and the int8 residual) is
+cut over ``data`` as well, the FSDP (ZeRO-3) split that
+``launch.steps.train_step`` gathers before each forward.
 """
 from __future__ import annotations
 
@@ -284,6 +288,27 @@ def serving_shardings(params, cfg: LMConfig, mesh) -> dict:
     return out
 
 
+def train_state_specs(state: dict, cfg: LMConfig, mesh) -> dict:
+    """The reference's ``train_state_specs``: a Spec for every leaf of a
+    whole train state (``launch.steps.init_train_state`` of a whole
+    model, or of one on the meta device): the parameters' specs, mirrored
+    by both AdamW moments and the int8 residual (None without one), and a
+    replicated step."""
+    specs = param_specs(state["params"], cfg, mesh)
+    error = state["compress"].error
+    return {"params": specs,
+            "opt": {slot: {n: specs[n] for n in bufs} for slot, bufs in state["opt"].items()},
+            "compress": None if error is None else {n: specs[n] for n in error},
+            "step": Spec()}
+
+
+def split_dim(places: tuple, mesh, axis: str) -> int | None:
+    """The dimension ``places`` splits over mesh axis ``axis``, or None
+    (the tensor is whole across it)."""
+    pl = dict(zip(mesh_shape(mesh), places)).get(axis)
+    return getattr(pl, "dim", None)
+
+
 def tp_unported(cfg: LMConfig) -> str | None:
     """Why ``cfg`` cannot be served tensor-parallel yet, or None: the slice
     serves the dense-FFN attention LMs."""
@@ -313,30 +338,45 @@ def _cut(p, places: tuple, mesh, coords):
     return local_shard(p, places, mesh, coords, axes=("model",)).clone()
 
 
-def shard_model_(model, mesh, coords: dict[str, int] | None = None):
-    """Cut a whole model's parameters to this rank's serving shards
-    (:func:`serving_shardings`), in place: each becomes a copy of its
-    shard, and the whole tensors go. Records the mesh on the model
-    (``model.mesh``), where the serving steps read it. Returns the model."""
-    import torch
-    _servable(model.cfg, mesh)
-    places = serving_shardings(model, model.cfg, mesh)
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            p.data = _cut(p.data, places[name], mesh, coords)
+def _placements(params, cfg: LMConfig, mesh, train: bool) -> dict:
+    return (param_shardings if train else serving_shardings)(params, cfg, mesh)
+
+
+def _record(model, mesh, places: dict, train: bool):
+    """Record the mesh (``model.mesh``, where the steps read it) and, for
+    training, the placements the train state is cut by
+    (``model.train_places``)."""
     model.mesh = mesh
+    model.train_places = places if train else None
     return model
 
 
+def shard_model_(model, mesh, coords: dict[str, int] | None = None, *, train: bool = False):
+    """Cut a whole model's parameters to this rank's shards over ``model``
+    (:func:`serving_shardings`, or with ``train`` the full :func:`param_shardings`),
+    in place: each becomes a copy of its shard, and the whole tensors go.
+    Records the mesh on the model (``model.mesh``) and, with ``train``, the
+    placements (``model.train_places``). Returns the model."""
+    import torch
+    _servable(model.cfg, mesh)
+    places = _placements(model, model.cfg, mesh, train)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.data = _cut(p.data, places[name], mesh, coords)
+    return _record(model, mesh, places, train)
+
+
 def build_sharded(cfg: LMConfig, mesh, *, generator=None, device=None,
-                  coords: dict[str, int] | None = None):
+                  coords: dict[str, int] | None = None, train: bool = False):
     """``models.lm.LM(cfg, generator=..., device=...)`` with every
-    parameter cut to this rank's serving shard as soon as it is drawn, so
-    a rank holds its shards and one whole parameter at most, never the
-    whole model. The values are those of building whole and cutting
-    (:func:`shard_model_`): each parameter is drawn whole, in the same
-    order from the same generator. A build on the meta device first names
-    the parameters in the order they are made."""
+    parameter cut to this rank's shard over ``model`` (serving's, or with
+    ``train`` the train step's) as soon as it is drawn, so a rank holds its
+    shards and one whole parameter at most, never the whole model. The
+    values are those of building whole and cutting (:func:`shard_model_`):
+    each parameter is drawn whole, in the same order from the same
+    generator. A build on the meta device first names the parameters in
+    the order they are made. ``launch.steps.init_train_state`` then cuts
+    the train state over ``data``."""
     import torch
     from torch.nn.modules.module import register_module_parameter_registration_hook
 
@@ -351,7 +391,7 @@ def build_sharded(cfg: LMConfig, mesh, *, generator=None, device=None,
         hook.remove()
     prefix = {id(mod): f"{path}." if path else "" for path, mod in meta.named_modules()}
     names = iter([prefix[id(mod)] + name for mod, name in made])
-    places = serving_shardings(dict(meta.named_parameters()), cfg, mesh)
+    places = _placements(dict(meta.named_parameters()), cfg, mesh, train)
 
     def cut(mod, name, p):
         return torch.nn.Parameter(_cut(p.data, places[next(names)], mesh, coords),
@@ -361,5 +401,4 @@ def build_sharded(cfg: LMConfig, mesh, *, generator=None, device=None,
         model = LM(cfg, generator=generator, device=device)
     finally:
         hook.remove()
-    model.mesh = mesh
-    return model
+    return _record(model, mesh, places, train)

@@ -1,11 +1,11 @@
 """Build and load the port's CUDA kernels (``kernels/csrc/*.cu``).
 
-One ``nvcc`` run compiles every source into one shared library with a
-plain C interface, loaded with ``ctypes``. Nothing is built when a
-module is imported: the first launch builds. The
-build goes to ``build/repro_torch/<digest>/`` at the root of the
-checkout, keyed by a hash of the sources and flags, so an edited source
-never loads a stale library.
+Each source is compiled by its own ``nvcc``, all started together, into a
+shared library with a plain C interface (``lib<source>.so``), loaded with
+``ctypes``. Nothing is built when a module is imported: the first launch
+builds. The build goes to ``build/repro_torch/<digest>/`` at the root of
+the checkout, keyed by a hash of the sources and flags, so an edited
+source never loads a stale library.
 
 Without ``nvcc`` the build raises: a CUDA tensor never falls back to a
 plain PyTorch path.
@@ -67,34 +67,42 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile every source unless the library exists; return the
-    library's path. Compiler output (``-Xptxas -v``: registers, shared
-    memory and spills per kernel) is kept beside it as ``libzebra.log``."""
+def build() -> dict[str, Path]:
+    """Compile every source whose library does not exist yet, one ``nvcc``
+    each, all at once; return {source: library path}. Each compiler's
+    output (``-Xptxas -v``: registers, shared memory and spills per
+    kernel) is kept beside its library as ``lib<source>.log``."""
     out = build_dir()
-    lib = out / "libzebra.so"
-    if lib.exists():
-        return lib
+    libs = {src: out / f"lib{Path(src).stem}.so" for src in SOURCES}
+    todo = {src: lib for src, lib in libs.items() if not lib.exists()}
+    if not todo:
+        return libs
     out.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    log = lib.with_suffix(".log")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *(str(CSRC / src) for src in SOURCES)]
-    with open(log, "w") as f:
-        rc = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT).returncode
-    if rc != 0:
-        raise RuntimeError(f"CUDA kernel build failed: nvcc exit {rc}\n"
-                           f"{log.read_text()}")
-    os.replace(tmp, lib)        # atomic: a reader sees all or nothing
-    return lib
+    procs = {}
+    for src, lib in todo.items():
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        log = open(lib.with_suffix(".log"), "w")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / src)]
+        procs[src] = (tmp, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
+    failed = []
+    for src, (tmp, log, proc) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(f"{src}: nvcc exit {rc}\n{Path(log.name).read_text()}")
+        else:
+            os.replace(tmp, libs[src])      # atomic: a reader sees all or nothing
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return libs
 
 
 class KernelLibrary:
     """The C entry points of every source, as attributes."""
 
-    def __init__(self, path: Path):
-        lib = ctypes.CDLL(str(path))
-        for entries in SOURCES.values():
+    def __init__(self, paths: dict[str, Path]):
+        for src, entries in SOURCES.items():
+            lib = ctypes.CDLL(str(paths[src]))
             for name, argtypes in entries.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -11,6 +11,24 @@ runs), which the step updates in place with the optimizer's ``update_``,
 as it does the optimizer state and the int8 compression residual: at
 gemma3-4b's width every copy of the parameters is 7.4 GB.
 
+The sharded train step (a model cut for training by
+``distributed.sharding.build_sharded(..., train=True)`` or
+``shard_model_(..., train=True)``, on a ``("data", "model")`` mesh, one
+process a rank): the module holds its ``model`` shards whole over
+``data``; the state holds the float32 master parameters, both AdamW
+moments and the int8 residual as (data, model) shards (the reference's
+``train_state_specs``; a leaf whole over ``data`` is the module's own
+tensor). :func:`train_step` gathers each parameter over ``data`` into the
+module (FSDP), runs this data rank's rows of every microbatch
+(:func:`data_rows`) forward and backward tensor-parallel over ``model``,
+takes the mean of the gradient over ``data`` (a reduce-scatter onto the
+shard, or an all-reduce for a leaf whole over ``data``), and then, as the
+reference's semantics have it, the compression round trip (int8's scale
+the max over every shard of the tensor), the global-norm clip (each
+element counted once) and AdamW on the shards. Loss and ``ce`` are the
+global batch's; the site observables were summed over the mesh at each
+site.
+
 Serving: prefill, next-token choice, the generate loop and the slotted
 decode step of the continuous-batching engine, under
 ``torch.inference_mode``. A model cut for tensor parallelism
@@ -29,6 +47,7 @@ from ..compress import decompress_tree
 from ..ft.faults import PoisonBatch
 from ..models.lm import LM
 from ..optim import Optimizer, clip_by_global_norm_, compressed_gradients, init_state
+from ..optim.optimizers import sharded_global_norm
 
 
 # ---------------------------------------------------------------------------
@@ -37,10 +56,52 @@ from ..optim import Optimizer, clip_by_global_norm_, compressed_gradients, init_
 
 def init_train_state(model: LM, opt: Optimizer, compress: str = "bf16") -> dict:
     """The model's parameters (by name, the tensors themselves), the
-    optimizer's state for them, the compression state and step 0."""
+    optimizer's state for them, the compression state and step 0. For a
+    model cut for training (``model.train_places``), this rank's (data,
+    model) shards: a copy of its ``data`` shard of each parameter split
+    over ``data``, the module's tensor itself for one whole over it, and
+    the optimizer and compression state of those."""
     params = dict(model.named_parameters())
+    if _layout(model) is not None:
+        from ..distributed.sharding import local_shard
+        places, mesh = model.train_places, model.mesh
+        params = {n: p if _data_dim(model, n) is None else
+                  local_shard(p.detach(), places[n], mesh, axes=("data",)).clone()
+                  for n, p in params.items()}
     return {"params": params, "opt": opt.init(params),
             "compress": init_state(params, compress), "step": 0}
+
+
+def _layout(model: LM):
+    """The tensor-parallel layout a model cut for training runs under, or
+    None for a model in one process (or cut for serving)."""
+    if getattr(model, "train_places", None) is None:
+        return None
+    from ..distributed.ctx import tensor_parallel
+    with model_hints(model):
+        return tensor_parallel()
+
+
+def _data_dim(model: LM, name: str) -> int | None:
+    """The dimension parameter ``name`` is split over ``data`` in the train
+    state, or None (whole over it, or a data axis of one rank)."""
+    from ..distributed.sharding import mesh_shape, split_dim
+    if mesh_shape(model.mesh).get("data", 1) == 1:
+        return None
+    return split_dim(model.train_places[name], model.mesh, "data")
+
+
+def data_rows(batch: int, grad_accum: int, data: int, index: int) -> list[int]:
+    """The global batch's rows data rank ``index`` of ``data`` takes, in
+    order: its rows of each of the ``grad_accum`` microbatches, global
+    rows ``[i·B/K + index·B/(K·data), ...)``, so microbatch i of every rank
+    together is the reference's microbatch i."""
+    K = max(grad_accum, 1)
+    if batch % (K * data):
+        raise ValueError(f"batch {batch} does not split into {K} microbatches over "
+                         f"{data} data ranks")
+    b = batch // (K * data)
+    return [i * (batch // K) + index * b + j for i in range(K) for j in range(b)]
 
 
 def _own_params(model: LM, params: dict) -> list[torch.Tensor]:
@@ -113,12 +174,84 @@ def train_step(model: LM, opt: Optimizer, state: dict, batch: dict, *,
     before anything in ``state`` changes, and a non-finite one raises
     ``ft.faults.PoisonBatch`` with the state untouched (the supervisor's
     skip-batch policy); otherwise nothing is read on the host."""
+    if _layout(model) is not None:
+        return _sharded_train_step(model, opt, state, batch, compress=compress,
+                                   grad_clip=grad_clip, check_finite=check_finite)
     grads, loss, metrics = accumulate_gradients(model, state["params"], batch["tokens"],
                                                 batch.get("enc_feats"))
     if check_finite and not math.isfinite(float(loss)):
         raise PoisonBatch(f"non-finite loss {float(loss)} at step {state['step']}")
     grads, state["compress"] = compressed_gradients(grads, state["compress"], compress)
     gnorm = clip_by_global_norm_(grads, grad_clip)
+    opt.update_(grads, state["opt"], state["params"], state["step"])
+    del grads
+    state["step"] += 1
+    return state, dict(metrics, loss=loss, grad_norm=gnorm)
+
+
+def gather_params_(model: LM, state: dict) -> None:
+    """Make each parameter of a model cut for training whole over ``data``
+    from the state's shards (FSDP's gather before the forward); the
+    leaves whole over ``data`` are the module's own tensors already."""
+    from ..distributed.collectives import dp_all_gather
+    tp = _layout(model)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            dim = _data_dim(model, name)
+            if dim is not None:
+                p.copy_(dp_all_gather(state["params"][name], tp.data, dim))
+
+
+def _split_axes(model: LM, name: str) -> tuple[str, ...]:
+    from ..distributed.sharding import mesh_shape, split_dim
+    return tuple(a for a in ("data", "model")
+                 if mesh_shape(model.mesh).get(a, 1) > 1
+                 and split_dim(model.train_places[name], model.mesh, a) is not None)
+
+
+def _axis_for(tp, axes: tuple[str, ...]):
+    return {(): None, ("data",): tp.data, ("model",): tp.model}.get(axes, tp.world)
+
+
+def _sharded_train_step(model: LM, opt: Optimizer, state: dict, batch: dict, *,
+                        compress: str, grad_clip: float, check_finite: bool):
+    """:func:`train_step` of a model cut for training: ``batch["tokens"]``
+    are this data rank's rows (:func:`data_rows`)."""
+    from ..distributed.collectives import all_reduce_small, dp_mean
+    tp = _layout(model)
+    gather_params_(model, state)
+    with model_hints(model):
+        grads, loss, metrics = accumulate_gradients(model, dict(model.named_parameters()),
+                                                    batch["tokens"], batch.get("enc_feats"))
+    # the global batch's loss and ce (and Eq. 1's term with threshold nets):
+    # means over the data ranks; the site observables are global already
+    keys = ["ce", *(["zebra_reg"] if model.cfg.zebra_tnet else [])]
+    mean = all_reduce_small(torch.stack([loss, *(metrics[k] for k in keys)]), tp.data)
+    if tp.data.size > 1:
+        mean = mean / tp.data.size
+    loss, metrics = mean[0], {**metrics, **dict(zip(keys, mean[1:]))}
+    if check_finite and not math.isfinite(float(loss)):
+        raise PoisonBatch(f"non-finite loss {float(loss)} at step {state['step']}")
+    for name in grads:
+        grads[name] = dp_mean(grads[name], tp.data, _data_dim(model, name))
+    axes = {n: _split_axes(model, n) for n in grads}
+
+    def global_max(amax: dict) -> dict:
+        out = dict(amax)
+        for group in sorted(set(axes.values())):     # every rank in one order
+            names = [n for n in amax if axes[n] == group]
+            axis = _axis_for(tp, group)
+            if axis is not None and names:
+                got = all_reduce_small(torch.stack([amax[n] for n in names]), axis, "max")
+                out.update(zip(names, got.unbind(0)))
+        return out
+    grads, state["compress"] = compressed_gradients(grads, state["compress"], compress,
+                                                    global_max=global_max)
+    # a leaf whole over an axis counts on that axis's first rank only
+    owned = {n for n in grads if ("data" in axes[n] or tp.data.index == 0)
+             and ("model" in axes[n] or tp.model.index == 0)}
+    norm = sharded_global_norm(grads, owned, lambda t: all_reduce_small(t, tp.world))
+    gnorm = clip_by_global_norm_(grads, grad_clip, norm=norm)
     opt.update_(grads, state["opt"], state["params"], state["step"])
     del grads
     state["step"] += 1

@@ -26,13 +26,30 @@ or ``stream`` kernels.
 checkpoint there: a crashed run restores and goes on (the supervisor's
 restore-and-retry), and a run started again continues where the last one
 stopped. Without ``--ckpt`` nothing is written (the reference defaults to a
-directory under ``/tmp``, which every later run would resume from). Model
-parallelism waits for the sharded train step (ROADMAP.md, queue 1, item 1)
-and raises.
+directory under ``/tmp``, which every later run would resume from).
+
+``--model-parallel N`` trains the dense-FFN attention LMs (gemma3-4b,
+starcoder2-15b, qwen2.5-14b, command-r-35b, chameleon-34b) with the
+sharded train step (:func:`train_tensor_parallel`): on a ``("data",
+"model")`` mesh, the layers tensor-parallel over ``model`` and the train
+state split over ``data`` as well (FSDP), each data rank taking its rows
+of every microbatch of the one global batch:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --model-parallel 4 \
+        --reduced --device cpu --steps 2 --batch 8 --seq 64
+
+From a plain shell it spawns N ranks on this host (data 1; on one card
+they share it over ``gloo``); inside a joined world of a multiple of N
+ranks each process trains as its rank (:func:`train_rank`), with data =
+world / N. The MoE, SSM, RG-LRU and encoder-decoder architectures,
+``--ckpt`` (checkpoints of a sharded state) and a batch that does not
+split over data × ``grad_accum`` raise before any rank starts (ROADMAP.md,
+queue 1).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -44,7 +61,7 @@ from ..models.lm import LM, LMConfig
 from ..models.lm.remat import REMATS
 from ..optim import adamw, warmup_cosine
 from ..utils import resolve_device
-from .steps import init_train_state, train_step
+from .steps import data_rows, gather_params_, init_train_state, train_step
 
 LOG_KEYS = ("loss", "ce", "zebra_reg", "zero_frac", "router_aux", "grad_norm",
             "measured_bytes")
@@ -68,7 +85,7 @@ def _log(step: int, m: dict, log=print) -> None:
 def train_lm(cfg: LMConfig, *, steps: int = 50, batch: int = 8, seq: int = 128,
              lr: float = 3e-4, compress: str = "bf16", seed: int = 0, device=None,
              model: LM | None = None, log=print, ckpt: str | None = None,
-             ckpt_every: int = 25, enc_feats=None):
+             ckpt_every: int = 25, enc_feats=None, rows: list[int] | None = None):
     """Train ``cfg`` for ``steps`` steps on ``batch`` x ``seq`` tokens of
     the synthetic stream (seed ``seed``), an encoder-decoder also on the
     frames ``enc_feats(step)`` (B, enc_seq, d) of each loader step when a
@@ -79,7 +96,9 @@ def train_lm(cfg: LMConfig, *, steps: int = 50, batch: int = 8, seq: int = 128,
     steps and resumes from it. Returns ``(model, state, history,
     supervisor)``: one history row per completed step, the metrics read
     on the host (one read a step, after the finite-loss check's) with
-    ``step`` and ``ms``, the step's host-clock time."""
+    ``step`` and ``ms``, the step's host-clock time. ``rows``: the rows of
+    each global batch this process trains on (a data rank of a model cut
+    for training: ``launch.steps.data_rows``)."""
     device = resolve_device(device)
     if device.type == "cuda":
         # full float32 for every float32 matmul, as the reference computes it
@@ -91,7 +110,8 @@ def train_lm(cfg: LMConfig, *, steps: int = 50, batch: int = 8, seq: int = 128,
     opt = adamw(warmup_cosine(lr, max(steps // 10, 1), steps))
     ds = LMDatasetConfig(vocab=cfg.vocab, seed=seed)
     def make_batch(b, s):
-        out = {"tokens": lm_batch(ds, b, seq, s)}
+        toks = lm_batch(ds, b, seq, s)
+        out = {"tokens": toks if rows is None else toks[rows]}
         if enc_feats is not None:
             out["enc_feats"] = enc_feats(s)
         return out
@@ -125,8 +145,8 @@ def train_lm(cfg: LMConfig, *, steps: int = 50, batch: int = 8, seq: int = 128,
     return model, state, history, sup
 
 
-def main(argv=None) -> dict:
-    """The CLI; returns ``{"model", "state", "history"}``."""
+def parse_args(argv=None) -> argparse.Namespace:
+    """The CLI's arguments (what :func:`main` and :func:`train_rank` read)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma3-4b")
     ap.add_argument("--reduced", action="store_true")
@@ -155,16 +175,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card (no fallback); 'cpu' runs the "
                          "kernels' plain versions on the CPU")
-    args = ap.parse_args(argv)
-    if args.model_parallel != 1:
-        raise NotImplementedError("--model-parallel > 1: the sharded train step of the "
-                                  "distributed LM is not ported yet (ROADMAP.md, queue 1, "
-                                  "item 1; serving runs tensor-parallel: launch.serve)")
-    device = resolve_device(args.device)
+    ap.add_argument("--save", default=None,
+                    help="--model-parallel: each rank also saves its report (history, "
+                         "times, memory, state bytes, collectives) to DIR/rank<r>.pt")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """The CLI; returns ``{"model", "state", "history"}`` (under
+    ``--model-parallel`` from a plain process: rank 0's report with every
+    rank's under ``"ranks"``)."""
+    args = parse_args(argv)
     cfg = build_config(args.arch, reduced=args.reduced, t_obj=args.t_obj,
                        backend=args.backend, n_layers=args.layers)
     if args.remat is not None:
         cfg = cfg.replace(remat=args.remat)
+    if args.model_parallel != 1:
+        return train_tensor_parallel(args, cfg, argv)
+    device = resolve_device(args.device)
     model = LM(cfg, generator=torch.Generator(device=device).manual_seed(args.seed),
                device=device)
     print(f"[train] {cfg.name} params={sum(p.numel() for p in model.parameters()):,} "
@@ -178,6 +206,139 @@ def main(argv=None) -> dict:
     print(f"[train] done at step {state['step']}"
           + (f"; checkpoints in {args.ckpt}" if args.ckpt else ""))
     return {"model": model, "state": state, "history": history, "supervisor": sup}
+
+
+# ---------------------------------------------------------------------------
+# The sharded train step (--model-parallel N)
+# ---------------------------------------------------------------------------
+
+TP_QUEUE = "ROADMAP.md, queue 1"
+
+
+def _refuse(args, cfg: LMConfig, world: int) -> None:
+    """What the sharded train step does not run raises here, before any
+    rank starts."""
+    from ..distributed.sharding import tp_unported
+    N = args.model_parallel
+    if N < 1 or world % N:
+        raise ValueError(f"--model-parallel {N} does not divide the world of {world} ranks")
+    why = tp_unported(cfg)
+    if why is not None:
+        raise NotImplementedError(f"--model-parallel: tensor-parallel training of {why} "
+                                  f"({cfg.name}) is not ported yet ({TP_QUEUE}, item 1 (b))")
+    if args.ckpt is not None:
+        raise NotImplementedError(f"--ckpt under --model-parallel: checkpoints of a sharded "
+                                  f"train state are not ported yet ({TP_QUEUE}, item 2)")
+    data_rows(args.batch, cfg.grad_accum, world // N, 0)     # raises if it does not split
+
+
+def train_tensor_parallel(args, cfg: LMConfig, argv=None) -> dict:
+    """``--model-parallel N``: the sharded train step on a ``("data",
+    "model")`` mesh. Inside a joined world (``launch.mesh.init_world`` or
+    ``spawn``) this process trains as its rank (:func:`train_rank`); from a
+    plain process it spawns N ranks on this host (data 1), building the
+    kernels first, and returns rank 0's report with every rank's under
+    ``"ranks"``."""
+    import torch.distributed as dist
+    world = dist.get_world_size() if dist.is_initialized() else args.model_parallel
+    _refuse(args, cfg, world)
+    if dist.is_initialized():
+        return train_rank(args, cfg)
+    import sys
+    import tempfile
+
+    from ..kernels import build
+    from .mesh import spawn
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        build.load_library()            # once, before the ranks load it
+    argv = list(sys.argv[1:] if argv is None else argv)
+    with tempfile.TemporaryDirectory() as tmp:
+        save = args.save or tmp
+        spawn(_spawned_rank, args.model_parallel, (argv, save), device=str(device))
+        reports = [torch.load(f"{save}/rank{r}.pt") for r in range(args.model_parallel)]
+    return {**reports[0], "ranks": reports}
+
+
+def _spawned_rank(rank: int, argv: list, save: str) -> None:
+    main([*argv, "--save", save])           # the last --save wins
+
+
+def state_bytes(state: dict) -> dict:
+    """The bytes of a train state by component (parameters, optimizer
+    moments, int8 residual)."""
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in tree.values())
+    error = state["compress"].error
+    return {"params": nbytes(state["params"]),
+            "opt": sum(nbytes(b) for b in state["opt"].values()),
+            "compress": 0 if error is None else nbytes(error)}
+
+
+def train_rank(args, cfg: LMConfig) -> dict:
+    """This rank's part of ``--model-parallel N`` inside a joined world
+    whose size N divides (data = world / N): the mesh
+    (``make_host_mesh(model=N)``), the model drawn from ``--seed`` straight
+    into this rank's training shards (``sharding.build_sharded(...,
+    train=True)``), then :func:`train_lm` on this data rank's rows of each
+    global batch (``steps.data_rows``), the sharded step; at the end the
+    parameters are gathered back into the module. Rank 0 logs as one
+    process does. Returns :func:`train_lm`'s result with the mesh and this
+    rank's report (``"report"``: the history, the stage times, the peak
+    memory, the state's bytes by component and the collectives a step);
+    with ``--save`` every rank saves its report."""
+    import torch.distributed as dist
+
+    from ..distributed.collectives import DP_TRAFFIC, TP_TRAFFIC, wire_name
+    from ..distributed.sharding import build_sharded
+    from ..kernels import launch_counters
+    from .mesh import make_host_mesh
+    t_start = time.perf_counter()
+    N, world = args.model_parallel, dist.get_world_size()
+    _refuse(args, cfg, world)
+    device = resolve_device(args.device)
+    if device.type == "cpu":            # the ranks share this host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = make_host_mesh(model=N, device=device)
+    data, di = world // N, mesh.get_local_rank("data")
+    rank0 = dist.get_rank() == 0
+    log = (lambda line: print(line, flush=True)) if rank0 else (lambda *_: None)
+    model = build_sharded(cfg, mesh, generator=torch.Generator(device=device).manual_seed(
+        args.seed), device=device, train=True)
+    whole = sum(p.numel() for p in LM(cfg, device="meta").parameters())
+    log(f"[train] {cfg.name} params={whole:,} layers={cfg.n_layers} "
+        f"mesh={{'data': {data}, 'model': {N}}} on {device}, {world} ranks "
+        f"({wire_name(mesh.get_group('model'))})")
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t_build = time.perf_counter()
+    before = ({**TP_TRAFFIC}, {**DP_TRAFFIC},
+              {k: w.launches for k, w in launch_counters().items()})
+    model, state, history, sup = train_lm(
+        cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
+        compress=args.compress, seed=args.seed, device=device, model=model, log=log,
+        rows=data_rows(args.batch, cfg.grad_accum, data, di))
+    n = max(len(history), 1)
+    t_train = time.perf_counter()
+    gather_params_(model, state)        # the module holds the trained weights
+    report = {
+        "rank": dist.get_rank(), "data_index": di, "model_index": mesh.get_local_rank("model"),
+        "wire": wire_name(mesh.get_group("model")), "history": history,
+        "stage_s": {"build": t_build - t_start, "train": t_train - t_build},
+        "max_memory_allocated": (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else 0),
+        "state_bytes": state_bytes(state),
+        "tp_per_step": {k: (v - before[0][k]) / n for k, v in TP_TRAFFIC.items()},
+        "dp_per_step": {k: (v - before[1][k]) / n for k, v in DP_TRAFFIC.items()},
+        "launches": {k: w.launches - before[2].get(k, 0)
+                     for k, w in launch_counters().items()}}
+    if sup.straggler_events:
+        log(f"[ft] {len(sup.straggler_events)} straggler step(s) flagged")
+    log(f"[train] done at step {state['step']}")
+    if args.save is not None:
+        torch.save(report, f"{args.save}/rank{dist.get_rank()}.pt")
+    return {"model": model, "state": state, "history": history, "supervisor": sup,
+            "mesh": mesh, "report": report}
 
 
 if __name__ == "__main__":

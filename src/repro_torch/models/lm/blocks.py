@@ -137,9 +137,20 @@ def _kv_heads(p: Attention, cfg: LMConfig, k: torch.Tensor, v: torch.Tensor):
 
 
 def _qkv(p: Attention, x: torch.Tensor, cfg: LMConfig, rope):
-    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    """Q, K, V of x with RoPE. Under tensor parallelism x is replicated and
+    the projections are head-sharded, so x enters them through
+    ``copy_model`` (its gradient summed over the model axis); K/V
+    replicated while the queries split are used only for this rank's query
+    heads (:func:`_kv_heads`), so their weights' gradients are partial and
+    enter the same way."""
+    from ...distributed.ctx import copy_model
+    x = copy_model(x)
+    kv = [p.wk, p.wv, *((p.bk, p.bv) if cfg.qkv_bias else ())]
+    if p.wq.shape[1] != cfg.n_heads and p.wk.shape[1] == cfg.n_kv_heads:
+        kv = [copy_model(t) for t in kv]
+    q, k, v = _proj(x, p.wq), _proj(x, kv[0]), _proj(x, kv[1])
     if cfg.qkv_bias:        # after the projection, before RoPE
-        q, k, v = q + p.bq.to(x.dtype), k + p.bk.to(x.dtype), v + p.bv.to(x.dtype)
+        q, k, v = q + p.bq.to(x.dtype), k + kv[2].to(x.dtype), v + kv[3].to(x.dtype)
     cos, sin = rope
     return attn.apply_rope(q, cos, sin), attn.apply_rope(k, cos, sin), v
 

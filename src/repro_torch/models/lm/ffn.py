@@ -153,16 +153,19 @@ def ffn_apply(p: FFN, x: torch.Tensor, cfg: LMConfig, mode: str):
     this rank's d_ff columns; the site runs as ``core.engine._tp_site``
     says, and ``w_down`` is row-parallel, its partial products summed over
     the model axis (on ``fused`` inside the site), then ``b_down`` added
-    once."""
-    from ...distributed.ctx import hint_tokens, psum_model
+    once. x, replicated, enters the column-parallel products through
+    ``copy_model`` (its gradient summed over the model axis)."""
+    from ...distributed.ctx import copy_model, hint_tokens, psum_model
     cdt = x.dtype
+    # the hidden map's d_ff over the tensor-parallel axis: the columns of
+    # w_gate/w_up a rank holds are already that layout
+    split = p.w_up.shape[-1] != cfg.d_ff
+    if split:
+        x = copy_model(x)
     if cfg.act == "swiglu":
         h = silu(x @ p.w_gate.to(cdt)) * (x @ p.w_up.to(cdt))
     else:
         h = gelu(x @ p.w_up.to(cdt) + p.b_up.to(cdt))
-    # the hidden map's d_ff over the tensor-parallel axis: the columns of
-    # w_gate/w_up a rank holds are already that layout
-    split = p.w_up.shape[-1] != cfg.d_ff
     h = hint_tokens(h, "model", local=-1 if split else None)
     zc = _hidden_site_cfg(cfg, mode)
     if wants_fused(zc, "ffn_hidden"):

@@ -39,13 +39,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...core.engine import LayerAux, aux_unread
-from ...distributed.ctx import gather_model, hint_tokens, tensor_parallel
+from ...distributed.ctx import copy_model, gather_model, hint_tokens, tensor_parallel
 from ..layers import Norm
 from .attention import rope_frequencies
 from .blocks import (Layer, apply_layer, apply_layer_decode, apply_layer_prefill,
                      init_layer_cache)
 from .config import LMConfig
-from .remat import run_unit
+from .remat import in_context, run_unit
 
 
 def layer_runs(cfg: LMConfig) -> list[tuple[tuple[str, ...], int]]:
@@ -124,11 +124,12 @@ class LM(nn.Module):
 
     def _project_vocab(self, x: torch.Tensor) -> torch.Tensor:
         w = self.embed.t() if self.cfg.tie_embeddings else self.lm_head
-        logits = x @ w.to(self.cdt)
         if w.shape[-1] == self.cfg.vocab:
-            return logits
+            return x @ w.to(self.cdt)
         # this rank's vocabulary columns (the reference pins the logits
-        # vocab-sharded), gathered in rank order into the whole logits
+        # vocab-sharded), gathered in rank order into the whole logits; the
+        # replicated x enters the column-parallel product through copy_model
+        logits = copy_model(x) @ w.to(self.cdt)
         return gather_model(hint_tokens(logits, "model", local=-1), -1)
 
     def _unit(self, layers: nn.ModuleDict, pattern: tuple[str, ...], mode: str, rope,
@@ -218,7 +219,7 @@ class LM(nn.Module):
         if C and S % C == 0 and S > C:
             tot = torch.zeros((), dtype=torch.float32, device=x.device)
             for i in range(S // C):
-                tot = tot + checkpoint(self._nll_sum, x[:, i * C:(i + 1) * C],
+                tot = tot + checkpoint(in_context(self._nll_sum), x[:, i * C:(i + 1) * C],
                                        lbl[:, i * C:(i + 1) * C], use_reentrant=False)
             ce = tot / (B * S)
         else:

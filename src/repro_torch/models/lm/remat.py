@@ -18,6 +18,10 @@ of a run's layer pattern:
                ``save_acts`` units of its own.)
 
 Recomputation runs the same ops on the same inputs, so no value moves. It
+runs in the context variables of the forward (:func:`in_context`):
+on the card autograd runs the backward, and with it the recompute, on a
+thread of its own, where the caller's context (``distributed.ctx``'s mesh
+and tensor-parallel layout, the site recorders) is not set. It
 does run the unit's Python again: a Zebra kernel inside it launches once in
 the forward and once more in the backward, and its launch counter counts
 both. Fault taps and stream validation run in infer mode only, where no
@@ -26,6 +30,7 @@ mode) a unit is a plain call.
 """
 from __future__ import annotations
 
+import contextvars
 import functools
 
 import torch
@@ -67,6 +72,17 @@ def _save_named(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _run_in(ctx: contextvars.Context, fn, *args):
+    return ctx.copy().run(fn, *args)
+
+
+def in_context(fn):
+    """``fn`` run, whenever it is called (a checkpoint's forward and its
+    recompute), in a copy of the caller's context variables as they are
+    now."""
+    return functools.partial(_run_in, contextvars.copy_context(), fn)
+
+
 def run_unit(fn, remat: str, *args):
     """``fn(*args)`` under the ``remat`` policy."""
     if remat not in REMATS:
@@ -74,6 +90,6 @@ def run_unit(fn, remat: str, *args):
     if remat == "none" or not torch.is_grad_enabled():
         return fn(*args)
     if remat == "block":
-        return checkpoint(fn, *args, use_reentrant=False)
-    return checkpoint(fn, *args, use_reentrant=False, context_fn=functools.partial(
+        return checkpoint(in_context(fn), *args, use_reentrant=False)
+    return checkpoint(in_context(fn), *args, use_reentrant=False, context_fn=functools.partial(
         create_selective_checkpoint_contexts, _save_named))

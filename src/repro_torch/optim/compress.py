@@ -9,11 +9,14 @@ Three modes:
     quarter of the bytes), the quantization residual carried to the next
     step so the compression bias vanishes over time.
 
-The port runs on one card, so nothing crosses a link yet: the round trip
-is applied where the reference applies it, before the (implicit)
-all-reduce, and changes the update exactly as it does there. Gradients
-are dicts of name -> float32 tensor; they are decoded in place (the train
-step owns them), so a step at gemma3-4b's width holds no second copy.
+The round trip is applied as the reference's semantics have it and
+changes the update exactly as it does there. In one process that is all
+there is; the sharded train step (``launch.steps``) applies it to each
+rank's shards of the reduced gradient, and int8's per-tensor scale is
+then the max over every shard (``global_max``), so the decoded values are
+those of the whole tensor. Gradients are dicts of name -> float32 tensor;
+they are decoded in place (the train step owns them), so a step at
+gemma3-4b's width holds no second copy.
 """
 from __future__ import annotations
 
@@ -51,10 +54,11 @@ def _abs_max(e: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def compressed_gradients(grads: dict[str, torch.Tensor], state: CompressionState,
-                         mode: str = "bf16"):
+                         mode: str = "bf16", *, global_max=None):
     """Returns (wire-format grads decoded back to float32, new state). A
     float32 gradient is decoded in place; the int8 residual is updated in
-    place in ``state.error``.
+    place in ``state.error``. ``global_max`` (int8, sharded gradients):
+    maps {name: this shard's max |g + e|} to the whole tensors' maxima.
 
     int8: ``g + e`` rounded once, the scale ``max(max|g + e|, 1e-12) /
     127`` in float32, ``round`` half to even (as ``jnp.round``), clipped to
@@ -74,11 +78,17 @@ def compressed_gradients(grads: dict[str, torch.Tensor], state: CompressionState
             del h
         return out, state
     if mode == "int8":
-        out = {}
+        amax = {}
         for k, g in grads.items():
             e = state.error[k]
             e.add_(g.to(torch.float32))               # g + e: the carried residual added
-            scale = torch.clamp(_abs_max(e), min=1e-12) / 127.0
+            amax[k] = _abs_max(e)
+        if global_max is not None:
+            amax = global_max(amax)
+        out = {}
+        for k, g in grads.items():
+            e = state.error[k]
+            scale = torch.clamp(amax[k], min=1e-12) / 127.0
             dec = g if g.dtype == torch.float32 else torch.empty_like(e)
             for ec, dc in zip(_chunks(e), _chunks(dec)):
                 q = torch.div(ec, scale).round_().clamp_(-127, 127).to(torch.int8)

@@ -47,14 +47,29 @@ def clip_by_global_norm(grads: Params, max_norm: float) -> tuple[Params, torch.T
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: Params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Params, max_norm: float,
+                         norm: torch.Tensor | None = None) -> torch.Tensor:
     """``clip_by_global_norm`` scaling the gradients in place; returns the
-    norm before clipping."""
-    norm = global_norm(grads.values())
+    norm before clipping. ``norm``: the global norm when it is not that of
+    ``grads`` alone (a rank's shards: :func:`sharded_global_norm`)."""
+    if norm is None:
+        norm = global_norm(grads.values())
     scale = _clip_scale(norm, max_norm)
     for g in grads.values():
         g.mul_(scale)
     return norm
+
+
+@torch.no_grad()
+def sharded_global_norm(grads: Params, owned, all_sum) -> torch.Tensor:
+    """The global norm of a gradient held as shards across ranks, each
+    element counted once: this rank's sum of squares over the leaves it
+    ``owned`` (a leaf whole over some axis belongs to that axis's first
+    rank), summed over the ranks by ``all_sum``, then the square root."""
+    sq = [g.to(torch.float32).square().sum() for n, g in grads.items() if n in owned]
+    local = torch.stack(sq).sum() if sq else torch.zeros(
+        (), dtype=torch.float32, device=next(iter(grads.values())).device)
+    return torch.sqrt(all_sum(local))
 
 
 def _zeros_f32(params: Params) -> Params:

@@ -83,7 +83,8 @@ def test_lm_trainer_without_device_needs_cuda():
 def test_lm_trainer_cli_runs_on_cpu(capsys, tmp_path):
     """``--device cpu --reduced --steps 2`` trains and logs as the reference
     does; with ``--ckpt`` a second run resumes from the first's checkpoint;
-    ``--model-parallel`` waits for the distributed item."""
+    ``--ckpt`` under ``--model-parallel`` waits for checkpoints of a
+    sharded state."""
     from repro_torch.launch import train
     out = train.main(["--reduced", "--device", "cpu", "--steps", "2", "--batch", "2",
                       "--seq", "32", "--backend", "pallas"])
@@ -98,8 +99,9 @@ def test_lm_trainer_cli_runs_on_cpu(capsys, tmp_path):
     out = train.main([*ckpt, "--steps", "3"])
     assert [m["step"] for m in out["history"]] == [3] and out["state"]["step"] == 3
     assert f"checkpoints in {tmp_path}" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="distributed"):
-        train.main(["--reduced", "--device", "cpu", "--model-parallel", "2"])
+    with pytest.raises(NotImplementedError, match="sharded"):
+        train.main(["--reduced", "--device", "cpu", "--model-parallel", "2", "--ckpt",
+                    str(tmp_path)])
 
 
 @pytest.mark.parametrize("launch", ["bitmap", "pack", "unpack", "mask", "zebra_pack",
