@@ -356,7 +356,27 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     bytes by component, the collectives a step; then kernels 1-3 held
     against their plain versions on rank 0's ``ffn_hidden`` shards
     (1024, 5120) of one step and timed;
-19. prints one JSON line listing the kernels (the seven CUDA kernels, the
+19. serves the other layer kinds tensor-parallel (``launch.serve
+    --model-parallel`` inside one world of 4 ranks spawned on this host,
+    ``gloo`` with host copies on one card, which serves the five in turn),
+    batch x prompt 256, 8 greedy tokens, each at full width against its own
+    single-process run at the same depth: granite-moe-1b-a400m (24
+    layers) on ``stream`` at (data 2, model 2), its MoE expert-parallel
+    with the dispatch routed over the global batch; llama4-scout-17b-a16e
+    (4 of 48 layers) on ``fused``, mamba2-2.7b (16 of 64) on ``stream``,
+    recurrentgemma-2b (6 of 26: its 10 query heads replicate beside the
+    split RG-LRU) and whisper-medium (6 + 6 of 24 + 24) on ``fused``, each
+    at (data 1, model 4). Checks: the model ranks' logits and tokens bit
+    for bit alike; each site kind by its rule and axis; every site that
+    reports stream bytes and every handoff leaf in the Eq. 2/3 band; the
+    zero fraction per site kind within 1e-3 of one process's (the blocks
+    that differ counted); the prefill logits within 1.5; the tokens equal
+    but for near ties; every rank's launches by phase equal to one
+    process's; then kernels 1-3 on rank 0's granite dispatch rows, 4 on
+    its llama4 rows, and 1, 2 and 7 on its recurrentgemma and whisper
+    ``ffn_hidden`` shards (with its rows of ``w_down``) held against their
+    plain versions and timed;
+20. prints one JSON line listing the kernels (the seven CUDA kernels, the
     three stream kernels per VGG-16 and per MobileNetV1 evaluate batch,
     named ``... (vgg16 evaluate)`` and ``... (mobilenet evaluate)``, the
     masking kernel per training step of each, ``... (vgg16 training)`` and
@@ -373,8 +393,9 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     15's, ``... (gemma3-4b continuous prefill <bucket>[, kv_cache])`` and ``zebra_pack
     (gemma3-4b continuous, per lane)``/``zebra_unpack_kernel (...)``, phase 16's
     ``... (collectives ring, ...)``, phase 17's ``... (gemma3-4b
-    tensor-parallel prefill, a rank)`` and phase 18's ``... (gemma3-4b
-    tensor-parallel training, a rank)``; the GEMM
+    tensor-parallel prefill, a rank)``, phase 18's ``... (gemma3-4b
+    tensor-parallel training, a rank)`` and phase 19's ``... (<arch>
+    tensor-parallel prefill, a rank)``; the GEMM
     rows also carry ms per launch, TFLOP/s of live work and the device
     body that ran, the stream rows their ``amax_ms`` or ``copy_ms``
     yardstick), the card line again, and ``{"ok": true, "device": ...}``
@@ -4243,7 +4264,7 @@ def single_yardstick(tp: dict, arch, layers, t_obj) -> dict:
     import torch
     from repro_torch.launch import serve
     argv = tp_argv(tp, arch, layers, t_obj)
-    with LMSiteRecorder() as rec, PhaseCounts(serve) as phases:
+    with LMSiteRecorder() as rec, PhaseCounts(serve) as phases, yard_sums():
         out = serve.main(argv)
     from repro_torch.kernels import mask_pack
     yard = {"arch": arch, "t_obj": t_obj, "tokens": out["tokens"].cpu(),
@@ -4584,7 +4605,8 @@ def tpt_single(device, tpt: dict, path: str) -> dict:
         before = {k: w.launches for k, w in launch_counters().items()}
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
-        with SiteKeeps() as rec, FirstMoment(compress == "bf16", row_sample) as m1:
+        with SiteKeeps() as rec, FirstMoment(compress == "bf16", row_sample) as m1, \
+                yard_sums():
             model, state, hist, _ = train.train_lm(
                 cfg, steps=steps, batch=tpt["batch"], seq=tpt["seq"], lr=tpt["lr"],
                 compress=compress, seed=0, device=device, model=model, log=lambda *_: None)
@@ -4881,6 +4903,421 @@ def hold_sharded_training(ranks: list, one: dict, tpt: dict, cfg, device) -> Non
           + ", ".join(f"{k} {v:.1f} s" for k, v in r0["stage_s"].items()))
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: tensor-parallel serving of the other layer kinds
+# ---------------------------------------------------------------------------
+
+# one spawned world of 4 ranks on the card (gloo, host copies) serves the
+# five architectures in turn at full width, each against its own
+# single-process run at the same depth: batch x prompt 256, 8 greedy tokens.
+# Depths are cut for the phase's time (the smoke's 1200 s): granite at its
+# 24, llama4 4 of 48 layers, mamba2 16 of 64, recurrentgemma 6 of 26 (two
+# whole rglru/rglru/local patterns), whisper 6 + 6 of 24 + 24
+TPL = dict(world=4, prompt=256, gen=8)
+# per architecture: backend, model ranks (data = 4 / model), depths, batch,
+# T_obj, the (rule, axis) each site kind runs by (and the count of sites
+# that degenerate), the kernels its path launches, the kernel rows timed on
+# rank 0's prefill maps, the bound on max |Δlogit| of the prefill against
+# one process's (three times the sound reading of the first full run;
+# mamba2's sits under its fault reading, bf16 split-K sums, 1.383) and the
+# most of a site kind's blocks whose keep flag may differ from one
+# process's, a flip the zero fraction cannot see when it is balanced (1.5
+# times that run's sound share, at least 0.1 %; mamba2's sits under its
+# fault reading, 0.52 %)
+TPL_RUNS = {
+    "granite-moe-1b-a400m": dict(
+        backend="stream", model=2, layers=0, enc_layers=0, batch=4, t_obj=0.0064,
+        rules={"ffn_hidden": ("blocks", "rows"), "kv_cache": ("blocks", "cols")},
+        kernels=(*STREAM_KERNELS, "zebra_pack"),
+        rows=("zebra_bitmap_kernel", "zebra_pack_kernel", "zebra_unpack_kernel"),
+        logit_bound=0.1875, flip_share=0.033),
+    "llama4-scout-17b-a16e": dict(
+        backend="fused", model=4, layers=4, enc_layers=0, batch=2, t_obj=0.00038,
+        rules={"ffn_hidden": ("blocks", "rows"), "kv_cache": ("blocks", "cols")},
+        kernels=("zebra_mask_kernel", "zebra_pack", "zebra_unpack_kernel"),
+        rows=("zebra_mask_kernel",), logit_bound=0.09375, flip_share=0.023),
+    "mamba2-2.7b": dict(
+        backend="stream", model=4, layers=16, enc_layers=0, batch=2, t_obj=5.0,
+        rules={"layer_out": ("whole", "cols")},
+        kernels=(*STREAM_KERNELS, "zebra_pack"), rows=(), logit_bound=0.8, flip_share=0.001),
+    "recurrentgemma-2b": dict(
+        backend="fused", model=4, layers=6, enc_layers=0, batch=2, t_obj=1.5,
+        rules={"ffn_hidden": ("blocks", "cols"), "kv_cache": ("whole", "cols")},
+        kernels=("zebra_bitmap_kernel", "zebra_pack_kernel", "zebra_spmm_cs_kernel",
+                 "zebra_mask_kernel", "zebra_pack", "zebra_unpack_kernel"),
+        rows=("zebra_bitmap_kernel", "zebra_pack_kernel", "zebra_spmm_cs_kernel"),
+        logit_bound=0.7, flip_share=0.023),
+    "whisper-medium": dict(
+        backend="fused", model=4, layers=6, enc_layers=6, batch=2, t_obj=1.55, degenerate=6,
+        rules={"ffn_hidden": ("blocks", "cols"), "kv_cache": ("blocks", "cols")},
+        kernels=("zebra_bitmap_kernel", "zebra_pack_kernel", "zebra_spmm_cs_kernel",
+                 "zebra_mask_kernel", "zebra_pack", "zebra_unpack_kernel"),
+        rows=("zebra_bitmap_kernel", "zebra_pack_kernel", "zebra_spmm_cs_kernel"),
+        logit_bound=0.75, flip_share=0.001),
+}
+TPL_SUFFIX = " ({} tensor-parallel prefill, a rank)"
+
+
+def tpl_argv(arch: str, run: dict, tpl: dict) -> list:
+    return ["--arch", arch, "--backend", run["backend"], "--batch", str(run["batch"]),
+            "--prompt-len", str(tpl["prompt"]), "--gen", str(tpl["gen"]), "--t-obj",
+            str(run["t_obj"]), "--layers", str(run["layers"]), "--encoder-layers",
+            str(run["enc_layers"]),
+            *(["--reduced", "--device", "cpu"] if tpl.get("reduced") else [])]
+
+
+class SiteLog:
+    """Every enabled token site of a one-process served run until its
+    handoff (the prefill's, the encoder's included): kind, map shape, keep
+    flags (int8) and zero fraction, kept on the card during the run (no
+    host sync: the run's times stand) and copied by :meth:`on_host` after
+    it. Adds no kernel launch."""
+
+    def __init__(self):
+        self.sites, self.on = [], True
+
+    def __enter__(self):
+        import repro_torch.core.engine as engine
+        import repro_torch.models.lm.blocks as blocks
+        import repro_torch.models.lm.ffn as ffn
+        from repro_torch.launch import serve
+        self._mods = (engine, blocks, ffn)
+        self._inner = inner = engine.zebra_site
+        self._serve, self._handoff = serve, serve.transport_state_compressed
+
+        def site(x, cfg, **kw):
+            import torch
+            y, aux = inner(x, cfg, **kw)
+            if self.on and cfg.enabled and aux.keep is not None:
+                k = aux.keep
+                self.sites.append((kw.get("site"), tuple(x.shape),
+                                   k.reshape(-1, k.shape[-1]).to(torch.int8), aux.zero_frac))
+            return y, aux
+
+        def handoff(*a, **k):
+            self.on = False
+            return self._handoff(*a, **k)
+        for m in self._mods:
+            m.zebra_site = site
+        serve.transport_state_compressed = handoff
+        return self
+
+    def __exit__(self, *exc):
+        for m in self._mods:
+            m.zebra_site = self._inner
+        self._serve.transport_state_compressed = self._handoff
+
+    def on_host(self) -> list:
+        return [(site, shape, k.cpu(), float(zf)) for site, shape, k, zf in self.sites]
+
+
+def yard_sums():
+    """The single-process runs that tensor-parallel ones are held against
+    keep their GEMMs' sums in float32 as a rank does (``utils.
+    float32_sums``), on the card that is there."""
+    import torch
+    from repro_torch.utils import float32_sums
+    return float32_sums(torch.device("cuda" if torch.cuda.is_available() else "cpu"))
+
+
+def tpl_yardstick(arch: str, run: dict, tpl: dict) -> dict:
+    """``arch`` served in this process (``serve.main``) at the phase's
+    depth: host copies of its tokens, the logits of every token, the
+    handoff's records, every prefill site and the launches by phase."""
+    import torch
+    from repro_torch.launch import serve
+    before = launch_counts()
+    with SiteLog() as log, PhaseCounts(serve) as phases, yard_sums():
+        out = serve.main(tpl_argv(arch, run, tpl))
+    after = launch_counts()
+    at = phases.at
+    yard = {"tokens": out["tokens"].cpu(), "logits": out["logits"].float().cpu(),
+            "step_logits": torch.stack([out["logits"].float().cpu()]
+                                       + [x.float().cpu() for x in phases.logits]),
+            "records": [(r.site, r.payload_bytes, r.index_bytes, r.dense_bytes, r.n_live)
+                        for r in out["meter"].records],
+            "sites": log.on_host(),
+            "phases": {"prefill": diff_counts(at["prefill"], before),
+                       "handoff": diff_counts(at["handoff"], at["prefill"]),
+                       "decode": diff_counts(after, at["handoff"])},
+            "prefill_ms": out["prefill_ms"], "decode_ms": out["decode_ms_per_token"]}
+    del out, log, phases
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return yard
+
+
+class RankMaps:
+    """On one rank (``on``): a host copy of the input map of every
+    ``ffn_hidden`` site the engine runs until the handoff, as its kernels
+    get it (a rank's rows or columns, or the gathered whole), with the
+    weight the site consumes (None for a masked map); block-divisible maps
+    only (the encoder's degenerate ones launch nothing)."""
+
+    def __init__(self, on: bool):
+        self.on, self.maps = on, []
+
+    def __enter__(self):
+        import repro_torch.core.engine as engine
+        from repro_torch.launch import serve
+        self._engine, self._inner = engine, engine._site
+        self._serve, self._handoff = serve, serve.transport_state_compressed
+        if not self.on:
+            return self
+
+        def site(x, cfg, **kw):
+            w = kw.get("w")
+            if self.on and cfg.enabled and kw.get("site") == "ffn_hidden" and \
+                    x.shape[-2] % cfg.block_seq == 0:
+                self.maps.append((x.detach().reshape(-1, x.shape[-1]).cpu(),
+                                  None if w is None else w.detach().cpu()))
+            return self._inner(x, cfg, **kw)
+
+        def handoff(*a, **k):
+            self.on = False
+            return self._handoff(*a, **k)
+        engine._site, serve.transport_state_compressed = site, handoff
+        return self
+
+    def __exit__(self, *exc):
+        self._engine._site = self._inner
+        self._serve.transport_state_compressed = self._handoff
+
+
+def tpl_rank(rank: int, out_dir: str, jobs: list) -> None:
+    """One rank of phase 19 (spawned, in the joined world): each job
+    ``(argv, model ranks, keep maps)`` served by ``launch.serve.main`` with
+    ``--model-parallel``, which inside a joined world serves as this rank
+    (``serve_rank``) and saves its report to ``<out_dir>/<job>/``; rank 0
+    also saves its ffn_hidden maps where the job keeps them."""
+    import os
+
+    import torch
+    from repro_torch.launch import serve
+    for i, (argv, model, keep) in enumerate(jobs):
+        d = os.path.join(out_dir, str(i))
+        os.makedirs(d, exist_ok=True)
+        with RankMaps(rank == 0 and keep) as maps:
+            out = serve.main([*argv, "--model-parallel", str(model), "--record", "--save", d])
+        if maps.maps:
+            torch.save(maps.maps, os.path.join(d, "maps.pt"))
+        del out, maps
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+
+def tpl_keep(ranks: list, s_index: int, axis: str):
+    """The whole map's keep flags of site ``s_index``: rank 0's for a map
+    split by rows (every data rank holds it whole), else each data rank's
+    rows (its model axis's first rank) in data order."""
+    import torch
+    if axis == "rows":
+        return ranks[0]["sites"][s_index]["keep"]
+    firsts = sorted((r for r in ranks if r["model_index"] == 0),
+                    key=lambda r: r["data_index"])
+    return torch.cat([r["sites"][s_index]["keep"] for r in firsts])
+
+
+def hold_tpl_run(arch: str, run: dict, ranks: list, yard: dict, tpl: dict) -> None:
+    """One architecture's tensor-parallel run (its ranks' reports) against
+    its single-process yardstick: the mesh; every model rank's logits and
+    tokens bit for bit like its data rank's first rank's; each site kind
+    by its rule and axis, the sites alike on every rank, every site that
+    reports stream bytes and every handoff leaf in the Eq. 2/3 band; the
+    zero fraction per site kind within TP_ZF_TOL of one process's and the
+    share of its blocks that differ at most the run's ``flip_share``; the
+    prefill logits within its ``logit_bound``;
+    the tokens equal but for near ties; on the card every rank's launches
+    by phase equal to one process's, each kernel of the path launched.
+    Prints times, memory and the collectives."""
+    import torch
+    m, world = run["model"], len(ranks)
+    check(sorted((r["data_index"], r["model_index"]) for r in ranks)
+          == [(d, i) for d in range(world // m) for i in range(m)], f"{arch}: mesh coordinates")
+    firsts = sorted((r for r in ranks if r["model_index"] == 0), key=lambda r: r["data_index"])
+    for r in ranks:
+        f = firsts[r["data_index"]]
+        check(same_bits(r["logits"], f["logits"]) and torch.equal(r["tokens"], f["tokens"]),
+              f"{arch}: rank {r['rank']}'s logits or tokens differ from its data rank's")
+    r0 = ranks[0]
+    sites = r0["sites"]
+    for r in ranks[1:]:
+        check([{k: v for k, v in s.items() if k != "keep"} for s in r["sites"]] ==
+              [{k: v for k, v in s.items() if k != "keep"} for s in sites],
+              f"{arch}: rank {r['rank']}'s sites differ from rank 0's")
+    # whisper's encoder: 1500 frames are no multiple of block_seq, so its
+    # sites run reference(degenerate-rows), in one process as on a rank
+    degenerate = {i for i, s in enumerate(sites) if s["backend"] == "reference(degenerate-rows)"}
+    check(len(degenerate) == run.get("degenerate", 0), f"{arch}: {len(degenerate)} degenerate "
+                                                       f"sites, want {run.get('degenerate', 0)}")
+    for kind, (rule, axis) in run["rules"].items():
+        got = {(s["rule"], s["split"], s["backend"]) for i, s in enumerate(sites)
+               if s["site"] == kind and i not in degenerate}
+        check(got == {(rule, axis, run["backend"])},
+              f"{arch}: {kind} sites ran {got}, want {(rule, axis, run['backend'])}")
+    check(len(sites) == len(yard["sites"]) and all(
+        s["site"] == y[0] for s, y in zip(sites, yard["sites"])),
+        f"{arch}: {len(sites)} sites against {len(yard['sites'])} in one process")
+    banded = [s for s in sites if s["measured_bytes"] > 0]
+    band = check_token_band([((s["rows"], s["width"]), 2, None, s["zero_frac"],
+                              s["measured_bytes"]) for s in banded], f"{arch} sites")
+    for kind in sorted({s["site"] for s in sites}):
+        idx = [i for i, s in enumerate(sites) if s["site"] == kind]
+        nb = [sites[i]["n_total"] for i in idx]
+        zf_tp = sum(sites[i]["zero_frac"] * n for i, n in zip(idx, nb)) / sum(nb)
+        zf_1 = sum(yard["sites"][i][3] * n for i, n in zip(idx, nb)) / sum(nb)
+        flips = 0
+        for i in idx:
+            k_tp, k_1 = tpl_keep(ranks, i, sites[i]["split"]), yard["sites"][i][2]
+            check(k_tp.shape == k_1.shape, f"{arch} {kind} site {i}: keep flags "
+                                           f"{tuple(k_tp.shape)} vs {tuple(k_1.shape)}")
+            flips += int((k_tp != k_1).sum())
+        print(f"  {arch} {kind}: {len(idx)} sites ({sites[idx[-1]]['rule']}, "
+              f"{sites[idx[-1]]['split']}), zero fraction {zf_tp:.6f} vs {zf_1:.6f} in one "
+              f"process; {flips} of {sum(nb)} blocks differ (bound {run['flip_share']:.1%})")
+        check(abs(zf_tp - zf_1) <= TP_ZF_TOL, f"{arch} {kind}: zero fraction {zf_tp} vs "
+                                              f"{zf_1} beyond {TP_ZF_TOL}")
+        check(flips <= run["flip_share"] * sum(nb), f"{arch} {kind}: {flips} of {sum(nb)} blocks "
+                                                 f"differ from one process's")
+    leaves = [x for x in r0["records"] if x["n_blocks"]]
+    worst_leaf = max(x["payload_bytes"] + x["index_bytes"] - x["predicted"] for x in leaves)
+    check(all(0 <= x["payload_bytes"] + x["index_bytes"] - x["predicted"] < 1 for x in leaves)
+          and r0["reconcile"]["n_sites"] == len(leaves) > 0,
+          f"{arch}: a handoff leaf outside the Eq. 2/3 band")
+    moved = sum(x["payload_bytes"] + x["index_bytes"] for x in r0["records"])
+    moved_1 = sum(p + i for _, p, i, *_ in yard["records"])
+    print(f"  {arch} handoff: {len(leaves)} compressed of {len(r0['records'])} leaves, "
+          f"{moved} B (one process {moved_1} B), every leaf in the Eq. 2/3 band (worst "
+          f"{worst_leaf:.3f} B); {len(banded)} stream sites in the band (worst {band:.3f} B)")
+    logits = torch.cat([f["logits"] for f in firsts])
+    tokens = torch.cat([f["tokens"] for f in firsts])
+    steps = torch.cat([f["step_logits"] for f in firsts], dim=1)
+    err = float((logits - yard["logits"]).abs().max())
+    print(f"  {arch} prefill logits: max |Δ| {err} against one process (bound "
+          f"{run['logit_bound']}, max |logit| {float(yard['logits'].abs().max())})")
+    check(err <= run["logit_bound"], f"{arch}: prefill logits {err} off one process's")
+    for b in range(tokens.shape[0]):
+        d = near_tie(f"{arch} lane {b}", (yard["tokens"][b].tolist(), yard["step_logits"][:, b]),
+                     (tokens[b].tolist(), steps[:, b]))
+        print(f"  {arch} lane {b}: tokens "
+              + ("equal to one process's" if d is None else
+                 f"part at token {d['token']} ({d['got']} for {d['yard']}), a near tie: "
+                 f"gap {d['gap']} <= max |Δlogit| {d['delta']}"))
+        check(d is None or d["gap"] <= run["logit_bound"],
+              f"{arch} lane {b}: tokens part at a gap {d and d['gap']} over the logit bound")
+    for r in ranks:
+        for phase, want in yard["phases"].items():
+            got = {k: v for k, v in r["phases"][phase].items() if not k.startswith("tp_")}
+            check(got == want, f"{arch} rank {r['rank']} {phase}: launches {got}, one "
+                               f"process {want}")
+    total = {k: sum(r0["phases"][p][k] for p in r0["phases"]) for k in yard["phases"]["prefill"]}
+    if not tpl.get("reduced"):       # the CPU's plain versions count nothing
+        check(all(total[k] > 0 for k in run["kernels"]),
+              f"{arch}: a kernel of the path never launched: {total}")
+    print(f"  {arch} launches a rank, as in one process: " + "; ".join(
+        f"{p} {dict((k, v) for k, v in c.items() if v)}" for p, c in yard["phases"].items()))
+    ph = r0["phases"]
+    steps_ = tpl["gen"] - 1
+    print(f"  {arch}: prefill {r0['prefill_ms']:.3f} ms (one process {yard['prefill_ms']:.3f}),"
+          f" decode {r0['decode_ms_per_token']:.3f} ms a token (one process "
+          f"{yard['decode_ms']:.3f}); host clock, rank 0, {r0['wire']}")
+    print(f"  {arch}: max_memory_allocated by rank "
+          f"{[round(r['max_memory_allocated'] / 2 ** 30, 3) for r in ranks]} GiB serving, "
+          f"{[round(r['build_peak_memory'] / 2 ** 30, 3) for r in ranks]} GiB building; "
+          f"rank 0's stages: " + ", ".join(f"{k} {v:.1f} s" for k, v in r0["stage_s"].items()))
+    print(f"  {arch}: tensor-parallel collectives a rank: prefill {ph['prefill']['tp_calls']} "
+          f"calls, {ph['prefill']['tp_bytes']} B handed in; handoff "
+          f"{ph['handoff']['tp_calls']} calls, {ph['handoff']['tp_bytes']} B; decode "
+          f"{ph['decode']['tp_calls'] / steps_:.1f} calls, {ph['decode']['tp_bytes'] / steps_:.0f}"
+          f" B a token")
+
+
+def time_tpl_kernels(arch: str, run: dict, maps: list, launches: dict, t_obj: float,
+                     edge_errs: dict, device) -> list[dict]:
+    """The kernel rows of one architecture's phase 19 run on rank 0's
+    prefill maps: the stream kernels held bit for bit against their plain
+    versions and timed; the payload GEMM against its plain version on the
+    rank's rows of ``w_down``, beside ``torch.matmul``."""
+    import torch
+    suffix = TPL_SUFFIX.format(arch)
+    stream = {f"{k}{suffix}": (k, "ffn") for k in run["rows"] if k in KERNELS}
+    lm = {"arch": arch, "t_obj": t_obj, "launches": launches, "replay_launches": {},
+          "maps": [(x.to(device), None if w is None else w.to(device)) for x, w in maps]}
+    print(f"{arch} tensor-parallel kernel times per prefill, a rank ({len(maps)} ffn_hidden "
+          f"maps {tuple(maps[0][0].shape)}):")
+    if "zebra_spmm_cs_kernel" in run["rows"]:
+        rows = time_lm_kernels(lm, edge_errs, device, gemms=("zebra_spmm_cs_kernel",),
+                               codec=False, stream_rows=stream, suffix=suffix)
+    else:
+        flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)
+        rows = time_lm_stream_kernels(lm, flush, stream)
+        del flush
+    del lm
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_tp_layers(device, edge_errs: dict, runs=None, **over) -> list[dict]:
+    """Phase 19: the MoE (expert parallelism), Mamba-2, recurrentgemma and
+    whisper served tensor-parallel at full width, each through
+    ``launch.serve.main --model-parallel`` in one world of 4 ranks spawned
+    on the card (``TPL_RUNS``), held against its own single-process run at
+    the same depth by :func:`hold_tpl_run`; then the kernel rows on rank
+    0's prefill maps. ``runs`` replaces TPL_RUNS and ``over`` entries of
+    TPL (``reduced=True`` with the CPU rehearses the flow on the reduced
+    configs: no launch checks, no timing)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.launch import mesh as lm_mesh
+    tpl, runs = {**TPL, **over}, TPL_RUNS if runs is None else runs
+    t0 = time.perf_counter()
+    print(f"tensor-parallel serving of the other layer kinds: {tpl['world']} ranks on the "
+          f"{'card' if device.type == 'cuda' else 'CPU'}, prompt {tpl['prompt']}, "
+          f"{tpl['gen']} greedy tokens, each against its own single-process run")
+    yards = {}
+    for arch, run in runs.items():
+        yards[arch] = tpl_yardstick(arch, run, tpl)
+    t1 = time.perf_counter()
+    jobs = [(tpl_argv(arch, run, tpl), run["model"], bool(run["rows"]))
+            for arch, run in runs.items()]
+    for argv, m, _ in jobs:
+        print(f"  python -m repro_torch.launch.serve {' '.join(argv)} --model-parallel {m}")
+    tmp = tempfile.mkdtemp(prefix="zebra_tpl_")
+    try:
+        try:
+            lm_mesh.spawn(tpl_rank, tpl["world"], (tmp, jobs), device=str(device))
+        except Exception as e:     # a rank that raised: its traceback is in e
+            raise SmokeFailure(f"phase 19: a rank failed:\n{e}") from None
+        reports, maps = {}, {}
+        for i, arch in enumerate(runs):
+            d = os.path.join(tmp, str(i))
+            reports[arch] = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                             for r in range(tpl["world"])]
+            if os.path.exists(os.path.join(d, "maps.pt")):
+                maps[arch] = torch.load(os.path.join(d, "maps.pt"), weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t2 = time.perf_counter()
+    for arch, run in runs.items():
+        hold_tpl_run(arch, run, reports[arch], yards[arch], tpl)
+    t3 = time.perf_counter()
+    rows = []
+    if device.type == "cuda":
+        for arch, run in runs.items():
+            if run["rows"]:
+                rows += time_tpl_kernels(arch, run, maps[arch],
+                                         reports[arch][0]["phases"]["prefill"], run["t_obj"],
+                                         edge_errs, device)
+    print(f"  phase 19 times: single-process runs {t1 - t0:.1f} s, {tpl['world']} ranks "
+          f"{t2 - t1:.1f} s (spawn, build and serve, five architectures), checks "
+          f"{t3 - t2:.1f} s, kernel timing {time.perf_counter() - t3:.1f} s")
+    return rows
+
+
 def _tensors(tree) -> list:
     from repro_torch.utils import map_tree
     out = []
@@ -5017,6 +5454,10 @@ def main() -> int:
         kernels += run_sharded_training(device)
         torch.cuda.empty_cache()
         t16 = time.perf_counter()
+        with torch.inference_mode():
+            kernels += run_tp_layers(device, lm_errs)
+        torch.cuda.empty_cache()
+        t17 = time.perf_counter()
         print(f"phase times: edge cases {t1 - t0:.1f} s, CNN {t2 - t1:.1f} s, "
               f"CNN zoo {t3 - t2:.1f} s, LM {t4 - t3:.1f} s, starcoder2-15b {t5 - t4:.1f} s, "
               f"arch runs {t6 - t5:.1f} s, validated {t7 - t6:.1f} s, "
@@ -5024,7 +5465,8 @@ def main() -> int:
               f"MoE {t10 - t9:.1f} s, whisper and scanned {t11 - t10:.1f} s, "
               f"mamba2 and recurrentgemma {t12 - t11:.1f} s, continuous serving "
               f"{t13 - t12:.1f} s, collectives {t14 - t13:.1f} s, tensor-parallel "
-              f"serving {t15 - t14:.1f} s, sharded training {t16 - t15:.1f} s")
+              f"serving {t15 - t14:.1f} s, sharded training {t16 - t15:.1f} s, "
+              f"tensor-parallel layer kinds {t17 - t16:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
         print(json.dumps({"ok": True, "device": {

@@ -68,9 +68,9 @@ class CompressedMap:
     bs: int
     bc: int
     checksum: torch.Tensor | None = None   # () int64 in [0, 2**32), or None
-    # (dim, start, length): the part of the expanded map its holder keeps
-    # (a tensor-parallel rank's heads of a gathered cache leaf), or None
-    part: tuple[int, int, int] | None = None
+    # ((dim, start, length), ...): the part of the expanded map its holder
+    # keeps (a tensor-parallel rank's part of a gathered cache leaf), or None
+    part: tuple[tuple[int, int, int], ...] | None = None
 
     # --- measured stream accounting (host side: reads n_live back) ---
     @property
@@ -137,7 +137,11 @@ def compress(x: torch.Tensor, bitmap: torch.Tensor | None = None, *, bs: int = 8
 def decompress(cm: CompressedMap) -> torch.Tensor:
     bitmap = unpack_bitmap(cm.index, cm.m // cm.bs, cm.k // cm.bc)
     x = zebra_unpack(cm.payload, bitmap, bs=cm.bs, bc=cm.bc).reshape(cm.shape)
-    return x if cm.part is None else x.narrow(*cm.part).contiguous()
+    if cm.part is None:
+        return x
+    for dim, start, n in cm.part:
+        x = x.narrow(dim, start, n)
+    return x.contiguous()
 
 
 # ---------------------------------------------------------------------------

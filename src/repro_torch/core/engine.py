@@ -257,33 +257,39 @@ def _kernel_statics(variant: str, bs: int, bc: int, cfg: ZebraConfig) -> KernelS
                          grad_mode=cfg.grad_mode, soft_temp=cfg.soft_temp)
 
 
-def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _matmul(x: torch.Tensor, w: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """``x @ w`` in the promoted dtype of the two, as the reference's
-    ``jnp`` matmul promotes mixed operands (torch's refuses them)."""
+    ``jnp`` matmul promotes mixed operands (torch's refuses them); in
+    ``out_dtype`` where that is wider (the operands widened to it)."""
     dt = torch.promote_types(x.dtype, w.dtype)
+    if out_dtype is not None:
+        dt = torch.promote_types(dt, out_dtype)
     return x.to(dt) @ w.to(dt)
 
 
 def _consume_fused(payload: torch.Tensor, w: torch.Tensor, bitmap: torch.Tensor,
                    keep: torch.Tensor, slot: torch.Tensor, bs: int, bc: int,
-                   dtype: torch.dtype) -> torch.Tensor:
+                   dtype: torch.dtype, out_dtype=None) -> torch.Tensor:
     """The payload GEMM of a stream: each live block read from its
     consumer-order slot, dead ones skipped. Operands promote as
     ``jnp.dot`` promotes them (bf16 map, f32 w: products in f32); the
-    product comes back in the map's ``dtype``."""
+    product (float32 sums) comes back in the map's ``dtype``, or in
+    ``out_dtype``."""
     dt = torch.promote_types(dtype, w.dtype)
     out = spmm_cs_with_slots(payload.to(dt), w.to(dt), bitmap, keep, slot, bs=bs, bc=bc)
-    return out.to(dtype)
+    return out.to(out_dtype or dtype)
 
 
 def _run_fused(x2: torch.Tensor, w: torch.Tensor, bs: int, bc: int,
-               cfg: ZebraConfig) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+               cfg: ZebraConfig, out_dtype=None) -> tuple[torch.Tensor, torch.Tensor,
+                                                          torch.Tensor]:
     """mask_pack -> payload GEMM, reusing the producer's slot map; the
     dense masked map is never expanded. Returns ``(mask(x2) @ w in x2's
-    dtype, bitmap, stream bytes)``; the stream bytes are the map's."""
+    dtype or out_dtype, bitmap, stream bytes)``; the stream bytes are the
+    map's."""
     payload, bitmap, n_live, keep, slot = mask_pack_with_slots(
         x2, t_obj=cfg.t_obj, bs=bs, bc=bc)
-    out = _consume_fused(payload, w, bitmap, keep, slot, bs, bc, x2.dtype)
+    out = _consume_fused(payload, w, bitmap, keep, slot, bs, bc, x2.dtype, out_dtype)
     return out, bitmap, stream_bytes(n_live, bs, bc, x2.dtype, bitmap.numel())
 
 
@@ -296,7 +302,8 @@ _VALIDATED_BACKENDS = ("stream", "fused")
 
 
 def _validated_stream_impl(x2: torch.Tensor, bs: int, bc: int, cfg: ZebraConfig,
-                           w: torch.Tensor | None = None, *, site: str = ""):
+                           w: torch.Tensor | None = None, *, site: str = "",
+                           out_dtype=None):
     """The stream/fused pipeline with ``compress.integrity``'s contract
     checked between producer and consumer: comparator + pack -> (chaos
     tap) -> ``check_stream`` -> the expander (``w`` None) or the payload
@@ -306,7 +313,8 @@ def _validated_stream_impl(x2: torch.Tensor, bs: int, bc: int, cfg: ZebraConfig,
     back), and ``integrity.note_failure``. The checksum level seals the
     stream before the tap, so corruption in flight breaks the fold.
 
-    Returns ``(y2, bitmap of the branch taken, stream bytes, n_cols)``.
+    Returns ``(y2, bitmap of the branch taken, stream bytes, n_cols)``;
+    with ``w``, y2 in ``out_dtype`` where given.
 
     The branch is chosen on the host: reading the verdict costs one
     device sync per site, where the reference's ``lax.cond`` has none.
@@ -329,7 +337,7 @@ def _validated_stream_impl(x2: torch.Tensor, bs: int, bc: int, cfg: ZebraConfig,
         if w is None:
             y2 = unpack_with_slots(payload, bitmap, keep, slot, bs=bs, bc=bc)
         else:
-            y2 = _consume_fused(payload, w, bitmap, keep, slot, bs, bc, x2.dtype)
+            y2 = _consume_fused(payload, w, bitmap, keep, slot, bs, bc, x2.dtype, out_dtype)
     else:
         integrity.note_failure(tag)
         y2, bitmap = zebra_mask(x2, t_obj=cfg.t_obj, bs=bs, bc=bc)
@@ -337,7 +345,7 @@ def _validated_stream_impl(x2: torch.Tensor, bs: int, bc: int, cfg: ZebraConfig,
             # a plain float32 product outside any kernel, as the reference
             # computes it (TF32 is off: torch's default, and set so by the
             # entry points on the card)
-            y2 = (y2.float() @ w.float()).to(x2.dtype)
+            y2 = (y2.float() @ w.float()).to(out_dtype or x2.dtype)
     measured = stream_bytes(bitmap.to(torch.int64).sum(), bs, bc, x2.dtype,
                             bitmap.numel())
     return y2, bitmap, measured, (None if w is None else w.shape[-1])
@@ -395,7 +403,7 @@ def wants_fused(cfg: ZebraConfig, site: str = "") -> bool:
 
 def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
                layout: str = "tokens", tnet=None, w: torch.Tensor | None = None,
-               split: bool = False) -> tuple[torch.Tensor, SiteAux]:
+               split: bool | str = False) -> tuple[torch.Tensor, SiteAux]:
     """Execute one Zebra activation site through the configured backend.
 
     x       ``tokens``: (..., S, D) activation map (leading dims = batch);
@@ -406,9 +414,10 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
     w       downstream weight (K, N), for backends that consume one
             (reference, fused): the site then returns ``mask(x) @ w``.
 
-    split   tensor parallelism only: x is this rank's equal slice of the
-            map's last axis over the ``model`` axis (else every model
-            rank holds the whole map).
+    split   tensor parallelism only: True, x is this rank's equal slice of
+            the map's last axis over the ``model`` axis; ``"rows"``, of its
+            rows, every data rank holding the same map (an MoE dispatch);
+            False, every model rank holds the whole map.
 
     Returns ``(y, SiteAux)``. Without ``w``, y is the masked map (bitwise
     identical on reference, pallas and stream); with ``w``, the product,
@@ -427,15 +436,18 @@ def zebra_site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "",
 
 
 def _site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "", layout: str = "tokens",
-          tnet=None, w: torch.Tensor | None = None) -> tuple[torch.Tensor, SiteAux]:
-    """One site in one process: :func:`zebra_site`'s backends."""
+          tnet=None, w: torch.Tensor | None = None,
+          out_dtype=None) -> tuple[torch.Tensor, SiteAux]:
+    """One site in one process: :func:`zebra_site`'s backends. With ``w``,
+    ``out_dtype`` (float32 for a row-parallel partial) widens the product's
+    dtype."""
     spec = backend_spec(cfg.backend_for(site))
     if w is not None and not spec.consumes_w:
         raise ValueError(
             f"backend {spec.name!r} does not consume a downstream weight "
             f"(site={site!r}); apply the matmul at the call site instead")
     if not cfg.enabled:
-        return (x if w is None else _matmul(x, w)), SiteAux.empty(device=x.device)
+        return (x if w is None else _matmul(x, w, out_dtype)), SiteAux.empty(device=x.device)
     tnet = effective_tnet(cfg, tnet)
     require_tnet(cfg, tnet, site)
 
@@ -449,7 +461,8 @@ def _site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "", layout: str = "t
         degenerate = False
     elif layout == "tokens":
         if x.dim() == 2:                # bare (M, K) map: one-sample batch
-            y, aux = _site(x[None], cfg, site=site, layout=layout, tnet=tnet, w=w)
+            y, aux = _site(x[None], cfg, site=site, layout=layout, tnet=tnet, w=w,
+                           out_dtype=out_dtype)
             return y[0], aux
         bs, bc, degenerate = _tokens_blocks(x, cfg)
         cfg = cfg.replace(block_seq=bs, block_ch=bc)
@@ -469,7 +482,7 @@ def _site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "", layout: str = "t
         fn = zebra_cnn if layout == "nchw" else zebra_tokens
         y, aux = fn(x, cfg, tnet)
         if w is not None:               # w-consuming request served dense
-            y = _matmul(y, w)
+            y = _matmul(y, w, out_dtype)
         return y, SiteAux(reg=aux["reg"], zero_frac=aux["zero_frac"],
                           measured_bytes=torch.zeros((), dtype=torch.int64,
                                                      device=x.device),
@@ -481,7 +494,8 @@ def _site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "", layout: str = "t
     if (cfg.mode != "train" and cfg.validation != "off"
             and backend in _VALIDATED_BACKENDS):
         y2, bitmap, measured, n_cols = _validated_stream_impl(
-            x2, bs, bc, cfg, w if backend == "fused" else None, site=site)
+            x2, bs, bc, cfg, w if backend == "fused" else None, site=site,
+            out_dtype=out_dtype)
         y = (y2.reshape(x.shape) if n_cols is None
              else y2.reshape(*x.shape[:-1], n_cols))
         return y, SiteAux(reg=torch.zeros((), dtype=torch.float32, device=x.device),
@@ -491,7 +505,7 @@ def _site(x: torch.Tensor, cfg: ZebraConfig, *, site: str = "", layout: str = "t
         # infer only (fused is not trainable). With w: the payload GEMM;
         # without: the pallas masking pass, which moves no stream bytes
         if w is not None:
-            y2, bitmap, measured = _run_fused(x2, w, bs, bc, cfg)
+            y2, bitmap, measured = _run_fused(x2, w, bs, bc, cfg, out_dtype)
             y = y2.reshape(*x.shape[:-1], w.shape[-1])
         else:
             y2, bitmap, _ = launch_forward(x2, _kernel_statics("mask", bs, bc, cfg))
@@ -560,9 +574,10 @@ def record_tp_sites(bitmaps: bool = False):
 def tp_sites_on_host(log: list[dict]) -> list[dict]:
     """The sites :func:`record_tp_sites` recorded, on the host: a dict a
     site (name, rule, label, the whole map's live and total block counts,
-    per-sample block count, zero fraction, bytes, rows and width; where
-    recorded, ``keep``, the whole map's flags as int8, a ``"blocks"``
-    site's shards gathered over the model axis in rank order). Every model
+    per-sample block count, zero fraction, bytes, rows and width, and the
+    axis its map is split along, ``"cols"`` or ``"rows"``; where recorded,
+    ``keep``, the whole map's flags as int8, a ``"blocks"`` site's shards
+    gathered over the model axis in rank order). Every model
     rank calls it at the same point after the run: it runs one
     collective a recorded ``"blocks"`` site."""
     from ..distributed.collectives import Wire
@@ -574,18 +589,21 @@ def tp_sites_on_host(log: list[dict]) -> list[dict]:
         if keep is not None:
             k8 = keep.to(torch.int8)
             if e["rule"] == "blocks" and axis.size > 1:
-                k8 = torch.cat(Wire(axis).all_gather(k8).unbind(0), dim=-1)
+                k8 = torch.cat(Wire(axis).all_gather(k8).unbind(0),
+                               dim=0 if e["split"] == "rows" else -1)
             e["keep"] = k8.cpu()
         out.append(e)
     return out
 
 
 def tp_site_rule(width: int, split: bool, m: int, block_ch: int) -> str:
-    """How a tensor-parallel site runs its map of local width ``width``:
-    ``"whole"`` (the map is replicated over the model axis: counted once),
-    ``"blocks"`` (split on Zebra block edges: each rank runs its shard) or
-    ``"gather"`` (a shard would cut a block: the map is gathered, the site
-    runs on it whole and each rank keeps its own columns)."""
+    """How a tensor-parallel site runs its map of local extent ``width``
+    along its split axis (its columns; for a map split by rows, its rows
+    with ``block_ch`` the block's rows): ``"whole"`` (the map is
+    replicated over the model axis: counted once), ``"blocks"`` (split on
+    Zebra block edges: each rank runs its shard) or ``"gather"`` (a shard
+    would cut a block: the map is gathered, the site runs on it whole and
+    each rank keeps its own part)."""
     if not split or m == 1:
         return "whole"
     D = width * m
@@ -593,13 +611,17 @@ def tp_site_rule(width: int, split: bool, m: int, block_ch: int) -> str:
     return "blocks" if width % bc == 0 else "gather"
 
 
-def _tp_site(x: torch.Tensor, cfg: ZebraConfig, tp, *, site: str, tnet, w, split: bool):
+def _tp_site(x: torch.Tensor, cfg: ZebraConfig, tp, *, site: str, tnet, w, split):
     """One site under tensor parallelism, with the observables of the
     logical whole map, the one the reference's partitioned program masks.
 
-    The map is (..., S, D) with its rows this rank's share of the batch
-    and, with ``split``, its columns this rank's slice over the model
-    axis. :func:`tp_site_rule` picks how it runs. With ``w`` (a w-consuming
+    The map is (..., S, D). With ``split`` False or True its rows are this
+    rank's share of the batch and, with True, its columns this rank's
+    slice over the model axis. With ``split == "rows"`` (the MoE dispatch
+    map: this rank's experts' capacity slots) its rows are this rank's
+    slice over the model axis, and every data rank holds the same map
+    (the dispatch is global over ``data``). :func:`tp_site_rule` picks how
+    it runs, on the columns' block edges or, split by rows, the rows'. With ``w`` (a w-consuming
     backend) the product returned is the whole ``mask(x) @ w`` on every
     rank: on ``"blocks"`` ``w`` is this rank's rows and the partial
     products are summed over the model axis; on ``"gather"`` and
@@ -607,12 +629,13 @@ def _tp_site(x: torch.Tensor, cfg: ZebraConfig, tp, *, site: str, tnet, w, split
     x's layout.
 
     The aux is the whole map's: the live blocks every rank owns (its shard
-    on ``"blocks"``, the model axis's first rank's map otherwise) summed
-    over the mesh, the zero fraction rounded as :func:`zero_fraction`
-    rounds it, the stream bytes by :func:`stream_bytes` with the global
-    block count (summing per-rank bytes would count the index padding once
-    a rank). Every rank reaches that sum, in the forward and in a
-    recompute alike, unless the caller drops the aux (:func:`aux_unread`).
+    on ``"blocks"``, the model axis's first rank's map otherwise; split by
+    rows, the first data rank's alone) summed over the mesh, the zero
+    fraction rounded as :func:`zero_fraction` rounds it, the stream bytes
+    by :func:`stream_bytes` with the global block count (summing per-rank
+    bytes would count the index padding once a rank). Every rank reaches
+    that sum, in the forward and in a recompute alike, unless the caller
+    drops the aux (:func:`aux_unread`).
 
     Train mode: the forward is serving's; the backward follows the rule,
     ``"blocks"`` local, ``"gather"`` the gathered map's gradient cut back
@@ -630,9 +653,18 @@ def _tp_site(x: torch.Tensor, cfg: ZebraConfig, tp, *, site: str, tnet, w, split
             raise ValueError("a disabled site takes no weight under tensor parallelism")
         return x, SiteAux.empty(device=x.device)
     m = tp.model.size
+    rows = split == "rows"
+    if rows and (w is not None or cfg.mode == "train"):
+        raise NotImplementedError(f"site {site!r}: a map split by rows takes no weight and "
+                                  f"serves only")
     width = x.shape[-1]
-    rule = tp_site_rule(width, split, m, cfg.block_ch)
-    D = width * m if split else width
+    S = x.shape[-2] if x.dim() > 1 else 1
+    axis = -2 if rows else -1
+    if rows:
+        rule = tp_site_rule(S, True, m, cfg.block_seq)
+    else:
+        rule = tp_site_rule(width, split, m, cfg.block_ch)
+    D = width * m if split is True else width
     tnet = effective_tnet(cfg, tnet) if cfg.mode == "train" else None
     if tnet is not None:
         if cfg.grad_mode == "soft":
@@ -643,25 +675,32 @@ def _tp_site(x: torch.Tensor, cfg: ZebraConfig, tp, *, site: str, tnet, w, split
         if w is not None and w.shape[0] != D:
             raise ValueError(f"site {site!r}: a gathered map of width {D} needs the whole "
                              f"weight, got {tuple(w.shape)}")
-        y, aux = _site(gather_model(x, -1), cfg, site=site, tnet=tnet, w=w)
+        y, aux = _site(gather_model(x, axis), cfg, site=site, tnet=tnet, w=w)
         if w is None:
-            y = y.narrow(-1, tp.model.index * width, width).contiguous()
+            n = x.shape[axis]
+            y = y.narrow(axis, tp.model.index * n, n).contiguous()
     else:
-        y, aux = _site(x, cfg, site=site, tnet=tnet, w=w)
-        if w is not None and rule == "blocks":
-            y = psum_model(y)
+        # row-parallel w: float32 partial products, rounded once after
+        # their sum (as ``ctx.row_parallel``)
+        sums = torch.float32 if w is not None and rule == "blocks" else None
+        y, aux = _site(x, cfg, site=site, tnet=tnet, w=w, out_dtype=sums)
+        if sums is not None:
+            y = psum_model(y).to(torch.promote_types(x.dtype, w.dtype))
     if aux.keep is None or _AUX_UNREAD.get():   # nothing ran, or nobody reads it
         return y, aux
     from ..distributed.collectives import tp_all_reduce
-    owned = rule == "blocks" or tp.model.index == 0
+    owned = (rule == "blocks" or tp.model.index == 0) and (not rows or tp.data.index == 0)
     keep = aux.keep.reshape(-1, aux.keep.shape[-1])
     live = keep.sum(dtype=torch.int64) if owned else torch.zeros((), dtype=torch.int64,
                                                                   device=x.device)
     live = tp_all_reduce(live, tp.world)
-    S = x.shape[-2] if x.dim() > 1 else 1
+    if rows:                    # the whole map: every rank's rows, whole over data
+        S, n_rows = S * m, x.numel() // width * m
+    else:
+        n_rows = x.numel() // width * tp.data.size
     bs = cfg.block_seq if S % cfg.block_seq == 0 else 1
     bc = cfg.block_ch if D % cfg.block_ch == 0 else D
-    n_total = (x.numel() // width * tp.data.size // bs) * (D // bc)
+    n_total = (n_rows // bs) * (D // bc)
     zero_frac = zero_fraction_of(live, n_total)
     # a backend that moves stream bytes reports them (the index alone is
     # more than 0); the rest report none
@@ -680,7 +719,7 @@ def _tp_site(x: torch.Tensor, cfg: ZebraConfig, tp, *, site: str, tnet, w, split
         log, bitmaps = rec
         log.append({"site": site, "rule": rule, "backend": aux.backend, "n_total": n_total,
                     "n_blocks": out.n_blocks, "zero_frac": zero_frac, "measured_bytes": measured,
-                    "rows": x.numel() // width * tp.data.size, "width": D,
+                    "rows": n_rows, "width": D, "split": "rows" if rows else "cols",
                     "keep": keep if bitmaps else None, "axis": tp.model})
     return y, out
 
@@ -690,7 +729,7 @@ class _TPNet:
     whole map: a net whose ``w`` is cut over the model axis by rows (the
     map's channels; ``distributed.sharding``) takes this rank's channels of
     the GAP, and the partial thresholds are summed over the axis
-    (``psum_model``: the thresholds' consumers are replicated, so the
+    (``row_parallel``: the thresholds' consumers are replicated, so the
     gradient passes through to each rank's rows of ``w``); a whole ``w``
     is applied as in one process."""
 
@@ -698,9 +737,9 @@ class _TPNet:
         self.net, self.axis = net, axis
 
     def __call__(self, gap: torch.Tensor) -> torch.Tensor:
-        from ..distributed.ctx import psum_model
+        from ..distributed.ctx import row_parallel
         w = self.net.w
         if w.shape[0] == gap.shape[-1]:
             return self.net(gap)
         n = w.shape[0]
-        return psum_model(gap.narrow(-1, self.axis.index * n, n) @ w) + self.net.b
+        return row_parallel(gap.narrow(-1, self.axis.index * n, n), w) + self.net.b

@@ -22,8 +22,9 @@ this rank's slice of one dimension): a partial sum pinned replicated is
 summed there, a layout that already is the pinned one moves nothing. The batch dimension is local on every rank and is never
 moved. The other tensor-parallel collectives (the row-parallel sums, the
 gathers a site or the vocabulary needs) are :func:`psum_model` and
-:func:`gather_model`, and :func:`copy_model` marks where a replicated
-tensor enters a column-parallel product.
+:func:`gather_model` (:func:`row_parallel`: a row-parallel product rounded
+once), and :func:`copy_model` marks where a replicated tensor enters a
+column-parallel product.
 
 Each of the three is an autograd function whose backward is what the
 train step needs when every rank computes the loss from the replicated
@@ -232,6 +233,24 @@ def psum_model(t):
     if tp is None or tp.model.size == 1:
         return t
     return _SumModel.apply(t, tp.model)
+
+
+def row_parallel(x, w):
+    """``x @ w`` where ``x``'s last dimension and ``w``'s rows are this
+    rank's slice of the contraction (a row-parallel product), summed over
+    the tensor-parallel axis. In a 16-bit dtype each rank's partial product
+    is kept in float32 and the sum rounded once, as one process's GEMM
+    rounds its float32 accumulation once: partial products rounded before
+    the sum would add a rounding a rank, which a deep residual stream
+    turns into blocks that cross T_obj. ``w`` is cast to x's dtype first,
+    as one process casts it. ``x @ w`` in x's dtype outside tensor
+    parallelism."""
+    tp, w = tensor_parallel(), w.to(x.dtype)
+    if tp is None or tp.model.size == 1:
+        return x @ w
+    if x.element_size() >= 4:
+        return psum_model(x @ w)
+    return psum_model(x.float() @ w.float()).to(x.dtype)
 
 
 def gather_model(t, dim: int):

@@ -310,8 +310,9 @@ def split_dim(places: tuple, mesh, axis: str) -> int | None:
 
 
 def tp_unported(cfg: LMConfig) -> str | None:
-    """Why ``cfg`` cannot be served tensor-parallel yet, or None: the slice
-    serves the dense-FFN attention LMs."""
+    """Why the sharded train step does not take ``cfg`` yet, or None: it
+    trains the dense-FFN attention LMs (tensor-parallel serving takes every
+    layer kind)."""
     if cfg.is_moe:
         return "MoE FFNs (expert parallelism)"
     if cfg.encoder_layers:
@@ -322,16 +323,26 @@ def tp_unported(cfg: LMConfig) -> str | None:
     return None
 
 
-def _servable(cfg: LMConfig, mesh) -> dict:
-    why = tp_unported(cfg)
-    if why is not None:
-        raise NotImplementedError(f"tensor-parallel serving of {why} is not ported yet "
-                                  f"(ROADMAP.md, queue 1, item 1)")
-    m = mesh_shape(mesh).get("model", 1)
-    if cfg.n_heads % m:
-        raise NotImplementedError(f"{cfg.n_heads} query heads do not split over "
-                                  f"{m} model ranks")
-    return mesh_shape(mesh)
+def check_tp(cfg: LMConfig, m: int, *, train: bool = False) -> None:
+    """Raise for what the layouts of the port's tensor parallelism over
+    ``m`` model ranks do not cover (serving, or with ``train`` the sharded
+    train step). The specs decide each split (``_axis_ok``: heads or a
+    vocabulary that do not divide stay whole); the experts must split, and
+    a Mamba-2 block's heads with its ``d_inner``."""
+    if train:
+        why = tp_unported(cfg)
+        if why is not None:
+            raise NotImplementedError(f"tensor-parallel training of {why} is not ported "
+                                      f"yet (ROADMAP.md, queue 1, item 1)")
+        if cfg.n_heads % m:
+            raise NotImplementedError(f"{cfg.n_heads} query heads do not split over "
+                                      f"{m} model ranks")
+    if cfg.is_moe and cfg.n_experts % m:
+        raise NotImplementedError(f"{cfg.n_experts} experts do not split over {m} model "
+                                  f"ranks")
+    if "ssm" in cfg.layer_pattern and cfg.d_inner % m == 0 and cfg.ssm_heads % m:
+        raise NotImplementedError(f"d_inner {cfg.d_inner} splits over {m} model ranks but "
+                                  f"its {cfg.ssm_heads} SSD heads do not")
 
 
 def _cut(p, places: tuple, mesh, coords):
@@ -358,7 +369,7 @@ def shard_model_(model, mesh, coords: dict[str, int] | None = None, *, train: bo
     Records the mesh on the model (``model.mesh``) and, with ``train``, the
     placements (``model.train_places``). Returns the model."""
     import torch
-    _servable(model.cfg, mesh)
+    check_tp(model.cfg, mesh_shape(mesh).get("model", 1), train=train)
     places = _placements(model, model.cfg, mesh, train)
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -381,7 +392,7 @@ def build_sharded(cfg: LMConfig, mesh, *, generator=None, device=None,
     from torch.nn.modules.module import register_module_parameter_registration_hook
 
     from ..models.lm import LM
-    _servable(cfg, mesh)
+    check_tp(cfg, mesh_shape(mesh).get("model", 1), train=train)
     made = []
     hook = register_module_parameter_registration_hook(
         lambda mod, name, p: made.append((mod, name)))

@@ -23,30 +23,38 @@ command-r-35b, qwen2.5-14b, starcoder2-15b, chameleon-34b), the MoE ones
 whisper-medium, whose encoder is fed zero frames (B, enc_seq, d) in bf16,
 as the reference's server feeds it, and the recurrent ones, mamba2-2.7b
 (its handoff carries the float32 SSD state and the conv buffers) and
-recurrentgemma-2b (the RG-LRU states beside the local K/V); ``--layers N`` keeps the first N
-layers at full width (for a model whose full depth does not fit one
-card). It runs on the card; ``--device cpu`` runs it on the CPU (the
-kernels' plain versions). Weights are random from seed 0, prompts come
+recurrentgemma-2b (the RG-LRU states beside the local K/V); ``--layers
+N`` keeps the first N layers at full width (for a model whose full depth
+does not fit one card), ``--encoder-layers N`` the first N of whisper's
+encoder layers. It runs on the card; ``--device cpu`` runs it on the CPU
+(the kernels' plain versions). Weights are random from seed 0, prompts come
 from ``data.lm_batch``. ``--validate structural|checksum`` checks every
 stream at its producer -> consumer boundary (``core.engine``) and every
 compressed cache leaf of the handoff (:func:`validate_state_ingest`),
 recovering a failed one from its dense source, and the continuous
 engine's pages at ingest.
 
-``--model-parallel N`` serves the dense-FFN attention LMs (gemma3-4b,
-starcoder2-15b, qwen2.5-14b, command-r-35b, chameleon-34b) one-shot on a
-``("data", "model")`` mesh (:func:`serve_tensor_parallel`): the weights,
-heads, ``d_ff`` and vocabulary over ``model``, the batch over ``data``, on
-every backend, with the compressed handoff and ``--validate``:
+``--model-parallel N`` serves every architecture one-shot on a
+``("data", "model")`` mesh (:func:`serve_tensor_parallel`), the batch over
+``data`` and over ``model`` what the reference's specs split there: the
+heads (a count that does not divide N stays whole, its attention
+replicated), ``d_ff``, the vocabulary, the experts (expert parallelism,
+dispatched over the global batch), Mamba-2's ``d_inner`` and heads, the
+RG-LRU's ``lru_dim``, and whisper's encoder and cross-attention heads (its
+frames split over ``data``); on every backend, with the compressed handoff
+and ``--validate``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
         --model-parallel 4 --backend fused --batch 2 --prompt-len 2048 \
         --gen 32 --t-obj 1.05
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-2.7b \
+        --model-parallel 4 --backend stream --batch 2 --prompt-len 2048 \
+        --gen 32 --t-obj 5.0
 
 From a plain shell it spawns N ranks on this host (on one card they share
 it, over ``gloo``); inside a joined world of a multiple of N ranks each
-process serves as its rank. ``--requests`` and the MoE, SSM, RG-LRU and
-encoder-decoder architectures raise under it (ROADMAP.md, queue 1).
+process serves as its rank. ``--requests`` raises under it (ROADMAP.md,
+queue 1).
 """
 from __future__ import annotations
 
@@ -68,7 +76,7 @@ from ..ft.inject import STREAM_KINDS, active_plan, corrupt_map
 from ..data import LMDatasetConfig, lm_batch
 from ..models.lm import LM, LMConfig
 from ..serve.bucket import pow2_bucket
-from ..utils import map_tree, resolve_device
+from ..utils import float32_sums, map_tree, resolve_device
 from ..distributed.ctx import tensor_parallel
 from .steps import _next_token, generate, model_hints, prefill
 
@@ -77,12 +85,18 @@ COMPRESSED_BACKENDS = ("stream", "fused")
 
 def build_config(arch: str, *, reduced: bool = False, t_obj: float = 0.1,
                  backend: str = "reference", validation: str = "off",
-                 n_layers: int = 0) -> LMConfig:
+                 n_layers: int = 0, encoder_layers: int = 0) -> LMConfig:
     """The served config: bf16 weights and the ``kv_cache`` site on top of
     the architecture's Zebra sites, as the reference server sets them;
     ``n_layers`` > 0 keeps the first that many layers (at most the
-    architecture's depth)."""
+    architecture's depth), ``encoder_layers`` > 0 the first that many of an
+    encoder-decoder's encoder layers."""
     cfg = configs.with_layers(arch, reduced=reduced, n_layers=n_layers)
+    if encoder_layers:
+        if not 0 < encoder_layers <= cfg.encoder_layers:
+            raise ValueError(f"encoder_layers {encoder_layers}: {cfg.name} has "
+                             f"{cfg.encoder_layers} encoder layers")
+        cfg = cfg.replace(encoder_layers=encoder_layers)
     return cfg.replace(param_dtype="bfloat16",
                        zebra_sites=tuple(cfg.zebra_sites) + ("kv_cache",),
                        zebra_t_obj=t_obj, zebra_backend=backend,
@@ -214,6 +228,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--layers", type=int, default=0,
                     help="serve only the first N layers at full width (0: the "
                          "architecture's depth)")
+    ap.add_argument("--encoder-layers", type=int, default=0,
+                    help="an encoder-decoder: serve only the first N encoder layers "
+                         "(0: all)")
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--t-obj", type=float, default=0.1)
     ap.add_argument("--temperature", type=float, default=0.0,
@@ -267,12 +284,13 @@ def main(argv=None) -> dict:
                          "collectives by phase) to DIR/rank<r>.pt")
     ap.add_argument("--record", action="store_true",
                     help="--model-parallel, for checks: the report also holds every "
-                         "site's keep flags and rank 0's logits of every token, kept "
-                         "on the card during the run and read after it")
+                         "site's keep flags and, on each data rank's first rank, the "
+                         "logits of every token, kept on the card during the run and "
+                         "read after it")
     args = ap.parse_args(argv)
     cfg = build_config(args.arch, reduced=args.reduced, t_obj=args.t_obj,
                        backend=args.backend, validation=args.validate,
-                       n_layers=args.layers)
+                       n_layers=args.layers, encoder_layers=args.encoder_layers)
     if args.model_parallel != 1:
         return serve_tensor_parallel(args, cfg, argv)
 
@@ -365,16 +383,13 @@ def serve_tensor_parallel(args, cfg: LMConfig, argv=None) -> dict:
     slice does not serve raises here, before anything launches."""
     import torch.distributed as dist
 
-    from ..distributed.sharding import tp_unported
+    from ..distributed.sharding import check_tp
     if args.model_parallel < 1:
         raise ValueError(f"--model-parallel {args.model_parallel}: at least 1")
     if args.requests:
         raise NotImplementedError(f"--requests under --model-parallel: continuous serving "
                                   f"under tensor parallelism is not ported yet ({TP_QUEUE})")
-    why = tp_unported(cfg)
-    if why is not None:
-        raise NotImplementedError(f"--model-parallel: tensor-parallel serving of {why} "
-                                  f"({cfg.name}) is not ported yet ({TP_QUEUE})")
+    check_tp(cfg, args.model_parallel)
     if dist.is_initialized():
         return serve_rank(args, cfg)
     import sys
@@ -404,9 +419,9 @@ def serve_rank(args, cfg: LMConfig) -> dict:
     (``sharding.build_sharded``; ``--params`` loaded over it), this data
     rank's rows of the prompts, then :func:`serve_one_shot` with its sites
     recorded. Rank 0 prints the report; with ``--save`` every rank saves
-    :func:`tp_report` (with ``--record`` the sites' keep flags and rank
-    0's logits of every token). The peak memory of the build is reported
-    beside the serving peak."""
+    :func:`tp_report` (with ``--record`` the sites' keep flags and, on
+    each data rank's first rank, the logits of every token). The peak
+    memory of the build is reported beside the serving peak."""
     import torch.distributed as dist
 
     from ..core.engine import record_tp_sites, tp_sites_on_host
@@ -421,6 +436,8 @@ def serve_rank(args, cfg: LMConfig) -> dict:
     if device.type == "cpu":            # the ranks share this host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     mesh = make_host_mesh(model=N, device=device)
+    if device.type == "cuda":           # this run's peaks, not an earlier run's in the process
+        torch.cuda.reset_peak_memory_stats(device)
     data = world // N
     B, S = args.batch, args.prompt_len
     if B % data:
@@ -439,11 +456,14 @@ def serve_rank(args, cfg: LMConfig) -> dict:
     rows = B // data
     di = mesh.get_local_rank("data")
     prompts = _prompts(cfg, B, S, device)[di * rows:(di + 1) * rows]
+    enc = (torch.zeros((rows, cfg.enc_seq, cfg.d_model), dtype=torch.bfloat16, device=device)
+           if cfg.encoder_layers else None)     # this data rank's frames
     rank0 = dist.get_rank() == 0
-    with record_tp_sites(bitmaps=args.record) as sites:
+    with record_tp_sites(bitmaps=args.record) as sites, float32_sums(device):
         out = serve_one_shot(model, prompts, args.gen, temperature=args.temperature,
                              seed=args.seed, log=print if rank0 else (lambda *_: None),
-                             keep_logits=args.record and rank0)
+                             enc_feats=enc,
+                             keep_logits=args.record and mesh.get_local_rank("model") == 0)
     t_serve = time.perf_counter()
     out["sites"] = tp_sites_on_host(sites)
     out["build_peak_memory"] = build_peak
@@ -627,50 +647,66 @@ def transport_state_compressed(state, cfg: LMConfig, meter: BandwidthMeter | Non
     return (ccaches, enc_out), rec, n_bad
 
 
+# a cache leaf's batch dimension and the dimension the reference's
+# ``cache_specs`` split over the model axis, with the config field of that
+# dimension's whole extent (sharding.cache_spec_for)
+CACHE_AXES = {"k": (-4, -2, "n_kv_heads"), "v": (-4, -2, "n_kv_heads"),
+              "H": (-4, -3, "ssm_heads"), "conv_x": (-3, -1, "d_inner"),
+              "conv_b": (-3, None, None), "conv_c": (-3, None, None),
+              "h": (-2, -1, "lru_dim"), "conv": (-3, -1, "lru_dim")}
+
+
 def compress_tree_tp(caches, cfg: LMConfig, tp, *, meter: BandwidthMeter,
                      checksum: bool = False):
-    """The handoff's compression under tensor parallelism. Each K/V leaf
-    (..., B, T, Hkv, hd) holds this rank's rows of the batch and its KV
-    heads (or all of them, where K/V are replicated over the model axis);
-    it is compressed as the reference compresses the whole leaf, its
-    flattening (``stream.leaf_dims``) taken from the whole leaf's shape, by
-    the engine's three rules (``core.engine.tp_site_rule``): a replicated
-    leaf is packed as it is and counted once; a leaf whose heads fall on
-    block edges of the (rows, Hkv·hd) flattening is packed shard by shard;
-    any other is gathered over the model axis, packed whole (kernel 5) and
-    expanded whole at decode (kernel 3), each rank keeping its heads
+    """The handoff's compression under tensor parallelism. Each leaf holds
+    this rank's rows of the batch and, where the reference's cache specs
+    split it over the model axis (:data:`CACHE_AXES`: K/V on their heads,
+    Mamba-2's ``H`` on its heads, ``conv_x`` and the RG-LRU's ``h`` and
+    ``conv`` on their channels), this rank's part of that dimension, else
+    all of it. It is compressed as the reference compresses the whole
+    leaf, its flattening (``stream.leaf_dims``) taken from the whole leaf's
+    shape. A rank's part along an axis that falls on block edges of that
+    flattening (:func:`_on_block_edges`) is packed as it is; along any
+    other the leaf is gathered over that axis, packed whole (kernel 5) and
+    expanded whole at decode (kernel 3), each rank keeping its part
     (``CompressedMap.part``). Every leaf goes on ``meter`` once, with the
-    whole leaf's counts (its live blocks summed over the mesh)."""
+    whole leaf's counts: its live blocks summed over the ranks that own
+    them (a replicated or gathered leaf is the first rank's of that
+    axis)."""
     from ..compress.stream import compress as compress_map, leaf_dims
-    from ..distributed.collectives import tp_all_reduce
+    from ..distributed.collectives import tp_all_gather, tp_all_reduce
     from ..distributed.ctx import gather_model
     bs, bc = cfg.zebra_block_seq, cfg.zebra_block_ch
-    m = tp.model
     pending = []                        # (name, dims, itemsize, owned live)
 
     def one(path, leaf):
         name = "/".join(["kv", *map(str, path)])
-        split = leaf.shape[-2] != cfg.n_kv_heads
+        bd, sd, whole = CACHE_AXES[str(path[-1])]
+        split = sd is not None and leaf.shape[sd] != getattr(cfg, whole)
         shape = list(leaf.shape)
-        shape[-4] *= tp.data.size
-        shape[-2] *= m.size if split else 1
+        shape[bd] *= tp.data.size
+        if split:
+            shape[sd] *= tp.model.size
         dims = leaf_dims(tuple(shape), bs, bc)
         if dims is None:
             pending.append((name, None, leaf.element_size(), math.prod(shape)))
             return leaf
-        k = dims[1]
-        heads_k = leaf.shape[-2] * leaf.shape[-1]
-        part = None
-        if not split:
-            x = leaf
-        elif k == shape[-2] * shape[-1] and heads_k % bc == 0:
-            x, k = leaf, heads_k
-        else:
-            x = gather_model(leaf, -2)
-            part = (leaf.dim() - 2, m.index * leaf.shape[-2], leaf.shape[-2])
-        cm = compress_map(x.reshape(-1, k), bs=bs, bc=bc, checksum=checksum)
-        cm = dataclasses.replace(cm, shape=tuple(x.shape), part=part)
-        owned = (split and part is None) or m.index == 0
+        nd = 1 if dims[1] == shape[-1] else 2
+        x, part, owned = leaf, [], True
+        # the model axis first: the batch's rows run over the heads or
+        # channels inside them, as gathered
+        for axis, dim, cut in ((tp.model, sd, split), (tp.data, bd, tp.data.size > 1)):
+            if cut and _on_block_edges(x.shape, dim, nd, bs, bc):
+                continue
+            owned = owned and axis.index == 0     # whole over this axis: counted once
+            if cut:
+                x = (tp_all_gather(x, axis, dim) if axis is tp.data
+                     else gather_model(x, dim))
+                n = leaf.shape[dim]
+                part.append((dim % leaf.dim(), axis.index * n, n))
+        cm = compress_map(x.reshape(-1, math.prod(x.shape[-nd:])), bs=bs, bc=bc,
+                          checksum=checksum)
+        cm = dataclasses.replace(cm, shape=tuple(x.shape), part=tuple(part) or None)
         pending.append((name, dims, leaf.element_size(),
                         cm.n_live.to(torch.int64) if owned else torch.zeros(
                             (), dtype=torch.int64, device=leaf.device)))
@@ -688,6 +724,18 @@ def compress_tree_tp(caches, cfg: LMConfig, tp, *, meter: BandwidthMeter,
             meter.record_counts(name, m=dims[0], k=dims[1], bs=bs, bc=bc, itemsize=item,
                                 n_live=next(lives))
     return out
+
+
+def _on_block_edges(local: tuple, dim: int, nd: int, bs: int, bc: int) -> bool:
+    """Whether a rank's equal part of a leaf along ``dim`` (negative; its
+    part's extent ``local[dim]``) is whole (bs, bc) blocks of the leaf's
+    (rows, last ``nd`` dims) flattening: a column dimension must be the
+    first of the columns, its part's columns a multiple of bc; a row
+    dimension's part is a run of rows, with those of the dimensions inside
+    it, a multiple of bs."""
+    if dim >= -nd:
+        return dim == -nd and math.prod(local[-nd:]) % bc == 0
+    return math.prod(local[dim:-nd]) % bs == 0
 
 
 def _leaves(tree) -> list:

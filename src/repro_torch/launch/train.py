@@ -60,7 +60,7 @@ from ..ft import FTConfig, StepSupervisor
 from ..models.lm import LM, LMConfig
 from ..models.lm.remat import REMATS
 from ..optim import adamw, warmup_cosine
-from ..utils import resolve_device
+from ..utils import float32_sums, resolve_device
 from .steps import data_rows, gather_params_, init_train_state, train_step
 
 LOG_KEYS = ("loss", "ce", "zebra_reg", "zero_frac", "router_aux", "grad_norm",
@@ -314,10 +314,11 @@ def train_rank(args, cfg: LMConfig) -> dict:
     t_build = time.perf_counter()
     before = ({**TP_TRAFFIC}, {**DP_TRAFFIC},
               {k: w.launches for k, w in launch_counters().items()})
-    model, state, history, sup = train_lm(
-        cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
-        compress=args.compress, seed=args.seed, device=device, model=model, log=log,
-        rows=data_rows(args.batch, cfg.grad_accum, data, di))
+    with float32_sums(device):
+        model, state, history, sup = train_lm(
+            cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
+            compress=args.compress, seed=args.seed, device=device, model=model, log=log,
+            rows=data_rows(args.batch, cfg.grad_accum, data, di))
     n = max(len(history), 1)
     t_train = time.perf_counter()
     gather_params_(model, state)        # the module holds the trained weights

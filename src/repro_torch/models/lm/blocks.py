@@ -107,12 +107,17 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return o.reshape(*o.shape[:-2], h * k) @ wo.to(o.dtype).reshape(h * k, d)
 
 
-def _attn_out(o: torch.Tensor, p: Attention) -> torch.Tensor:
-    """The attention output projection; under tensor parallelism ``wo`` is
-    row-parallel (this rank's heads), so its partial products are summed
-    over the model axis (a no-op otherwise)."""
-    from ...distributed.ctx import psum_model
-    return psum_model(_out_proj(o, p.wo))
+def _attn_out(o: torch.Tensor, p: Attention, cfg: LMConfig) -> torch.Tensor:
+    """The attention output projection; under tensor parallelism with the
+    heads split, ``wo`` is row-parallel (this rank's heads), so its partial
+    products are summed over the model axis (``ctx.row_parallel``). Heads
+    that do not split over it stay whole (the reference's specs drop the
+    axis): the attention then runs replicated."""
+    from ...distributed.ctx import row_parallel
+    if p.wo.shape[0] == cfg.n_heads:
+        return _out_proj(o, p.wo)
+    h, k, d = p.wo.shape
+    return row_parallel(o.reshape(*o.shape[:-2], h * k), p.wo.reshape(h * k, d))
 
 
 def _kv_heads(p: Attention, cfg: LMConfig, k: torch.Tensor, v: torch.Tensor):
@@ -174,17 +179,21 @@ def _enc_kv(p: Attention, enc_out: torch.Tensor):
     return _proj(enc_out, p.wk), _proj(enc_out, p.wv)
 
 
-def _cross_attention(p: Layer, x: torch.Tensor, enc_out: torch.Tensor | None
-                     ) -> torch.Tensor:
+def _cross_attention(p: Layer, x: torch.Tensor, enc_out: torch.Tensor | None,
+                     cfg: LMConfig) -> torch.Tensor:
     """x plus the cross-attention of its ``norm_c`` to the encoder output,
     when the layer has one and an encoder output is given (the reference
     adds no Q/K/V biases and no RoPE here, and recomputes K and V at every
-    call, decode steps included)."""
+    call, decode steps included). Under tensor parallelism the heads are
+    split as self-attention's, and the replicated query input and encoder
+    output enter the head-sharded projections through ``copy_model``."""
+    from ...distributed.ctx import copy_model
     if not hasattr(p, "cross") or enc_out is None:
         return x
-    q = _proj(p.norm_c(x), p.cross.wq)
-    k, v = _enc_kv(p.cross, enc_out)
-    return x + _out_proj(attn.attend_full(q, k, v, causal=False), p.cross.wo)
+    q = _proj(copy_model(p.norm_c(x)), p.cross.wq)
+    k, v = _enc_kv(p.cross, copy_model(enc_out))
+    o = attn.attend_full(q, *_kv_heads(p.cross, cfg, k, v), causal=False)
+    return x + _attn_out(o, p.cross, cfg)
 
 
 def _layer_out_zebra(p: Layer, x: torch.Tensor, cfg: LMConfig, mode: str):
@@ -239,11 +248,12 @@ def apply_layer(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, mode: str, r
         x = x + ssm_apply(p.ssm, h, cfg)
     else:
         q, k, v = _qkv(p.attn, h, cfg, rope)
-        q = hint_tokens(q, "model", None, local=-2)    # heads over the model axis
+        # heads over the model axis, where they split
+        q = hint_tokens(q, "model", None, local=-2 if q.shape[2] != cfg.n_heads else None)
         o = checkpoint_name(_attend(q, *_kv_heads(p.attn, cfg, k, v), typ, cfg, causal),
                             "attn_out", cfg.remat)
-        x = x + _attn_out(o, p.attn)
-    x = _cross_attention(p, x, enc_out)
+        x = x + _attn_out(o, p.attn, cfg)
+    x = _cross_attention(p, x, enc_out, cfg)
     x, aux = _ffn_residual(p, x, cfg, mode, aux, dp_moe=True)
     x, zo = _layer_out_zebra(p, x, cfg, mode)
     return x, aux + LayerAux.of_site(zo)
@@ -308,9 +318,9 @@ def apply_layer_decode(p: Layer, x: torch.Tensor, cache: dict, typ: str, cfg: LM
         vc = _cache_write(cache["v"], v, slot)
         o = attn.attend_decode(q, *_kv_heads(p.attn, cfg, kc, vc), pos,
                                window=cfg.window if typ == "local" else 0)
-        x = x + _attn_out(o, p.attn)
+        x = x + _attn_out(o, p.attn, cfg)
         cache = {"k": kc, "v": vc}
-    x = _cross_attention(p, x, enc_out)
+    x = _cross_attention(p, x, enc_out, cfg)
     if hasattr(p, "norm2"):
         y, *_ = _ffn(p, p.norm2(x), cfg, "infer")
         x = x + y
@@ -332,7 +342,7 @@ def apply_layer_prefill(p: Layer, x: torch.Tensor, typ: str, cfg: LMConfig, rope
         cache = ssm_prefill_state(p.ssm, h, cfg)
     else:
         x, cache, aux = _attention_prefill(p, x, h, typ, cfg, rope, cache_len, aux)
-    x = _cross_attention(p, x, enc_out)
+    x = _cross_attention(p, x, enc_out, cfg)
     x, aux = _ffn_residual(p, x, cfg, "infer", aux)
     x, zo = _layer_out_zebra(p, x, cfg, "infer")
     return x, cache, aux + LayerAux.of_site(zo)
@@ -344,7 +354,7 @@ def _attention_prefill(p: Layer, x: torch.Tensor, h: torch.Tensor, typ: str, cfg
     cache (through the ``kv_cache`` site when Zebra runs there) and aux."""
     S = x.shape[1]
     q, k, v = _qkv(p.attn, h, cfg, rope)
-    x = x + _attn_out(_attend(q, *_kv_heads(p.attn, cfg, k, v), typ, cfg), p.attn)
+    x = x + _attn_out(_attend(q, *_kv_heads(p.attn, cfg, k, v), typ, cfg), p.attn, cfg)
     if cfg.zebra_enabled and "kv_cache" in cfg.zebra_sites:
         # Zebra block-compress the cache at its write (tensor-parallel: the
         # heads this rank holds, a split map where K/V split with the queries)

@@ -152,10 +152,11 @@ def ffn_apply(p: FFN, x: torch.Tensor, cfg: LMConfig, mode: str):
     ``w_gate``/``w_up``/``b_up`` are column-parallel, so the hidden map is
     this rank's d_ff columns; the site runs as ``core.engine._tp_site``
     says, and ``w_down`` is row-parallel, its partial products summed over
-    the model axis (on ``fused`` inside the site), then ``b_down`` added
+    the model axis (``ctx.row_parallel``; on ``fused`` inside the site, as
+    the engine sums them), then ``b_down`` added
     once. x, replicated, enters the column-parallel products through
     ``copy_model`` (its gradient summed over the model axis)."""
-    from ...distributed.ctx import copy_model, hint_tokens, psum_model
+    from ...distributed.ctx import copy_model, hint_tokens, row_parallel
     cdt = x.dtype
     # the hidden map's d_ff over the tensor-parallel axis: the columns of
     # w_gate/w_up a rank holds are already that layout
@@ -176,9 +177,9 @@ def ffn_apply(p: FFN, x: torch.Tensor, cfg: LMConfig, mode: str):
         h, zaux = zebra_site(h, zc, site="ffn_hidden", tnet=getattr(p, "zebra_tnet", None),
                              split=split)
         h = checkpoint_name(h, "ffn_hidden", cfg.remat)
-        y = h @ _rows(p.w_down, h.shape[-1]).to(cdt)
-        if split:               # row-parallel w_down: the partial sums added
-            y = psum_model(y)
+        w_down = _rows(p.w_down, h.shape[-1])
+        # row-parallel w_down: the partial products summed over the axis
+        y = row_parallel(h, w_down) if split else h @ w_down.to(cdt)
     if cfg.act == "gelu":       # once, after any reduction
         y = y + p.b_down.to(cdt)
     y, xaux = ffn_layer_out_exchange(y, cfg, mode)
@@ -327,24 +328,61 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: LMConfig, mode: str):
     its indices first, a third of a granite training step's device time.
     Only the dropped pairs gather one row twice, the cut-off one. The
     combine multiplies and sums in float32 and rounds once, as the
-    reference's compiled combine does."""
+    reference's compiled combine does.
+
+    Expert-parallel (serving a model cut by ``distributed.sharding``: the
+    expert stacks split over the model axis): the capacity and every
+    pair's slot are those of the global batch, as the reference computes
+    them, so the rows are gathered over the data axis and routed whole on
+    every rank. A rank fills only its experts' slots, runs their GEMMs and
+    the site on its rows of the hidden map (``zebra_site(split="rows")``),
+    gathers every expert's output over the model axis and combines as one
+    process, keeping its own rows. ``router_aux`` is the global batch's,
+    the same on every rank."""
+    from ...distributed.ctx import tensor_parallel
+    tp = tensor_parallel()
     B, S, d = x.shape
     E, k, f = cfg.n_experts, cfg.top_k, cfg.d_ff
-    T = B * S
-    xt = x.reshape(T, d)
+    xs = x if tp is None else _gather_rows(x, tp)
+    T = xs.shape[0] * S
+    xt = xs.reshape(T, d)
     r = moe_route(p.router, xt, cfg)
+    El = p.w_gate.shape[0]                  # the experts this rank holds
+    n, dest = El * r.cap, r.dest
+    if tp is not None:
+        dest = dest - tp.model.index * n
+        dest = torch.where((dest >= 0) & (dest < n), dest, torch.full_like(dest, n))
     rows = xt[:, None].expand(T, k, d).reshape(T * k, d).index_select(0, r.order)
-    buf = x.new_zeros((E * r.cap + 1, d)).index_put((r.dest,), rows)
-    eb = buf[:E * r.cap].reshape(E, r.cap, d)
+    buf = x.new_zeros((n + 1, d)).index_put((dest,), rows)
+    eb = buf[:n].reshape(El, r.cap, d)
     cdt = x.dtype
     h = silu(torch.bmm(eb, p.w_gate.to(cdt))) * torch.bmm(eb, p.w_up.to(cdt))
-    hz, zaux = zebra_site(h.reshape(1, E * r.cap, f), _hidden_site_cfg(cfg, mode),
-                          site="ffn_hidden", tnet=getattr(p, "zebra_tnet", None))
-    y_e = torch.bmm(hz.reshape(E, r.cap, f), p.w_down.to(cdt))
+    hz, zaux = zebra_site(h.reshape(1, n, f), _hidden_site_cfg(cfg, mode),
+                          site="ffn_hidden", tnet=getattr(p, "zebra_tnet", None),
+                          split="rows" if tp is not None else False)
+    y_e = torch.bmm(hz.reshape(El, r.cap, f), p.w_down.to(cdt))
+    if tp is not None:
+        from ...distributed.ctx import gather_model
+        y_e = gather_model(y_e, 0)
     y_flat = torch.cat([y_e.reshape(E * r.cap, d), y_e.new_zeros((1, d))])
     per_choice = y_flat.index_select(0, r.slot_of).reshape(T, k, d)
     y = (per_choice.float() * r.gate.to(cdt).float()[..., None]).sum(dim=1).to(cdt)
-    return y.reshape(B, S, d), zaux, r.router_aux
+    y = y.reshape(-1, S, d)
+    if tp is not None:
+        y = y.narrow(0, tp.data.index * B, B)
+    return y, zaux, r.router_aux
+
+
+def _gather_rows(x: torch.Tensor, tp) -> torch.Tensor:
+    """The global batch: every data rank's rows of ``x`` in data-rank
+    order (the expert-parallel dispatch serves only: no gradient)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError("the expert-parallel MoE serves only (ROADMAP.md, queue 1, "
+                                  "item 1 (b))")
+    if tp.data.size == 1:
+        return x
+    from ...distributed.collectives import tp_all_gather
+    return tp_all_gather(x, tp.data, 0)
 
 
 def moe_apply_dp(p: MoE, x: torch.Tensor, cfg: LMConfig, mode: str, mesh,

@@ -16,6 +16,15 @@ h_t is the same tree of the same roundings, with ``ar·bl + br`` fused as
 XLA's CPU fuses it (``layers.mul_add``): it equals the reference bit for
 bit in float32. It has O(log S) depth; a cumulative product in log space
 would lose small ``a``. Decode is an O(1) update.
+
+Tensor-parallel (a model cut by ``distributed.sharding``, ``lru_dim`` over
+the model axis): both branches are column-parallel and the conv is this
+rank's channels, so ``u`` is too; the gates' ``w_a``/``w_x`` are split by
+output column and take the whole ``u``, gathered over the model axis,
+while ``i · u`` takes this rank's slice; the scan runs on this rank's
+channels, and ``w_out`` is row-parallel, its partial products summed in
+float32 and rounded once (``distributed.ctx.row_parallel``). The
+decode state ``h`` and the conv ring are split on their channels.
 """
 from __future__ import annotations
 
@@ -57,10 +66,13 @@ class RGLRU(nn.Module):
 
 
 def _gates(p: RGLRU, u: torch.Tensor):
-    """u (B, S, lru_dim) -> the scan's (a, b), float32."""
+    """u (B, S, lru_dim), this rank's channels under tensor parallelism ->
+    the scan's (a, b), float32."""
+    from ...distributed.ctx import gather_model
     f32 = torch.float32
-    r = torch.sigmoid(u @ p.w_a.to(u.dtype) + p.b_a.to(u.dtype))
-    i = torch.sigmoid(u @ p.w_x.to(u.dtype) + p.b_x.to(u.dtype))
+    uw = u if u.shape[-1] == p.w_a.shape[0] else gather_model(u, -1)
+    r = torch.sigmoid(uw @ p.w_a.to(u.dtype) + p.b_a.to(u.dtype))
+    i = torch.sigmoid(uw @ p.w_x.to(u.dtype) + p.b_x.to(u.dtype))
     log_a = (-C * softplus(p.lam)) * r.to(f32)
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 0.0, 1.0)) \
@@ -99,27 +111,35 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _recurrence(p: RGLRU, x: torch.Tensor):
     """x (B, S, d) -> (the gate branch, the recurrent branch's pre-conv input
     u_in, the hidden sequence h (B, S, lru_dim) float32)."""
+    from ...distributed.ctx import copy_model
+    x = copy_model(x)       # into the column-parallel branches
     gate = gelu(x @ p.w_gate_branch.to(x.dtype))
     u_in = x @ p.w_rec_branch.to(x.dtype)
     a, b = _gates(p, causal_conv1d(u_in, p.conv_w.to(x.dtype)))
     return gate, u_in, linear_scan(a, b)
 
 
-def _out(p: RGLRU, h: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
-    return (h.to(gate.dtype) * gate) @ p.w_out.to(gate.dtype)
+def _out(p: RGLRU, h: torch.Tensor, gate: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """(h ⊙ gate) @ w_out, row-parallel under tensor parallelism
+    (``distributed.ctx.row_parallel``)."""
+    from ...distributed.ctx import row_parallel
+    y = h.to(gate.dtype) * gate
+    if p.w_out.shape[0] == cfg.lru_dim:
+        return y @ p.w_out.to(gate.dtype)
+    return row_parallel(y, p.w_out)
 
 
 def rglru_apply(p: RGLRU, x: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d): the full-sequence (training, prefill) path."""
     gate, _, h = _recurrence(p, x)
-    return _out(p, h, gate)
+    return _out(p, h, gate, cfg)
 
 
 def rglru_prefill(p: RGLRU, x: torch.Tensor, cfg: LMConfig):
     """:func:`rglru_apply` and the decode state after it: ``h`` the float32
     last state, ``conv`` the last W-1 pre-conv inputs."""
     gate, u_in, h = _recurrence(p, x)
-    return _out(p, h, gate), {"h": h[:, -1], "conv": u_in[:, -(cfg.conv_width - 1):]}
+    return _out(p, h, gate, cfg), {"h": h[:, -1], "conv": u_in[:, -(cfg.conv_width - 1):]}
 
 
 def rglru_init_cache(cfg: LMConfig, batch: int, dtype, device=None) -> dict:
@@ -131,10 +151,12 @@ def rglru_init_cache(cfg: LMConfig, batch: int, dtype, device=None) -> dict:
 def rglru_decode_step(p: RGLRU, x: torch.Tensor, cache: dict, cfg: LMConfig):
     """x (B, 1, d) -> (y (B, 1, d), new cache): O(1). The cache's tensors are
     not changed; the new state is new tensors."""
+    from ...distributed.ctx import copy_model
+    x = copy_model(x)
     gate = gelu(x @ p.w_gate_branch.to(x.dtype))
     u_in = x @ p.w_rec_branch.to(x.dtype)                            # (B, 1, dl)
     hist = torch.cat([cache["conv"], u_in], dim=1)
     u = torch.einsum("bwc,wc->bc", hist, p.conv_w.to(x.dtype))[:, None]
     a, b = _gates(p, u)                                              # (B, 1, dl)
     h = mul_add(a[:, 0], cache["h"], b[:, 0])
-    return _out(p, h[:, None], gate), {"h": h, "conv": hist[:, 1:]}
+    return _out(p, h[:, None], gate, cfg), {"h": h, "conv": hist[:, 1:]}

@@ -8,6 +8,16 @@ B, C, dt), as the reference keeps them; x, B and C each pass a depthwise
 causal conv of ``conv_width`` and silu; then the SSD over the heads,
 y ⊙ silu(z), an RMSNorm over ``d_inner`` and ``out_proj``.
 
+Tensor-parallel (a model cut by ``distributed.sharding``, ``d_inner`` and
+its heads over the model axis): ``z_proj``/``x_proj``/``dt_proj`` are
+column-parallel, ``conv_x``, ``A_log``/``D``/``dt_bias`` and the SSD are
+this rank's channels and heads, ``b_proj``/``c_proj`` and their convs run
+whole on every rank, the RMSNorm over ``d_inner`` sums its squares over
+the model axis before the rsqrt, and ``out_proj`` is row-parallel, its
+partial products summed in float32 and rounded once
+(``distributed.ctx.row_parallel``). The decode state is split as the reference's
+``cache_specs`` split it: ``H`` on its heads, ``conv_x`` on its channels.
+
 Rounding follows the reference's compiled form: XLA's CPU contracts a
 float32 product and sum into one fused multiply-add (the conv taps, the
 chunk scan ``H·decay + S``, the ``D`` skip term, the decode update),
@@ -83,27 +93,42 @@ class SSM(nn.Module):
         self.out_proj = nn.Parameter(lecun_normal((di, d), fan_in=di, **kw))
 
 
+def _dims(p: SSM, cfg: LMConfig) -> tuple[int, int]:
+    """(d_inner, heads) this rank holds: the whole ones in one process."""
+    return p.x_proj.shape[1], p.A_log.shape[0]
+
+
 def _projections(p: SSM, h: torch.Tensor):
+    from ...distributed.ctx import copy_model
     dt = h.dtype
-    return (h @ p.z_proj.to(dt), h @ p.x_proj.to(dt), h @ p.b_proj.to(dt),
-            h @ p.c_proj.to(dt), h @ p.dt_proj.to(dt))
+    hc = copy_model(h)      # into the column-parallel z, x and dt projections
+    return (hc @ p.z_proj.to(dt), hc @ p.x_proj.to(dt), h @ p.b_proj.to(dt),
+            h @ p.c_proj.to(dt), hc @ p.dt_proj.to(dt))
 
 
 def _conv_silu(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return silu(causal_conv1d(x, w.to(x.dtype)))
 
 
-def _gated_out(p: SSM, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """y (B, S, d_inner) in the compute dtype: ⊙ silu(z), RMSNorm, out_proj."""
-    y = rmsnorm_apply(p.out_norm.scale, y * silu(z))
-    return y @ p.out_proj.to(y.dtype)
+def _gated_out(p: SSM, y: torch.Tensor, z: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
+    """y (B, S, d_inner) in the compute dtype: ⊙ silu(z), RMSNorm, out_proj;
+    this rank's channels of d_inner under tensor parallelism (module
+    docstring)."""
+    y = y * silu(z)
+    if y.shape[-1] == cfg.d_inner:
+        return rmsnorm_apply(p.out_norm.scale, y) @ p.out_proj.to(y.dtype)
+    from ...distributed.ctx import psum_model, row_parallel
+    yf = y.to(torch.float32)
+    var = psum_model(yf.square().sum(dim=-1, keepdim=True)) / cfg.d_inner
+    y = (yf * torch.rsqrt(var + 1e-6) * p.out_norm.scale.to(torch.float32)).to(y.dtype)
+    return row_parallel(y, p.out_proj)
 
 
 def ssm_apply(p: SSM, hidden: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     """hidden (B, S, d) -> (B, S, d): the chunked SSD over chunks of Q, the
     largest chunk <= ``cfg.ssm_chunk`` that divides S."""
     B, S, _ = hidden.shape
-    di, ds, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    (di, nh), ds, hd = _dims(p, cfg), cfg.ssm_state, cfg.ssm_head_dim
     f32 = torch.float32
     Q = min(cfg.ssm_chunk, S)
     while S % Q:
@@ -142,7 +167,7 @@ def ssm_apply(p: SSM, hidden: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     Yo = torch.einsum("bnis,bnhsp,bnih->bnihp", Cc, Hprev, torch.exp(cs))
 
     y = mul_add(p.D[:, None], xs.to(f32), (Yd + Yo).reshape(B, S, nh, hd))
-    return _gated_out(p, y.reshape(B, S, di).to(hidden.dtype), z)
+    return _gated_out(p, y.reshape(B, S, di).to(hidden.dtype), z, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +197,7 @@ def ssm_decode_step(p: SSM, hidden: torch.Tensor, cache: dict, cfg: LMConfig):
     update. The cache's tensors are not changed; the new state is new
     tensors."""
     B = hidden.shape[0]
-    di, nh, hd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    (di, nh), hd = _dims(p, cfg), cfg.ssm_head_dim
     f32, cdt = torch.float32, hidden.dtype
     z, xr, Bm, Cm, dt = _projections(p, hidden)                      # (B, 1, .)
     xo, cx = _conv_step(cache["conv_x"], xr, p.conv_x.to(cdt))
@@ -187,7 +212,7 @@ def ssm_decode_step(p: SSM, hidden: torch.Tensor, cache: dict, cfg: LMConfig):
     H = mul_add(dt1[:, :, None, None] * Bv[:, None, :, None], xs[:, :, None, :],
                 cache["H"] * decay)
     y = mul_add(p.D[:, None], xs, torch.einsum("bs,bhsp->bhp", Cv, H))
-    out = _gated_out(p, y.reshape(B, 1, di).to(cdt), z)
+    out = _gated_out(p, y.reshape(B, 1, di).to(cdt), z, cfg)
     return out, {"H": H, "conv_x": cx, "conv_b": cb, "conv_c": cc}
 
 
@@ -196,7 +221,7 @@ def ssm_prefill_state(p: SSM, hidden: torch.Tensor, cfg: LMConfig) -> dict:
     ``H`` from one einsum over the whole sequence (as the reference builds
     it, not by the chunk scan), and the last W-1 pre-conv inputs."""
     B, S, _ = hidden.shape
-    nh, hd = cfg.ssm_heads, cfg.ssm_head_dim
+    nh, hd = _dims(p, cfg)[1], cfg.ssm_head_dim
     f32 = torch.float32
     _, xr_pre, Bm_pre, Cm_pre, dt = _projections(p, hidden)
     xs = _conv_silu(xr_pre, p.conv_x).reshape(B, S, nh, hd).to(f32)

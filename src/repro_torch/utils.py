@@ -2,6 +2,7 @@
 (``repro.utils`` keeps the rest)."""
 from __future__ import annotations
 
+import contextlib
 from typing import Iterable
 
 import numpy as np
@@ -58,6 +59,29 @@ def resolve_device(device=None) -> torch.device:
                                "the card; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+@contextlib.contextmanager
+def float32_sums(device: torch.device):
+    """Inside the block, on the card: a 16-bit GEMM's sums kept in float32
+    until its one rounding (cuBLAS's reduced-precision split-K reduction
+    off), as the reference sums them. A tensor-parallel rank's row-parallel
+    products round once (``distributed.ctx.row_parallel``); its other GEMMs,
+    and those of the single-process run it is held against, then round as
+    one process's float32 sums do, so a block near T_obj flips on neither
+    side. The settings in force before come back on exit; nothing on the
+    CPU."""
+    m = torch.backends.cuda.matmul
+    old = (m.allow_bf16_reduced_precision_reduction,
+           m.allow_fp16_reduced_precision_reduction)
+    if device.type == "cuda":
+        m.allow_bf16_reduced_precision_reduction = False
+        m.allow_fp16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        (m.allow_bf16_reduced_precision_reduction,
+         m.allow_fp16_reduced_precision_reduction) = old
 
 
 def map_tree(fn, tree, path=()):

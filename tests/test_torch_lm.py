@@ -228,7 +228,7 @@ def test_serve_cli_runs_on_cpu(capsys):
     assert served["report"]["n_requests"] == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):    # not served sharded yet
         serve.main(["--arch", "granite-moe-1b-a400m", "--reduced", "--device", "cpu",
-                    "--model-parallel", "2"])
+                    "--requests", "2", "--model-parallel", "2"])
 
 
 def test_forward_and_init_cache_match_reference():

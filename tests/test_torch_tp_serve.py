@@ -282,36 +282,38 @@ def test_cli_params_load_over_the_draws_on_every_rank(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--requests", "2"], "continuous serving"),
-    (["--arch", "granite-moe-1b-a400m"], "MoE"),
-    (["--arch", "mamba2-2.7b"], "ssm"),
-    (["--arch", "recurrentgemma-2b"], "rglru"),
-    (["--arch", "whisper-medium"], "encoder-decoder")])
+    (["--requests", "2"], "continuous serving")])
 def test_unported_configurations_raise_before_launch(argv, match):
-    """What the slice does not serve tensor-parallel raises, naming its
-    ROADMAP item, before any rank is spawned."""
+    """What tensor-parallel serving does not cover raises, naming its
+    ROADMAP item, before any rank is spawned: continuous serving."""
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match=match) as e:
         serve.main(["--reduced", "--device", "cpu", "--model-parallel", "4", *argv])
     assert "ROADMAP.md, queue 1" in str(e.value)
 
 
-@pytest.mark.parametrize("arch,backend", [
-    ("gemma3-4b", "fused"), ("chameleon-34b", "stream"),      # chameleon: the untied head
-    ("qwen2.5-14b", "pallas"), ("command-r-35b", "reference")])
-def test_cli_spawns_the_ranks_and_serves_like_one_process(arch, backend):
-    """``serve.main([..., "--model-parallel", "2"])`` from a plain process:
-    2 ranks spawned on this host (data 1), the same greedy tokens as one
-    process, the handoff's bytes equal, both ranks' logits bit for bit;
-    the other dense architectures on every backend."""
+@pytest.mark.parametrize("arch,backend,n,t_obj", [
+    ("gemma3-4b", "fused", 2, 2.45), ("chameleon-34b", "stream", 2, 2.45),  # the untied head
+    ("qwen2.5-14b", "pallas", 2, 2.45), ("command-r-35b", "reference", 2, 2.45),
+    # the other layer kinds at --model-parallel 4
+    ("granite-moe-1b-a400m", "stream", 4, 0.025), ("llama4-scout-17b-a16e", "fused", 4, 0.025),
+    ("mamba2-2.7b", "stream", 4, 4.8), ("recurrentgemma-2b", "pallas", 4, 2.5),
+    ("whisper-medium", "reference", 4, 2.5)])
+def test_cli_spawns_the_ranks_and_serves_like_one_process(arch, backend, n, t_obj):
+    """``serve.main([..., "--model-parallel", n])`` from a plain process:
+    n ranks spawned on this host (data 1), the same greedy tokens as one
+    process, the handoff's bytes equal, every rank's logits bit for bit;
+    the other dense architectures on every backend, and the MoE, SSM,
+    RG-LRU and encoder-decoder ones on 4 ranks."""
     from repro_torch.launch import serve
     argv = ["--arch", arch, "--reduced", "--device", "cpu", "--backend", backend,
-            "--batch", "2", "--prompt-len", "32", "--gen", "3", "--t-obj", "2.45"]
+            "--batch", "2", "--prompt-len", "32", "--gen", "3", "--t-obj", str(t_obj)]
     one = serve.main(argv)
-    tp = serve.main([*argv, "--model-parallel", "2"])
-    assert len(tp["ranks"]) == 2 and tp["wire"] == "gloo (host copies)"
+    tp = serve.main([*argv, "--model-parallel", str(n)])
+    assert len(tp["ranks"]) == n and tp["wire"] == "gloo (host copies)"
     assert torch.equal(tp["tokens"], one["tokens"].cpu())
-    assert np.array_equal(bits(tp["ranks"][0]["logits"]), bits(tp["ranks"][1]["logits"]))
+    assert all(np.array_equal(bits(r["logits"]), bits(tp["ranks"][0]["logits"]))
+               for r in tp["ranks"])
     if one["meter"] is not None:
         assert sum(r["payload_bytes"] + r["index_bytes"] for r in tp["records"]) == \
             one["meter"].measured_bytes()
