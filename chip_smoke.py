@@ -242,9 +242,11 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     run recorded; the payload GEMM, the comparator, the masking kernel and
     pack timed per prefill;
     (c) both trained R and C through the harness of 10 (batch 2 x 2048 in 2
-    microbatches, remat block, 2 steps, float32 parameters, bf16 compute):
+    microbatches, remat block, 2 steps, float32 parameters, bf16 compute;
+    cut for phase 20's time to 16 of mamba2's 64 layers and 12 of
+    recurrentgemma's 26, four whole patterns):
     C's parameters equal R's bit for bit, each stream kernel sites x 2 x 2 x 2
-    times (mamba2: 64 ``layer_out`` sites, recurrentgemma: 26 ``ffn_hidden``),
+    times (mamba2: 16 ``layer_out`` sites, recurrentgemma: 12 ``ffn_hidden``),
     each step's ``measured_bytes`` the sum over its forward sites, every
     recorded site in the band; ms per step, the busy share,
     ``max_memory_allocated``; the stream kernels timed on C's maps of step 1;
@@ -376,7 +378,29 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     its llama4 rows, and 1, 2 and 7 on its recurrentgemma and whisper
     ``ffn_hidden`` shards (with its rows of ``w_down``) held against their
     plain versions and timed;
-20. prints one JSON line listing the kernels (the seven CUDA kernels, the
+20. trains the other layer kinds sharded inside phase 19's world, after
+    each architecture is served (``launch.train.train_rank``, the split
+    phase 19 serves it at): one whole layer pattern each at full width, 2
+    bf16 steps (step 1 at lr 0), constant T_obj, remat block, each against
+    the same training in one process run first in the parent:
+    granite-moe-1b-a400m (1 layer, ``stream``, (data 2, model 2), batch 2
+    x 1024; its dispatch routed over the global batch, the expert-split
+    map by rows), llama4-scout-17b-a16e (1 layer, ``pallas``: ``fused`` does
+    not train; one layer's experts are ~2.0 B parameters, ~50 GB of
+    float32 state in one process, which fits beside nothing else),
+    mamba2-2.7b (1 layer, ``stream``, ``layer_out``, 1 x 1024),
+    recurrentgemma-2b (3 layers, ``pallas``) and whisper-medium (1 + 1
+    layers, ``pallas``, 1504 seeded frames
+    ~ N(0, 1), a multiple of block_seq, so its encoder's site launches, 1 x
+    448). Checks, phase 18's: the ranks' metrics alike, the losses within
+    1e-2, ``grad_norm`` within 2 %, the zero fraction within 1e-3, the
+    first moment after step 1 per leaf within 0.3 (relative L2 over the
+    ranks' shards), the shared leaf shards bit for bit, every rank's
+    launches equal to one process's; then kernels 1-3 (granite, mamba2)
+    and 4 (llama4, recurrentgemma, whisper) held against their plain versions on
+    rank 0's step-1 maps and timed, rows ``... (<arch> tensor-parallel
+    training, a rank)``;
+21. prints one JSON line listing the kernels (the seven CUDA kernels, the
     three stream kernels per VGG-16 and per MobileNetV1 evaluate batch,
     named ``... (vgg16 evaluate)`` and ``... (mobilenet evaluate)``, the
     masking kernel per training step of each, ``... (vgg16 training)`` and
@@ -394,8 +418,9 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     (gemma3-4b continuous, per lane)``/``zebra_unpack_kernel (...)``, phase 16's
     ``... (collectives ring, ...)``, phase 17's ``... (gemma3-4b
     tensor-parallel prefill, a rank)``, phase 18's ``... (gemma3-4b
-    tensor-parallel training, a rank)`` and phase 19's ``... (<arch>
-    tensor-parallel prefill, a rank)``; the GEMM
+    tensor-parallel training, a rank)``, phase 19's ``... (<arch>
+    tensor-parallel prefill, a rank)`` and phase 20's ``... (<arch>
+    tensor-parallel training, a rank)``; the GEMM
     rows also carry ms per launch, TFLOP/s of live work and the device
     body that ran, the stream rows their ``amax_ms`` or ``copy_ms``
     yardstick), the card line again, and ``{"ok": true, "device": ...}``
@@ -3142,6 +3167,10 @@ REC_ZF_BAND = (0.3, 0.8)
 # microbatches, remat block, 2 steps of AdamW warmup_cosine(3e-4, 1, 2), bf16
 # gradients, clip 1.0, float32 parameters, bf16 compute, the serving T_obj
 REC_TRAIN = dict(batch=2, seq=2048, grad_accum=2, steps=2)
+# the depths phase 14 trains at (of 64 and 26), cut for phase 20's time:
+# mamba2 a quarter of its layers, recurrentgemma four whole
+# rglru/rglru/local patterns
+REC_TRAIN_LAYERS = {"mamba2-2.7b": 16, "recurrentgemma-2b": 12}
 
 
 def run_mamba2_serve(device, edge_errs, arch=MAMBA2["arch"], batch=MAMBA2["batch"],
@@ -3282,19 +3311,22 @@ def run_mamba2_serve(device, edge_errs, arch=MAMBA2["arch"], batch=MAMBA2["batch
 
 def run_recurrent_training(device, arch, t_obj, site, batch=REC_TRAIN["batch"],
                            seq=REC_TRAIN["seq"], grad_accum=REC_TRAIN["grad_accum"],
-                           steps=REC_TRAIN["steps"]) -> list[dict]:
-    """Phase 14 (c): ``arch`` trained R and C at full width and depth through
-    the harness of 10 (C's parameters equal R's bit for bit, each stream
-    kernel sites x microbatches x steps x 2 times, forward and recompute,
-    every site on ``stream`` and in the band); returns the stream kernels'
-    rows per training step on C's maps of step 1."""
+                           steps=REC_TRAIN["steps"], layers=None) -> list[dict]:
+    """Phase 14 (c): ``arch`` trained R and C at full width through the
+    harness of 10 at ``layers`` (default ``REC_TRAIN_LAYERS``; 0: its full
+    depth) (C's parameters equal R's bit for bit, each stream kernel sites x
+    microbatches x steps x 2 times, forward and recompute, every site on
+    ``stream`` and in the band); returns the stream kernels' rows per
+    training step on C's maps of step 1."""
     import torch
     from repro_torch import configs
-    L, K, n = configs.get(arch).n_layers, grad_accum, steps
+    layers = REC_TRAIN_LAYERS.get(arch, 0) if layers is None else layers
+    L, K, n = layers or configs.get(arch).n_layers, grad_accum, steps
     per_run = L * K * n * 2
     counts, maps = run_train_parity(
         device, arch, t_obj, {"reference": {}, "stream": {k: per_run for k in STREAM_KERNELS}},
-        batch, seq, grad_accum, steps, keep=2 * L * K, site=site, profiled=("stream",))
+        batch, seq, grad_accum, steps, layers=layers, keep=2 * L * K, site=site,
+        profiled=("stream",))
     print(f"  C: each stream kernel {per_run} launches = {L} {site} sites x {K} microbatches "
           f"x {n} steps x 2 (forward + recompute)")
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)   # 256 MB
@@ -5085,16 +5117,18 @@ class RankMaps:
 
 
 def tpl_rank(rank: int, out_dir: str, jobs: list) -> None:
-    """One rank of phase 19 (spawned, in the joined world): each job
-    ``(argv, model ranks, keep maps)`` served by ``launch.serve.main`` with
-    ``--model-parallel``, which inside a joined world serves as this rank
-    (``serve_rank``) and saves its report to ``<out_dir>/<job>/``; rank 0
-    also saves its ffn_hidden maps where the job keeps them."""
+    """One rank of phases 19 and 20 (spawned, in the joined world): each job
+    ``(argv, model ranks, keep maps, training)`` served by
+    ``launch.serve.main`` with ``--model-parallel``, which inside a joined
+    world serves as this rank (``serve_rank``) and saves its report to
+    ``<out_dir>/<job>/``; rank 0 also saves its ffn_hidden maps where the
+    job keeps them. Then, where ``training`` is ``(arch, run, tptl)``, the
+    same architecture trained sharded (phase 20, :func:`tptl_train`)."""
     import os
 
     import torch
     from repro_torch.launch import serve
-    for i, (argv, model, keep) in enumerate(jobs):
+    for i, (argv, model, keep, training) in enumerate(jobs):
         d = os.path.join(out_dir, str(i))
         os.makedirs(d, exist_ok=True)
         with RankMaps(rank == 0 and keep) as maps:
@@ -5105,6 +5139,11 @@ def tpl_rank(rank: int, out_dir: str, jobs: list) -> None:
         gc.collect()
         if torch.cuda.is_available():
             torch.cuda.empty_cache()
+        if training is not None:
+            tptl_train(rank, *training, d)
+            gc.collect()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
 
 
 def tpl_keep(ranks: list, s_index: int, axis: str):
@@ -5258,15 +5297,20 @@ def time_tpl_kernels(arch: str, run: dict, maps: list, launches: dict, t_obj: fl
     return rows
 
 
-def run_tp_layers(device, edge_errs: dict, runs=None, **over) -> list[dict]:
-    """Phase 19: the MoE (expert parallelism), Mamba-2, recurrentgemma and
-    whisper served tensor-parallel at full width, each through
-    ``launch.serve.main --model-parallel`` in one world of 4 ranks spawned
-    on the card (``TPL_RUNS``), held against its own single-process run at
-    the same depth by :func:`hold_tpl_run`; then the kernel rows on rank
-    0's prefill maps. ``runs`` replaces TPL_RUNS and ``over`` entries of
-    TPL (``reduced=True`` with the CPU rehearses the flow on the reduced
-    configs: no launch checks, no timing)."""
+def run_tp_layers(device, edge_errs: dict, runs=None, train_runs=None, train_over=None,
+                  **over) -> list[dict]:
+    """Phases 19 and 20: the MoE (expert parallelism), Mamba-2,
+    recurrentgemma and whisper served tensor-parallel at full width, each
+    through ``launch.serve.main --model-parallel`` in one world of 4 ranks
+    spawned on the card (``TPL_RUNS``), held against its own
+    single-process run at the same depth by :func:`hold_tpl_run`; in the
+    same world, after each is served, the architectures of ``TPTL_RUNS``
+    trained sharded (``launch.train.train_rank``) and held against their
+    own one-process training by :func:`hold_tptl_run`; then the kernel rows
+    on rank 0's prefill maps and training maps. ``runs`` replaces TPL_RUNS,
+    ``train_runs`` TPTL_RUNS, ``over`` entries of TPL and ``train_over``
+    entries of TPTL (``reduced=True`` in both with the CPU rehearses the
+    flow on the reduced configs: no launch checks, no timing)."""
     import os
     import shutil
     import tempfile
@@ -5274,37 +5318,60 @@ def run_tp_layers(device, edge_errs: dict, runs=None, **over) -> list[dict]:
     import torch
     from repro_torch.launch import mesh as lm_mesh
     tpl, runs = {**TPL, **over}, TPL_RUNS if runs is None else runs
+    tptl = {**TPTL, **(train_over or {})}
+    train_runs = TPTL_RUNS if train_runs is None else train_runs
     t0 = time.perf_counter()
     print(f"tensor-parallel serving of the other layer kinds: {tpl['world']} ranks on the "
           f"{'card' if device.type == 'cuda' else 'CPU'}, prompt {tpl['prompt']}, "
           f"{tpl['gen']} greedy tokens, each against its own single-process run")
-    yards = {}
-    for arch, run in runs.items():
-        yards[arch] = tpl_yardstick(arch, run, tpl)
-    t1 = time.perf_counter()
-    jobs = [(tpl_argv(arch, run, tpl), run["model"], bool(run["rows"]))
-            for arch, run in runs.items()]
-    for argv, m, _ in jobs:
-        print(f"  python -m repro_torch.launch.serve {' '.join(argv)} --model-parallel {m}")
     tmp = tempfile.mkdtemp(prefix="zebra_tpl_")
     try:
+        yards, tyards = {}, {}
+        for i, (arch, run) in enumerate(runs.items()):
+            os.makedirs(os.path.join(tmp, str(i)))
+            with torch.inference_mode():
+                yards[arch] = tpl_yardstick(arch, run, tpl)
+        t1 = time.perf_counter()
+        for i, (arch, run) in enumerate(runs.items()):
+            if arch in train_runs:
+                trun = train_runs[arch]
+                tyards[arch] = tptl_yardstick(arch, trun, tptl, device,
+                                              os.path.join(tmp, str(i), "yard_m1.pt"))
+        t2 = time.perf_counter()
+        jobs = [(tpl_argv(arch, run, tpl), run["model"], bool(run["rows"]),
+                 (arch, train_runs[arch], tptl) if arch in train_runs else None)
+                for arch, run in runs.items()]
+        for argv, m, _, training in jobs:
+            print(f"  python -m repro_torch.launch.serve {' '.join(argv)} --model-parallel {m}")
+            if training is not None:
+                print(f"  then launch.train.train_rank(parse_args("
+                      f"{' '.join(tptl_argv(*training))}), cfg with zebra_tnet=False, "
+                      f"grad_accum=1{', encoder 1 layer, 1504 seeded frames' if 'whisper' in training[0] else ''})")
         try:
             lm_mesh.spawn(tpl_rank, tpl["world"], (tmp, jobs), device=str(device))
         except Exception as e:     # a rank that raised: its traceback is in e
-            raise SmokeFailure(f"phase 19: a rank failed:\n{e}") from None
-        reports, maps = {}, {}
+            raise SmokeFailure(f"phase 19/20: a rank failed:\n{e}") from None
+        reports, maps, treports = {}, {}, {}
         for i, arch in enumerate(runs):
             d = os.path.join(tmp, str(i))
             reports[arch] = [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
                              for r in range(tpl["world"])]
             if os.path.exists(os.path.join(d, "maps.pt")):
                 maps[arch] = torch.load(os.path.join(d, "maps.pt"), weights_only=False)
+            if arch in train_runs:
+                treports[arch] = [torch.load(os.path.join(d, f"train_rank{r}.pt"),
+                                             weights_only=False) for r in range(tpl["world"])]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    t2 = time.perf_counter()
+    t3 = time.perf_counter()
     for arch, run in runs.items():
         hold_tpl_run(arch, run, reports[arch], yards[arch], tpl)
-    t3 = time.perf_counter()
+    print(f"sharded training of the other layer kinds (phase 20): one whole layer pattern "
+          f"each at full width, {tptl['steps']} bf16 steps, each against its own one-process "
+          f"training")
+    for arch, trun in train_runs.items():
+        hold_tptl_run(arch, trun, treports[arch], tyards[arch], tptl)
+    t4 = time.perf_counter()
     rows = []
     if device.type == "cuda":
         for arch, run in runs.items():
@@ -5312,9 +5379,260 @@ def run_tp_layers(device, edge_errs: dict, runs=None, **over) -> list[dict]:
                 rows += time_tpl_kernels(arch, run, maps[arch],
                                          reports[arch][0]["phases"]["prefill"], run["t_obj"],
                                          edge_errs, device)
-    print(f"  phase 19 times: single-process runs {t1 - t0:.1f} s, {tpl['world']} ranks "
-          f"{t2 - t1:.1f} s (spawn, build and serve, five architectures), checks "
-          f"{t3 - t2:.1f} s, kernel timing {time.perf_counter() - t3:.1f} s")
+        for arch, trun in train_runs.items():
+            r0 = treports[arch][0]
+            rows += time_tptl_kernels(arch, trun, r0["maps"], r0["launches"], device)
+    print(f"  phase 19 and 20 times: single-process serving {t1 - t0:.1f} s, single-process "
+          f"training {t2 - t1:.1f} s, {tpl['world']} ranks {t3 - t2:.1f} s (spawn, build, serve "
+          f"five architectures and train {len(train_runs)}), checks {t4 - t3:.1f} s, kernel timing "
+          f"{time.perf_counter() - t4:.1f} s; the ranks' training stages (rank 0): " + ", ".join(
+              f"{a} {sum(r[0]['stage_s'].values()):.1f} s" for a, r in treports.items()))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the sharded train step of the other layer kinds
+# ---------------------------------------------------------------------------
+
+# inside phase 19's world, after each architecture is served: one whole
+# layer pattern of each at full width, trained 2 bf16 steps (step 1 at lr 0)
+# by ``launch.train.train_rank`` at phase 19's split, constant T_obj, the
+# config's remat, each against the same training in one process (run in
+# the parent first, then freed). ``fused`` does not train (it degrades to
+# reference), so the architectures phase 19 serves on it train on
+# ``pallas``. llama4 at one layer: its one-process yardstick peaks at ~58 GiB
+# (~3.1 B parameters at 16 B of float32 state each, and the step). whisper trains on 1504 seeded frames ~ N(0, 1) (a multiple of
+# block_seq: its encoder's sites launch the masking kernel). Bounds
+# written in PERF.md before the phase first ran: phase 18's.
+TPTL = dict(steps=2, lr=3e-4, loss_tol=TPT_LOSS_TOL, gnorm_tol=TPT_GNORM_TOL,
+            zf_tol=TPT_ZF_TOL, mom_rel=TPT_MOM_REL)
+TPTL_RUNS = {
+    "granite-moe-1b-a400m": dict(backend="stream", model=2, layers=1, batch=2, seq=1024,
+                                 t_obj=0.0064, site="ffn_hidden", kernels=STREAM_KERNELS),
+    "llama4-scout-17b-a16e": dict(backend="pallas", model=4, layers=1, batch=1, seq=1024,
+                                  t_obj=0.00038, site="ffn_hidden",
+                                  kernels=("zebra_mask_kernel",)),
+    "mamba2-2.7b": dict(backend="stream", model=4, layers=1, batch=1, seq=1024, t_obj=5.0,
+                        site="layer_out", kernels=STREAM_KERNELS),
+    "recurrentgemma-2b": dict(backend="pallas", model=4, layers=3, batch=1, seq=1024,
+                              t_obj=1.5, site="ffn_hidden", kernels=("zebra_mask_kernel",)),
+    "whisper-medium": dict(backend="pallas", model=4, layers=1, enc_layers=1, enc_seq=1504,
+                           batch=1, seq=448, t_obj=1.55, site="ffn_hidden",
+                           kernels=("zebra_mask_kernel",)),
+}
+TPTL_SUFFIX = " ({} tensor-parallel training, a rank)"
+
+
+def tptl_config(arch: str, run: dict, reduced: bool = False):
+    """The training config of one architecture's phase 20 run."""
+    from repro_torch.launch import train
+    cfg = train.build_config(arch, reduced=reduced, t_obj=run["t_obj"],
+                             backend=run["backend"], n_layers=run["layers"])
+    cfg = cfg.replace(zebra_tnet=False, grad_accum=1)
+    if cfg.encoder_layers:
+        cfg = cfg.replace(encoder_layers=run.get("enc_layers", cfg.encoder_layers),
+                          enc_seq=run.get("enc_seq", cfg.enc_seq))
+    return cfg
+
+
+def tptl_argv(arch: str, run: dict, tptl: dict) -> list:
+    return ["--arch", arch, "--layers", str(run["layers"]), "--batch", str(run["batch"]),
+            "--seq", str(run["seq"]), "--steps", str(tptl["steps"]), "--lr", str(tptl["lr"]),
+            "--compress", "bf16", "--t-obj", str(run["t_obj"]), "--backend", run["backend"],
+            "--model-parallel", str(run["model"]),
+            *(["--reduced", "--device", "cpu"] if tptl.get("reduced") else [])]
+
+
+class TrainFrames:
+    """whisper's frames for each loader step: (batch, enc_seq, d) ~ N(0, 1)
+    in float32 from a generator seeded 11 + step on the device, the same in
+    one process and on every rank (a rank keeps its rows)."""
+
+    def __init__(self, cfg, batch: int, device):
+        self.shape, self.device = (batch, cfg.enc_seq, cfg.d_model), device
+
+    def __call__(self, step: int):
+        import torch
+        g = torch.Generator(device=self.device).manual_seed(11 + step)
+        return torch.randn(self.shape, generator=g, device=self.device)
+
+
+class TrainMaps:
+    """The input maps of the first ``n`` forward sites of kind ``site`` the
+    engine runs (a recompute inside the backward is skipped), host copies
+    as its kernels get them (a rank's shard, or the gathered whole)."""
+
+    def __init__(self, site: str, n: int):
+        self.site, self.n, self.maps = site, n, []
+
+    def __enter__(self):
+        import torch
+        import repro_torch.core.engine as engine
+        self._engine, self._inner = engine, engine._site
+
+        def site(x, cfg, **kw):
+            if len(self.maps) < self.n and cfg.enabled and kw.get("site") == self.site and \
+                    x.shape[-2] % cfg.block_seq == 0 and \
+                    torch._C._current_graph_task_id() == -1:
+                self.maps.append(x.detach().reshape(-1, x.shape[-1]).cpu())
+            return self._inner(x, cfg, **kw)
+        engine._site = site
+        return self
+
+    def __exit__(self, *exc):
+        self._engine._site = self._inner
+
+
+def tptl_yardstick(arch: str, run: dict, tptl: dict, device, path: str) -> dict:
+    """``arch`` trained in this process at the phase's depth and batch: the
+    history, the launches, the first moment after step 1 saved to
+    ``path`` (``row_sample``), the peak memory."""
+    import torch
+    from repro_torch.kernels import launch_counters
+    from repro_torch.launch import train
+    from repro_torch.models.lm import LM
+    cfg = tptl_config(arch, run, tptl.get("reduced", False))
+    model = LM(cfg, generator=torch.Generator(device=device).manual_seed(0), device=device)
+    frames = TrainFrames(cfg, run["batch"], device) if cfg.encoder_layers else None
+    before = {k: w.launches for k, w in launch_counters().items()}
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    with FirstMoment(copy=row_sample) as m1, yard_sums():
+        model, state, hist, _ = train.train_lm(
+            cfg, steps=tptl["steps"], batch=run["batch"], seq=run["seq"], lr=tptl["lr"],
+            compress="bf16", seed=0, device=device, model=model, log=lambda *_: None,
+            enc_feats=frames)
+    torch.save(m1.m, path)
+    out = {"history": hist, "launches": {k: w.launches - before[k]
+                                         for k, w in launch_counters().items()},
+           "peak": torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0}
+    del model, state, m1
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def tptl_train(rank: int, arch: str, run: dict, tptl: dict, d: str) -> None:
+    """One rank of one architecture's phase 20 run, in phase 19's world:
+    ``launch.train.train_rank`` (frames for whisper), the first moment
+    after step 1 against the yardstick's (``shard_gaps``), the shared leaf
+    shards against the other ranks' (``replicated_mismatches``); rank 0
+    keeps its step-1 maps of the site kind. Saves ``train_rank<r>.pt``."""
+    import os
+
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.utils import resolve_device
+    cfg = tptl_config(arch, run, tptl.get("reduced", False))
+    device = resolve_device("cpu" if tptl.get("reduced") else None)
+    frames = TrainFrames(cfg, run["batch"], device) if cfg.encoder_layers else None
+    n_maps = cfg.n_layers + cfg.encoder_layers if rank == 0 else 0     # step 1's forward
+    with TrainMaps(run["site"], n_maps) as maps, FirstMoment() as m1:
+        res = train.train_rank(train.parse_args(tptl_argv(arch, run, tptl)), cfg,
+                               enc_feats=frames)
+    rep = dict(res["report"])
+    state, model, mesh = res["state"], res["model"], res["mesh"]
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rep["mom_gaps"] = shard_gaps(m1.m, os.path.join(d, "yard_m1.pt"), model.train_places,
+                                 mesh, device)
+    rep["mom_s"] = time.perf_counter() - t0 + m1.s
+    rep["replicated"] = replicated_mismatches(state["params"], model.train_places, mesh)
+    rep["maps"] = maps.maps
+    del res, state, model, m1
+    torch.save(rep, os.path.join(d, f"train_rank{rank}.pt"))
+
+
+def hold_tptl_run(arch: str, run: dict, ranks: list, yard: dict, tptl: dict) -> None:
+    """One architecture's sharded training against its one-process run:
+    the mesh, the ranks' metrics alike, the losses within ``loss_tol``,
+    ``grad_norm`` within ``gnorm_tol``, the zero fraction (its one site
+    kind) within ``zf_tol``, the first moment after step 1 per leaf within
+    ``mom_rel`` (||Δ|| / ||m|| over every rank's shards), the shared leaf
+    shards bit for bit alike, and on the card every rank's launches equal
+    to one process's, each kernel of the path launched. Every reading is
+    printed before the first check that fails raises (a fault reading
+    shows each)."""
+    label = f"{arch} sharded training"
+    failed = []
+
+    def later(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+    m = run["model"]
+    data = len(ranks) // m
+    check(sorted((r["data_index"], r["model_index"]) for r in ranks) ==
+          [(d, i) for d in range(data) for i in range(m)], f"{label}: mesh")
+    keys = ("loss", "ce", "zero_frac", "zebra_reg", "router_aux", "grad_norm", "measured_bytes")
+    hists = [r["history"] for r in ranks]
+    check(all([[h[k] for k in keys] for h in hs] == [[h[k] for k in keys] for h in hists[0]]
+              for hs in hists), f"{label}: the ranks' metrics differ")
+    for h, h1 in zip(hists[0], yard["history"]):
+        dl, dg = abs(h["loss"] - h1["loss"]), abs(h["grad_norm"] / h1["grad_norm"] - 1)
+        dz = abs(h["zero_frac"] - h1["zero_frac"])
+        print(f"  {label} step {h['step']}: loss {h['loss']:.6f} (one process "
+              f"{h1['loss']:.6f}), grad_norm {h['grad_norm']:.6f} ({h1['grad_norm']:.6f}), "
+              f"{run['site']} zero fraction {h['zero_frac']:.6f} ({h1['zero_frac']:.6f}), "
+              f"router_aux {h['router_aux']:.6f} ({h1['router_aux']:.6f}), "
+              f"{h['measured_bytes']} B ({h1['measured_bytes']} B), {h['ms']:.1f} ms (one "
+              f"process {h1['ms']:.1f} ms; host clock, rank 0)")
+        later(dl <= tptl["loss_tol"], f"{label} step {h['step']}: loss off by {dl}")
+        later(dg <= tptl["gnorm_tol"], f"{label} step {h['step']}: grad_norm off by "
+                                       f"{100 * dg:.3f} %")
+        later(dz <= tptl["zf_tol"], f"{label} step {h['step']}: zero fraction off by {dz}")
+    gaps = {}
+    for r in ranks:
+        for name, (d2, w2, top) in r["mom_gaps"].items():
+            g = gaps.setdefault(name, [0.0, 0.0, 0.0])
+            g[0], g[1], g[2] = g[0] + d2, g[1] + w2, max(g[2], top)
+    rel = {n: (d2 / w2 if w2 else d2) ** 0.5 for n, (d2, w2, _) in gaps.items()}
+    order = sorted(rel, key=rel.get)
+    print(f"  {label}: first moment after step 1 against one process's, ||Δ|| / ||m|| of "
+          f"each of {len(rel)} leaves: worst {rel[order[-1]]:.3e} ({order[-1]}), median "
+          f"{rel[order[len(order) // 2]]:.3e} (bound {tptl['mom_rel']} on the worst); the "
+          f"five worst: " + ", ".join(f"{n} {rel[n]:.3e}" for n in order[-5:]))
+    later(rel[order[-1]] <= tptl["mom_rel"], f"{label}: the first moment of {order[-1]} is "
+                                             f"{rel[order[-1]]:.3e} off one process's")
+    compared = [r["replicated"][0] for r in ranks]
+    bad = [b for r in ranks for b in r["replicated"][1]]
+    print(f"  {label}: shared leaf shards compared bit for bit: {compared} a rank, "
+          f"{len(bad)} differ")
+    later(not bad and min(compared) > 0, f"{label}: shared leaves differ: {bad[:4]}")
+    want = {k: yard["launches"][k] for k in run["kernels"]}
+    for r in ranks:
+        got = {k: r["launches"][k] for k in run["kernels"]}
+        if not tptl.get("reduced"):
+            later(got == want and min(got.values()) > 0,
+                  f"{label} rank {r['rank']}: launches {got}, one process {want}")
+    r0 = ranks[0]
+    tp, dp = r0["tp_per_step"], r0["dp_per_step"]
+    print(f"  {label}: launches by rank {[[r['launches'][k] for k in run['kernels']] for r in ranks]}"
+          f" (one process {list(want.values())}; forward and remat recompute); "
+          f"max_memory_allocated by rank "
+          f"{[round(r['max_memory_allocated'] / 2 ** 30, 3) for r in ranks]} GiB (one process "
+          f"{yard['peak'] / 2 ** 30:.3f} GiB); collectives a step, rank 0: tensor-parallel "
+          f"forward {tp['calls']:.0f} calls, {tp['bytes'] / 2 ** 20:.1f} MiB, backward "
+          f"{tp['bwd_calls']:.0f} calls, {tp['bwd_bytes'] / 2 ** 20:.1f} MiB; data-parallel "
+          f"{dp['calls']:.0f} calls, {dp['bytes'] / 2 ** 20:.1f} MiB; rank 0's stages: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in r0["stage_s"].items()))
+    check(not failed, "; ".join(failed))
+
+
+def time_tptl_kernels(arch: str, run: dict, maps: list, launches: dict, device) -> list[dict]:
+    """The kernel rows of one architecture's phase 20 run: its kernels held
+    bit for bit against their plain versions on rank 0's step-1 maps (a
+    step's forward sites) and timed."""
+    import torch
+    lm = {"maps": [(x.to(device), None) for x in maps], "t_obj": run["t_obj"],
+          "launches": launches}
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)
+    print(f"{arch} sharded training kernel times per step, a rank ({len(maps)} {run['site']} "
+          f"maps of rank 0's step 1, {tuple(maps[0].shape)} first):")
+    rows = time_lm_stream_kernels(lm, flush, {f"{k}{TPTL_SUFFIX.format(arch)}": (k, "ffn")
+                                              for k in run["kernels"]})
+    del lm, flush
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -5454,8 +5772,7 @@ def main() -> int:
         kernels += run_sharded_training(device)
         torch.cuda.empty_cache()
         t16 = time.perf_counter()
-        with torch.inference_mode():
-            kernels += run_tp_layers(device, lm_errs)
+        kernels += run_tp_layers(device, lm_errs)
         torch.cuda.empty_cache()
         t17 = time.perf_counter()
         print(f"phase times: edge cases {t1 - t0:.1f} s, CNN {t2 - t1:.1f} s, "
@@ -5466,7 +5783,7 @@ def main() -> int:
               f"mamba2 and recurrentgemma {t12 - t11:.1f} s, continuous serving "
               f"{t13 - t12:.1f} s, collectives {t14 - t13:.1f} s, tensor-parallel "
               f"serving {t15 - t14:.1f} s, sharded training {t16 - t15:.1f} s, "
-              f"tensor-parallel layer kinds {t17 - t16:.1f} s")
+              f"tensor-parallel layer kinds, served and trained {t17 - t16:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
         print(json.dumps({"ok": True, "device": {

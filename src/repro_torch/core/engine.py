@@ -639,24 +639,27 @@ def _tp_site(x: torch.Tensor, cfg: ZebraConfig, tp, *, site: str, tnet, w, split
 
     Train mode: the forward is serving's; the backward follows the rule,
     ``"blocks"`` local, ``"gather"`` the gathered map's gradient cut back
-    to this rank's columns (``distributed.ctx.gather_model``), ``"whole"``
+    to this rank's part (``distributed.ctx.gather_model``), ``"whole"``
     as in one process. At a constant threshold the reg slot is the whole
     map's realised zero-block count. A threshold net sees the whole map,
     so a site with one gathers a split map whatever its block edges
     (:class:`_TPNet`: its ``w``, cut over the model axis by rows, meets this
     rank's channels of the GAP and the partial thresholds are summed); its
-    Eq. 1 term is that of this data rank's rows, replicated over the
-    model axis."""
-    from ..distributed.ctx import gather_model, psum_model
+    Eq. 1 term is that of this data rank's rows (split by rows: of the
+    whole dispatch map), replicated over the model axis. A map split by
+    rows meets the net's channel cut across its own row cut, so each
+    rank's gradient of the gathered map reaches other ranks' rows through
+    the GAP: it is gathered by ``gather_model_split``, whose backward sums
+    the gradient over the model axis before keeping this rank's rows."""
+    from ..distributed.ctx import gather_model, gather_model_split, psum_model
     if not cfg.enabled:
         if w is not None:
             raise ValueError("a disabled site takes no weight under tensor parallelism")
         return x, SiteAux.empty(device=x.device)
     m = tp.model.size
     rows = split == "rows"
-    if rows and (w is not None or cfg.mode == "train"):
-        raise NotImplementedError(f"site {site!r}: a map split by rows takes no weight and "
-                                  f"serves only")
+    if rows and w is not None:
+        raise NotImplementedError(f"site {site!r}: a map split by rows takes no weight")
     width = x.shape[-1]
     S = x.shape[-2] if x.dim() > 1 else 1
     axis = -2 if rows else -1
@@ -675,7 +678,8 @@ def _tp_site(x: torch.Tensor, cfg: ZebraConfig, tp, *, site: str, tnet, w, split
         if w is not None and w.shape[0] != D:
             raise ValueError(f"site {site!r}: a gathered map of width {D} needs the whole "
                              f"weight, got {tuple(w.shape)}")
-        y, aux = _site(gather_model(x, axis), cfg, site=site, tnet=tnet, w=w)
+        gather = gather_model_split if rows and tnet is not None else gather_model
+        y, aux = _site(gather(x, axis), cfg, site=site, tnet=tnet, w=w)
         if w is None:
             n = x.shape[axis]
             y = y.narrow(axis, tp.model.index * n, n).contiguous()

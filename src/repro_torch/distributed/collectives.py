@@ -52,8 +52,8 @@ axis and shape allow it (:func:`resolve_comms`); otherwise it is a dense
 backend label. The reference's ``shard_map_compat`` and ``axis_size`` are
 JAX machinery with no counterpart: the ranks of the group are the shards.
 The layer exchanges move values only and carry no gradient: the
-reference's train step runs none of them (ROADMAP.md, queue 1, item
-1 (b)). The tensor-parallel LM's dense collectives (:func:`tp_all_reduce`,
+reference's train step (``make_train_step``) enters no comm context, so
+no reference train path runs them. The tensor-parallel LM's dense collectives (:func:`tp_all_reduce`,
 :func:`tp_all_gather`) carry one through ``distributed.ctx``'s autograd
 functions, and the sharded train step's data-parallel collectives
 (:func:`dp_all_gather`, :func:`dp_mean`, :func:`all_reduce_small`) move
@@ -479,15 +479,33 @@ def psum_exact_bytes(nbytes, axis: CommAxis) -> torch.Tensor:
     return Wire(axis).all_reduce(torch.as_tensor(nbytes).to(torch.int64))
 
 
+class _ShardMean(torch.autograd.Function):
+    """The mean over the ranks of ``axis``, gathered and summed in rank
+    order. The reference's ``pmean`` differentiates: each rank's value
+    gets the sum over the ranks of the mean's gradient, divided by their
+    count. Every rank's consumer of the mean is replicated (each rank's
+    loss holds the same mean), so that is the rank's own gradient, passed
+    through."""
+
+    @staticmethod
+    def forward(ctx, values, axis):
+        rows = Wire(axis).all_gather(values)
+        acc = rows[0]
+        for r in rows[1:]:
+            acc = acc + r
+        return acc / axis.size
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def shard_mean(values: torch.Tensor, axis: CommAxis) -> torch.Tensor:
     """The mean over the ranks of ``axis`` of a float32 vector: gathered,
     summed in rank order, divided by the rank count (the reference's
-    ``pmean``). Every rank gets the same bits."""
-    rows = Wire(axis).all_gather(values.to(torch.float32))
-    acc = rows[0]
-    for r in rows[1:]:
-        acc = acc + r
-    return acc / axis.size
+    ``pmean``, with its gradient: :class:`_ShardMean`). Every rank gets
+    the same bits."""
+    return _ShardMean.apply(values.to(torch.float32), axis)
 
 
 # ---------------------------------------------------------------------------

@@ -26,14 +26,29 @@ gathers a site or the vocabulary needs) are :func:`psum_model` and
 once), and :func:`copy_model` marks where a replicated tensor enters a
 column-parallel product.
 
-Each of the three is an autograd function whose backward is what the
-train step needs when every rank computes the loss from the replicated
-result: the sum passes its gradient through (each rank's partial sum
-meets the whole gradient), the gather keeps this rank's slice of its
-gradient, and the copy (the identity forward) sums its gradient over the
-model axis, since each rank's product saw only its columns. The
-backward's collectives are counted in ``collectives.TP_TRAFFIC`` beside
-the forward's.
+Each collective is an autograd function, and its backward depends on the
+layout of the result's consumer:
+
+* :func:`psum_model` (the row-parallel sum) serves a consumer every
+  model rank holds whole: the gradient passes through, since each rank's
+  partial sum meets the whole gradient.
+* :func:`gather_model` serves a consumer every model rank holds whole
+  too: the backward keeps this rank's slice of the gradient.
+* :func:`copy_model` (the identity forward) serves a consumer split over
+  the model axis (a column-parallel product): each rank's gradient covers
+  only its columns, so the backward sums it over the axis.
+* :func:`psum_model_split` is the sum for a consumer split over the model
+  axis (Mamba-2's gated RMSNorm: each rank normalises its own channels
+  by the whole sum of squares): each rank's gradient of the sum is a
+  partial one, so the backward sums it over the axis.
+* :func:`gather_model_split` is the gather for a consumer split over the
+  model axis (the RG-LRU's gates, column-parallel products of the whole
+  input; the MoE's dispatch map gathered by rows for a threshold net):
+  the backward sums the gradient over the axis and then keeps this
+  rank's slice.
+
+The backward's collectives are counted in ``collectives.TP_TRAFFIC``
+beside the forward's (``bwd_calls``, ``bwd_bytes``).
 """
 from __future__ import annotations
 
@@ -172,6 +187,14 @@ def tensor_parallel() -> TensorParallel | None:
     mesh, tp = _MESH.get(), _TP.get()
     if mesh is None or tp is None or tp in dp_axes() or not hasattr(mesh, "get_group"):
         return None
+    return mesh_layout(mesh, tp)
+
+
+def mesh_layout(mesh, tp: str = "model") -> TensorParallel:
+    """The axes of a ``("data", "model")`` ``DeviceMesh`` as
+    :class:`TensorParallel` holds them, whatever the sharding profile (the
+    sharded train step reduces over them under pure data parallelism
+    too). The first call on a mesh makes its groups."""
     cache = mesh.__dict__.setdefault("_repro_tp", {})
     if tp not in cache:
         cache[tp] = TensorParallel(axis_of(mesh, tp), axis_of(mesh, "data"),
@@ -206,6 +229,41 @@ class _GatherModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.start, ctx.n), None, None
+
+
+class _SumModelSplit(torch.autograd.Function):
+    """The sum over the axis for a consumer split over it: the gradient
+    (each rank's, from its own part of the consumer) summed over the
+    axis."""
+
+    @staticmethod
+    def forward(ctx, t, axis):
+        from .collectives import tp_all_reduce
+        ctx.axis = axis
+        return tp_all_reduce(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .collectives import tp_all_reduce
+        return tp_all_reduce(g, ctx.axis, backward=True), None
+
+
+class _GatherModelSplit(torch.autograd.Function):
+    """Every rank's slice concatenated along ``dim``, for a consumer split
+    over the axis: the gradient summed over the axis, then cut back to
+    this rank's slice."""
+
+    @staticmethod
+    def forward(ctx, t, axis, dim):
+        from .collectives import tp_all_gather
+        ctx.axis, ctx.dim, ctx.start, ctx.n = axis, dim, axis.index * t.shape[dim], t.shape[dim]
+        return tp_all_gather(t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .collectives import tp_all_reduce
+        g = tp_all_reduce(g.contiguous(), ctx.axis, backward=True)
         return g.narrow(ctx.dim, ctx.start, ctx.n), None, None
 
 
@@ -261,6 +319,27 @@ def gather_model(t, dim: int):
     if tp is None or tp.model.size == 1:
         return t
     return _GatherModel.apply(t, tp.model, dim % t.dim())
+
+
+def psum_model_split(t):
+    """The sum of ``t`` over the tensor-parallel axis for a consumer split
+    over that axis; ``t`` itself outside tensor parallelism. The backward
+    sums the gradient over the axis."""
+    tp = tensor_parallel()
+    if tp is None or tp.model.size == 1:
+        return t
+    return _SumModelSplit.apply(t, tp.model)
+
+
+def gather_model_split(t, dim: int):
+    """Every model rank's ``t`` concatenated along ``dim`` in rank order,
+    for a consumer split over the tensor-parallel axis; ``t`` itself
+    outside tensor parallelism. The backward sums the gradient over the
+    axis and keeps this rank's slice."""
+    tp = tensor_parallel()
+    if tp is None or tp.model.size == 1:
+        return t
+    return _GatherModelSplit.apply(t, tp.model, dim % t.dim())
 
 
 def copy_model(t):

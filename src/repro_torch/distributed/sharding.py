@@ -310,33 +310,33 @@ def split_dim(places: tuple, mesh, axis: str) -> int | None:
 
 
 def tp_unported(cfg: LMConfig) -> str | None:
-    """Why the sharded train step does not take ``cfg`` yet, or None: it
-    trains the dense-FFN attention LMs (tensor-parallel serving takes every
-    layer kind)."""
-    if cfg.is_moe:
-        return "MoE FFNs (expert parallelism)"
-    if cfg.encoder_layers:
-        return "encoder-decoder models"
-    kinds = set(cfg.layer_pattern) - {"global", "local"}
-    if kinds:
-        return f"{'/'.join(sorted(kinds))} layers"
+    """Why the sharded train step does not take ``cfg``, or None: it trains
+    every layer kind tensor-parallel serving takes (attention, the MoE by
+    expert parallelism, Mamba-2's SSD, the RG-LRU, the encoder-decoder).
+    Under the "dp" profile only the MoE's sites report global observables
+    (``ffn.moe_apply_dp`` averages them over the ranks), so a Zebra site
+    outside an MoE is refused there."""
+    if cfg.sharding_profile == "dp" and cfg.zebra_enabled:
+        trained = {"layer_out"} | (set() if cfg.is_moe else {"ffn_hidden"})
+        outside = sorted(trained & set(cfg.zebra_sites))
+        if outside:
+            return f"Zebra sites outside the MoE ({', '.join(outside)}) under the \"dp\" profile"
     return None
 
 
 def check_tp(cfg: LMConfig, m: int, *, train: bool = False) -> None:
     """Raise for what the layouts of the port's tensor parallelism over
     ``m`` model ranks do not cover (serving, or with ``train`` the sharded
-    train step). The specs decide each split (``_axis_ok``: heads or a
-    vocabulary that do not divide stay whole); the experts must split, and
-    a Mamba-2 block's heads with its ``d_inner``."""
+    train step, :func:`tp_unported`). The specs decide each split
+    (``_axis_ok``: heads or a vocabulary that do not divide stay whole,
+    and run replicated); the experts must split, and a Mamba-2 block's
+    heads with its ``d_inner``."""
     if train:
         why = tp_unported(cfg)
         if why is not None:
-            raise NotImplementedError(f"tensor-parallel training of {why} is not ported "
-                                      f"yet (ROADMAP.md, queue 1, item 1)")
-        if cfg.n_heads % m:
-            raise NotImplementedError(f"{cfg.n_heads} query heads do not split over "
-                                      f"{m} model ranks")
+            raise NotImplementedError(f"the sharded train step does not take {why}")
+    if cfg.sharding_profile == "dp":
+        return                          # no layer is tensor-parallel
     if cfg.is_moe and cfg.n_experts % m:
         raise NotImplementedError(f"{cfg.n_experts} experts do not split over {m} model "
                                   f"ranks")

@@ -22,7 +22,9 @@ tensor). :func:`train_step` gathers each parameter over ``data`` into the
 module (FSDP), runs this data rank's rows of every microbatch
 (:func:`data_rows`) forward and backward tensor-parallel over ``model``,
 takes the mean of the gradient over ``data`` (a reduce-scatter onto the
-shard, or an all-reduce for a leaf whole over ``data``), and then, as the
+shard, or an all-reduce for a leaf whole over ``data``; under the "dp"
+profile the batch is cut over every rank, :func:`batch_shards`, no layer
+is tensor-parallel and the mean is over ``model`` as well), and then, as the
 reference's semantics have it, the compression round trip (int8's scale
 the max over every shard of the tensor), the global-norm clip (each
 element counted once) and AdamW on the shards. Loss and ``ce`` are the
@@ -73,13 +75,23 @@ def init_train_state(model: LM, opt: Optimizer, compress: str = "bf16") -> dict:
 
 
 def _layout(model: LM):
-    """The tensor-parallel layout a model cut for training runs under, or
-    None for a model in one process (or cut for serving)."""
-    if getattr(model, "train_places", None) is None:
+    """The mesh axes a model cut for training reduces over
+    (``ctx.mesh_layout``), or None for a model in one process (or cut for
+    serving)."""
+    if getattr(model, "train_places", None) is None or not hasattr(model.mesh, "get_group"):
         return None
-    from ..distributed.ctx import tensor_parallel
-    with model_hints(model):
-        return tensor_parallel()
+    from ..distributed.ctx import mesh_layout
+    return mesh_layout(model.mesh)
+
+
+def batch_shards(cfg, data: int, model: int, data_index: int, model_index: int):
+    """(how many parts the global batch is cut into, this rank's part): over
+    ``data`` (the "tp" profile), or under pure data parallelism (the "dp"
+    profile) over every rank, data-major as the reference's batch spec
+    ``("data", "model")`` lays it out."""
+    if cfg.sharding_profile == "dp":
+        return data * model, data_index * model + model_index
+    return data, data_index
 
 
 def _data_dim(model: LM, name: str) -> int | None:
@@ -181,12 +193,50 @@ def train_step(model: LM, opt: Optimizer, state: dict, batch: dict, *,
                                                 batch.get("enc_feats"))
     if check_finite and not math.isfinite(float(loss)):
         raise PoisonBatch(f"non-finite loss {float(loss)} at step {state['step']}")
-    grads, state["compress"] = compressed_gradients(grads, state["compress"], compress)
+    grads, state["compress"] = compressed_gradients(grads, state["compress"], compress,
+                                                    global_max=_stack_max(model))
     gnorm = clip_by_global_norm_(grads, grad_clip)
     opt.update_(grads, state["opt"], state["params"], state["step"])
     del grads
     state["step"] += 1
     return state, dict(metrics, loss=loss, grad_norm=gnorm)
+
+
+def stacked_leaves(model: LM) -> dict[str, str]:
+    """{parameter name: the reference's leaf it is a slice of} for the
+    parameters of a run repeated more than once and of an encoder's
+    layers, which the reference stacks on a leading axis
+    (``models.lm.convert``): ``run0.3.sub1.attn.wo`` is a slice of
+    ``run0.sub1.attn.wo``. int8's per-tensor scale is that leaf's."""
+    counts = {f"run{ri}": count for ri, (_, count) in enumerate(model.runs) if count > 1}
+    if model.cfg.encoder_layers:
+        counts["encoder"] = model.cfg.encoder_layers
+    out = {}
+    for name, _ in model.named_parameters():
+        run, c, rest = (name.split(".", 2) + ["", ""])[:3]
+        if run in counts and c.isdigit():
+            out[name] = f"{run}.{rest}"
+    return out
+
+
+def _stack_max(model: LM, inner=None):
+    """int8's ``global_max`` for ``model``: ``inner`` (the maxima over a
+    sharded tensor's ranks), then the max over each stacked leaf's slices
+    (:func:`stacked_leaves`), the reference's per-tensor scale. ``inner``
+    itself where nothing is stacked."""
+    stacks = stacked_leaves(model)
+    if not stacks:
+        return inner
+
+    def global_max(amax: dict) -> dict:
+        amax = inner(amax) if inner is not None else dict(amax)
+        leaves: dict[str, list] = {}
+        for n in amax:
+            if n in stacks:
+                leaves.setdefault(stacks[n], []).append(amax[n])
+        top = {k: torch.stack(v).amax() for k, v in leaves.items()}
+        return {n: top[stacks[n]] if n in stacks else v for n, v in amax.items()}
+    return global_max
 
 
 def gather_params_(model: LM, state: dict) -> None:
@@ -219,21 +269,25 @@ def _sharded_train_step(model: LM, opt: Optimizer, state: dict, batch: dict, *,
     are this data rank's rows (:func:`data_rows`)."""
     from ..distributed.collectives import all_reduce_small, dp_mean
     tp = _layout(model)
+    pure_dp = model.cfg.sharding_profile == "dp"
+    rows_over = tp.world if pure_dp else tp.data        # the axes the batch is cut over
     gather_params_(model, state)
     with model_hints(model):
         grads, loss, metrics = accumulate_gradients(model, dict(model.named_parameters()),
                                                     batch["tokens"], batch.get("enc_feats"))
     # the global batch's loss and ce (and Eq. 1's term with threshold nets):
-    # means over the data ranks; the site observables are global already
+    # means over the ranks the batch is cut over; the site observables are
+    # global already
     keys = ["ce", *(["zebra_reg"] if model.cfg.zebra_tnet else [])]
-    mean = all_reduce_small(torch.stack([loss, *(metrics[k] for k in keys)]), tp.data)
-    if tp.data.size > 1:
-        mean = mean / tp.data.size
+    mean = all_reduce_small(torch.stack([loss, *(metrics[k] for k in keys)]), rows_over)
+    if rows_over.size > 1:
+        mean = mean / rows_over.size
     loss, metrics = mean[0], {**metrics, **dict(zip(keys, mean[1:]))}
     if check_finite and not math.isfinite(float(loss)):
         raise PoisonBatch(f"non-finite loss {float(loss)} at step {state['step']}")
     for name in grads:
-        grads[name] = dp_mean(grads[name], tp.data, _data_dim(model, name))
+        g = dp_mean(grads[name], tp.model, None) if pure_dp else grads[name]
+        grads[name] = dp_mean(g, tp.data, _data_dim(model, name))
     axes = {n: _split_axes(model, n) for n in grads}
 
     def global_max(amax: dict) -> dict:
@@ -246,7 +300,7 @@ def _sharded_train_step(model: LM, opt: Optimizer, state: dict, batch: dict, *,
                 out.update(zip(names, got.unbind(0)))
         return out
     grads, state["compress"] = compressed_gradients(grads, state["compress"], compress,
-                                                    global_max=global_max)
+                                                    global_max=_stack_max(model, global_max))
     # a leaf whole over an axis counts on that axis's first rank only
     owned = {n for n in grads if ("data" in axes[n] or tp.data.index == 0)
              and ("model" in axes[n] or tp.model.index == 0)}

@@ -28,12 +28,14 @@ restore-and-retry), and a run started again continues where the last one
 stopped. Without ``--ckpt`` nothing is written (the reference defaults to a
 directory under ``/tmp``, which every later run would resume from).
 
-``--model-parallel N`` trains the dense-FFN attention LMs (gemma3-4b,
-starcoder2-15b, qwen2.5-14b, command-r-35b, chameleon-34b) with the
-sharded train step (:func:`train_tensor_parallel`): on a ``("data",
-"model")`` mesh, the layers tensor-parallel over ``model`` and the train
-state split over ``data`` as well (FSDP), each data rank taking its rows
-of every microbatch of the one global batch:
+``--model-parallel N`` trains every ported architecture with the sharded
+train step (:func:`train_tensor_parallel`): on a ``("data", "model")``
+mesh, the layers tensor-parallel over ``model`` (attention heads and
+d_ff, the MoE's experts, Mamba-2's SSD heads, the RG-LRU's channels, the
+encoder-decoder's encoder and cross-attention) and the train state split
+over ``data`` as well (FSDP), each data rank taking its rows of every
+microbatch of the one global batch (under a config's "dp" sharding
+profile every rank takes its own rows and no layer is tensor-parallel):
 
     PYTHONPATH=src python -m repro_torch.launch.train --model-parallel 4 \
         --reduced --device cpu --steps 2 --batch 8 --seq 64
@@ -41,10 +43,11 @@ of every microbatch of the one global batch:
 From a plain shell it spawns N ranks on this host (data 1; on one card
 they share it over ``gloo``); inside a joined world of a multiple of N
 ranks each process trains as its rank (:func:`train_rank`), with data =
-world / N. The MoE, SSM, RG-LRU and encoder-decoder architectures,
-``--ckpt`` (checkpoints of a sharded state) and a batch that does not
-split over data × ``grad_accum`` raise before any rank starts (ROADMAP.md,
-queue 1).
+world / N. Experts or SSD heads that do not split over N, ``--ckpt``
+(checkpoints of a sharded state: ROADMAP.md, queue 1, item 2) and a batch
+that does not split over its ranks × ``grad_accum`` raise before any rank
+starts. The CLI feeds tokens only; :func:`train_rank` takes a source of
+encoder frames as :func:`train_lm` does.
 """
 from __future__ import annotations
 
@@ -61,7 +64,7 @@ from ..models.lm import LM, LMConfig
 from ..models.lm.remat import REMATS
 from ..optim import adamw, warmup_cosine
 from ..utils import float32_sums, resolve_device
-from .steps import data_rows, gather_params_, init_train_state, train_step
+from .steps import batch_shards, data_rows, gather_params_, init_train_state, train_step
 
 LOG_KEYS = ("loss", "ce", "zebra_reg", "zero_frac", "router_aux", "grad_norm",
             "measured_bytes")
@@ -91,7 +94,8 @@ def train_lm(cfg: LMConfig, *, steps: int = 50, batch: int = 8, seq: int = 128,
     frames ``enc_feats(step)`` (B, enc_seq, d) of each loader step when a
     source is given; ``model`` (else a new one, its
     weights drawn from a ``torch.Generator`` seeded ``seed`` on the
-    device) is trained in place, under a ``StepSupervisor`` that
+    device; the frames of the global batch, cut by ``rows`` as the tokens
+    are) is trained in place, under a ``StepSupervisor`` that
     checkpoints to ``ckpt`` (None: no checkpoints) every ``ckpt_every``
     steps and resumes from it. Returns ``(model, state, history,
     supervisor)``: one history row per completed step, the metrics read
@@ -113,7 +117,8 @@ def train_lm(cfg: LMConfig, *, steps: int = 50, batch: int = 8, seq: int = 128,
         toks = lm_batch(ds, b, seq, s)
         out = {"tokens": toks if rows is None else toks[rows]}
         if enc_feats is not None:
-            out["enc_feats"] = enc_feats(s)
+            frames = enc_feats(s)
+            out["enc_feats"] = frames if rows is None else frames[rows]
         return out
     loader = StreamingLoader(make_batch, batch)
     sup = StepSupervisor(FTConfig(ckpt_dir=ckpt, ckpt_every=ckpt_every))
@@ -217,19 +222,19 @@ TP_QUEUE = "ROADMAP.md, queue 1"
 
 def _refuse(args, cfg: LMConfig, world: int) -> None:
     """What the sharded train step does not run raises here, before any
-    rank starts."""
-    from ..distributed.sharding import tp_unported
+    rank starts: a model axis that does not divide the world, experts or
+    SSD heads that do not split over it (``sharding.check_tp``), ``--ckpt``
+    and a batch that does not split over its ranks."""
+    from ..distributed.sharding import check_tp
     N = args.model_parallel
     if N < 1 or world % N:
         raise ValueError(f"--model-parallel {N} does not divide the world of {world} ranks")
-    why = tp_unported(cfg)
-    if why is not None:
-        raise NotImplementedError(f"--model-parallel: tensor-parallel training of {why} "
-                                  f"({cfg.name}) is not ported yet ({TP_QUEUE}, item 1 (b))")
+    check_tp(cfg, N, train=True)
     if args.ckpt is not None:
         raise NotImplementedError(f"--ckpt under --model-parallel: checkpoints of a sharded "
                                   f"train state are not ported yet ({TP_QUEUE}, item 2)")
-    data_rows(args.batch, cfg.grad_accum, world // N, 0)     # raises if it does not split
+    parts, _ = batch_shards(cfg, world // N, N, 0, 0)
+    data_rows(args.batch, cfg.grad_accum, parts, 0)         # raises if it does not split
 
 
 def train_tensor_parallel(args, cfg: LMConfig, argv=None) -> dict:
@@ -275,13 +280,15 @@ def state_bytes(state: dict) -> dict:
             "compress": 0 if error is None else nbytes(error)}
 
 
-def train_rank(args, cfg: LMConfig) -> dict:
+def train_rank(args, cfg: LMConfig, enc_feats=None) -> dict:
     """This rank's part of ``--model-parallel N`` inside a joined world
     whose size N divides (data = world / N): the mesh
     (``make_host_mesh(model=N)``), the model drawn from ``--seed`` straight
     into this rank's training shards (``sharding.build_sharded(...,
-    train=True)``), then :func:`train_lm` on this data rank's rows of each
-    global batch (``steps.data_rows``), the sharded step; at the end the
+    train=True)``), then :func:`train_lm` on this rank's rows of each
+    global batch (``steps.data_rows`` of ``steps.batch_shards``), the
+    sharded step, an encoder-decoder also on those rows of the frames
+    ``enc_feats(step)`` (the global batch's) when a source is given; at the end the
     parameters are gathered back into the module. Rank 0 logs as one
     process does. Returns :func:`train_lm`'s result with the mesh and this
     rank's report (``"report"``: the history, the stage times, the peak
@@ -300,7 +307,8 @@ def train_rank(args, cfg: LMConfig) -> dict:
     if device.type == "cpu":            # the ranks share this host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     mesh = make_host_mesh(model=N, device=device)
-    data, di = world // N, mesh.get_local_rank("data")
+    data, di, mi = world // N, mesh.get_local_rank("data"), mesh.get_local_rank("model")
+    parts, part = batch_shards(cfg, data, N, di, mi)
     rank0 = dist.get_rank() == 0
     log = (lambda line: print(line, flush=True)) if rank0 else (lambda *_: None)
     model = build_sharded(cfg, mesh, generator=torch.Generator(device=device).manual_seed(
@@ -318,12 +326,12 @@ def train_rank(args, cfg: LMConfig) -> dict:
         model, state, history, sup = train_lm(
             cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
             compress=args.compress, seed=args.seed, device=device, model=model, log=log,
-            rows=data_rows(args.batch, cfg.grad_accum, data, di))
+            rows=data_rows(args.batch, cfg.grad_accum, parts, part), enc_feats=enc_feats)
     n = max(len(history), 1)
     t_train = time.perf_counter()
     gather_params_(model, state)        # the module holds the trained weights
     report = {
-        "rank": dist.get_rank(), "data_index": di, "model_index": mesh.get_local_rank("model"),
+        "rank": dist.get_rank(), "data_index": di, "model_index": mi,
         "wire": wire_name(mesh.get_group("model")), "history": history,
         "stage_s": {"build": t_build - t_start, "train": t_train - t_build},
         "max_memory_allocated": (torch.cuda.max_memory_allocated(device)

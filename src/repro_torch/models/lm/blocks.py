@@ -147,12 +147,14 @@ def _qkv(p: Attention, x: torch.Tensor, cfg: LMConfig, rope):
     ``copy_model`` (its gradient summed over the model axis); K/V
     replicated while the queries split are used only for this rank's query
     heads (:func:`_kv_heads`), so their weights' gradients are partial and
-    enter the same way."""
+    enter the same way. Heads that do not split run replicated, and every
+    gradient is whole on every rank."""
     from ...distributed.ctx import copy_model
-    x = copy_model(x)
     kv = [p.wk, p.wv, *((p.bk, p.bv) if cfg.qkv_bias else ())]
-    if p.wq.shape[1] != cfg.n_heads and p.wk.shape[1] == cfg.n_kv_heads:
-        kv = [copy_model(t) for t in kv]
+    if p.wq.shape[1] != cfg.n_heads:
+        x = copy_model(x)
+        if p.wk.shape[1] == cfg.n_kv_heads:
+            kv = [copy_model(t) for t in kv]
     q, k, v = _proj(x, p.wq), _proj(x, kv[0]), _proj(x, kv[1])
     if cfg.qkv_bias:        # after the projection, before RoPE
         q, k, v = q + p.bq.to(x.dtype), k + kv[2].to(x.dtype), v + kv[3].to(x.dtype)
@@ -190,8 +192,11 @@ def _cross_attention(p: Layer, x: torch.Tensor, enc_out: torch.Tensor | None,
     from ...distributed.ctx import copy_model
     if not hasattr(p, "cross") or enc_out is None:
         return x
-    q = _proj(copy_model(p.norm_c(x)), p.cross.wq)
-    k, v = _enc_kv(p.cross, copy_model(enc_out))
+    h = p.norm_c(x)
+    if p.cross.wq.shape[1] != cfg.n_heads:
+        h, enc_out = copy_model(h), copy_model(enc_out)
+    q = _proj(h, p.cross.wq)
+    k, v = _enc_kv(p.cross, enc_out)
     o = attn.attend_full(q, *_kv_heads(p.cross, cfg, k, v), causal=False)
     return x + _attn_out(o, p.cross, cfg)
 

@@ -330,15 +330,21 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: LMConfig, mode: str):
     combine multiplies and sums in float32 and rounds once, as the
     reference's compiled combine does.
 
-    Expert-parallel (serving a model cut by ``distributed.sharding``: the
-    expert stacks split over the model axis): the capacity and every
-    pair's slot are those of the global batch, as the reference computes
-    them, so the rows are gathered over the data axis and routed whole on
-    every rank. A rank fills only its experts' slots, runs their GEMMs and
-    the site on its rows of the hidden map (``zebra_site(split="rows")``),
-    gathers every expert's output over the model axis and combines as one
-    process, keeping its own rows. ``router_aux`` is the global batch's,
-    the same on every rank."""
+    Expert-parallel (a model cut by ``distributed.sharding``: the expert
+    stacks split over the model axis): the capacity and every pair's slot
+    are those of the global batch, as the reference computes them, so the
+    rows are gathered over the data axis (:func:`_gather_rows`) and routed
+    whole on every rank. A rank fills only its experts' slots, runs their
+    GEMMs and the site on its rows of the hidden map
+    (``zebra_site(split="rows")``), gathers every expert's output over the
+    model axis and combines as one process, keeping its own rows.
+    ``router_aux`` is the global batch's, the same on every rank. In
+    training the gathered rows enter this rank's experts through
+    ``copy_model`` (each rank's experts see only their slots, so that
+    gradient is summed over the model axis), while the router, which
+    every model rank runs whole, takes them as they are; the expert
+    outputs' gather feeds the combine every model rank holds whole, so its
+    backward keeps this rank's experts' slice."""
     from ...distributed.ctx import tensor_parallel
     tp = tensor_parallel()
     B, S, d = x.shape
@@ -352,7 +358,12 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: LMConfig, mode: str):
     if tp is not None:
         dest = dest - tp.model.index * n
         dest = torch.where((dest >= 0) & (dest < n), dest, torch.full_like(dest, n))
-    rows = xt[:, None].expand(T, k, d).reshape(T * k, d).index_select(0, r.order)
+    if tp is not None:
+        from ...distributed.ctx import copy_model
+        xe = copy_model(xt)
+    else:
+        xe = xt
+    rows = xe[:, None].expand(T, k, d).reshape(T * k, d).index_select(0, r.order)
     buf = x.new_zeros((n + 1, d)).index_put((dest,), rows)
     eb = buf[:n].reshape(El, r.cap, d)
     cdt = x.dtype
@@ -373,16 +384,33 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: LMConfig, mode: str):
     return y, zaux, r.router_aux
 
 
+class _GatherRows(torch.autograd.Function):
+    """Every data rank's rows concatenated along dim 0; the backward sums
+    the global rows' gradient over the data axis and keeps this rank's
+    rows. A sum, not a mean: each data rank's loss holds the global
+    batch's ``router_aux`` (and its rows' share of the combine), and the
+    train step's mean over ``data`` divides the summed gradient once."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        from ...distributed.collectives import tp_all_gather
+        ctx.axis, ctx.n = axis, x.shape[0]
+        return tp_all_gather(x, axis, 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ...distributed.collectives import tp_all_reduce
+        g = tp_all_reduce(g.contiguous(), ctx.axis, backward=True)
+        return g.narrow(0, ctx.axis.index * ctx.n, ctx.n), None
+
+
 def _gather_rows(x: torch.Tensor, tp) -> torch.Tensor:
     """The global batch: every data rank's rows of ``x`` in data-rank
-    order (the expert-parallel dispatch serves only: no gradient)."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError("the expert-parallel MoE serves only (ROADMAP.md, queue 1, "
-                                  "item 1 (b))")
+    order, the dispatch every rank of the expert-parallel MoE routes
+    (:class:`_GatherRows`)."""
     if tp.data.size == 1:
         return x
-    from ...distributed.collectives import tp_all_gather
-    return tp_all_gather(x, tp.data, 0)
+    return _GatherRows.apply(x, tp.data)
 
 
 def moe_apply_dp(p: MoE, x: torch.Tensor, cfg: LMConfig, mode: str, mesh,

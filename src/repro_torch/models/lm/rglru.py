@@ -20,8 +20,10 @@ would lose small ``a``. Decode is an O(1) update.
 Tensor-parallel (a model cut by ``distributed.sharding``, ``lru_dim`` over
 the model axis): both branches are column-parallel and the conv is this
 rank's channels, so ``u`` is too; the gates' ``w_a``/``w_x`` are split by
-output column and take the whole ``u``, gathered over the model axis,
-while ``i · u`` takes this rank's slice; the scan runs on this rank's
+output column and take the whole ``u``, gathered over the model axis
+(``gather_model_split``: each rank's gates see all of ``u``, so the
+gathered gradient is summed over the axis before this rank keeps its
+slice), while ``i · u`` takes this rank's slice; the scan runs on this rank's
 channels, and ``w_out`` is row-parallel, its partial products summed in
 float32 and rounded once (``distributed.ctx.row_parallel``). The
 decode state ``h`` and the conv ring are split on their channels.
@@ -68,9 +70,9 @@ class RGLRU(nn.Module):
 def _gates(p: RGLRU, u: torch.Tensor):
     """u (B, S, lru_dim), this rank's channels under tensor parallelism ->
     the scan's (a, b), float32."""
-    from ...distributed.ctx import gather_model
+    from ...distributed.ctx import gather_model_split
     f32 = torch.float32
-    uw = u if u.shape[-1] == p.w_a.shape[0] else gather_model(u, -1)
+    uw = u if u.shape[-1] == p.w_a.shape[0] else gather_model_split(u, -1)
     r = torch.sigmoid(uw @ p.w_a.to(u.dtype) + p.b_a.to(u.dtype))
     i = torch.sigmoid(uw @ p.w_x.to(u.dtype) + p.b_x.to(u.dtype))
     log_a = (-C * softplus(p.lam)) * r.to(f32)
@@ -112,7 +114,8 @@ def _recurrence(p: RGLRU, x: torch.Tensor):
     """x (B, S, d) -> (the gate branch, the recurrent branch's pre-conv input
     u_in, the hidden sequence h (B, S, lru_dim) float32)."""
     from ...distributed.ctx import copy_model
-    x = copy_model(x)       # into the column-parallel branches
+    if p.w_a.shape[1] != p.w_a.shape[0]:
+        x = copy_model(x)   # into the column-parallel branches
     gate = gelu(x @ p.w_gate_branch.to(x.dtype))
     u_in = x @ p.w_rec_branch.to(x.dtype)
     a, b = _gates(p, causal_conv1d(u_in, p.conv_w.to(x.dtype)))

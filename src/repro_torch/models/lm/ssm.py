@@ -12,8 +12,13 @@ Tensor-parallel (a model cut by ``distributed.sharding``, ``d_inner`` and
 its heads over the model axis): ``z_proj``/``x_proj``/``dt_proj`` are
 column-parallel, ``conv_x``, ``A_log``/``D``/``dt_bias`` and the SSD are
 this rank's channels and heads, ``b_proj``/``c_proj`` and their convs run
-whole on every rank, the RMSNorm over ``d_inner`` sums its squares over
-the model axis before the rsqrt, and ``out_proj`` is row-parallel, its
+whole on every rank and enter this rank's heads of the SSD through
+``copy_model`` (their gradient summed over the model axis, so that the
+gradients of ``h``, ``b_proj``, ``c_proj``, ``conv_b`` and ``conv_c`` are
+whole on every rank), the RMSNorm over ``d_inner`` sums its squares over
+the model axis before the rsqrt (``psum_model_split``: each rank
+normalises its own channels, so the sum's gradient is summed over the
+axis too), and ``out_proj`` is row-parallel, its
 partial products summed in float32 and rounded once
 (``distributed.ctx.row_parallel``). The decode state is split as the reference's
 ``cache_specs`` split it: ``H`` on its heads, ``conv_x`` on its channels.
@@ -98,10 +103,11 @@ def _dims(p: SSM, cfg: LMConfig) -> tuple[int, int]:
     return p.x_proj.shape[1], p.A_log.shape[0]
 
 
-def _projections(p: SSM, h: torch.Tensor):
+def _projections(p: SSM, h: torch.Tensor, split: bool = False):
     from ...distributed.ctx import copy_model
     dt = h.dtype
-    hc = copy_model(h)      # into the column-parallel z, x and dt projections
+    # into the column-parallel z, x and dt projections
+    hc = copy_model(h) if split else h
     return (hc @ p.z_proj.to(dt), hc @ p.x_proj.to(dt), h @ p.b_proj.to(dt),
             h @ p.c_proj.to(dt), hc @ p.dt_proj.to(dt))
 
@@ -117,9 +123,9 @@ def _gated_out(p: SSM, y: torch.Tensor, z: torch.Tensor, cfg: LMConfig) -> torch
     y = y * silu(z)
     if y.shape[-1] == cfg.d_inner:
         return rmsnorm_apply(p.out_norm.scale, y) @ p.out_proj.to(y.dtype)
-    from ...distributed.ctx import psum_model, row_parallel
+    from ...distributed.ctx import psum_model_split, row_parallel
     yf = y.to(torch.float32)
-    var = psum_model(yf.square().sum(dim=-1, keepdim=True)) / cfg.d_inner
+    var = psum_model_split(yf.square().sum(dim=-1, keepdim=True)) / cfg.d_inner
     y = (yf * torch.rsqrt(var + 1e-6) * p.out_norm.scale.to(torch.float32)).to(y.dtype)
     return row_parallel(y, p.out_proj)
 
@@ -134,10 +140,14 @@ def ssm_apply(p: SSM, hidden: torch.Tensor, cfg: LMConfig) -> torch.Tensor:
     while S % Q:
         Q -= 1
     nc = S // Q
-    z, xr, Bm, Cm, dt = _projections(p, hidden)
+    split = di != cfg.d_inner
+    z, xr, Bm, Cm, dt = _projections(p, hidden, split)
     xs = _conv_silu(xr, p.conv_x).reshape(B, S, nh, hd)
     Bm = _conv_silu(Bm, p.conv_b)
     Cm = _conv_silu(Cm, p.conv_c)
+    if split:       # whole on every rank, into this rank's heads
+        from ...distributed.ctx import copy_model
+        Bm, Cm = copy_model(Bm), copy_model(Cm)
     A = -torch.exp(p.A_log)                                          # (nh,)
     dt = softplus(dt.to(f32) + p.dt_bias)                            # (B, S, nh)
 
@@ -199,7 +209,7 @@ def ssm_decode_step(p: SSM, hidden: torch.Tensor, cache: dict, cfg: LMConfig):
     B = hidden.shape[0]
     (di, nh), hd = _dims(p, cfg), cfg.ssm_head_dim
     f32, cdt = torch.float32, hidden.dtype
-    z, xr, Bm, Cm, dt = _projections(p, hidden)                      # (B, 1, .)
+    z, xr, Bm, Cm, dt = _projections(p, hidden, di != cfg.d_inner)   # (B, 1, .)
     xo, cx = _conv_step(cache["conv_x"], xr, p.conv_x.to(cdt))
     bo, cb = _conv_step(cache["conv_b"], Bm, p.conv_b.to(cdt))
     co, cc = _conv_step(cache["conv_c"], Cm, p.conv_c.to(cdt))
@@ -221,9 +231,9 @@ def ssm_prefill_state(p: SSM, hidden: torch.Tensor, cfg: LMConfig) -> dict:
     ``H`` from one einsum over the whole sequence (as the reference builds
     it, not by the chunk scan), and the last W-1 pre-conv inputs."""
     B, S, _ = hidden.shape
-    nh, hd = _dims(p, cfg)[1], cfg.ssm_head_dim
+    (di, nh), hd = _dims(p, cfg), cfg.ssm_head_dim
     f32 = torch.float32
-    _, xr_pre, Bm_pre, Cm_pre, dt = _projections(p, hidden)
+    _, xr_pre, Bm_pre, Cm_pre, dt = _projections(p, hidden, di != cfg.d_inner)
     xs = _conv_silu(xr_pre, p.conv_x).reshape(B, S, nh, hd).to(f32)
     Bm = _conv_silu(Bm_pre, p.conv_b)
     A = -torch.exp(p.A_log)

@@ -276,30 +276,37 @@ def test_cli_trains_four_ranks_on_cpu(capfd):
 
 
 @pytest.mark.parametrize("argv,err", [
-    (["--arch", "granite-moe-1b-a400m"], NotImplementedError),
-    (["--arch", "mamba2-2.7b"], NotImplementedError),
-    (["--arch", "recurrentgemma-2b"], NotImplementedError),
-    (["--arch", "whisper-medium"], NotImplementedError),
+    (["--arch", "granite-moe-1b-a400m", "--model-parallel", "3"], NotImplementedError),
+    (["--arch", "mamba2-2.7b", "--model-parallel", "16"], NotImplementedError),
+    (["SERVE", "--requests", "2"], NotImplementedError),
+    (["--arch", "granite-moe-1b-a400m", "--batch", "3", "DP"], ValueError),
     (["--ckpt", "CKPT"], NotImplementedError),
     (["--batch", "3", "K2"], ValueError),
 ])
 def test_cli_refuses_before_any_rank_starts(argv, err, tmp_path, monkeypatch):
-    """The MoE, SSM, RG-LRU and encoder-decoder architectures, ``--ckpt``
-    and a batch that does not split over data x K raise in the parent,
-    before anything is spawned (``K2``: the config at ``grad_accum`` 2,
-    through ``train_tensor_parallel`` as ``main`` calls it)."""
-    from repro_torch.launch import mesh, train
+    """What the sharded steps do not take raises in the parent, before
+    anything is spawned: experts that do not split over the model ranks
+    (8 over 3), SSD heads that do not while ``d_inner`` does (8 heads,
+    ``d_inner`` 256 over 16), ``--requests`` under ``--model-parallel``
+    (``SERVE``: the serving CLI), a batch that does not split over its
+    ranks (``DP``: granite under the "dp" profile, the batch cut over all
+    2 ranks; ``K2``: the config at ``grad_accum`` 2, over data x K; both
+    through ``train_tensor_parallel`` as ``main`` calls it) and ``--ckpt``."""
+    from repro_torch.launch import mesh, serve, train
     monkeypatch.setattr(mesh, "spawn", lambda *a, **k: pytest.fail("a rank was spawned"))
-    k2 = "K2" in argv
+    marks = {"K2": dict(grad_accum=2), "DP": dict(sharding_profile="dp")}
+    fields = next((marks[a] for a in argv if a in marks), None)
+    cli = serve if "SERVE" in argv else train
     argv = ["--model-parallel", "2", "--reduced", "--device", "cpu",
-            *(str(tmp_path) if a == "CKPT" else a for a in argv if a != "K2")]
+            *(str(tmp_path) if a == "CKPT" else a for a in argv
+              if a not in marks and a != "SERVE")]
     with pytest.raises(err):
-        if k2:
+        if fields is not None:
             args = train.parse_args(argv)
-            cfg = train.build_config(args.arch, reduced=True).replace(grad_accum=2)
+            cfg = train.build_config(args.arch, reduced=True).replace(**fields)
             train.train_tensor_parallel(args, cfg)
         else:
-            train.main(argv)
+            cli.main(argv)
 
 
 # ---------------------------------------------------------------------------
