@@ -217,23 +217,24 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     10's traffic, ``reference``, no remat) with ``local_impl="scanned"``
     beside ``"banded"``: the losses and step 1's ``ffn_hidden`` bitmaps
     equal bit for bit, ``max_memory_allocated`` and ms per step of both;
-14. drives the two recurrent architectures at full width and depth:
-    (a) mamba2-2.7b (64 Mamba-2 SSD layers, d_inner 5120, 80 heads of 64,
-    state 128) through ``launch.serve.main`` on ``stream``, batch 2, prompt
-    2048, 32 greedy tokens, T_obj 5.0: its one Zebra site is ``layer_out``
-    (64 maps (2, 2048, 2560) bf16 a prefill); prefill 64 launches of each
-    stream kernel and no GEMM or masking launch, the handoff one
-    ``zebra_pack`` a compressed cache leaf (the float32 SSD state ``H`` (64,
-    2, 80, 128, 64) as (10240, 8192), and the conv buffers), decode only the
+14. drives the two recurrent architectures at full width:
+    (a) mamba2-2.7b (16 of its 64 Mamba-2 SSD layers, phase 19's depth,
+    d_inner 5120, 80 heads of 64, state 128) through ``launch.serve.main`` on
+    ``stream``, batch 2, prompt 2048, 32 greedy tokens, T_obj 5.0: its one
+    Zebra site is ``layer_out`` (16 maps (2, 2048, 2560) bf16 a prefill);
+    prefill 16 launches of each stream kernel and no GEMM or masking
+    launch, the handoff one ``zebra_pack`` a compressed cache leaf (the
+    float32 SSD state ``H`` (16, 2, 80, 128, 64) as (2560, 8192), and the
+    conv buffers), decode only the
     expander of those leaves (decode has no Zebra site); the first layer's
     zero fraction in 0.3-0.8; every site's bytes equal to Eq. 2/3 of the
     comparator's plain bitmap and inside the band; every leaf lossless, and
     ``H``'s bytes measured, predicted and dense; the last logits and 64 of 64
     greedy tokens equal to a ``reference`` run on the same weights bit for
     bit; warm times of both in turns and the device busy share; the three
-    stream kernels held bit for bit and timed on the 64 prefill maps, and
+    stream kernels held bit for bit and timed on the 16 prefill maps, and
     the codec's pack and the expander on the handoff's leaves;
-    (b) recurrentgemma-2b (26 layers: 18 RG-LRU and 8 local attention
+    (b) recurrentgemma-2b at full depth (26 layers: 18 RG-LRU and 8 local attention
     layers, window 2048, d_ff 7680) served as gemma3-4b in 7 on ``fused``,
     T_obj 1.5: prefill 26 payload GEMMs, 26 comparator and 26 pack launches,
     16 masking launches (the 8 local layers' K and V); every ffn_hidden map
@@ -254,10 +255,12 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     per-lane positions, the scheduler, the paged compressed-KV pool, the
     supervised engine):
     (a) gemma3-4b at full width cut to 6 layers (one pattern) on ``fused``
-    through ``python -m repro_torch.launch.serve --requests 16 --slots 8
-    --prompt-len 512 --gen 32 --t-obj 1.05 --validate structural
-    --preempt-after 64 --layers 6`` (prompts
-    128-512 tokens, 8-32 generated, all at tick 0; the hot set (8, 1024)):
+    through ``python -m repro_torch.launch.serve --requests 8 --slots 4
+    --prompt-len 320 --gen 16 --t-obj 1.05 --validate structural
+    --preempt-after 16 --page-tokens 64 --layers 6`` (prompts 80-320 tokens, 4-16
+    generated, all at tick 0; the hot set (4, 1024); its GEMMs' sums in
+    float32, ``utils.float32_sums``: the run is phase 21's one-process
+    yardstick):
     every request done, the report's per-page Eq. 2/3 reconcile, the
     dispatch shapes inside their ladders, evictions; the codec's pack
     launched once a compressed page out and the expander once a page in,
@@ -400,7 +403,37 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     and 4 (llama4, recurrentgemma, whisper) held against their plain versions on
     rank 0's step-1 maps and timed, rows ``... (<arch> tensor-parallel
     training, a rank)``;
-21. prints one JSON line listing the kernels (the seven CUDA kernels, the
+21. serves continuously under tensor parallelism (``launch.serve
+    --requests --model-parallel 4`` inside phase 19's world of 4 ranks,
+    after phase 20, (data 1, model 4), ``gloo`` with host copies on one card;
+    each rank runs ``ServeEngine`` on its shards, holds its K/V heads of
+    the hot set and pages them to its own pool):
+    (a) gemma3-4b with phase 15 (a)'s arguments (6 layers, ``fused``,
+    T_obj 1.05, ``--validate structural``, 8 requests, prompts 80-320,
+    4-16 generated, 4 slots, pages of 64, a lane evicted after 16 steps; a
+    rank's one KV head of 320 cuts the 128-wide blocks: its pages gathered
+    and packed whole), held against phase 15 (a)'s run;
+    (b) granite-moe-1b-a400m at full width cut to 2 layers on ``stream``,
+    T_obj 0.0064, the same trace shape and pages of 256 (its cache floor
+    is the page, and a prefill bucket must fit inside it), its two KV
+    heads of 64 a rank packed as they are and its experts split over the
+    ranks, held against its own run in this process. Checks, each run:
+    every rank's requests, tokens, counters (ticks, evictions, pages,
+    shed, deadline misses, pages recovered), meter records and launches
+    alike; the tokens against one process's under the near-tie rule; the
+    counters equal to one process's; every page in the Eq. 2/3 band; the
+    zero fraction within 1e-3 of one process's; every kernel launched on
+    each rank as often as in one process (kernel 5 once a compressed page
+    out); tokens/s, p50/p95 ms a token, host µs a page out and in, the
+    tensor-parallel collectives a tick and each rank's peak memory
+    printed. Then kernels 1, 2 and 7 on rank 0's ffn_hidden maps of one
+    largest-bucket prefill of (a) (its d_ff columns with its rows of
+    ``w_down``) and kernels 5 and 3 on the pages a rank packs in (a)
+    (every rank's heads of lane 0, whole) held against their plain
+    versions and timed, rows ``... (gemma3-4b tensor-parallel continuous
+    prefill <bucket>, a rank)`` and ``... (gemma3-4b tensor-parallel
+    continuous, per page, a rank)``;
+22. prints one JSON line listing the kernels (the seven CUDA kernels, the
     three stream kernels per VGG-16 and per MobileNetV1 evaluate batch,
     named ``... (vgg16 evaluate)`` and ``... (mobilenet evaluate)``, the
     masking kernel per training step of each, ``... (vgg16 training)`` and
@@ -419,8 +452,8 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     ``... (collectives ring, ...)``, phase 17's ``... (gemma3-4b
     tensor-parallel prefill, a rank)``, phase 18's ``... (gemma3-4b
     tensor-parallel training, a rank)``, phase 19's ``... (<arch>
-    tensor-parallel prefill, a rank)`` and phase 20's ``... (<arch>
-    tensor-parallel training, a rank)``; the GEMM
+    tensor-parallel prefill, a rank)``, phase 20's ``... (<arch>
+    tensor-parallel training, a rank)`` and phase 21's; the GEMM
     rows also carry ms per launch, TFLOP/s of live work and the device
     body that ran, the stream rows their ``amax_ms`` or ``copy_ms``
     yardstick), the card line again, and ``{"ok": true, "device": ...}``
@@ -3152,7 +3185,9 @@ def run_scanned(device, layers=SCAN["layers"], batch=SCAN["batch"], seq=SCAN["se
 # of the full-width first layer (bf16, batch 1 x 2048, random weights from a
 # CPU generator seeded 0) gave the zero fraction 0.48 at T_obj 4.8, 0.635 at
 # 5.0 and 0.787 at 5.2
-MAMBA2 = dict(arch="mamba2-2.7b", batch=2, prompt=2048, gen=32, t_obj=5.0)
+# mamba2-2.7b served at 16 of its 64 layers (phase 19's depth): it served
+# at full depth until phase 21 needed the time (PERF.md, section 4)
+MAMBA2 = dict(arch="mamba2-2.7b", batch=2, prompt=2048, gen=32, t_obj=5.0, layers=16)
 # recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU, 8 local
 # attention with window 2048) on fused. Its SwiGLU pre-activations are
 # N(0, d/f = 1/3); the same CPU draw of the first layer's ffn_hidden map
@@ -3175,7 +3210,7 @@ REC_TRAIN_LAYERS = {"mamba2-2.7b": 16, "recurrentgemma-2b": 12}
 
 def run_mamba2_serve(device, edge_errs, arch=MAMBA2["arch"], batch=MAMBA2["batch"],
                      prompt=MAMBA2["prompt"], gen=MAMBA2["gen"], t_obj=MAMBA2["t_obj"],
-                     zf_band=REC_ZF_BAND) -> list[dict]:
+                     zf_band=REC_ZF_BAND, layers=MAMBA2["layers"]) -> list[dict]:
     """Phase 14 (a): mamba2-2.7b served on stream through ``launch.serve.main``:
     launch counts per phase (prefill: the three stream kernels once a
     ``layer_out`` site; the handoff: ``zebra_pack`` a cache leaf, the float32
@@ -3194,8 +3229,9 @@ def run_mamba2_serve(device, edge_errs, arch=MAMBA2["arch"], batch=MAMBA2["batch
     from repro_torch.utils import map_tree
 
     argv = ["--arch", arch, "--batch", str(batch), "--prompt-len", str(prompt),
-            "--gen", str(gen), "--t-obj", str(t_obj), "--backend", "stream"]
-    cfg = serve.build_config(arch, t_obj=t_obj, backend="stream")
+            "--gen", str(gen), "--t-obj", str(t_obj), "--backend", "stream", "--layers",
+            str(layers)]
+    cfg = serve.build_config(arch, t_obj=t_obj, backend="stream", n_layers=layers)
     L = cfg.n_layers
     print(f"mamba2 serving: python -m repro_torch.launch.serve {' '.join(argv)}: {L} SSD "
           f"layers, d_inner {cfg.d_inner}, {cfg.ssm_heads} heads of {cfg.ssm_head_dim}, state "
@@ -3215,7 +3251,7 @@ def run_mamba2_serve(device, edge_errs, arch=MAMBA2["arch"], batch=MAMBA2["batch
     check_launches(diff_counts(final, phases.at["handoff"]),
                    {"zebra_unpack_kernel": len(leaves)}, f"{arch} decode (no Zebra site)")
     # every cache leaf that divides into 8 x 128 blocks goes compressed: at
-    # full width all four, H (64, B, 80, 128, 64) as (64·B·80, 8192)
+    # full width all four, H (L, B, 80, 128, 64) as (L·B·80, 8192)
     names = sorted(r.site.rsplit("/", 1)[-1] for r in leaves)
     want = sorted(n for n, leaf in out["dense_state"][0][0]["sub0"].items()
                   if _leaf_dims(leaf, BS, BC) is not None)
@@ -3374,12 +3410,21 @@ def run_recurrent(device, edge_errs) -> list[dict]:
 # compressed-KV pool and the supervised engine)
 # ---------------------------------------------------------------------------
 
-# gemma3-4b at full width and depth on fused, through the continuous CLI: 16
-# requests (prompts 128-512, 8-32 tokens, all at tick 0) in 8 slots, pages of
-# 16 positions, a lane evicted after 64 steps while others wait; the ring's
-# window 1024 is the cache ladder's floor, so the hot set is (8, 1024)
-SV = dict(requests=16, slots=8, prompt=512, gen=32, t_obj=LM_T_OBJ, preempt_after=64,
-          page_tokens=16, one_shot=3)
+# gemma3-4b at full width on fused, through the continuous CLI (all requests
+# at tick 0, a lane evicted while others wait); the ring's window 1024 is
+# the cache ladder's floor, so the hot set is (4, 1024). Phase 15's trace
+# is phase 21's (``continuous_trace(8, seed 0)``, prompts 80-320, 4-16
+# generated, 4 slots, pages of 64, a lane evicted after 16 steps: 114
+# ticks, 18 evictions, prefill buckets 64, 128 and 256), so its run is
+# phase 21's one-process yardstick; it served 16 requests of 128-512 tokens
+# in 8 slots, 8-32 generated, pages of 16, a lane evicted after 64 steps,
+# until phase 21 needed the time. Prompts of 128-512, pages of 16 and an
+# eviction after 8 steps made 286 ticks (a 512-token prompt teacher-forces
+# up to 255 tokens after its 256-token prefill), 79 evictions and 66,816
+# pages out a rank at 6 layers: 314 s of phase 21 over 4 ranks on one card
+# (PERF.md, section 6)
+SV = dict(requests=8, slots=4, prompt=320, gen=16, t_obj=LM_T_OBJ, preempt_after=16,
+          page_tokens=64, one_shot=3)
 # the depth phase 15 serves: one whole pattern (5 local + 1 global) of the 34
 # layers, as the storm's; the smoke's time went to phase 18 (PERF.md)
 SV_LAYERS = 6
@@ -3417,7 +3462,8 @@ class StepRecorder:
         last = {}
 
         def decode(model, token, state, pos, temperature=0.0, generator=None):
-            logits, state = model.decode_step(token, state, pos)
+            with steps.model_hints(model):      # a model cut for a mesh runs under it
+                logits, state = model.decode_step(token, state, pos)
             last["logits"] = logits
             return steps._next_token(logits, temperature, generator), state
 
@@ -3562,13 +3608,14 @@ def time_page_kernels(pool, lane, flush) -> tuple[dict, int]:
 def run_continuous(device, edge_errs=None, layers=0, prompt=SV["prompt"], gen=SV["gen"],
                    requests=SV["requests"], slots=SV["slots"],
                    preempt_after=SV["preempt_after"], one_shot=SV["one_shot"],
-                   storm=SV_STORM) -> list[dict]:
+                   storm=SV_STORM, yard: dict | None = None) -> list[dict]:
     """Phase 15: continuous serving. (a) gemma3-4b (full width; ``layers``
-    > 0 cuts the depth) served to a 16-request trace through ``python -m
+    > 0 cuts the depth) served to an 8-request trace through ``python -m
     repro_torch.launch.serve --requests``; (b) the tokens against the run
     without preemption and against one-shot serving; (c) the supervised
     engine under the chaos storm against its clean run. Returns the kernel
-    rows."""
+    rows; fills ``yard`` with (a)'s run on the host, phase 21's one-process
+    yardstick (:func:`engine_yardstick`)."""
     import torch
     from repro_torch.ft import ENGINE_TICK_SITE, BreakerConfig, Fault, FTConfig, inject
     from repro_torch.kernels import reset_launch_counts
@@ -3597,6 +3644,8 @@ def run_continuous(device, edge_errs=None, layers=0, prompt=SV["prompt"], gen=SV
         final = launch_counts()
     eng, rep, model = out["engine"], out["report"], out["model"]
     pool = eng.pool
+    if yard is not None:
+        yard.update(engine_yardstick(argv, eng, rep, rec_a, final))
     done = {r.rid: r for r in eng.scheduler.completed}
     check(len(done) == requests and all(r.status == "done" for r in done.values()),
           f"{len(done)} requests completed: {[(r.rid, r.status) for r in done.values()]}")
@@ -5116,14 +5165,16 @@ class RankMaps:
         self._serve.transport_state_compressed = self._handoff
 
 
-def tpl_rank(rank: int, out_dir: str, jobs: list) -> None:
+def tpl_rank(rank: int, out_dir: str, jobs: list, svtp_jobs: list | None = None) -> None:
     """One rank of phases 19 and 20 (spawned, in the joined world): each job
     ``(argv, model ranks, keep maps, training)`` served by
     ``launch.serve.main`` with ``--model-parallel``, which inside a joined
     world serves as this rank (``serve_rank``) and saves its report to
     ``<out_dir>/<job>/``; rank 0 also saves its ffn_hidden maps where the
     job keeps them. Then, where ``training`` is ``(arch, run, tptl)``, the
-    same architecture trained sharded (phase 20, :func:`tptl_train`)."""
+    same architecture trained sharded (phase 20, :func:`tptl_train`). Then
+    phase 21's jobs, where given (:func:`svtp_rank`, under
+    ``<out_dir>/svtp``)."""
     import os
 
     import torch
@@ -5144,6 +5195,8 @@ def tpl_rank(rank: int, out_dir: str, jobs: list) -> None:
             gc.collect()
             if torch.cuda.is_available():
                 torch.cuda.empty_cache()
+    if svtp_jobs:
+        svtp_rank(rank, os.path.join(out_dir, "svtp"), svtp_jobs)
 
 
 def tpl_keep(ranks: list, s_index: int, axis: str):
@@ -5298,6 +5351,7 @@ def time_tpl_kernels(arch: str, run: dict, maps: list, launches: dict, t_obj: fl
 
 
 def run_tp_layers(device, edge_errs: dict, runs=None, train_runs=None, train_over=None,
+                  g3_yard: dict | None = None, svtp_over: dict | None = None,
                   **over) -> list[dict]:
     """Phases 19 and 20: the MoE (expert parallelism), Mamba-2,
     recurrentgemma and whisper served tensor-parallel at full width, each
@@ -5310,7 +5364,10 @@ def run_tp_layers(device, edge_errs: dict, runs=None, train_runs=None, train_ove
     on rank 0's prefill maps and training maps. ``runs`` replaces TPL_RUNS,
     ``train_runs`` TPTL_RUNS, ``over`` entries of TPL and ``train_over``
     entries of TPTL (``reduced=True`` in both with the CPU rehearses the
-    flow on the reduced configs: no launch checks, no timing)."""
+    flow on the reduced configs: no launch checks, no timing). With
+    ``g3_yard`` (phase 15's run) the same world then serves phase 21
+    (:func:`svtp_prepare` before it with ``svtp_over``, :func:`svtp_finish`
+    after the checks of phases 19 and 20)."""
     import os
     import shutil
     import tempfile
@@ -5337,6 +5394,7 @@ def run_tp_layers(device, edge_errs: dict, runs=None, train_runs=None, train_ove
                 trun = train_runs[arch]
                 tyards[arch] = tptl_yardstick(arch, trun, tptl, device,
                                               os.path.join(tmp, str(i), "yard_m1.pt"))
+        prep = None if g3_yard is None else svtp_prepare(device, g3_yard, **(svtp_over or {}))
         t2 = time.perf_counter()
         jobs = [(tpl_argv(arch, run, tpl), run["model"], bool(run["rows"]),
                  (arch, train_runs[arch], tptl) if arch in train_runs else None)
@@ -5348,9 +5406,11 @@ def run_tp_layers(device, edge_errs: dict, runs=None, train_runs=None, train_ove
                       f"{' '.join(tptl_argv(*training))}), cfg with zebra_tnet=False, "
                       f"grad_accum=1{', encoder 1 layer, 1504 seeded frames' if 'whisper' in training[0] else ''})")
         try:
-            lm_mesh.spawn(tpl_rank, tpl["world"], (tmp, jobs), device=str(device))
+            lm_mesh.spawn(tpl_rank, tpl["world"],
+                          (tmp, jobs, None if prep is None else prep["jobs"]), device=str(device))
         except Exception as e:     # a rank that raised: its traceback is in e
-            raise SmokeFailure(f"phase 19/20: a rank failed:\n{e}") from None
+            raise SmokeFailure(f"phase 19/20/21: a rank failed:\n{e}") from None
+        svtp_got = None if prep is None else svtp_load(os.path.join(tmp, "svtp"), prep["jobs"])
         reports, maps, treports = {}, {}, {}
         for i, arch in enumerate(runs):
             d = os.path.join(tmp, str(i))
@@ -5383,10 +5443,14 @@ def run_tp_layers(device, edge_errs: dict, runs=None, train_runs=None, train_ove
             r0 = treports[arch][0]
             rows += time_tptl_kernels(arch, trun, r0["maps"], r0["launches"], device)
     print(f"  phase 19 and 20 times: single-process serving {t1 - t0:.1f} s, single-process "
-          f"training {t2 - t1:.1f} s, {tpl['world']} ranks {t3 - t2:.1f} s (spawn, build, serve "
-          f"five architectures and train {len(train_runs)}), checks {t4 - t3:.1f} s, kernel timing "
-          f"{time.perf_counter() - t4:.1f} s; the ranks' training stages (rank 0): " + ", ".join(
-              f"{a} {sum(r[0]['stage_s'].values()):.1f} s" for a, r in treports.items()))
+          f"training and phase 21's yardstick {t2 - t1:.1f} s, {tpl['world']} ranks "
+          f"{t3 - t2:.1f} s (spawn, build, serve five architectures and train "
+          f"{len(train_runs)}{', then phase 21' if prep else ''}), checks {t4 - t3:.1f} s, "
+          f"kernel timing {time.perf_counter() - t4:.1f} s; the ranks' training stages (rank "
+          f"0): " + ", ".join(f"{a} {sum(r[0]['stage_s'].values()):.1f} s"
+                             for a, r in treports.items()))
+    if prep is not None:
+        rows += svtp_finish(device, prep, svtp_got, edge_errs)
     return rows
 
 
@@ -5636,6 +5700,328 @@ def time_tptl_kernels(arch: str, run: dict, maps: list, launches: dict, device) 
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: continuous serving under tensor parallelism
+# ---------------------------------------------------------------------------
+
+# one world of 4 ranks at (data 1, model 4)
+SVTP = dict(world=4, model=4)
+# the counters of a continuous run that depend on the requests' lengths
+# alone: every rank's must equal one process's
+SVTP_COUNTERS = ("n_requests", "n_rejected", "n_shed", "deadline_misses", "steps", "evictions",
+                 "kv_pages", "pages_recovered", "crash_recoveries", "decode_shapes",
+                 "prefill_shapes")
+# granite at phase 15's trace shape and 2 of its 24 layers on ``stream``
+# (a tick over 4 ranks costs ~9 ms a collective, two a layer), (data 1,
+# model 4): its 8 KV heads of 64 split two a rank, on the 128-wide block
+# edges. Pages of 256: a stack without local layers has its cache floor at
+# the page, and both engines need a prefill bucket (up to 256 here) inside
+# the floor (ROADMAP.md, section 3)
+SVTP_GRANITE = dict(arch="granite-moe-1b-a400m", layers=2, backend="stream", t_obj=0.0064,
+                    page_tokens=256)
+SVTP_ZF_TOL = 1e-3
+SVTP_SUFFIX = " ({} tensor-parallel continuous{}, a rank)"
+
+
+def engine_yardstick(argv: list, eng, rep: dict, rec, launches: dict) -> dict:
+    """A one-process continuous run on the host, as phase 21 holds the
+    ranks against it: the CLI arguments, every request's status, shed
+    reason and tokens, the logits rows the tokens were chosen from
+    (``StepRecorder``), the report, the launches and the pool's
+    counters."""
+    from repro_torch.launch.serve import POOL_COUNTERS
+    return {"argv": list(argv),
+            "requests": {r.rid: (r.status, r.shed_reason, list(r.out))
+                         for r in eng.scheduler.completed},
+            "rows": {rid: [x[0].cpu() for x in rows] for rid, rows in rec.rows.items()},
+            "report": {k: v for k, v in rep.items() if not isinstance(v, (dict, list))},
+            "launches": dict(launches),
+            "pool": {k: getattr(eng.pool, k) for k in POOL_COUNTERS}}
+
+
+class BucketMaps:
+    """On one rank (``on``): a host copy of the ``ffn_hidden`` maps of one
+    prefill at each bucket, as its kernels get them (a rank's columns on
+    block edges, or the gathered whole), with the weight the site consumes
+    (None for a masked map): the first prefill of each row count, ``n``
+    sites of it."""
+
+    def __init__(self, on: bool, n: int):
+        self.on, self.n, self.maps = on, n, {}
+
+    def __enter__(self):
+        import repro_torch.core.engine as engine
+        self._engine, self._inner = engine, engine._site
+        if not self.on:
+            return self
+
+        def site(x, cfg, **kw):
+            w = kw.get("w")
+            rows = x.shape[-2]
+            got = self.maps.setdefault(rows, [])
+            if cfg.enabled and kw.get("site") == "ffn_hidden" and rows % cfg.block_seq == 0 \
+                    and len(got) < self.n:
+                got.append((x.detach().reshape(-1, x.shape[-1]).cpu(),
+                            None if w is None else w.detach().cpu()))
+            return self._inner(x, cfg, **kw)
+        engine._site = site
+        return self
+
+    def __exit__(self, *exc):
+        self._engine._site = self._inner
+
+
+def svtp_rank(rank: int, out_dir: str, jobs: list) -> None:
+    """One rank of phase 21 (spawned, in the joined world): each job
+    ``(tag, argv, keep)`` served by ``launch.serve.main`` with
+    ``--requests`` and ``--model-parallel 4``, which inside the world
+    serves as this rank (``serve_rank``) and saves its report to
+    ``<out_dir>/<tag>/``; rank 0 also saves the logits rows its tokens
+    were chosen from and, where ``keep``, its ffn_hidden maps of one
+    prefill a bucket, and every rank, where ``keep``, its heads of lane 0
+    of the hot set at the end (the pages its pool packed)."""
+    import os
+
+    import torch
+    from repro_torch.launch import serve
+    for tag, argv, keep in jobs:
+        d = os.path.join(out_dir, tag)
+        os.makedirs(d, exist_ok=True)
+        layers = int(argv[argv.index("--layers") + 1])
+        with StepRecorder() as rec, BucketMaps(rank == 0 and keep, layers) as maps:
+            out = serve.main([*argv, "--model-parallel", str(SVTP["model"]), "--save", d])
+        if rank == 0:
+            torch.save({"rows": {rid: [x[0].cpu() for x in rows]
+                                 for rid, rows in rec.rows.items()},
+                        "maps": maps.maps}, os.path.join(d, "rows.pt"))
+        if keep:
+            lane = [x.cpu() for x in _tensors(out["engine"]._take_lane(0))]
+            torch.save(lane, os.path.join(d, f"lane{rank}.pt"))
+        del out, rec, maps
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+
+def check_page_band(records, label: str) -> None:
+    """Every compressed page's bytes inside the Eq. 2/3 band, in exact
+    rationals: its payload the live share of its dense bytes, its index
+    within one byte above a bit a block."""
+    from fractions import Fraction
+    for site, payload, index, dense, live, nb in records:
+        if nb == 0:
+            continue
+        check(Fraction(payload) == Fraction(dense * live, nb)
+              and 0 <= index - Fraction(nb, 8) < 1,
+              f"{label}: page {site}: {payload} + {index} B vs Eq. 2/3 at {live} of {nb} "
+              f"blocks")
+
+
+def hold_svtp_run(label: str, ranks: list, rows0: dict, yard: dict,
+                  launch_checks: bool = True) -> dict:
+    """Phase 21's checks of one run: every rank's requests, tokens,
+    counters, meter records and launches alike; the tokens against one
+    process's under the near-tie rule; the length-only counters equal to
+    one process's; every page in the Eq. 2/3 band; the zero fraction
+    within SVTP_ZF_TOL of one process's; every kernel launched on each
+    rank as often as in one process (kernel 5 once a compressed page out,
+    3 once a page in beside the prefills' and decode's expansions).
+    Returns the run's figures."""
+    from repro_torch.kernels import launch_counters
+    r0 = ranks[0]
+    names = set(launch_counters())
+    for r in ranks:
+        who = f"{label} rank {r['rank']}"
+        check(r["requests"] == r0["requests"], f"{who}: requests or tokens differ from rank 0's")
+        check(r["records"] == r0["records"], f"{who}: meter records differ from rank 0's")
+        check({k: r["report"][k] for k in SVTP_COUNTERS + ("zero_frac", "kv_bytes_measured")}
+              == {k: r0["report"][k] for k in SVTP_COUNTERS + ("zero_frac",
+                                                               "kv_bytes_measured")},
+              f"{who}: counters differ from rank 0's")
+        check_page_band(r["records"], who)
+        if not launch_checks:
+            continue
+        got = {k: v for k, v in r["phases"]["serve"].items() if k in names}
+        pool = r["pool"]
+        check(got.get("zebra_pack", 0) == pool["n_pages_out"],
+              f"{who}: kernel 5 launched {got.get('zebra_pack', 0)} times for "
+              f"{pool['n_pages_out']} compressed pages out")
+        want = {k: v for k, v in yard["launches"].items() if k in names}
+        check(got == want, f"{who}: launches {got} != one process's {want}")
+    for k in SVTP_COUNTERS:
+        check(r0["report"][k] == yard["report"][k],
+              f"{label}: {k} {r0['report'][k]} != one process's {yard['report'][k]}")
+    dzf = abs(r0["report"]["zero_frac"] - yard["report"]["zero_frac"])
+    check(dzf <= SVTP_ZF_TOL, f"{label}: zero fraction {r0['report']['zero_frac']} vs one "
+                              f"process's {yard['report']['zero_frac']}")
+    div = []
+    check(set(r0["requests"]) == set(yard["requests"]), f"{label}: other requests completed")
+    for rid, (status, reason, toks) in sorted(r0["requests"].items()):
+        ys, yr, ytoks = yard["requests"][rid]
+        check((status, reason) == (ys, yr), f"{label}: request {rid} {status} vs {ys}")
+        d = near_tie(f"{label} request {rid}", (ytoks, yard["rows"].get(rid, [])),
+                     (toks, rows0.get(rid, [])))
+        if d is not None:
+            div.append(dict(d, rid=rid))
+    n_tok = sum(len(t) for _, _, t in r0["requests"].values())
+    rep = r0["report"]
+    steps = max(rep["steps"], 1)
+    fig = {"tokens": n_tok, "divergences": div, "zero_frac_delta": dzf,
+           "tokens_per_s": rep["tokens_per_s"], "p50_token_ms": rep["p50_token_ms"],
+           "p95_token_ms": rep["p95_token_ms"], "wall_s": rep["wall_s"],
+           "one_process_wall_s": yard["report"]["wall_s"],
+           "page_out_us": [1e6 * r["pool"]["seconds_out"] / max(r["pool"]["n_pages_out"], 1)
+                           for r in ranks],
+           "page_in_us": [1e6 * r["pool"]["seconds_in"] / max(r["pool"]["n_pages_in"], 1)
+                          for r in ranks],
+           "one_process_page_out_us": 1e6 * yard["pool"]["seconds_out"]
+           / max(yard["pool"]["n_pages_out"], 1),
+           "one_process_page_in_us": 1e6 * yard["pool"]["seconds_in"]
+           / max(yard["pool"]["n_pages_in"], 1),
+           "tp_calls_per_tick": r0["phases"]["serve"]["tp_calls"] / steps,
+           "tp_bytes_per_tick": r0["phases"]["serve"]["tp_bytes"] / steps,
+           "peak_gib": [r["max_memory_allocated"] / 2 ** 30 for r in ranks],
+           "build_peak_gib": [r["build_peak_memory"] / 2 ** 30 for r in ranks]}
+    print(f"  {label}: {rep['n_requests']} requests, {n_tok} tokens, {rep['steps']} ticks, "
+          f"{rep['evictions']} evictions, {rep['kv_pages']} pages "
+          f"({r0['pool']['n_pages_out']} compressed out, {r0['pool']['n_pages_in']} in a "
+          f"rank), zero fraction {rep['zero_frac']:.6f} (one process "
+          f"{yard['report']['zero_frac']:.6f}), {rep['kv_bytes_measured']} B; every rank alike "
+          f"and the counters equal to one process's; {len(div)} requests diverged, each a "
+          f"near tie{': ' + str(div) if div else ''}")
+    print(f"    wall {rep['wall_s']:.3f} s (one process {yard['report']['wall_s']:.3f} s): "
+          f"{rep['tokens_per_s']:.2f} tokens/s, p50 {rep['p50_token_ms']:.3f} ms, p95 "
+          f"{rep['p95_token_ms']:.3f} ms a token (host clock); host µs a page out "
+          f"{[round(x, 1) for x in fig['page_out_us']]}, in "
+          f"{[round(x, 1) for x in fig['page_in_us']]} by rank (one process "
+          f"{fig['one_process_page_out_us']:.1f} / {fig['one_process_page_in_us']:.1f}); "
+          f"{fig['tp_calls_per_tick']:.1f} tensor-parallel collectives a tick "
+          f"({fig['tp_bytes_per_tick'] / 1e6:.3f} MB a rank); peak memory "
+          f"{[round(x, 2) for x in fig['peak_gib']]} GiB by rank (build "
+          f"{[round(x, 2) for x in fig['build_peak_gib']]})")
+    return fig
+
+
+def time_svtp_kernels(arch: str, rows0: dict, lanes: list, launches: dict, t_obj: float,
+                      edge_errs: dict, device) -> list[dict]:
+    """Phase 21's kernel rows: kernels 1, 2 and 7 on rank 0's ffn_hidden
+    maps of one prefill at the largest bucket (its d_ff columns with its
+    rows of ``w_down``), per prefill; kernels 5 and 3 on the pages a rank
+    packs (the K/V heads gathered: every rank's heads of lane 0, whole),
+    per page, each held bit for bit against its plain version and timed."""
+    import torch
+    from repro_torch.serve import PagedKVPool
+    pb = max(k for k, v in rows0["maps"].items() if v)
+    maps = rows0["maps"][pb]
+    suffix = SVTP_SUFFIX.format(arch, f" prefill {pb}")
+    lm = {"arch": arch, "t_obj": t_obj, "launches": launches, "replay_launches": {},
+          "maps": [(x.to(device), None if w is None else w.to(device)) for x, w in maps]}
+    print(f"{arch} tensor-parallel continuous kernel times, a rank ({len(maps)} ffn_hidden "
+          f"maps {tuple(maps[0][0].shape)} of a {pb}-token prefill):")
+    rows = time_lm_kernels(lm, edge_errs, device, gemms=("zebra_spmm_cs_kernel",),
+                           codec=False, suffix=suffix,
+                           stream_rows={f"{k}{suffix}": (k, "ffn") for k in
+                                        ("zebra_bitmap_kernel", "zebra_pack_kernel")})
+    del lm
+    lane = [torch.cat(parts, dim=-2).to(device) for parts in zip(*lanes)]
+    pool = PagedKVPool(page_tokens=SV["page_tokens"], validation="structural")
+    pool.page_out("lane", lane)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)   # 256 MB
+    page_rows, n = time_page_kernels(pool, lane, flush)
+    for k, r in page_rows.items():
+        rows.append({"name": f"{k}{SVTP_SUFFIX.format(arch, ', per page')}", "route": "cuda",
+                     "source": SOURCE, "replaces": {**LM_KERNELS, **KERNELS}[k],
+                     "launches": launches[k], **{f: v / n for f, v in r.items()},
+                     "bound_by": "bytes", "library_ms": None, "pages_timed": n})
+    del flush, pool, lane
+    torch.cuda.empty_cache()
+    return rows
+
+
+def svtp_prepare(device, g3_yard: dict, granite=SVTP_GRANITE, **over) -> dict:
+    """Phase 21 before its ranks: granite-moe-1b-a400m served in this
+    process at phase 15's trace shape (its yardstick) and the jobs the
+    ranks serve (:func:`svtp_rank`): gemma3-4b with phase 15's arguments
+    (``g3_yard``, :func:`engine_yardstick`), then granite. ``over``
+    replaces the granite run's prompt, gen, requests, T_obj, pages and
+    depth and, with ``reduced=True`` on the CPU, rehearses the flow on the
+    reduced configs."""
+    import torch
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    g = dict(granite)
+    tail = ["--reduced", "--device", "cpu"] if over.get("reduced") else []
+    gv = ["--arch", g["arch"], "--backend", g["backend"], "--requests",
+          str(over.get("requests", SV["requests"])), "--slots", str(SV["slots"]),
+          "--prompt-len", str(over.get("prompt", SV["prompt"])), "--gen",
+          str(over.get("gen", SV["gen"])), "--t-obj", str(over.get("t_obj", g["t_obj"])),
+          "--preempt-after", str(SV["preempt_after"]), "--page-tokens",
+          str(over.get("page_tokens", g["page_tokens"])), "--layers",
+          str(over.get("layers", g["layers"])), *tail]
+    print(f"tensor-parallel continuous serving (phase 21): {SVTP['world']} ranks on the "
+          f"{'card' if device.type == 'cuda' else 'CPU'} at (data 1, model {SVTP['model']})")
+    print(f"  {g['arch']} in one process: python -m repro_torch.launch.serve {' '.join(gv)}")
+    with StepRecorder() as rec, yard_sums():
+        reset_launch_counts()
+        out = serve.main(gv)
+        launches = launch_counts()
+    g_yard = engine_yardstick(gv, out["engine"], out["report"], rec, launches)
+    del out, rec
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    jobs = [("gemma3", g3_yard["argv"], device.type == "cuda"), ("granite", gv, False)]
+    for _, argv, _ in jobs:
+        print(f"  python -m repro_torch.launch.serve {' '.join(argv)} --model-parallel "
+              f"{SVTP['model']}")
+    return {"jobs": jobs, "yards": {"gemma3": g3_yard, "granite": g_yard},
+            "yard_s": time.perf_counter() - t0}
+
+
+def svtp_load(out_dir: str, jobs: list) -> dict:
+    """The ranks' phase 21 results on the host, by job."""
+    import os
+
+    import torch
+    got = {}
+    for tag, _, keep in jobs:
+        d = os.path.join(out_dir, tag)
+        got[tag] = {"ranks": [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
+                              for r in range(SVTP["world"])],
+                    "rows0": torch.load(os.path.join(d, "rows.pt"), weights_only=False),
+                    "lanes": [torch.load(os.path.join(d, f"lane{r}.pt"))
+                              for r in range(SVTP["world"])] if keep else None}
+    return got
+
+
+def svtp_finish(device, prep: dict, got: dict, edge_errs: dict) -> list[dict]:
+    """Phase 21 after its ranks: each run held by :func:`hold_svtp_run`,
+    then the kernel rows on rank 0's maps and a rank's pages."""
+    t0 = time.perf_counter()
+    figs = {}
+    for tag, yard in prep["yards"].items():
+        arch = yard["argv"][yard["argv"].index("--arch") + 1]
+        figs[tag] = hold_svtp_run(f"{arch} tensor-parallel continuous", got[tag]["ranks"],
+                                  got[tag]["rows0"]["rows"], yard,
+                                  launch_checks=device.type == "cuda")
+    t1 = time.perf_counter()
+    rows = []
+    if device.type == "cuda":
+        g3 = got["gemma3"]
+        rows = time_svtp_kernels(LM_ARCH, g3["rows0"], g3["lanes"],
+                                 g3["ranks"][0]["phases"]["serve"], SV["t_obj"], edge_errs,
+                                 device)
+    print(f"  phase 21 times: granite in one process {prep['yard_s']:.1f} s, checks "
+          f"{t1 - t0:.1f} s, kernel timing {time.perf_counter() - t1:.1f} s; the ranks' "
+          f"stages (rank 0): " + ", ".join(
+              f"{tag} " + " / ".join(f"{k} {v:.1f} s" for k, v in
+                                     got[tag]["ranks"][0]["stage_s"].items())
+              for tag in got))
+    print(f"  phase 21 figures: {json.dumps(figs)}")
+    return rows
+
+
 def _tensors(tree) -> list:
     from repro_torch.utils import map_tree
     out = []
@@ -5757,8 +6143,9 @@ def main() -> int:
         kernels += run_recurrent(device, lm_errs)
         torch.cuda.empty_cache()
         t12 = time.perf_counter()
-        with torch.inference_mode():
-            kernels += run_continuous(device, lm_errs, layers=SV_LAYERS)
+        g3_yard = {}                        # phase 21's one-process yardstick
+        with torch.inference_mode(), yard_sums():
+            kernels += run_continuous(device, lm_errs, layers=SV_LAYERS, yard=g3_yard)
         torch.cuda.empty_cache()
         t13 = time.perf_counter()
         kernels += run_collectives(device)
@@ -5772,7 +6159,8 @@ def main() -> int:
         kernels += run_sharded_training(device)
         torch.cuda.empty_cache()
         t16 = time.perf_counter()
-        kernels += run_tp_layers(device, lm_errs)
+        kernels += run_tp_layers(device, lm_errs, g3_yard=g3_yard)    # and phase 21
+        del g3_yard
         torch.cuda.empty_cache()
         t17 = time.perf_counter()
         print(f"phase times: edge cases {t1 - t0:.1f} s, CNN {t2 - t1:.1f} s, "
@@ -5783,7 +6171,8 @@ def main() -> int:
               f"mamba2 and recurrentgemma {t12 - t11:.1f} s, continuous serving "
               f"{t13 - t12:.1f} s, collectives {t14 - t13:.1f} s, tensor-parallel "
               f"serving {t15 - t14:.1f} s, sharded training {t16 - t15:.1f} s, "
-              f"tensor-parallel layer kinds, served and trained {t17 - t16:.1f} s")
+              f"tensor-parallel layer kinds, served and trained, and continuous "
+              f"tensor-parallel serving {t17 - t16:.1f} s")
         print(json.dumps({"kernels": kernels}))
         print(card)
         print(json.dumps({"ok": True, "device": {

@@ -159,6 +159,41 @@ def leaf_dims(shape: tuple[int, ...], bs: int, bc: int) -> tuple[int, int] | Non
     return None
 
 
+def on_block_edges(local: tuple, dim: int, nd: int, bs: int, bc: int) -> bool:
+    """Whether a rank's equal part of a map along ``dim`` (negative; its
+    part's extent ``local[dim]``) is whole (bs, bc) blocks of the map's
+    (rows, last ``nd`` dims) flattening: a column dimension must be the
+    first of the columns, its part's columns a multiple of bc; a row
+    dimension's part is a run of rows, with those of the dimensions inside
+    it, a multiple of bs."""
+    if dim >= -nd:
+        return dim == -nd and math.prod(local[-nd:]) % bc == 0
+    return math.prod(local[dim:-nd]) % bs == 0
+
+
+def pack_plan(local: tuple, cuts, nd: int, bs: int, bc: int):
+    """How a rank packs its part of a map whose whole (rows, last ``nd``
+    dims) flattening compresses in (bs, bc) blocks, for ``cuts``, a
+    sequence of (axis, dim, cut): the map is this rank's part along
+    ``dim`` over ``axis`` (a ``CommAxis``: ``size``, ``index``) where
+    ``cut`` is true, else whole over it. A part on block edges
+    (:func:`on_block_edges`) is packed as it is; any other part is
+    gathered over its axis and packed whole. Returns ((axis, dim) to
+    gather over, in order) and whether this rank counts the packed map's
+    live blocks: a map whole over an axis is counted on that axis's first
+    rank alone. The rule of the tensor-parallel handoff
+    (``launch.serve.compress_tree_tp``) and of the paged pool's pages."""
+    shape, gathers, owned = list(local), [], True
+    for axis, dim, cut in cuts:
+        if cut and on_block_edges(tuple(shape), dim, nd, bs, bc):
+            continue
+        owned = owned and axis.index == 0
+        if cut:
+            gathers.append((axis, dim))
+            shape[dim] *= axis.size
+    return gathers, owned
+
+
 def _leaf_dims(leaf, bs: int, bc: int) -> tuple[int, int] | None:
     if not (isinstance(leaf, torch.Tensor) and leaf.dim() >= 2
             and leaf.is_floating_point()):

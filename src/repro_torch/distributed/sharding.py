@@ -62,6 +62,15 @@ def _kv_axis(cfg: LMConfig, mesh):
     return "model" if (cfg.n_kv_heads and cfg.n_kv_heads % m == 0) else None
 
 
+def local_kv_heads(cfg: LMConfig, mesh) -> int:
+    """The K/V heads a rank of a model served or trained on ``mesh`` holds:
+    its part of them where the specs split them over ``model`` (a count
+    the axis divides, outside the "dp" profile), else all of them."""
+    if cfg.sharding_profile == "dp" or _kv_axis(cfg, mesh) is None:
+        return cfg.n_kv_heads
+    return cfg.n_kv_heads // mesh_shape(mesh)["model"]
+
+
 def _axis_ok(shape, template, mesh) -> tuple:
     """Drop the axis names whose mesh size does not divide the dimension."""
     sizes = mesh_shape(mesh)

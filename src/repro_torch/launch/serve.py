@@ -53,8 +53,24 @@ and ``--validate``:
 
 From a plain shell it spawns N ranks on this host (on one card they share
 it, over ``gloo``); inside a joined world of a multiple of N ranks each
-process serves as its rank. ``--requests`` raises under it (ROADMAP.md,
-queue 1).
+process serves as its rank.
+
+``--requests`` under ``--model-parallel N`` runs the continuous engine on
+the sharded model (:func:`serve_continuous` in every rank, data 1): the
+prefills and the slotted decode tensor-parallel, each rank holding its K/V
+heads of the hot set and paging them to its own pool, which meters the
+whole cache's pages as one process's does; every rank takes the same
+decision at every tick (``serve.engine``). The architectures are those
+``ServeEngine`` takes (the decoder-only attention stacks: the dense and
+MoE LMs); every continuous flag works. Rank 0 prints the report; with
+``--save`` every rank saves it with its pool's counters, its launches and
+collectives and its peak memory. A joined world larger than N (data > 1)
+raises before the build (ROADMAP.md, queue 1):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
+        --model-parallel 4 --backend fused --requests 8 --slots 4 \
+        --prompt-len 320 --gen 16 --t-obj 1.05 --validate structural \
+        --preempt-after 16 --page-tokens 64 --layers 6
 """
 from __future__ import annotations
 
@@ -386,10 +402,10 @@ def serve_tensor_parallel(args, cfg: LMConfig, argv=None) -> dict:
     from ..distributed.sharding import check_tp
     if args.model_parallel < 1:
         raise ValueError(f"--model-parallel {args.model_parallel}: at least 1")
-    if args.requests:
-        raise NotImplementedError(f"--requests under --model-parallel: continuous serving "
-                                  f"under tensor parallelism is not ported yet ({TP_QUEUE})")
     check_tp(cfg, args.model_parallel)
+    if args.requests:
+        from ..serve.engine import check_servable
+        check_servable(cfg)
     if dist.is_initialized():
         return serve_rank(args, cfg)
     import sys
@@ -440,7 +456,11 @@ def serve_rank(args, cfg: LMConfig) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     data = world // N
     B, S = args.batch, args.prompt_len
-    if B % data:
+    if args.requests and data > 1:
+        raise NotImplementedError(f"--requests in a world of {world} ranks at "
+                                  f"--model-parallel {N}: continuous serving puts no lanes "
+                                  f"over data yet ({TP_QUEUE})")
+    if B % data and not args.requests:
         raise ValueError(f"batch {B} does not split over {data} data ranks")
     t_mesh = time.perf_counter()
     model = build_sharded(cfg, mesh, generator=torch.Generator(device=device).manual_seed(0),
@@ -453,12 +473,16 @@ def serve_rank(args, cfg: LMConfig) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
     t_build = time.perf_counter()
+    rank0 = dist.get_rank() == 0
+    if args.requests:
+        return _serve_rank_continuous(args, cfg, mesh, model, device, rank0,
+                                      {"mesh": t_mesh - t_start, "build": t_build - t_mesh},
+                                      build_peak)
     rows = B // data
     di = mesh.get_local_rank("data")
     prompts = _prompts(cfg, B, S, device)[di * rows:(di + 1) * rows]
     enc = (torch.zeros((rows, cfg.enc_seq, cfg.d_model), dtype=torch.bfloat16, device=device)
            if cfg.encoder_layers else None)     # this data rank's frames
-    rank0 = dist.get_rank() == 0
     with record_tp_sites(bitmaps=args.record) as sites, float32_sums(device):
         out = serve_one_shot(model, prompts, args.gen, temperature=args.temperature,
                              seed=args.seed, log=print if rank0 else (lambda *_: None),
@@ -478,6 +502,60 @@ def serve_rank(args, cfg: LMConfig) -> dict:
         torch.save(tp_report(out, mesh), f"{args.save}/rank{dist.get_rank()}.pt")
     out["model"], out["prompts"], out["mesh"] = model, prompts, mesh
     return out
+
+
+def _serve_rank_continuous(args, cfg: LMConfig, mesh, model: LM, device, rank0: bool,
+                           stage_s: dict, build_peak: int) -> dict:
+    """``--requests`` on this rank: :func:`serve_continuous` on its shards,
+    its sites recorded; with ``--save`` the rank's
+    :func:`continuous_tp_report`."""
+    import torch.distributed as dist
+
+    from ..core.engine import record_tp_sites, tp_sites_on_host
+    t0 = time.perf_counter()
+    phases = _PhaseMarks(True)
+    with record_tp_sites() as sites, float32_sums(device):
+        out = serve_continuous(args, model, log=print if rank0 else (lambda *_: None))
+    phases.mark("serve")
+    out["sites"] = tp_sites_on_host(sites)
+    out["phases"] = phases.deltas
+    out["build_peak_memory"] = build_peak
+    out["max_memory_allocated"] = (torch.cuda.max_memory_allocated(device)
+                                   if device.type == "cuda" else 0)
+    out["stage_s"] = {**stage_s, "serve": time.perf_counter() - t0}
+    if args.save is not None:
+        torch.save(continuous_tp_report(out, mesh), f"{args.save}/rank{dist.get_rank()}.pt")
+    out["mesh"] = mesh
+    return out
+
+
+def continuous_tp_report(out: dict, mesh) -> dict:
+    """A rank's continuous-serving result on the host: the engine's report,
+    every request's status, shed reason and tokens, the pool's counters
+    and meter records, the sites, launches and collectives of the run,
+    and its memory."""
+    import torch.distributed as dist
+
+    from ..distributed.collectives import wire_name
+    eng = out["engine"]
+    pool = eng.pool
+    return {"rank": dist.get_rank(), "data_index": mesh.get_local_rank("data"),
+            "model_index": mesh.get_local_rank("model"),
+            "wire": wire_name(mesh.get_group("model")), "report": out["report"],
+            "requests": {r.rid: (r.status, r.shed_reason, list(r.out))
+                         for r in eng.scheduler.completed},
+            "pool": {k: getattr(pool, k) for k in POOL_COUNTERS},
+            "records": [(r.site, r.payload_bytes, r.index_bytes, r.dense_bytes, r.n_live,
+                         r.n_blocks) for r in pool.meter.records],
+            "decode_shapes": sorted(eng._decode_shapes),
+            "prefill_shapes": sorted(eng._prefill_shapes),
+            "sites": out["sites"], "phases": out["phases"],
+            "build_peak_memory": out["build_peak_memory"],
+            "max_memory_allocated": out["max_memory_allocated"], "stage_s": out["stage_s"]}
+
+
+POOL_COUNTERS = ("n_pages_out", "n_pages_in", "n_recovered", "n_breaker_dense",
+                 "bytes_out", "bytes_in", "seconds_out", "seconds_in")
 
 
 def tp_report(out: dict, mesh) -> dict:
@@ -518,11 +596,12 @@ def continuous_trace(requests: int, vocab: int, prompt_len: int, gen: int, *, se
                            deadline_ticks=deadline_ticks or None)
 
 
-def serve_continuous(args, model: LM) -> dict:
+def serve_continuous(args, model: LM, log=print) -> dict:
     """``--requests N``: run a synthetic trace through the continuous-batching
-    engine and print its report. Returns the report, the engine (its
-    scheduler holds the served requests, its pool the meter), the trace
-    and the model."""
+    engine and print its report (through ``log``). Returns the report, the
+    engine (its scheduler holds the served requests, its pool the meter),
+    the trace and the model. On a model cut for a mesh every rank serves
+    the whole trace on its shards."""
     from ..ft import FTConfig
     from ..serve import ServeEngine
     from ..serve.bucket import pow2_ceil
@@ -537,23 +616,26 @@ def serve_continuous(args, model: LM) -> dict:
                              seed=args.seed, deadline_ticks=args.deadline_ticks)
     ft_cfg = FTConfig(jitter_seed=args.seed) if args.supervise else None
     rep = eng.run(trace, preempt_after=args.preempt_after, ft_cfg=ft_cfg)
-    print(f"[serve] {cfg.name} continuous: {rep['n_requests']} requests "
-          f"({rep['n_rejected']} rejected, {rep['n_shed']} shed, "
-          f"{rep['deadline_misses']} deadline misses) in "
-          f"{rep['wall_s']:.2f} s over {args.slots} slots on {eng.device}")
-    print(f"  {rep['requests_per_s']:.2f} req/s  {rep['tokens_per_s']:.1f} "
-          f"tok/s  p50 {rep['p50_token_ms']:.1f} ms/token  "
-          f"p95 {rep['p95_token_ms']:.1f} ms/token  "
-          f"evictions {rep['evictions']}")
-    print(f"  KV stream: {rep['kv_bytes_measured']/1e6:.3f} MB measured "
-          f"(dense {rep['kv_bytes_dense']/1e6:.3f} MB) over "
-          f"{rep['kv_pages']} pages, zero-block fraction "
-          f"{rep['zero_frac']:.3f}, {rep['pages_recovered']} pages "
-          f"recovered dense")
-    print(f"  dispatch shapes: decode {rep['decode_shapes']}"
-          f"/{rep['decode_shape_bound']}  prefill {rep['prefill_shapes']}"
-          f"/{rep['prefill_shape_bound']}  reconcile max "
-          f"|measured-predicted| {rep['reconcile_max_delta_bytes']:.2f} B")
+    where = ""
+    if eng.pool.tp is not None:
+        where = f", {eng.pool.tp.world.size} ranks (data 1, model {eng.pool.tp.model.size})"
+    log(f"[serve] {cfg.name} continuous: {rep['n_requests']} requests "
+        f"({rep['n_rejected']} rejected, {rep['n_shed']} shed, "
+        f"{rep['deadline_misses']} deadline misses) in "
+        f"{rep['wall_s']:.2f} s over {args.slots} slots on {eng.device}{where}")
+    log(f"  {rep['requests_per_s']:.2f} req/s  {rep['tokens_per_s']:.1f} "
+        f"tok/s  p50 {rep['p50_token_ms']:.1f} ms/token  "
+        f"p95 {rep['p95_token_ms']:.1f} ms/token  "
+        f"evictions {rep['evictions']}")
+    log(f"  KV stream: {rep['kv_bytes_measured']/1e6:.3f} MB measured "
+        f"(dense {rep['kv_bytes_dense']/1e6:.3f} MB) over "
+        f"{rep['kv_pages']} pages, zero-block fraction "
+        f"{rep['zero_frac']:.3f}, {rep['pages_recovered']} pages "
+        f"recovered dense")
+    log(f"  dispatch shapes: decode {rep['decode_shapes']}"
+        f"/{rep['decode_shape_bound']}  prefill {rep['prefill_shapes']}"
+        f"/{rep['prefill_shape_bound']}  reconcile max "
+        f"|measured-predicted| {rep['reconcile_max_delta_bytes']:.2f} B")
     return {"report": rep, "engine": eng, "trace": trace, "model": model}
 
 
@@ -666,14 +748,15 @@ def compress_tree_tp(caches, cfg: LMConfig, tp, *, meter: BandwidthMeter,
     all of it. It is compressed as the reference compresses the whole
     leaf, its flattening (``stream.leaf_dims``) taken from the whole leaf's
     shape. A rank's part along an axis that falls on block edges of that
-    flattening (:func:`_on_block_edges`) is packed as it is; along any
-    other the leaf is gathered over that axis, packed whole (kernel 5) and
+    flattening is packed as it is (``compress.stream.pack_plan``, the
+    paged pool's rule too); along any other the leaf is gathered over that
+    axis, packed whole (kernel 5) and
     expanded whole at decode (kernel 3), each rank keeping its part
     (``CompressedMap.part``). Every leaf goes on ``meter`` once, with the
     whole leaf's counts: its live blocks summed over the ranks that own
     them (a replicated or gathered leaf is the first rank's of that
     axis)."""
-    from ..compress.stream import compress as compress_map, leaf_dims
+    from ..compress.stream import compress as compress_map, leaf_dims, pack_plan
     from ..distributed.collectives import tp_all_gather, tp_all_reduce
     from ..distributed.ctx import gather_model
     bs, bc = cfg.zebra_block_seq, cfg.zebra_block_ch
@@ -692,18 +775,15 @@ def compress_tree_tp(caches, cfg: LMConfig, tp, *, meter: BandwidthMeter,
             pending.append((name, None, leaf.element_size(), math.prod(shape)))
             return leaf
         nd = 1 if dims[1] == shape[-1] else 2
-        x, part, owned = leaf, [], True
         # the model axis first: the batch's rows run over the heads or
         # channels inside them, as gathered
-        for axis, dim, cut in ((tp.model, sd, split), (tp.data, bd, tp.data.size > 1)):
-            if cut and _on_block_edges(x.shape, dim, nd, bs, bc):
-                continue
-            owned = owned and axis.index == 0     # whole over this axis: counted once
-            if cut:
-                x = (tp_all_gather(x, axis, dim) if axis is tp.data
-                     else gather_model(x, dim))
-                n = leaf.shape[dim]
-                part.append((dim % leaf.dim(), axis.index * n, n))
+        gathers, owned = pack_plan(leaf.shape, ((tp.model, sd, split),
+                                                (tp.data, bd, tp.data.size > 1)), nd, bs, bc)
+        x, part = leaf, []
+        for axis, dim in gathers:
+            x = tp_all_gather(x, axis, dim) if axis is tp.data else gather_model(x, dim)
+            n = leaf.shape[dim]
+            part.append((dim % leaf.dim(), axis.index * n, n))
         cm = compress_map(x.reshape(-1, math.prod(x.shape[-nd:])), bs=bs, bc=bc,
                           checksum=checksum)
         cm = dataclasses.replace(cm, shape=tuple(x.shape), part=tuple(part) or None)
@@ -724,18 +804,6 @@ def compress_tree_tp(caches, cfg: LMConfig, tp, *, meter: BandwidthMeter,
             meter.record_counts(name, m=dims[0], k=dims[1], bs=bs, bc=bc, itemsize=item,
                                 n_live=next(lives))
     return out
-
-
-def _on_block_edges(local: tuple, dim: int, nd: int, bs: int, bc: int) -> bool:
-    """Whether a rank's equal part of a leaf along ``dim`` (negative; its
-    part's extent ``local[dim]``) is whole (bs, bc) blocks of the leaf's
-    (rows, last ``nd`` dims) flattening: a column dimension must be the
-    first of the columns, its part's columns a multiple of bc; a row
-    dimension's part is a run of rows, with those of the dimensions inside
-    it, a multiple of bs."""
-    if dim >= -nd:
-        return dim == -nd and math.prod(local[-nd:]) % bc == 0
-    return math.prod(local[dim:-nd]) % bs == 0
 
 
 def _leaves(tree) -> list:

@@ -236,12 +236,18 @@ class LM(nn.Module):
     def init_cache(self, batch: int, cache_len: int, device=None) -> list[dict]:
         """Empty caches in the prefill's tree: K/V and conv buffers in the
         compute dtype, the recurrent states float32; on the model's device
-        unless ``device`` says otherwise (``"meta"``: the shapes alone)."""
+        unless ``device`` says otherwise (``"meta"``: the shapes alone). A
+        model cut for a mesh (``model.mesh``) holds this rank's K/V heads,
+        as its prefill makes them (``sharding.local_kv_heads``)."""
         device = self.embed.device if device is None else torch.device(device)
+        cfg = self.cfg
+        mesh = getattr(self, "mesh", None)
+        if mesh is not None:
+            from ...distributed.sharding import local_kv_heads
+            cfg = cfg.replace(n_kv_heads=local_kv_heads(cfg, mesh))
         caches = []
         for pattern, count in self.runs:
-            sub = {f"sub{j}": init_layer_cache(t, self.cfg, batch, cache_len, self.cdt,
-                                               device)
+            sub = {f"sub{j}": init_layer_cache(t, cfg, batch, cache_len, self.cdt, device)
                    for j, t in enumerate(pattern)}
             if count > 1:
                 sub = {s: {n: c[None].expand(count, *c.shape).clone() for n, c in kv.items()}

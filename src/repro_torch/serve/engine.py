@@ -40,6 +40,20 @@ lane, :meth:`_set_lane` writes into the hot tensors, a bucket change
 builds the new hot set from copies taken before the old one is dropped,
 and a restore rebuilds the hot set from ``init_cache`` and the pool.
 
+Tensor parallelism
+------------------
+A model cut for a mesh (``sharding.build_sharded``: ``model.mesh``, data
+1) runs its prefill and slotted decode under the mesh's hints, as the
+reference's engine jits them under its sharding hints; each rank holds its
+K/V heads of the hot set (``LM.init_cache``) and pages them to its own
+pool (``PagedKVPool(tp=...)``), which meters the whole cache's pages. Every
+rank takes the same decision at every tick: the tokens come from the
+logits every model rank holds bit for bit, sampling draws from a
+generator seeded by (seed, step), and the scheduler reads ticks and
+lengths alone (the wall clock only stamps the latency report), so the
+ranks admit, evict, retire and restore alike and meet at every
+collective.
+
 Resilience
 ----------
 ``run(..., ft_cfg=FTConfig(...))`` supervises the tick loop with the
@@ -89,25 +103,31 @@ def _tree_map(f, *trees):
     return f(*trees)
 
 
+def check_servable(cfg) -> None:
+    """Raise for a config ``ServeEngine`` does not serve: an encoder, a
+    layer type that carries recurrent state, or a local window that is
+    not a power of two."""
+    if cfg.encoder_layers:
+        raise NotImplementedError("ServeEngine serves decoder-only "
+                                  "stacks (no encoder cross-attention)")
+    bad = sorted({t for t in cfg.layer_pattern[:cfg.n_layers]} - {"global", "local"})
+    if bad:
+        raise NotImplementedError(
+            f"ServeEngine pages attention caches only; layer types "
+            f"{bad} carry recurrent state")
+    if "local" in cfg.layer_pattern[:cfg.n_layers] and (cfg.window & (cfg.window - 1)):
+        raise ValueError(f"window {cfg.window} must be a power of two "
+                         "so ring slots align across prefill buckets")
+
+
 class ServeEngine:
     def __init__(self, model: LM, *, n_slots: int = 4, max_cache_len: int = 256,
                  page_tokens: int = 16, min_prefill: int = 8, validation: str = "off",
                  temperature: float = 0.0, seed: int = 0, queue_bound: int = 0,
                  max_hot_positions: int = 0, breaker: BreakerConfig | None = None):
         cfg = model.cfg
-        if cfg.encoder_layers:
-            raise NotImplementedError("ServeEngine serves decoder-only "
-                                      "stacks (no encoder cross-attention)")
-        for pattern, _ in model.runs:
-            bad = [t for t in pattern if t not in ("global", "local")]
-            if bad:
-                raise NotImplementedError(
-                    f"ServeEngine pages attention caches only; layer types "
-                    f"{bad} carry recurrent state")
+        check_servable(cfg)
         has_local = any("local" in p for p, _ in model.runs)
-        if has_local and (cfg.window & (cfg.window - 1)):
-            raise ValueError(f"window {cfg.window} must be a power of two "
-                             "so ring slots align across prefill buckets")
         self.model = model
         self.cfg = cfg
         self.device = model.embed.device
@@ -138,7 +158,8 @@ class ServeEngine:
 
         self.pool = PagedKVPool(page_tokens=page_tokens, bs=cfg.zebra_block_seq,
                                 bc=cfg.zebra_block_ch, validation=validation,
-                                breaker=self.board)
+                                breaker=self.board, tp=self._tensor_parallel(model),
+                                kv_heads=cfg.n_kv_heads)
         self._decode_shapes: set[tuple[int, int]] = set()
         self._prefill_shapes: set[int] = set()
 
@@ -160,6 +181,21 @@ class ServeEngine:
         self._lanes: list[Request | None] = [None] * self._Bb
         self._step_no = 0
         self.scheduler: Scheduler | None = None
+
+    @staticmethod
+    def _tensor_parallel(model: LM):
+        """The layout of a model cut for a mesh (``model.mesh``), whose
+        ranks each page their K/V heads; None in one process."""
+        if getattr(model, "mesh", None) is None:
+            return None
+        from ..distributed.ctx import tensor_parallel
+        from ..launch.steps import model_hints
+        with model_hints(model):
+            tp = tensor_parallel()
+        if tp is None:
+            raise NotImplementedError("ServeEngine serves a model cut for a mesh "
+                                      "tensor-parallel only")
+        return tp
 
     def _init_hot(self, Bb: int, C: int):
         with torch.inference_mode():

@@ -194,3 +194,17 @@ def port_rank(rank: int, out_dir: str) -> None:
                                        checked["meter"].measured_bytes(),
                                        checked["aux"].measured_bytes_exact())
     torch.save(res, f"{out_dir}/rank{rank}.pt")
+
+
+def unported_rank(rank: int, argv: list, out_dir: str) -> None:
+    """One rank of a world that runs ``launch.serve.main(argv)`` and writes
+    what it raised (``NotImplementedError``'s text, or "" if nothing) to
+    ``raised<r>.txt``."""
+    from repro_torch.launch import serve
+    try:
+        serve.main(argv)
+        text = ""
+    except NotImplementedError as e:
+        text = str(e)
+    with open(f"{out_dir}/raised{rank}.txt", "w") as f:
+        f.write(text)

@@ -226,9 +226,13 @@ def test_serve_cli_runs_on_cpu(capsys):
     served = serve.main(["--reduced", "--device", "cpu", "--requests", "2", "--slots", "2",
                          "--prompt-len", "16", "--gen", "2"])      # continuous batching
     assert served["report"]["n_requests"] == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):    # not served sharded yet
-        serve.main(["--arch", "granite-moe-1b-a400m", "--reduced", "--device", "cpu",
-                    "--requests", "2", "--model-parallel", "2"])
+    argv = ["--arch", "granite-moe-1b-a400m", "--reduced", "--device", "cpu", "--requests",
+            "2", "--slots", "2", "--prompt-len", "16", "--gen", "2", "--t-obj", "0.025"]
+    one = serve.main(argv)                                        # served sharded too
+    tp = serve.main([*argv, "--model-parallel", "2"])
+    assert tp["requests"] == {r.rid: (r.status, r.shed_reason, list(r.out))
+                              for r in one["engine"].scheduler.completed}
+    assert tp["report"]["kv_bytes_measured"] == one["report"]["kv_bytes_measured"] > 0
 
 
 def test_forward_and_init_cache_match_reference():

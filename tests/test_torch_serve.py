@@ -531,8 +531,9 @@ def test_retry_budget_exhausted_and_unsupervised_crash():
 
 def test_cli_continuous_on_cpu(capsys):
     """``--requests`` on the CPU: the reduced config served through the
-    engine, the three report lines printed; ``--model-parallel`` > 1 still
-    raises (~1.5 s)."""
+    engine, the three report lines printed; with ``--model-parallel 2``
+    two spawned ranks serve a trace as one process does: every request's
+    tokens and the report's KV bytes and pages (~10 s)."""
     out = serve.main(["--reduced", "--device", "cpu", "--requests", "4", "--slots", "2",
                       "--prompt-len", "48", "--gen", "8", "--t-obj", "2.45", "--backend",
                       "fused", "--validate", "structural", "--deadline-ticks", "200",
@@ -541,9 +542,14 @@ def test_cli_continuous_on_cpu(capsys):
     assert rep["n_requests"] == 4 and rep["kv_pages"] > 0
     text = capsys.readouterr().out
     assert "continuous: 4 requests" in text and "KV stream:" in text
-    with pytest.raises(NotImplementedError, match="model-parallel"):
-        serve.main(["--reduced", "--device", "cpu", "--requests", "2",
-                    "--model-parallel", "2"])
+    argv = ["--reduced", "--device", "cpu", "--requests", "2", "--slots", "2",
+            "--prompt-len", "24", "--gen", "4", "--t-obj", "2.45", "--backend", "stream"]
+    one = serve.main(argv)
+    tp = serve.main([*argv, "--model-parallel", "2"])
+    assert len(tp["ranks"]) == 2
+    assert tp["requests"] == _outs(one["engine"])
+    assert {k: tp["report"][k] for k in ("kv_bytes_measured", "kv_pages", "zero_frac")} == \
+        {k: one["report"][k] for k in ("kv_bytes_measured", "kv_pages", "zero_frac")}
 
 
 def test_sampling_is_seeded():

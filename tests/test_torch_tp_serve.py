@@ -283,13 +283,16 @@ def test_cli_params_load_over_the_draws_on_every_rank(tmp_path):
 
 @pytest.mark.parametrize("argv,match", [
     (["--requests", "2"], "continuous serving")])
-def test_unported_configurations_raise_before_launch(argv, match):
-    """What tensor-parallel serving does not cover raises, naming its
-    ROADMAP item, before any rank is spawned: continuous serving."""
-    from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match=match) as e:
-        serve.main(["--reduced", "--device", "cpu", "--model-parallel", "4", *argv])
-    assert "ROADMAP.md, queue 1" in str(e.value)
+def test_unported_configurations_raise_before_launch(argv, match, tmp_path):
+    """What tensor-parallel serving does not cover raises on every rank,
+    naming its ROADMAP item, before the model is built: continuous serving
+    in a joined world of 4 ranks at ``--model-parallel 2`` (data 2)."""
+    from repro_torch.launch.mesh import spawn
+    spawn(C.unported_rank, 4, (["--reduced", "--device", "cpu", "--model-parallel", "2",
+                                *argv], str(tmp_path)), device="cpu")
+    for r in range(4):
+        text = (tmp_path / f"raised{r}.txt").read_text()
+        assert match in text and "ROADMAP.md, queue 1" in text
 
 
 @pytest.mark.parametrize("arch,backend,n,t_obj", [

@@ -278,7 +278,7 @@ def test_cli_trains_four_ranks_on_cpu(capfd):
 @pytest.mark.parametrize("argv,err", [
     (["--arch", "granite-moe-1b-a400m", "--model-parallel", "3"], NotImplementedError),
     (["--arch", "mamba2-2.7b", "--model-parallel", "16"], NotImplementedError),
-    (["SERVE", "--requests", "2"], NotImplementedError),
+    (["SERVE", "--requests", "2", "--arch", "mamba2-2.7b"], NotImplementedError),
     (["--arch", "granite-moe-1b-a400m", "--batch", "3", "DP"], ValueError),
     (["--ckpt", "CKPT"], NotImplementedError),
     (["--batch", "3", "K2"], ValueError),
@@ -288,7 +288,8 @@ def test_cli_refuses_before_any_rank_starts(argv, err, tmp_path, monkeypatch):
     anything is spawned: experts that do not split over the model ranks
     (8 over 3), SSD heads that do not while ``d_inner`` does (8 heads,
     ``d_inner`` 256 over 16), ``--requests`` under ``--model-parallel``
-    (``SERVE``: the serving CLI), a batch that does not split over its
+    for an architecture the continuous engine does not serve (``SERVE``:
+    the serving CLI; mamba2's recurrent state), a batch that does not split over its
     ranks (``DP``: granite under the "dp" profile, the batch cut over all
     2 ranks; ``K2``: the config at ``grad_accum`` 2, over data x K; both
     through ``train_tensor_parallel`` as ``main`` calls it) and ``--ckpt``."""
