@@ -349,9 +349,11 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     host, (data 2, model 2), ``gloo`` with host copies on one card):
     gemma3-4b at full width and 6 layers (one whole local/global pattern),
     batch 4 x 1024 in 2 microbatches, ``stream`` at T_obj 1.05, the
-    config's remat, float32 state and bf16 compute, 2 bf16 steps, then one
-    int8 step from fresh seed-0 weights, each held against the same
-    training in one process on the card (run first, then freed): the
+    config's remat, float32 state and bf16 compute, 2 bf16 steps, and
+    phase 18b's 3 int8 steps at 2 layers (a local and the global layer)
+    from fresh seed-0 weights (its uninterrupted run,
+    which took the place of one int8 step at 6 layers), each held against
+    the same training in one process on the card (run first, then freed): the
     ranks' metrics alike, the losses within 1e-2, ``grad_norm`` within 2
     %, the zero fraction within 1e-3 (the blocks that differ counted),
     every ``stream`` site in the Eq. 2/3 band, every parameter after step
@@ -361,6 +363,22 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     bytes by component, the collectives a step; then kernels 1-3 held
     against their plain versions on rank 0's ``ffn_hidden`` shards
     (1024, 5120) of one step and timed;
+18b. checkpoints the sharded state in phase 18's world after its runs
+    (``launch.train.train_rank --ckpt``, ``checkpoint.sharded``): gemma3-4b
+    at full width cut to 2 layers (the pattern's last local layer and its
+    global one), phase 18's batch, site and remat, int8,
+    3 steps uninterrupted, then 3 steps under ``--ckpt-every 2`` with
+    ``ft.crashing_step`` raising on every rank at call 3 after moving every
+    tensor of the state: the supervisor restores step 2 (rank 0 wrote whole leaves)
+    and every rank's shards of the parameters, both AdamW moments and the
+    int8 residual, the step, the loader's step and the losses equal the
+    uninterrupted run's bit for bit, kernels 1-3 launched in both runs;
+    then the step-3 file restored into a model built at (data 1, model 4)
+    (each whole leaf's CRC32 the manifest's on every rank), the restored
+    shards gathered back whole to rank 0 with the manifest's CRC32s; prints
+    the free disk, the save time that blocks the loop (the gather), the
+    write-and-CRC time and rate, the bytes a checkpoint, each rank's
+    restore times and host peak;
 19. serves the other layer kinds tensor-parallel (``launch.serve
     --model-parallel`` inside one world of 4 ranks spawned on this host,
     ``gloo`` with host copies on one card, which serves the five in turn),
@@ -2580,15 +2598,18 @@ def run_int8_depth(device, cfg, tokens) -> None:
 
 class CkptTimer:
     """Times ``CheckpointManager.save`` (what blocks the loop: the copy to
-    the host), its write (on the writer thread), ``restore`` (verify and
-    load) and ``save_acts``/``restore_acts``; adds nothing else."""
+    the host; for ``ShardedCheckpointManager`` the gather to rank 0), its
+    write (on the writer thread), ``restore`` (verify and load) and
+    ``save_acts``/``restore_acts`` of ``cls`` (default the one-process
+    manager); adds nothing else."""
 
-    def __init__(self):
-        self.times = {}
+    def __init__(self, cls=None):
+        self.times, self._cls = {}, cls
 
     def __enter__(self):
         from repro_torch.checkpoint import manager
-        self._cls = manager.CheckpointManager
+        self._cls = self._cls or manager.CheckpointManager
+        self._own = set(vars(self._cls))
         self._inner = {n: getattr(self._cls, n) for n in
                        ("save", "_write", "restore", "save_acts", "restore_acts")}
         for name, fn in self._inner.items():
@@ -2606,7 +2627,10 @@ class CkptTimer:
 
     def __exit__(self, *exc):
         for name, fn in self._inner.items():
-            setattr(self._cls, name, fn)
+            if name in self._own:
+                setattr(self._cls, name, fn)
+            else:                       # inherited: the base class's again
+                delattr(self._cls, name)
 
 
 def run_lm_ckpt(device, arch=LM_ARCH, layers=LMC["layers"], batch=LMD["batch"],
@@ -4546,9 +4570,9 @@ def run_tensor_parallel(device, yard: dict, edge_errs: dict, **over) -> list[dic
 
 # gemma3-4b at full width and 6 layers (one whole pattern: 5 local, the
 # global), batch 4 x 1024 in 2 microbatches, stream, constant T_obj, the
-# config's remat, float32 state and bf16 compute: 2 bf16 steps, then one
-# int8 step from the same seed-0 weights; 4 ranks on the card, (data 2,
-# model 2), gloo with host copies. Bounds written in PERF.md before the
+# config's remat, float32 state and bf16 compute: 2 bf16 steps (the int8
+# check is phase 18b's uninterrupted run, TPC); 4 ranks on the card, (data
+# 2, model 2), gloo with host copies. Bounds written in PERF.md before the
 # phase first ran.
 TPT = dict(world=4, model=2, layers=6, batch=4, seq=1024, grad_accum=2, steps=2, lr=3e-4,
            t_obj=LM_T_OBJ)
@@ -4590,6 +4614,8 @@ def tpt_config(tpt: dict):
     from repro_torch.launch import train
     cfg = train.build_config(LM_ARCH, reduced=bool(tpt.get("reduced")), t_obj=tpt["t_obj"],
                              backend="stream", n_layers=tpt["layers"])
+    if "pattern" in tpt:
+        cfg = cfg.replace(layer_pattern=tpt["pattern"])
     return cfg.replace(zebra_tnet=False, grad_accum=tpt["grad_accum"])
 
 
@@ -4673,15 +4699,15 @@ def tpt_single(device, tpt: dict, path: str) -> dict:
     this device (``launch.train.train_lm``): the bf16 run's history, sites
     and launches, its parameters after the last step written whole to
     ``path`` and its first moment after step 1 to ``tpt["yard_m1"]`` for
-    the ranks (``row_sample``s), then the int8 step from fresh seed-0
-    weights."""
+    the ranks (``row_sample``s), then phase 18b's int8 run (:func:`tpc_run`)
+    from fresh seed-0 weights."""
     import torch
     from repro_torch.kernels import launch_counters
     from repro_torch.launch import train
     from repro_torch.models.lm import LM
-    cfg = tpt_config(tpt)
     out = {}
-    for compress, steps in (("bf16", tpt["steps"]), ("int8", 1)):
+    for compress, run in (("bf16", tpt), ("int8", tpc_run(tpt))):
+        cfg = tpt_config(run)
         model = LM(cfg, generator=torch.Generator(device=device).manual_seed(0), device=device)
         before = {k: w.launches for k, w in launch_counters().items()}
         if device.type == "cuda":
@@ -4689,7 +4715,7 @@ def tpt_single(device, tpt: dict, path: str) -> dict:
         with SiteKeeps() as rec, FirstMoment(compress == "bf16", row_sample) as m1, \
                 yard_sums():
             model, state, hist, _ = train.train_lm(
-                cfg, steps=steps, batch=tpt["batch"], seq=tpt["seq"], lr=tpt["lr"],
+                cfg, steps=run["steps"], batch=run["batch"], seq=run["seq"], lr=run["lr"],
                 compress=compress, seed=0, device=device, model=model, log=lambda *_: None)
         out[compress] = {"history": hist, "keep": rec.keep, "zf": rec.zf, "bytes": rec.bytes,
                          "launches": {k: w.launches - before[k]
@@ -4775,8 +4801,9 @@ def tpt_rank(rank: int, out_dir: str, tpt: dict) -> None:
     train_rank`` on the bf16 steps with its sites recorded, its first
     moment after step 1 and its master shards after the last step against
     the yardstick's, its shared leaves against the other ranks'; then the
-    int8 step from fresh weights. Rank 0 keeps its first step's
-    ffn_hidden input maps for the kernel rows. Saves ``rank<r>.pt``."""
+    phase 18b (:func:`tpt_ckpt`), whose uninterrupted int8 run is phase
+    18's int8 run. Rank 0 keeps its first step's ffn_hidden input maps for
+    the kernel rows. Saves ``rank<r>.pt``."""
     import torch
     from repro_torch.core.engine import record_tp_sites, tp_sites_on_host
     from repro_torch.launch import train
@@ -4808,9 +4835,10 @@ def tpt_rank(rank: int, out_dir: str, tpt: dict) -> None:
     del res, state, model
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    res = train.train_rank(train.parse_args(tpt_argv(tpt, "int8", 1)), cfg)
-    rep["int8"] = res["report"]
-    del res
+    t0 = time.perf_counter()
+    rep["ckpt"] = tpt_ckpt(tpt, out_dir)
+    rep["ckpt_s"] = time.perf_counter() - t0
+    rep["int8"] = rep["ckpt"].pop("report_u")
     torch.save(rep, f"{out_dir}/rank{rank}.pt")
 
 
@@ -4848,8 +4876,9 @@ def run_sharded_training(device, edge_errs=None, **over) -> list[dict]:
         t1 = time.perf_counter()
         print(f"  launch.train.train_rank(parse_args({' '.join(tpt_argv(tpt, 'bf16', 2))}), "
               f"cfg with zebra_tnet=False, grad_accum={tpt['grad_accum']}) in {tpt['world']} "
-              f"spawned ranks, then with "
-              f"--compress int8 --steps 1")
+              f"spawned ranks; int8: phase 18b's uninterrupted run, "
+              f"{' '.join(tpt_argv(tpc_run(tpt), 'int8', TPC['steps']))}, layer pattern "
+              f"{TPC['pattern']}")
         try:
             lm_mesh.spawn(tpt_rank, tpt["world"], (tmp, tpt), device=str(device))
         except Exception as e:     # a rank that raised: its traceback is in e
@@ -4860,6 +4889,7 @@ def run_sharded_training(device, edge_errs=None, **over) -> list[dict]:
         shutil.rmtree(tmp, ignore_errors=True)
     t2 = time.perf_counter()
     hold_sharded_training(ranks, one, tpt, cfg, device)
+    hold_sharded_ckpt(ranks, tpt)
     rows = []
     if device.type == "cuda":
         r0 = ranks[0]
@@ -4874,7 +4904,8 @@ def run_sharded_training(device, edge_errs=None, **over) -> list[dict]:
     print(f"  phase 18 times: one process {t1 - t0:.1f} s (of it {one['save_s']:.1f} s "
           f"copying and saving the parameters and the first moment), {tpt['world']} ranks "
           f"{t2 - t1:.1f} s (spawn, build, 3 steps, checks; the first-moment copy and "
-          f"comparison {max(r['mom_s'] for r in ranks):.1f} s at most a rank), kernel timing "
+          f"comparison {max(r['mom_s'] for r in ranks):.1f} s at most a rank; phase 18b "
+          f"{ranks[0]['ckpt_s']:.1f} s of it on rank 0), kernel timing "
           f"{time.perf_counter() - t2:.1f} s")
     return rows
 
@@ -4902,7 +4933,8 @@ def hold_sharded_training(ranks: list, one: dict, tpt: dict, cfg, device) -> Non
           + ", ".join(f"{n} {rel[n]:.3e}" for n in order[-5:]))
     check(rel[order[-1]] <= TPT_MOM_REL, f"{label}: the first moment of {order[-1]} is "
                                          f"{rel[order[-1]]:.3e} off one process's")
-    for run, hist_1 in (("bf16", one["bf16"]["history"]), ("int8", one["int8"]["history"])):
+    for run, hist_1 in (("bf16", one["bf16"]["history"]),
+                        (f"int8 ({TPC['layers']} layers)", one["int8"]["history"])):
         hists = [r["history"] if run == "bf16" else r["int8"]["history"] for r in ranks]
         keys = ("loss", "ce", "zero_frac", "zebra_reg", "grad_norm", "measured_bytes")
         check(all([[h[k] for k in keys] for h in hs] == [[h[k] for k in keys] for h in hists[0]]
@@ -4973,7 +5005,7 @@ def hold_sharded_training(ranks: list, one: dict, tpt: dict, cfg, device) -> Non
           f"{[round(r['max_memory_allocated'] / 2 ** 30, 3) for r in ranks]} GiB (one process "
           f"{one['bf16']['peak'] / 2 ** 30:.3f} GiB); state by component, rank 0: "
           + ", ".join(f"{k} {v / 2 ** 30:.3f} GiB" for k, v in ranks[0]["state_bytes"].items())
-          + "; int8 adds its residual: "
+          + f"; int8 adds its residual ({TPC['layers']} layers): "
           f"{ranks[0]['int8']['state_bytes']['compress'] / 2 ** 30:.3f} GiB")
     r0 = ranks[0]
     tp, dp = r0["tp_per_step"], r0["dp_per_step"]
@@ -4982,6 +5014,231 @@ def hold_sharded_training(ranks: list, one: dict, tpt: dict, cfg, device) -> Non
           f"{tp['bwd_calls']:.0f} calls, {tp['bwd_bytes'] / 2 ** 20:.1f} MiB; data-parallel "
           f"{dp['calls']:.0f} calls, {dp['bytes'] / 2 ** 20:.1f} MiB; rank 0's stages: "
           + ", ".join(f"{k} {v:.1f} s" for k, v in r0["stage_s"].items()))
+
+
+# ---------------------------------------------------------------------------
+# Phase 18b: checkpoints of the sharded state
+# ---------------------------------------------------------------------------
+
+# in phase 18's world after its runs: gemma3-4b at full width cut to 2
+# layers, the pattern's last local layer and its global one (0.87 B
+# parameters, ~13.9 GB of float32 state a checkpoint with int8's
+# residual), phase 18's site and remat, int8; a crash on every rank at
+# call 3 of a 3-step run with a checkpoint every 2, against the same run
+# uninterrupted; the final file restored at (data 1, model 4). Cut for the
+# smoke's time from 4 steps to 3 (the crash still restores step 2); the
+# batch stays phase 18's (a cut to 2 x 1024 did not shorten a step, whose
+# time is the data-parallel reductions: PERF.md §6)
+TPC = dict(layers=2, pattern=("local", "global"), steps=3, ckpt_every=2, crash_at=3,
+           restore_model=4)
+
+
+def tpc_run(tpt: dict) -> dict:
+    """Phase 18's run parameters with phase 18b's depth and steps."""
+    return {**tpt, **{k: TPC[k] for k in ("layers", "pattern", "steps")}}
+
+
+class HostPeak:
+    """The most resident bytes this process held inside the block:
+    ``VmRSS`` read every 10 ms on a thread (the card's machine has no
+    ``VmHWM``, and a spawned rank's ``ru_maxrss`` counts its parent's at
+    the fork). ``peak`` stays 0 where ``/proc`` has no ``VmRSS``."""
+
+    def __init__(self):
+        import threading
+        self.peak, self._stop = 0, threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+
+    def _sample(self) -> None:
+        while True:
+            for line in Path("/proc/self/status").read_text().splitlines():
+                if line.startswith("VmRSS:"):
+                    self.peak = max(self.peak, int(line.split()[1]) * 1024)
+            if self._stop.wait(0.01):
+                return
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def state_on_host(state) -> dict:
+    """Every tensor leaf of a train state, by its flat name, on the host."""
+    import torch
+    from repro_torch.checkpoint.manager import _leaves
+    return {k: v.detach().to("cpu", copy=True) for k, v in _leaves(state)
+            if isinstance(v, torch.Tensor)}
+
+
+def tpt_ckpt(tpt: dict, out_dir: str) -> dict:
+    """Phase 18b on this rank (module docstring): ``train_rank`` with
+    ``--compress int8`` uninterrupted, then under ``--ckpt`` with
+    ``ft.crashing_step`` raising at call 3 on every rank after moving every
+    tensor of the state (parameters, both moments, the residual), its
+    shards held bit for bit against the first run's; the final file
+    restored into a model built at (data 1, model 4), whose whole leaves,
+    gathered back to rank 0, must have the manifest's CRCs. Returns the
+    checks' readings and the times."""
+    import os
+    import shutil
+
+    over = tpc_run(tpt)
+    cfg = tpt_config(over)
+    argv = tpt_argv(over, "int8", TPC["steps"])
+    ckpt = os.path.join(out_dir, "ckpt")
+    out = {"free": shutil.disk_usage(out_dir).free}
+    with HostPeak() as peak:
+        out.update(tpt_ckpt_runs(tpt, cfg, argv, ckpt))
+    out["host_peak"] = peak.peak
+    return out
+
+
+def tpt_ckpt_runs(tpt: dict, cfg, argv: list, ckpt: str) -> dict:
+    """:func:`tpt_ckpt`'s runs and checks on this rank."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch import ft
+    from repro_torch.checkpoint.manager import _crc, _leaves
+    from repro_torch.checkpoint.sharded import ShardedCheckpointManager, whole_leaves
+    from repro_torch.distributed.sharding import build_sharded
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.optim import adamw, warmup_cosine
+
+    rank0, out = dist.get_rank() == 0, {}
+    t0 = time.perf_counter()
+    res = train.train_rank(train.parse_args(argv), cfg)
+    device = next(res["model"].parameters()).device
+    want, hist_u = state_on_host(res["state"]), res["history"]
+    out["report_u"] = res["report"]             # phase 18's int8 run
+    out["launches_u"] = res["report"]["launches"]
+    del res
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    inner, seen = train.train_step, {}
+
+    def recording(model, opt, state, *a, **kw):
+        seen.update(model=model, state=state)
+        return inner(model, opt, state, *a, **kw)
+
+    def dirty():
+        """The crash after a half-applied update: every parameter, both
+        moments and the residual moved."""
+        with torch.no_grad():
+            for t in (*seen["model"].parameters(), *(v for _, v in _leaves(seen["state"])
+                                                     if isinstance(v, torch.Tensor))):
+                t.add_(1.0)
+        return ft.TransientStep(f"injected crash at call {TPC['crash_at']}")
+    train.train_step = ft.crashing_step(recording, TPC["crash_at"], exc=dirty)
+    try:
+        with CkptTimer(ShardedCheckpointManager) as timer:
+            res = train.train_rank(train.parse_args(
+                [*argv, "--ckpt", ckpt, "--ckpt-every", str(TPC["ckpt_every"])]), cfg)
+    finally:
+        train.train_step = inner
+    got, hist = res["state"], res["history"]
+    out.update(
+        differ=[k for k, v in _leaves(got) if isinstance(v, torch.Tensor)
+                and not same_bits(v.detach().cpu(), want[k])],
+        leaves=len(want), step=got["step"], history=[h["step"] for h in hist],
+        losses=[h["loss"] for h in hist], losses_u=[h["loss"] for h in hist_u],
+        failures=[e["class"] for e in res["supervisor"].failure_log],
+        launches=res["report"]["launches"], times=timer.times)
+    final = os.path.join(ckpt, f"step_{TPC['steps']}")
+    if rank0:
+        man = json.loads(Path(final, "manifest.json").read_text())
+        out.update(extra=man["extra"], bytes=os.path.getsize(os.path.join(final, "shard_0.npz")))
+        want_crc = man["checksums"]
+    del res, got, want
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    mesh = make_host_mesh(model=TPC["restore_model"], device=device)
+    model = build_sharded(cfg, mesh, generator=torch.Generator(device=device).manual_seed(1),
+                          device=device, train=True)
+    state = init_train_state(model, adamw(warmup_cosine(tpt["lr"], 1, TPC["steps"])), "int8")
+    t3 = time.perf_counter()
+    step, state, extra = ShardedCheckpointManager(ckpt, model).restore(state)
+    t4 = time.perf_counter()
+    # the witness: the restored shards gathered back whole to rank 0, each
+    # leaf's CRC32 the manifest's (the restore checked the file's bytes,
+    # this checks what every rank holds)
+    flat = whole_leaves(model, state)
+    if rank0:
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            sums = dict(zip(flat, pool.map(_crc, flat.values())))
+        out.update(crc_bad=sorted(k for k in set(sums) | set(want_crc)
+                                  if sums.get(k) != want_crc.get(k)), crc_checked=len(sums))
+    del flat
+    out.update(restored=(step, extra, state["step"]),
+               layout={"data": mesh.size(0), "model": mesh.size(1)},
+               s={"uninterrupted": t1 - t0, "crash and resume": t2 - t1,
+                  "build at the new layout": t3 - t2, "restore at the new layout": t4 - t3,
+                  "gather and CRCs at the new layout": time.perf_counter() - t4})
+    del model, state
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def hold_sharded_ckpt(ranks: list, tpt: dict) -> None:
+    """Phase 18b's checks and figures, from every rank's ``tpt_ckpt``."""
+    label = "sharded checkpoints"
+    steps, c = TPC["steps"], [r["ckpt"] for r in ranks]
+    r0 = c[0]
+    print(f"{label} (phase 18b): {LM_ARCH} at full width"
+          f"{' (reduced)' if tpt.get('reduced') else ''}, {TPC['layers']} layers "
+          f"{TPC['pattern']}, batch {tpt['batch']} x {tpt['seq']}, int8, "
+          f"{tpt['world']} ranks (data {tpt['world'] // tpt['model']}, model {tpt['model']}), "
+          f"{steps} steps under --ckpt-every {TPC['ckpt_every']}, a crash on every rank at "
+          f"call {TPC['crash_at']}; {r0['free'] / 1e9:.1f} GB free for the checkpoints")
+    for r, x in zip(ranks, c):
+        check(not x["differ"], f"{label} rank {r['rank']}: the resumed run's shards differ "
+                               f"from the uninterrupted run's: {x['differ'][:4]}")
+        check(x["failures"] == ["TransientStep"], f"{label}: failure log {x['failures']}")
+        check(x["history"] == list(range(1, steps + 1)), f"{label}: history {x['history']}")
+        check(x["losses"] == x["losses_u"], f"{label}: losses {x['losses']} vs {x['losses_u']}")
+        check(x["step"] == steps, f"{label}: step {x['step']}")
+        check(x["restored"][0] == steps and x["restored"][2] == steps and
+              x["restored"][1] == {"loader_step": steps}, f"{label}: restored {x['restored']}")
+        if not tpt.get("reduced"):
+            for run in ("launches_u", "launches"):
+                got = [x[run][k] for k in STREAM_KERNELS]
+                check(min(got) > 0, f"{label} rank {r['rank']}: kernels 1-3 launched {got}")
+    check(r0["extra"] == {"loader_step": steps}, f"{label}: manifest extra {r0['extra']}")
+    check(not r0["crc_bad"] and r0["crc_checked"] == r0["leaves"] + 1,
+          f"{label}: at {r0['layout']} the restored state gathered whole differs from the "
+          f"file: {r0['crc_bad'][:4]} ({r0['crc_checked']} leaves checked)")
+    print(f"  crashed at call {TPC['crash_at']}, restored step {TPC['ckpt_every']}: every "
+          f"rank's shards of the parameters, both AdamW moments and the int8 residual "
+          f"({r0['leaves']} leaves), the step, the loader's step and the losses "
+          f"{r0['losses']} == the uninterrupted run (bitwise); kernels 1-3 launched by rank "
+          f"{[[x['launches'][k] for k in STREAM_KERNELS] for x in c]}")
+    print(f"  the step-{steps} file restored at {r0['layout']}: every rank checked each whole "
+          f"leaf's CRC32 against the manifest's as it read it; the restored shards gathered "
+          f"back whole to rank 0: all {r0['crc_checked']} leaves' CRC32s the manifest's")
+    t = r0["times"]
+    for i, (blk, wr) in enumerate(zip(t["save"], t["_write"])):
+        print(f"  save {i + 1}: blocks the loop {blk * 1e3:.1f} ms (the gather to rank 0); "
+              f"write and CRCs {wr * 1e3:.1f} ms on rank 0's writer thread "
+              f"({r0['bytes'] / wr / 1e6:.1f} MB/s); {r0['bytes']} B a checkpoint")
+    print(f"  restore and verify after the crash, by rank: "
+          f"{[round(x['times']['restore'][0], 3) for x in c]} s; at {r0['layout']}: "
+          f"{[round(x['s']['restore at the new layout'], 3) for x in c]} s")
+    peaks = [round(x["host_peak"] / 2 ** 30, 2) if x["host_peak"] else "not measured"
+             for x in c]
+    print(f"  host peak in phase 18b (VmRSS every 10 ms) by rank: {peaks} "
+          f"GiB; rank 0's stages: " + ", ".join(f"{k} {v:.1f} s" for k, v in r0["s"].items()))
 
 
 # ---------------------------------------------------------------------------

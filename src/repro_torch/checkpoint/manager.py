@@ -15,7 +15,8 @@ then overwrites the same tensors in place); with ``async_save`` the CRCs
 and the disk write run on a thread, joined before the next save and by
 ``wait``. ``restore`` checks every leaf's CRC as it reads it (``np.savez``
 stores leaves uncompressed, so a flipped byte on disk loads as silently
-wrong weights) and copies the leaves into the tensors of ``like``, the
+wrong weights), each leaf a memory map of its stored member
+(:class:`StoredNpz`), and copies the leaves into the tensors of ``like``, the
 model's own: the state stays the tensors the model trains. A corrupt or truncated newest
 checkpoint falls back to the next older one, raising
 ``ft.faults.CorruptStream`` only when the whole chain is bad; an
@@ -35,8 +36,11 @@ import logging
 import math
 import os
 import shutil
+import struct
 import threading
+import zipfile
 import zlib
+from collections.abc import Mapping
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
@@ -71,13 +75,16 @@ def _leaves(tree: Any, path: tuple = ()):
         yield _SEP.join(map(str, path)), tree
 
 
+_NATIVE_TORCH = (torch.float64, torch.float32, torch.float16, torch.int64, torch.int32,
+                 torch.int16, torch.int8, torch.uint8, torch.bool)
+
+
 def _to_host(leaf) -> np.ndarray:
     """A host copy of one leaf (never a view of a live tensor); bf16 and
     other dtypes npz cannot store as float32."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
-        if t.dtype not in (torch.float64, torch.float32, torch.float16, torch.int64,
-                           torch.int32, torch.int16, torch.int8, torch.uint8, torch.bool):
+        if t.dtype not in _NATIVE_TORCH:
             t = t.to(torch.float32)
         return t.to("cpu", copy=True).numpy()
     arr = np.array(leaf)
@@ -88,27 +95,134 @@ def _flatten(tree: Any) -> dict[str, np.ndarray]:
     return {k: _to_host(v) for k, v in _leaves(tree)}
 
 
-def _load_into(tree: Any, read, path: tuple = ()):
-    """``tree`` with every tensor leaf overwritten in place by ``read(key)``
-    (cast to the leaf's dtype and device) and every other leaf replaced by
-    the stored value, as a Python number where the leaf was one."""
+def map_leaves(tree: Any, fn, path: tuple = ()):
+    """``tree`` with every leaf replaced by ``fn(key, leaf)`` (``key`` its
+    path as :func:`_leaves` names it), dicts in their own order (a train
+    state's order is the step's summation order); None stays None."""
     if isinstance(tree, dict):
-        return {k: _load_into(v, read, path + (k,)) for k, v in tree.items()}
+        return {k: map_leaves(v, fn, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_load_into(getattr(tree, f), read, path + (f,))
+        return type(tree)(*(map_leaves(getattr(tree, f), fn, path + (f,))
                             for f in tree._fields))
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_load_into(v, read, path + (i,)) for i, v in enumerate(tree))
+        return type(tree)(map_leaves(v, fn, path + (i,)) for i, v in enumerate(tree))
     if tree is None:
         return None
-    arr = read(_SEP.join(map(str, path)))
-    if isinstance(tree, torch.Tensor):
-        with torch.no_grad():
-            tree.copy_(torch.from_numpy(arr))
-        return tree
-    if isinstance(tree, (bool, int, float)):
-        return type(tree)(arr.item())
-    return arr.astype(np.asarray(tree).dtype)
+    return fn(_SEP.join(map(str, path)), tree)
+
+
+def stored_value(leaf, arr):
+    """A leaf that is not a tensor, replaced by its stored value ``arr``:
+    a Python number where the leaf was one."""
+    if isinstance(leaf, (bool, int, float)):
+        return type(leaf)(arr.item())
+    return np.asarray(arr).astype(np.asarray(leaf).dtype)
+
+
+def _load_into(tree: Any, read):
+    """``tree`` with every tensor leaf overwritten in place by ``read(key)``
+    (cast to the leaf's dtype and device) and every other leaf replaced by
+    the stored value (:func:`stored_value`)."""
+    def load(key, leaf):
+        arr = read(key)
+        if isinstance(leaf, torch.Tensor):
+            with torch.no_grad():
+                leaf.copy_(torch.from_numpy(arr))
+            return leaf
+        return stored_value(leaf, arr)
+    return map_leaves(tree, load)
+
+
+def checked_reader(data, manifest: dict | None, label: str):
+    """``read(key)``: leaf ``key`` of the open shard ``data`` (a mapping of
+    leaf names to arrays: :func:`open_shard`), its CRC32
+    checked against ``manifest``'s as it is read, once the shard's leaf
+    set has been checked against the manifest's. A failure raises
+    ``ft.faults.CorruptStream`` naming the leaf."""
+    from ..ft.faults import CorruptStream
+    paths, files = (manifest or {}).get("paths"), set(data)
+    if paths is not None and set(paths) != files:
+        raise CorruptStream(f"{label}: leaf set mismatch — manifest lists {len(paths)} "
+                            f"leaves, shard holds {len(files)}")
+    sums = (manifest or {}).get("checksums") or {}
+
+    def read(key):
+        try:
+            arr = data[key]
+        except Exception as e:  # a member cut short
+            raise CorruptStream(f"{label}: leaf {key!r} unreadable "
+                                f"({type(e).__name__}: {e})") from e
+        if key in sums and _crc(arr) != int(sums[key]):
+            raise CorruptStream(f"{label}: leaf {key!r} CRC mismatch (manifest "
+                                f"{int(sums[key]):#010x}, on-disk {_crc(arr):#010x})")
+        return arr
+    return read
+
+
+class StoredNpz(Mapping):
+    """The leaves of an ``np.savez`` file (its members stored, not
+    compressed), each opened as a copy-on-write memory map of the file
+    when asked for: the whole array, read page by page as it is used.
+    The members are mapped, not read through ``zipfile``, so the zip's own
+    CRC of a member is never checked: the manifest's CRC32
+    (:func:`checked_reader`) is the one hash of the bytes. A member the
+    file does not hold whole raises."""
+
+    def __init__(self, path: str):
+        self.path, self.size, self.members = path, os.path.getsize(path), {}
+        with zipfile.ZipFile(path) as zf, open(path, "rb") as f:
+            for info in zf.infolist():
+                if info.compress_type != zipfile.ZIP_STORED or \
+                        not info.filename.endswith(".npy"):
+                    raise ValueError(f"{info.filename}: not a stored .npy member")
+                f.seek(info.header_offset)
+                head = f.read(30)
+                if len(head) < 30 or head[:4] != b"PK\x03\x04":
+                    raise ValueError(f"{info.filename}: no local header")
+                names, extra = struct.unpack("<HH", head[26:30])
+                f.seek(info.header_offset + 30 + names + extra)
+                read_header = {(1, 0): np.lib.format.read_array_header_1_0,
+                               (2, 0): np.lib.format.read_array_header_2_0}[
+                    np.lib.format.read_magic(f)]
+                shape, fortran, dtype = read_header(f)
+                self.members[info.filename[:-4]] = (f.tell(), shape, fortran, dtype)
+
+    def __getitem__(self, key: str) -> np.ndarray:
+        offset, shape, fortran, dtype = self.members[key]
+        end = offset + math.prod(shape) * dtype.itemsize
+        if end > self.size:
+            raise ValueError(f"truncated: the leaf ends at byte {end} of {self.size}")
+        if end == offset:
+            return np.zeros(shape, dtype)
+        return np.memmap(self.path, dtype=dtype, mode="c", offset=offset, shape=shape,
+                         order="F" if fortran else "C")
+
+    def __iter__(self):
+        return iter(self.members)
+
+    def __len__(self) -> int:
+        return len(self.members)
+
+
+def open_shard(path: str, host_id: int = 0, label: str = "ckpt") -> StoredNpz:
+    """The leaves of ``<path>/shard_<host_id>.npz``; a file that does not
+    open as one raises ``ft.faults.CorruptStream``."""
+    from ..ft.faults import CorruptStream
+    try:
+        return StoredNpz(os.path.join(path, f"shard_{host_id}.npz"))
+    except Exception as e:  # a truncated or foreign file
+        raise CorruptStream(f"{label}: unreadable ({type(e).__name__}: {e})") from e
+
+
+def read_manifest(path: str, label: str = "ckpt") -> dict:
+    """``<path>/manifest.json``; one that does not read raises
+    ``ft.faults.CorruptStream``."""
+    from ..ft.faults import CorruptStream
+    try:
+        with open(os.path.join(path, "manifest.json")) as f:
+            return json.load(f)
+    except Exception as e:  # truncated json, missing file, ...
+        raise CorruptStream(f"{label}: unreadable ({type(e).__name__}: {e})") from e
 
 
 def load_pytree(path: str, like: Any, host_id: int = 0, manifest: dict | None = None,
@@ -118,25 +232,7 @@ def load_pytree(path: str, like: Any, host_id: int = 0, manifest: dict | None = 
     and each leaf's CRC32 as it is read, before it is copied: a failure
     raises ``ft.faults.CorruptStream`` naming the leaf, with the leaves
     before it already written (one read of the shard, not two)."""
-    from ..ft.faults import CorruptStream
-    with np.load(os.path.join(path, f"shard_{host_id}.npz")) as data:
-        paths = (manifest or {}).get("paths")
-        if paths is not None and set(paths) != set(data.files):
-            raise CorruptStream(f"{label}: leaf set mismatch — manifest lists {len(paths)} "
-                                f"leaves, shard holds {len(data.files)}")
-        sums = (manifest or {}).get("checksums") or {}
-
-        def read(key):
-            try:
-                arr = data[key]
-            except Exception as e:  # zip member CRC or truncation on read
-                raise CorruptStream(f"{label}: leaf {key!r} unreadable "
-                                    f"({type(e).__name__}: {e})") from e
-            if key in sums and _crc(arr) != int(sums[key]):
-                raise CorruptStream(f"{label}: leaf {key!r} CRC mismatch (manifest "
-                                    f"{int(sums[key]):#010x}, on-disk {_crc(arr):#010x})")
-            return arr
-        return _load_into(like, read)
+    return _load_into(like, checked_reader(open_shard(path, host_id, label), manifest, label))
 
 
 # ---------------------------------------------------------------------------
@@ -285,7 +381,7 @@ class CheckpointManager:
             self._error = e
 
     def _gc(self) -> None:
-        steps = self.all_steps()
+        steps = self._steps_on_disk()
         for s in steps[: max(0, len(steps) - self.keep_last)]:
             shutil.rmtree(os.path.join(self.dir, f"step_{s}"), ignore_errors=True)
 
@@ -294,7 +390,11 @@ class CheckpointManager:
         """Checkpoint ``tree`` as step ``step``. Every leaf is on the host
         when this returns; the write (and, async, the CRCs) may still run."""
         self.wait()
-        flat = _flatten(tree)
+        self._publish(step, _flatten(tree), extra)
+
+    def _publish(self, step: int, flat: dict[str, np.ndarray], extra: dict | None) -> None:
+        """Write the host leaves ``flat`` as step ``step``: on the writer
+        thread with ``async_save``."""
         manifest = {"step": int(step), "paths": sorted(flat), "extra": extra or {}}
         tmp = os.path.join(self.dir, f"tmp.{step}")
         final = os.path.join(self.dir, f"step_{step}")
@@ -316,6 +416,9 @@ class CheckpointManager:
             raise err
 
     def all_steps(self) -> list[int]:
+        return self._steps_on_disk()
+
+    def _steps_on_disk(self) -> list[int]:
         out = []
         for name in os.listdir(self.dir):
             if name.startswith("step_") and os.path.exists(
@@ -348,39 +451,19 @@ class CheckpointManager:
     # ------------------------------------------------------------------
     def verify(self, step: int) -> dict:
         """Check one checkpoint end to end (a readable manifest, the same leaf
-        set, every leaf's CRC) and return its manifest. Raises
-        ``ft.faults.CorruptStream`` naming what failed. Manifests without
-        checksums verify structurally only."""
-        from ..ft.faults import CorruptStream      # ft's supervisor imports this module
-        path = os.path.join(self.dir, f"step_{step}")
-        try:
-            with open(os.path.join(path, "manifest.json")) as f:
-                manifest = json.load(f)
-            data = np.load(os.path.join(path, "shard_0.npz"))
-            keys = set(data.files)
-        except Exception as e:  # truncated zip or json, missing files, ...
-            raise CorruptStream(
-                f"ckpt step_{step}: unreadable ({type(e).__name__}: {e})") from e
-        with data:
-            paths = manifest.get("paths")
-            if paths is not None and set(paths) != keys:
-                raise CorruptStream(
-                    f"ckpt step_{step}: leaf set mismatch — manifest lists "
-                    f"{len(paths)} leaves, shard holds {len(keys)}")
-            sums = manifest.get("checksums")
-            if sums:
-                for k in sorted(keys):
-                    try:
-                        got = _crc(data[k])
-                    except Exception as e:  # zip member CRC or truncation on read
-                        raise CorruptStream(f"ckpt step_{step}: leaf {k!r} unreadable "
-                                            f"({type(e).__name__}: {e})") from e
-                    want = int(sums.get(k, got))
-                    if got != want:
-                        raise CorruptStream(
-                            f"ckpt step_{step}: leaf {k!r} CRC mismatch "
-                            f"(manifest {want:#010x}, on-disk {got:#010x})")
+        set, every leaf's CRC) through the restore's reader and return its
+        manifest. Raises ``ft.faults.CorruptStream`` naming what failed.
+        Manifests without checksums verify structurally only."""
+        path, label = os.path.join(self.dir, f"step_{step}"), f"ckpt step_{step}"
+        manifest = read_manifest(path, label)
+        data = open_shard(path, label=label)
+        read = checked_reader(data, manifest, label)
+        for key in sorted(data):
+            read(key)
         return manifest
+
+    def _load(self, path: str, like: Any, manifest: dict | None, label: str) -> Any:
+        return load_pytree(path, like, manifest=manifest, label=label)
 
     def restore(self, like: Any, step: int | None = None,
                 verify: bool = True) -> tuple[int, Any, dict]:
@@ -399,14 +482,9 @@ class CheckpointManager:
             for s in candidates:
                 path = os.path.join(self.dir, f"step_{s}")
                 try:
-                    try:
-                        with open(os.path.join(path, "manifest.json")) as f:
-                            manifest = json.load(f)
-                    except Exception as e:  # truncated json, missing file, ...
-                        raise CorruptStream(f"ckpt step_{s}: unreadable "
-                                            f"({type(e).__name__}: {e})") from e
-                    tree = load_pytree(path, like, manifest=manifest if verify else None,
-                                       label=f"ckpt step_{s}")
+                    manifest = read_manifest(path, f"ckpt step_{s}")
+                    tree = self._load(path, like, manifest if verify else None,
+                                      f"ckpt step_{s}")
                     return s, tree, manifest.get("extra", {})
                 except Exception as e:  # noqa: BLE001 - chain fallback below
                     if step is not None:

@@ -3,8 +3,8 @@ circuit breaker, deterministic fault injection (the stream taps, the
 checkpoint and step faults, and the serving engine's tick tap
 ``crash_tap``, and the collectives' ring-hop tap ``ring_hop_tap``) and the
 training step supervisor, whose ``FailurePolicy`` the serving engine
-shares. The supervisor's remesh waits for the sharded train step
-(``remesh_state``: ROADMAP.md, queue 1, item 2)."""
+shares, and the elastic re-mesh of a sharded train state
+(``remesh_state``)."""
 from .faults import (  # noqa: F401
     CorruptStream,
     DeadlineExceeded,
@@ -36,4 +36,5 @@ from .inject import (  # noqa: F401
     ring_hop_tap,
     stream_tap,
 )
-from .supervisor import FailurePolicy, FTConfig, StepSupervisor  # noqa: F401
+from .supervisor import (FailurePolicy, FTConfig, StepSupervisor, remesh_model,  # noqa: F401
+                         remesh_state)

@@ -13,9 +13,19 @@ The port's train step updates the model's tensors in place, so "keep the
 state" means the step must not touch it: a supervised step raises
 ``PoisonBatch`` on a non-finite loss before the optimizer runs
 (``launch.steps.train_step(check_finite=True)``), and a restore copies the
-checkpoint into the same tensors (``CheckpointManager.restore``). The
-reference's elastic remesh (``remesh_state``) waits for the distributed
-item: on one card there is no mesh to rebuild.
+checkpoint into the same tensors (``CheckpointManager.restore``).
+
+Under a joined world (the train state of a model cut for training, given
+as ``StepSupervisor(cfg, model=...)``) the checkpoints hold whole leaves
+(``checkpoint.sharded``): rank 0 alone writes them and the heartbeat,
+every rank restores its shards of them. A fault is recovered when every
+rank raises it at the same call (as a failing step looks to the
+reference's one controller) or the all-reduced loss is not finite; a
+fault on one rank only leaves the others inside the step's collectives.
+
+:func:`remesh_state` is the reference's elastic re-mesh: the model axis
+halved until it fits the live world, the state and its module re-cut
+from whole leaves by the checkpoint restore's re-cut.
 """
 from __future__ import annotations
 
@@ -113,9 +123,18 @@ def _host_id() -> int:
 
 
 class StepSupervisor:
-    def __init__(self, cfg: FTConfig):
+    """``model``: the model whose train state the loop runs; one cut for
+    training (``checkpoint.sharded.is_sharded``) checkpoints through
+    ``ShardedCheckpointManager``."""
+
+    def __init__(self, cfg: FTConfig, model=None):
+        from ..checkpoint.sharded import ShardedCheckpointManager, is_sharded
         self.cfg = cfg
-        self.ckpt = CheckpointManager(cfg.ckpt_dir, cfg.keep_last) if cfg.ckpt_dir else None
+        self.ckpt = None
+        if cfg.ckpt_dir and model is not None and is_sharded(model):
+            self.ckpt = ShardedCheckpointManager(cfg.ckpt_dir, model, cfg.keep_last)
+        elif cfg.ckpt_dir:
+            self.ckpt = CheckpointManager(cfg.ckpt_dir, cfg.keep_last)
         self.hb_path = cfg.heartbeat_path or (
             os.path.join(cfg.ckpt_dir, "heartbeat.json") if cfg.ckpt_dir else "")
         self.times: deque[float] = deque(maxlen=cfg.straggler_window)
@@ -147,7 +166,8 @@ class StepSupervisor:
 
     # ------------------------------------------------------------------
     def heartbeat(self, step: int, metrics: dict | None = None) -> None:
-        if not self.hb_path:
+        """Write the heartbeat file (in a joined world, rank 0 alone)."""
+        if not self.hb_path or _host_id() != 0:
             return
         tmp = self.hb_path + ".tmp"
         with open(tmp, "w") as f:
@@ -254,3 +274,58 @@ class StepSupervisor:
         if self.ckpt is not None:
             self.ckpt.wait()
         return state, step
+
+
+# ---------------------------------------------------------------------------
+# Elastic re-mesh
+# ---------------------------------------------------------------------------
+
+def remesh_model(model: int, n: int) -> int:
+    """The model axis the reference's re-mesh keeps on ``n`` live devices:
+    ``model`` halved while it does not divide ``n`` or exceeds it."""
+    while model > 1 and (n % model or model > n):
+        model //= 2
+    return model
+
+
+def remesh_state(state, cfg, old_mesh, spec_fn, *, model) -> tuple[Any, Any]:
+    """Rebuild the mesh from the live world and re-cut ``state`` on it (the
+    reference's ``remesh_state``). The live count is the joined world's
+    size (the reference's ``len(jax.devices())``); the model axis is
+    ``old_mesh``'s, cut by :func:`remesh_model`; the new mesh is
+    ``make_host_mesh(model=...)``. ``spec_fn(state, cfg, mesh)`` gives
+    the whole state's specs on a mesh (``distributed.sharding.
+    train_state_specs``), read here from a whole-shaped copy of ``state``
+    on the meta device; its parameters' specs become the model's
+    placements, which the other leaves mirror.
+
+    ``model``: the model cut for training on ``old_mesh`` whose train state
+    ``state`` is (its parameters are the state's own tensors, so the
+    port's re-mesh needs it). Each leaf is gathered whole over
+    ``old_mesh``, one at a time, and the state and the module are re-cut
+    by the checkpoint restore's re-cut (``checkpoint.sharded.recut_``);
+    the module then records the new mesh and placements. Returns
+    ``(new_state, new_mesh)``."""
+    import torch.distributed as dist
+
+    from ..checkpoint.manager import map_leaves
+    from ..checkpoint.sharded import gather_leaf, leaf_places, recut_, whole_shape
+    from ..distributed.sharding import mesh_shape, to_shardings
+    from ..launch.mesh import make_host_mesh
+    m = remesh_model(mesh_shape(old_mesh).get("model", 1), dist.get_world_size())
+    new_mesh = make_host_mesh(model=m, device=next(model.parameters()).device)
+    old_places = model.train_places
+
+    def whole_meta(key, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        shape = whole_shape(leaf.shape, leaf_places(old_places, key, old_mesh), old_mesh)
+        return torch.empty(shape, dtype=leaf.dtype, device="meta")
+
+    def whole_of(key, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        return gather_leaf(leaf, leaf_places(old_places, key, old_mesh), old_mesh, dst=None)
+    specs = spec_fn(map_leaves(state, whole_meta), cfg, new_mesh)
+    model.mesh, model.train_places = new_mesh, to_shardings(specs["params"], new_mesh)
+    return recut_(state, model, whole_of), new_mesh

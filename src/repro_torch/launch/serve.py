@@ -386,7 +386,7 @@ def _print_report(cfg: LMConfig, out: dict, B: int, S: int, gen: int, device,
 # Tensor-parallel one-shot serving (--model-parallel N)
 # ---------------------------------------------------------------------------
 
-TP_QUEUE = "ROADMAP.md, queue 1, item 1"
+TP_QUEUE = "ROADMAP.md, queue 1, item 2"
 
 
 def serve_tensor_parallel(args, cfg: LMConfig, argv=None) -> dict:

@@ -43,11 +43,19 @@ profile every rank takes its own rows and no layer is tensor-parallel):
 From a plain shell it spawns N ranks on this host (data 1; on one card
 they share it over ``gloo``); inside a joined world of a multiple of N
 ranks each process trains as its rank (:func:`train_rank`), with data =
-world / N. Experts or SSD heads that do not split over N, ``--ckpt``
-(checkpoints of a sharded state: ROADMAP.md, queue 1, item 2) and a batch
-that does not split over its ranks × ``grad_accum`` raise before any rank
+world / N. Experts or SSD heads that do not split over N and a batch that
+does not split over its ranks × ``grad_accum`` raise before any rank
 starts. The CLI feeds tokens only; :func:`train_rank` takes a source of
 encoder frames as :func:`train_lm` does.
+
+``--ckpt DIR`` under ``--model-parallel`` checkpoints the sharded state as
+whole leaves, the one-process format (``checkpoint.sharded``): rank 0
+gathers and writes them, every rank restores its shards of them. A run
+started again resumes where the last one stopped, at the same layout or
+at another ``--model-parallel`` in a world it divides:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --model-parallel 2 \
+        --reduced --device cpu --steps 4 --ckpt DIR --ckpt-every 2
 """
 from __future__ import annotations
 
@@ -97,7 +105,8 @@ def train_lm(cfg: LMConfig, *, steps: int = 50, batch: int = 8, seq: int = 128,
     device; the frames of the global batch, cut by ``rows`` as the tokens
     are) is trained in place, under a ``StepSupervisor`` that
     checkpoints to ``ckpt`` (None: no checkpoints) every ``ckpt_every``
-    steps and resumes from it. Returns ``(model, state, history,
+    steps and resumes from it (a model cut for training: whole leaves,
+    ``checkpoint.sharded``). Returns ``(model, state, history,
     supervisor)``: one history row per completed step, the metrics read
     on the host (one read a step, after the finite-loss check's) with
     ``step`` and ``ms``, the step's host-clock time. ``rows``: the rows of
@@ -121,9 +130,11 @@ def train_lm(cfg: LMConfig, *, steps: int = 50, batch: int = 8, seq: int = 128,
             out["enc_feats"] = frames if rows is None else frames[rows]
         return out
     loader = StreamingLoader(make_batch, batch)
-    sup = StepSupervisor(FTConfig(ckpt_dir=ckpt, ckpt_every=ckpt_every))
+    sup = StepSupervisor(FTConfig(ckpt_dir=ckpt, ckpt_every=ckpt_every), model=model)
     state, start, extra = sup.resume_or_init(lambda: init_train_state(model, opt, compress))
     loader.restore(extra.get("loader_step", start))
+    if start:
+        log(f"[train] resumed at step {start} from {ckpt}")
 
     def step_fn(state, batch):
         inputs = {"tokens": torch.from_numpy(batch["tokens"]).to(device=device,
@@ -217,22 +228,16 @@ def main(argv=None) -> dict:
 # The sharded train step (--model-parallel N)
 # ---------------------------------------------------------------------------
 
-TP_QUEUE = "ROADMAP.md, queue 1"
-
-
 def _refuse(args, cfg: LMConfig, world: int) -> None:
     """What the sharded train step does not run raises here, before any
     rank starts: a model axis that does not divide the world, experts or
-    SSD heads that do not split over it (``sharding.check_tp``), ``--ckpt``
-    and a batch that does not split over its ranks."""
+    SSD heads that do not split over it (``sharding.check_tp``) and a
+    batch that does not split over its ranks."""
     from ..distributed.sharding import check_tp
     N = args.model_parallel
     if N < 1 or world % N:
         raise ValueError(f"--model-parallel {N} does not divide the world of {world} ranks")
     check_tp(cfg, N, train=True)
-    if args.ckpt is not None:
-        raise NotImplementedError(f"--ckpt under --model-parallel: checkpoints of a sharded "
-                                  f"train state are not ported yet ({TP_QUEUE}, item 2)")
     parts, _ = batch_shards(cfg, world // N, N, 0, 0)
     data_rows(args.batch, cfg.grad_accum, parts, 0)         # raises if it does not split
 
@@ -288,8 +293,9 @@ def train_rank(args, cfg: LMConfig, enc_feats=None) -> dict:
     train=True)``), then :func:`train_lm` on this rank's rows of each
     global batch (``steps.data_rows`` of ``steps.batch_shards``), the
     sharded step, an encoder-decoder also on those rows of the frames
-    ``enc_feats(step)`` (the global batch's) when a source is given; at the end the
-    parameters are gathered back into the module. Rank 0 logs as one
+    ``enc_feats(step)`` (the global batch's) when a source is given,
+    checkpointing to and resuming from ``--ckpt`` (whole leaves, at any
+    layout); at the end the parameters are gathered back into the module. Rank 0 logs as one
     process does. Returns :func:`train_lm`'s result with the mesh and this
     rank's report (``"report"``: the history, the stage times, the peak
     memory, the state's bytes by component and the collectives a step);
@@ -304,8 +310,10 @@ def train_rank(args, cfg: LMConfig, enc_feats=None) -> dict:
     N, world = args.model_parallel, dist.get_world_size()
     _refuse(args, cfg, world)
     device = resolve_device(args.device)
-    if device.type == "cpu":            # the ranks share this host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    if device.type == "cpu":            # the ranks share this host's cores (at most the
+        # threads the process was given: OMP_NUM_THREADS=1 makes a run bitwise repeatable)
+        torch.set_num_threads(max(1, min(torch.get_num_threads(),
+                                         (os.cpu_count() or 1) // world)))
     mesh = make_host_mesh(model=N, device=device)
     data, di, mi = world // N, mesh.get_local_rank("data"), mesh.get_local_rank("model")
     parts, part = batch_shards(cfg, data, N, di, mi)
@@ -326,7 +334,8 @@ def train_rank(args, cfg: LMConfig, enc_feats=None) -> dict:
         model, state, history, sup = train_lm(
             cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
             compress=args.compress, seed=args.seed, device=device, model=model, log=log,
-            rows=data_rows(args.batch, cfg.grad_accum, parts, part), enc_feats=enc_feats)
+            rows=data_rows(args.batch, cfg.grad_accum, parts, part), enc_feats=enc_feats,
+            ckpt=args.ckpt, ckpt_every=args.ckpt_every)
     n = max(len(history), 1)
     t_train = time.perf_counter()
     gather_params_(model, state)        # the module holds the trained weights

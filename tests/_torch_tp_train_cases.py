@@ -17,6 +17,12 @@ steps at ``warmup_cosine(1e-3, 1, 10)`` (the first step's lr is 0, the
 second moves the parameters) on the same 8 x 64-token batch, each data
 rank its rows of every microbatch (``steps.data_rows``). This module
 imports numpy only at the top: the port's ranks import it without JAX.
+
+Configuration ``CKPT_CASE`` then checkpoints its sharded state after the
+last step on both sides (:func:`reference_ckpt`, :func:`port_ckpt`): the
+reference's ``CheckpointManager`` of its state, the port's 8 ranks'
+``ShardedCheckpointManager``, restored at three layouts of the same
+world, a crash and resume under the supervisor, and ``remesh_state``.
 """
 from __future__ import annotations
 
@@ -48,6 +54,10 @@ CASES = {
           "none"),
 }
 METRICS = ("loss", "ce", "grad_norm", "zero_frac", "zebra_reg")
+CKPT_CASE = "a"                 # int8: its residual is a checkpointed leaf
+LAYOUTS = (MODEL, 2, 1)         # the model axes a checkpoint restores at: data 2, 4, 8
+RUN_STEPS, CKPT_EVERY, CRASH_AT = 4, 2, 3
+REMESH_MODELS = (1, 2, 3, 4, 5, 6, 8, 16, 32)   # stand-in old meshes' model axes
 
 
 def config(case: str, pkg):
@@ -129,7 +139,43 @@ def reference_main(out_dir: str, case: str) -> None:
         if i == 0:
             out.update({f"mom.{k}": v for k, v in names(state["opt"]["m"]).items()})
     out.update({f"param.{k}": v for k, v in names(state["params"]).items()})
+    if case == CKPT_CASE:
+        out.update(reference_ckpt(out_dir, state))
     np.savez(f"{out_dir}/ref_{case}.npz", **out)
+
+
+def reference_ckpt(out_dir: str, state) -> dict:
+    """The reference's checkpoint of its sharded state after the last
+    step, ``CheckpointManager.save`` (every leaf whole, ``jax.device_get``)
+    with the loader's step, under ``<out_dir>/ref_ckpt``; whether its
+    ``restore(like=state)`` gives every leaf, the step and the extra back
+    bit for bit; and the model axis its ``remesh_state`` keeps on these 8
+    devices for a stand-in old mesh of each of ``REMESH_MODELS`` (it reads
+    only ``old_mesh.shape``)."""
+    import types
+
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import PartitionSpec as P
+
+    from repro.checkpoint.manager import CheckpointManager
+    from repro.ft import remesh_state
+    mgr = CheckpointManager(f"{out_dir}/ref_ckpt", async_save=False)
+    mgr.save(STEPS, state, {"loader_step": STEPS})
+    step, tree, extra = mgr.restore(state)
+    want = jax.tree_util.tree_leaves(jax.device_get(state))
+    got = jax.tree_util.tree_leaves(tree)
+    same = (step == STEPS and extra == {"loader_step": STEPS} and len(got) == len(want)
+            and all(np.asarray(a).dtype == np.asarray(b).dtype
+                    and np.asarray(a).tobytes() == np.asarray(b).tobytes()
+                    for a, b in zip(got, want)))
+    kept = []
+    for m in REMESH_MODELS:
+        _, mesh = remesh_state({"w": jnp.ones((8, 4))}, None,
+                               types.SimpleNamespace(shape={"model": m}),
+                               lambda s, c, mesh: jax.tree_util.tree_map(lambda _: P(), s))
+        kept.append((m, mesh.shape["model"]))
+    return {"ckpt_restore_same": np.asarray(same), "remesh_kept": np.asarray(kept)}
 
 
 def level_position(mode: str, x):
@@ -191,25 +237,16 @@ def port_rank(rank: int, out_dir: str) -> None:
 
     from repro_torch import configs, optim
     from repro_torch.distributed.collectives import TP_TRAFFIC
-    from repro_torch.distributed.sharding import shard_model_
     from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.models.lm import LM
 
     torch.set_num_threads(1)            # 8 ranks share the host's cores
     mesh = make_host_mesh(model=MODEL, device="cpu")
     di, mi = mesh.get_local_rank("data"), mesh.get_local_rank("model")
     res = {"data_index": di, "model_index": mi}
     for case in CASES:
-        path = f"{out_dir}/params_{case}.npz"
-        TPC._wait(path)
-        flat = dict(np.load(path))
         cfg = config(case, configs)
-        model = LM(cfg)
-        with torch.no_grad():
-            for name, t in model.state_dict().items():
-                t.copy_(torch.from_numpy(flat[name]))
-        shard_model_(model, mesh, train=True)
+        model = reference_model(out_dir, case, mesh)
         opt = optim.adamw(optim.warmup_cosine(*LR))
         mode = compress_mode(case)
         state = steps.init_train_state(model, opt, mode)
@@ -230,4 +267,131 @@ def port_rank(rank: int, out_dir: str) -> None:
         res[f"{case}_module"] = {k: v.detach().clone() for k, v in model.named_parameters()}
         res[f"{case}_places"] = model.train_places
         res[f"{case}_bwd_calls"] = TP_TRAFFIC["bwd_calls"] - bwd
+        if case == CKPT_CASE:
+            res["ckpt"] = port_ckpt(out_dir, case, model, state)
     torch.save(res, f"{out_dir}/rank{rank}.pt")
+
+
+def reference_model(out_dir: str, case: str, mesh):
+    """The port's model of ``case`` holding the reference's initial
+    parameters, cut for training on ``mesh``."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.distributed.sharding import shard_model_
+    from repro_torch.models.lm import LM
+    path = f"{out_dir}/params_{case}.npz"
+    TPC._wait(path)
+    flat = dict(np.load(path))
+    model = LM(config(case, configs))
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            t.copy_(torch.from_numpy(flat[name]))
+    return shard_model_(model, mesh, train=True)
+
+
+def snapshot(model, state) -> dict:
+    """This rank's train state (every flat leaf: tensors cloned, the step)
+    and its module's tensors, with the placements and its coordinates on
+    the model's mesh."""
+    import torch
+
+    from repro_torch.checkpoint.manager import _leaves
+    from repro_torch.distributed.sharding import mesh_shape
+    return {"state": {k: v.detach().clone() if torch.is_tensor(v) else v
+                      for k, v in _leaves(state)},
+            "module": {k: v.detach().clone() for k, v in model.named_parameters()},
+            "places": dict(model.train_places), "shape": mesh_shape(model.mesh),
+            "coords": {a: model.mesh.get_local_rank(a) for a in ("data", "model")}}
+
+
+def tensors(state) -> list:
+    """Every tensor leaf of a train state."""
+    import torch
+
+    from repro_torch.checkpoint.manager import _leaves
+    return [v for _, v in _leaves(state) if isinstance(v, torch.Tensor)]
+
+
+def port_ckpt(out_dir: str, case: str, model, state) -> dict:
+    """The port's checkpoint of ``case``'s sharded state after the last
+    step, in the world of 8: the save (``<out_dir>/ckpt``, rank 0
+    writing); its restore into a fresh model and state at each of
+    ``LAYOUTS`` (the same mesh, then (data 4, model 2) and (data 8, model
+    1)), the restored state at (4, 2) saved again (``<out_dir>/ckpt_m2``);
+    the supervisor's decision to resume where only rank 0 sees the file
+    (every other rank a directory of its own; ``unshared``: what each
+    rank raised, or None); a crash and resume under ``launch.train.train_lm``
+    (``RUN_STEPS`` steps, a checkpoint every ``CKPT_EVERY``,
+    ``ft.crashing_step`` at call ``CRASH_AT`` on every rank, moving every
+    parameter, both moments and the residual before it raises)
+    beside the same run uninterrupted, both from the reference's initial
+    parameters; and ``ft.remesh_state`` of the resumed state on this
+    world. Returns the snapshots (:func:`snapshot`), histories and logs."""
+    import torch
+
+    from repro_torch import configs, ft, optim
+    from repro_torch.checkpoint.sharded import ShardedCheckpointManager
+    from repro_torch.distributed.sharding import shard_model_, train_state_specs
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.lm import LM
+    cfg, mode, mesh = config(case, configs), compress_mode(case), model.mesh
+    out = {"dir": out_dir, "saved": snapshot(model, state)}
+    saver = ShardedCheckpointManager(f"{out_dir}/ckpt", model)
+    saver.save(STEPS, state, {"loader_step": STEPS})
+    saver.wait()
+    rank = torch.distributed.get_rank()
+    alone = ft.StepSupervisor(ft.FTConfig(
+        ckpt_dir=f"{out_dir}/ckpt" if rank == 0 else f"{out_dir}/alone{rank}"), model=model)
+    try:
+        alone.resume_or_init(lambda: state, like=state)
+        out["unshared"] = None
+    except RuntimeError as e:
+        out["unshared"] = str(e)
+    for m in LAYOUTS:
+        fresh = shard_model_(LM(cfg), mesh if m == MODEL else make_host_mesh(model=m,
+                                                                              device="cpu"),
+                             train=True)
+        st = steps.init_train_state(fresh, optim.adamw(optim.warmup_cosine(*LR)), mode)
+        step, st, extra = ShardedCheckpointManager(f"{out_dir}/ckpt", fresh).restore(st)
+        out[f"restored_{m}"] = dict(snapshot(fresh, st), step=step, extra=extra)
+        if m == 2:
+            again = ShardedCheckpointManager(f"{out_dir}/ckpt_m2", fresh)
+            again.save(step, st, extra)
+            again.wait()
+    di = mesh.get_local_rank("data")
+    inner = train.train_step
+
+    def run(ckpt, crash: bool):
+        fresh = reference_model(out_dir, case, mesh)
+        seen = {}
+
+        def recording(model, opt, state, *a, **kw):
+            seen.update(model=model, state=state)
+            return inner(model, opt, state, *a, **kw)
+
+        def dirty():
+            """The crash after a half-applied update: every parameter, both
+            moments and the residual moved."""
+            with torch.no_grad():
+                for t in (*seen["model"].parameters(), *tensors(seen["state"])):
+                    t.add_(1.0)
+            return ft.TransientStep(f"injected crash at call {CRASH_AT}")
+        if crash:
+            train.train_step = ft.crashing_step(recording, CRASH_AT, exc=dirty)
+        try:
+            _, st, hist, sup = train.train_lm(
+                cfg, steps=RUN_STEPS, batch=B, seq=S, lr=LR[0], compress=mode, seed=SEED,
+                device="cpu", model=fresh, log=lambda *_: None, ckpt=ckpt,
+                ckpt_every=CKPT_EVERY, rows=steps.data_rows(B, cfg.grad_accum, DATA, di))
+        finally:
+            train.train_step = inner
+        steps.gather_params_(fresh, st)         # the module holds the trained weights
+        return {"end": snapshot(fresh, st), "history": hist,
+                "failures": [e["class"] for e in sup.failure_log]}, fresh, st
+    out["uninterrupted"], _, _ = run(None, False)
+    out["resumed"], fresh, st = run(f"{out_dir}/ckpt_run", True)
+    st, _ = ft.remesh_state(st, cfg, fresh.mesh, train_state_specs, model=fresh)
+    out["remeshed"] = snapshot(fresh, st)
+    return out

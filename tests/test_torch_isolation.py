@@ -80,15 +80,27 @@ def test_lm_trainer_without_device_needs_cuda():
         train.main(["--reduced", "--steps", "1"])
 
 
-def test_lm_trainer_cli_runs_on_cpu(capsys, tmp_path):
+@pytest.fixture
+def one_thread():
+    """This process's torch on one thread for the test: on a loaded host a
+    threaded run of the reduced trainer took 40 s where one thread takes
+    1 s."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_lm_trainer_cli_runs_on_cpu(capfd, tmp_path, monkeypatch, one_thread):
     """``--device cpu --reduced --steps 2`` trains and logs as the reference
     does; with ``--ckpt`` a second run resumes from the first's checkpoint;
-    ``--ckpt`` under ``--model-parallel`` waits for checkpoints of a
-    sharded state."""
+    under ``--model-parallel 2`` a third resumes from the same one-process
+    checkpoint (whole leaves: the format does not depend on the layout)
+    and writes the next step in it."""
     from repro_torch.launch import train
     out = train.main(["--reduced", "--device", "cpu", "--steps", "2", "--batch", "2",
                       "--seq", "32", "--backend", "pallas"])
-    text = capsys.readouterr().out
+    text = capfd.readouterr().out
     assert "step     1 loss=" in text and "step     2 loss=" in text
     assert out["state"]["step"] == 2 and len(out["history"]) == 2
     assert all(torch.isfinite(torch.tensor(m["loss"])) for m in out["history"])
@@ -98,10 +110,12 @@ def test_lm_trainer_cli_runs_on_cpu(capsys, tmp_path):
     assert sorted(p.name for p in tmp_path.glob("step_*")) == ["step_1", "step_2"]
     out = train.main([*ckpt, "--steps", "3"])
     assert [m["step"] for m in out["history"]] == [3] and out["state"]["step"] == 3
-    assert f"checkpoints in {tmp_path}" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="sharded"):
-        train.main(["--reduced", "--device", "cpu", "--model-parallel", "2", "--ckpt",
-                    str(tmp_path)])
+    assert f"checkpoints in {tmp_path}" in capfd.readouterr().out
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")     # the spawned ranks: one thread each
+    out = train.main([*ckpt, "--steps", "4", "--model-parallel", "2"])
+    assert f"[train] resumed at step 3 from {tmp_path}" in capfd.readouterr().out
+    assert all([m["step"] for m in r["history"]] == [4] for r in out["ranks"])
+    assert sorted(p.name for p in tmp_path.glob("step_*")) == ["step_2", "step_3", "step_4"]
 
 
 @pytest.mark.parametrize("launch", ["bitmap", "pack", "unpack", "mask", "zebra_pack",

@@ -34,6 +34,7 @@ must lie within ``EDGE`` (2**-12) of a level of a rounding boundary (seen:
 at most 7.6e-5); without compression none. The fixture takes ~45 s, the JAX compiles most
 of it.
 """
+import json
 import os
 import subprocess
 import sys
@@ -254,6 +255,215 @@ def test_backward_collectives_ran(runs):
 
 
 # ---------------------------------------------------------------------------
+# Checkpoints of the sharded state (configuration CKPT_CASE, int8)
+# ---------------------------------------------------------------------------
+
+def stand_in(shape: dict):
+    """A mesh as ``local_shard`` reads it, of the given axis sizes."""
+    class Mesh:
+        axis_names = tuple(shape)
+    Mesh.shape = dict(shape)
+    return Mesh()
+
+
+def file_leaves(path) -> dict:
+    with np.load(Path(path) / "shard_0.npz") as data:
+        return {k: data[k] for k in data.files}
+
+
+def manifest(path) -> dict:
+    return json.loads((Path(path) / "manifest.json").read_text())
+
+
+def ref_ckpt_as_port(model, flat: dict) -> dict:
+    """The reference's checkpoint leaves under the port's flat names: each
+    parameter-shaped subtree (``params``, ``opt/m``, ``opt/v``,
+    ``compress/error``) through ``convert.port_params``, its stacked leaves
+    split into the port's layers."""
+    from repro_torch.models.lm.convert import port_params
+    out = {"step": flat["step"]}
+    for prefix in ("params", "opt/m", "opt/v", "compress/error"):
+        tree = {}
+        for k, v in flat.items():
+            if k.startswith(prefix + "/"):
+                *path, leaf = k[len(prefix) + 1:].split("/")
+                node = tree
+                for part in path:
+                    node = node.setdefault(part, {})
+                node[leaf] = v
+        out.update({f"{prefix}/{k}": v for k, v in port_params(model, tree).items()})
+    return out
+
+
+def test_checkpoint_against_the_reference(runs):
+    """The port's 8-rank save after step 2 at (data 2, model 4) against the
+    reference's ``CheckpointManager.save`` of its sharded state there: the
+    same whole leaves (the reference's stacked ones split into layers) and
+    shapes, the step and the loader's step exact, the parameters within
+    the sharded step's tolerances (atol 1e-4; int8 compressed: at most
+    ``SHARE`` of a leaf beyond it, within 2.5 times the lr); both moments
+    and the int8 residual within the first moment's (atol 1e-7; at most
+    ``SHARE`` of a leaf beyond it, each within one int8 level of the
+    second step's gradient, twice the reference's largest residual: the
+    residual lies within half a level; step 1 at lr 0 leaves the
+    parameters, and so the first step's gradient and level, as they were);
+    a CRC per leaf.
+    The reference's ``restore(like)`` of its own file gives its state back
+    bit for bit."""
+    from repro_torch import configs
+    from repro_torch.models.lm import LM
+    from repro_torch.optim import warmup_cosine
+    ref, port = runs
+    case, d = C.CKPT_CASE, Path(port[0]["ckpt"]["dir"])
+    assert bool(ref[case]["ckpt_restore_same"])
+    want = ref_ckpt_as_port(LM(C.config(case, configs), device="meta"),
+                            file_leaves(d / "ref_ckpt" / f"step_{C.STEPS}"))
+    got = file_leaves(d / "ckpt" / f"step_{C.STEPS}")
+    assert set(got) == set(want) and any(k.startswith("compress/error/") for k in got)
+    assert {k: v.shape for k, v in got.items()} == {k: v.shape for k, v in want.items()}
+    assert int(got["step"]) == int(want["step"]) == C.STEPS
+    for name in ("ckpt", "ref_ckpt"):
+        man = manifest(d / name / f"step_{C.STEPS}")
+        assert man["extra"] == {"loader_step": C.STEPS}
+        assert set(man["checksums"]) == set(man["paths"])
+    lr = warmup_cosine(*C.LR)(C.STEPS - 1)
+    for k in (k for k in got if k.startswith("params/")):
+        diff = np.abs(got[k] - want[k])
+        off = diff > 1e-4 + 1e-4 * np.abs(want[k])
+        assert off.sum() <= allowed(off.size) and np.all(diff <= 2.5 * lr), (k, diff.max())
+    for k in (k for k in got if k.startswith(("opt/", "compress/"))):
+        level = 2 * np.abs(want["compress/error/" + k.rsplit("/", 1)[1]]).max() * (1 + 1e-3)
+        diff = np.abs(got[k] - want[k])
+        off = diff > 1e-7
+        assert off.sum() <= allowed(off.size) and np.all(diff <= level + 1e-7), (k, diff.max())
+
+
+def cut(whole: np.ndarray, snap: dict, key: str, axes=None) -> np.ndarray:
+    """A snapshot's rank's cut of a whole leaf, by its placements on its
+    layout."""
+    from repro_torch.checkpoint.sharded import leaf_places
+    from repro_torch.distributed.sharding import local_shard
+    mesh = stand_in(snap["shape"])
+    return local_shard(torch.from_numpy(whole), leaf_places(snap["places"], key, mesh), mesh,
+                       snap["coords"], axes=axes).numpy()
+
+
+def same_state(a: dict, b: dict) -> list[str]:
+    """The leaves and module tensors of two snapshots that differ in a bit."""
+    keys = [("state", k) for k in b["state"]] + [("module", k) for k in b["module"]]
+    assert a["state"].keys() == b["state"].keys() and a["module"].keys() == b["module"].keys()
+    return [k for kind, k in keys
+            if not np.array_equal(bits(torch.as_tensor(a[kind][k])),
+                                  bits(torch.as_tensor(b[kind][k])))]
+
+
+@pytest.mark.parametrize("model", C.LAYOUTS)
+def test_checkpoint_restores_at_each_layout(model, runs):
+    """The (data 2, model 4) file restored into a fresh model and state at
+    (data 8 / model, model): every rank's shards of the parameters, both
+    moments and the int8 residual are its cut of the file's whole leaves
+    bit for bit, its module tensors the parameters' cut over ``model``, the
+    step and the loader's step the file's; at the same layout they are the
+    saved state bit for bit."""
+    _, port = runs
+    whole = file_leaves(Path(port[0]["ckpt"]["dir"]) / "ckpt" / f"step_{C.STEPS}")
+    for p in port:
+        snap = p["ckpt"][f"restored_{model}"]
+        assert snap["shape"] == {"data": len(port) // model, "model": model}
+        assert snap["step"] == C.STEPS and snap["extra"] == {"loader_step": C.STEPS}
+        assert snap["state"]["step"] == C.STEPS
+        for key, t in snap["state"].items():
+            if key != "step":
+                assert np.array_equal(bits(t), bits(cut(whole[key], snap, key))), key
+        for name, t in snap["module"].items():
+            assert np.array_equal(bits(t), bits(cut(whole[f"params/{name}"], snap,
+                                                    f"params/{name}", axes=("model",)))), name
+        if model == C.MODEL:
+            assert not same_state(snap, p["ckpt"]["saved"])
+
+
+def test_checkpoint_crcs_do_not_depend_on_the_layout(runs, tmp_path):
+    """The same state saved from (data 2, model 4) and from (data 4, model
+    2), and by one process's ``CheckpointManager`` as a whole state: the
+    same leaf paths and the same CRC per leaf."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.optim.compress import CompressionState
+    _, port = runs
+    d = Path(port[0]["ckpt"]["dir"])
+    want = manifest(d / "ckpt" / f"step_{C.STEPS}")
+    got = manifest(d / "ckpt_m2" / f"step_{C.STEPS}")
+    assert got["paths"] == want["paths"] and got["checksums"] == want["checksums"]
+    flat = {k: torch.from_numpy(v) for k, v in file_leaves(d / "ckpt" / f"step_{C.STEPS}").items()}
+
+    def sub(prefix):
+        return {k[len(prefix):]: v for k, v in flat.items() if k.startswith(prefix)}
+    whole = {"params": sub("params/"), "opt": {"m": sub("opt/m/"), "v": sub("opt/v/")},
+             "compress": CompressionState(error=sub("compress/error/")),
+             "step": int(flat["step"])}
+    CheckpointManager(str(tmp_path), async_save=False).save(C.STEPS, whole,
+                                                            {"loader_step": C.STEPS})
+    one = manifest(tmp_path / f"step_{C.STEPS}")
+    assert one["paths"] == want["paths"] and one["checksums"] == want["checksums"]
+
+
+def test_checkpoint_refuses_a_directory_the_ranks_do_not_share(runs):
+    """Where only rank 0 sees the checkpoint (every other rank a directory
+    of its own), the supervisor's decision to resume raises on every rank:
+    each takes rank 0's list of steps and finds its own differs (a rank
+    restoring alone would enter collectives the others never reach)."""
+    _, port = runs
+    for rank, p in enumerate(port):
+        msg = p["ckpt"]["unshared"]
+        assert msg is not None and "every rank must see rank 0's directory" in msg, (rank, msg)
+        assert (f"rank {rank} lists the checkpoints []" in msg) == (rank != 0), (rank, msg)
+
+
+def test_crash_and_resume_bit_for_bit(runs):
+    """``train_lm`` under ``--ckpt`` on every rank, a checkpoint every 2
+    steps, ``ft.crashing_step`` raising at call 3 after moving every
+    parameter, both moments and the residual: the supervisor restores
+    step 2 and the loader, and after step 4 every rank's shards of the
+    parameters, both moments and the
+    int8 residual, its module tensors and each step's loss equal the
+    uninterrupted run's bit for bit; one ``TransientStep`` logged, the
+    history steps 1..4."""
+    _, port = runs
+    for p in port:
+        got, want = p["ckpt"]["resumed"], p["ckpt"]["uninterrupted"]
+        assert got["failures"] == ["TransientStep"] and want["failures"] == []
+        assert [h["step"] for h in got["history"]] == list(range(1, C.RUN_STEPS + 1))
+        assert [h["loss"] for h in got["history"]] == [h["loss"] for h in want["history"]]
+        assert got["end"]["state"]["step"] == C.RUN_STEPS
+        assert not same_state(got["end"], want["end"])
+
+
+def test_remesh_state_on_the_same_world_is_the_identity(runs):
+    """``ft.remesh_state`` of the resumed state on the world it runs in
+    keeps the mesh (data 2, model 4) and every rank's shards and module
+    tensors bit for bit (the reference's
+    ``test_elastic_remesh_same_devices``)."""
+    _, port = runs
+    for p in port:
+        got = p["ckpt"]["remeshed"]
+        assert got["shape"] == {"data": C.DATA, "model": C.MODEL}
+        assert got["places"] == p["ckpt"]["resumed"]["end"]["places"]
+        assert not same_state(got, p["ckpt"]["resumed"]["end"])
+
+
+def test_remesh_keeps_the_reference_model_axis(runs):
+    """The model axis the port's re-mesh keeps on 8 live ranks
+    (``ft.remesh_model``) is the one the reference's ``remesh_state``
+    keeps on 8 devices, for old meshes whose model axis divides them,
+    does not (3, 5, 6) or exceeds them (16, 32)."""
+    from repro_torch.ft import remesh_model
+    ref, _ = runs
+    kept = ref[C.CKPT_CASE]["remesh_kept"]
+    assert [m for m, _ in kept] == list(C.REMESH_MODELS)
+    assert [remesh_model(int(m), 8) for m, _ in kept] == [int(k) for _, k in kept]
+    assert dict(kept)[16] == 8 and dict(kept)[3] == 1
+
+
+# ---------------------------------------------------------------------------
 # The CLI
 # ---------------------------------------------------------------------------
 
@@ -280,10 +490,9 @@ def test_cli_trains_four_ranks_on_cpu(capfd):
     (["--arch", "mamba2-2.7b", "--model-parallel", "16"], NotImplementedError),
     (["SERVE", "--requests", "2", "--arch", "mamba2-2.7b"], NotImplementedError),
     (["--arch", "granite-moe-1b-a400m", "--batch", "3", "DP"], ValueError),
-    (["--ckpt", "CKPT"], NotImplementedError),
     (["--batch", "3", "K2"], ValueError),
 ])
-def test_cli_refuses_before_any_rank_starts(argv, err, tmp_path, monkeypatch):
+def test_cli_refuses_before_any_rank_starts(argv, err, monkeypatch):
     """What the sharded steps do not take raises in the parent, before
     anything is spawned: experts that do not split over the model ranks
     (8 over 3), SSD heads that do not while ``d_inner`` does (8 heads,
@@ -292,15 +501,14 @@ def test_cli_refuses_before_any_rank_starts(argv, err, tmp_path, monkeypatch):
     the serving CLI; mamba2's recurrent state), a batch that does not split over its
     ranks (``DP``: granite under the "dp" profile, the batch cut over all
     2 ranks; ``K2``: the config at ``grad_accum`` 2, over data x K; both
-    through ``train_tensor_parallel`` as ``main`` calls it) and ``--ckpt``."""
+    through ``train_tensor_parallel`` as ``main`` calls it)."""
     from repro_torch.launch import mesh, serve, train
     monkeypatch.setattr(mesh, "spawn", lambda *a, **k: pytest.fail("a rank was spawned"))
     marks = {"K2": dict(grad_accum=2), "DP": dict(sharding_profile="dp")}
     fields = next((marks[a] for a in argv if a in marks), None)
     cli = serve if "SERVE" in argv else train
     argv = ["--model-parallel", "2", "--reduced", "--device", "cpu",
-            *(str(tmp_path) if a == "CKPT" else a for a in argv
-              if a not in marks and a != "SERVE")]
+            *(a for a in argv if a not in marks and a != "SERVE")]
     with pytest.raises(err):
         if fields is not None:
             args = train.parse_args(argv)
