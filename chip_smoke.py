@@ -322,16 +322,16 @@ It builds the port's CUDA kernels from the sources in the checkout and then:
     spawns 4 ranks on this host, (data 1, model 4), ``gloo`` with host
     copies on one card; each rank builds the model from seed 0 and cuts
     its shards) on ``fused``, batch 2, prompt 2048, 32 greedy tokens:
-    (a) gemma3-4b at full width cut to 12 layers, T_obj 1.05, held against
-    a single-process run at 12 layers: the 4 ranks' logits and tokens bit
-    for bit alike; the 12 ``ffn_hidden`` sites on block edges (d_ff 2560 a
-    rank, kernels 1, 2 and 7 on each rank's shard) and the 24 ``kv_cache``
-    sites gathered (one KV head of 320 a rank cuts the 128-wide blocks: kernel 4
+    (a) gemma3-4b at full width cut to 6 layers (5 local, the global), T_obj
+    1.05, held against a single-process run at 6 layers: the 4 ranks'
+    logits and tokens bit for bit alike; the 6 ``ffn_hidden`` sites on
+    block edges (d_ff 2560 a rank, kernels 1, 2 and 7 on each rank's shard)
+    and the 12 ``kv_cache`` sites gathered (one KV head of 320 a rank cuts the 128-wide blocks: kernel 4
     on the whole (4096, 1280) map), every stream site and handoff leaf in
     the Eq. 2/3 band, the zero fraction per site kind within 1e-3 of one
     process's (the blocks that differ counted), the prefill logits within
     1.5 (PERF.md), the tokens equal but for near ties; each rank's
-    launches per phase (prefill 12 / 12 / 12 GEMMs / 24 masking, the
+    launches per phase (prefill 6 / 6 / 6 GEMMs / 12 masking, the
     handoff one ``zebra_pack`` a leaf and one expander, decode one
     expander a leaf); times, each rank's ``max_memory_allocated`` and the
     tensor-parallel collectives per prefill and per token;
@@ -3472,24 +3472,40 @@ class StepRecorder:
     step the request took part in, teacher-forced ones too) and, for every
     token a ``ServeEngine`` run generates, the logits row it was chosen
     from, the ``Bb`` and the request's step count. Wraps
-    ``serve.engine.decode_slotted`` and ``ServeEngine._step``; launches
-    nothing."""
+    ``serve.engine.decode_slotted`` (the port's own runs, its logits taken
+    from the model's ``decode_step`` inside it) and ``ServeEngine._step``;
+    launches nothing. Where the lanes split over ``data``, the rows of
+    every lane are gathered over ``data`` after the step, outside the
+    port's traffic counters."""
 
     def __init__(self):
         self.bb, self.rows = {}, {}
 
     def __enter__(self):
         import repro_torch.serve.engine as engine
-        from repro_torch.launch import steps
         self._engine = engine
         self._decode, self._step = engine.decode_slotted, engine.ServeEngine._step
         last = {}
 
-        def decode(model, token, state, pos, temperature=0.0, generator=None):
-            with steps.model_hints(model):      # a model cut for a mesh runs under it
-                logits, state = model.decode_step(token, state, pos)
-            last["logits"] = logits
-            return steps._next_token(logits, temperature, generator), state
+        def decode(model, token, state, pos, temperature=0.0, generator=None, lanes=None):
+            inner = model.decode_step
+
+            def decode_step(*args, **kwargs):
+                logits, st = inner(*args, **kwargs)
+                last["logits"] = logits
+                return logits, st
+            model.decode_step = decode_step
+            try:
+                out = self._decode(model, token, state, pos, temperature, generator,
+                                   lanes=lanes)
+            finally:
+                del model.decode_step
+            if lanes is not None:               # every lane's row, as the engine's tokens
+                import torch
+                from repro_torch.distributed.collectives import Wire
+                got = Wire(lanes).all_gather(last["logits"].float())
+                last["logits"] = torch.cat(got.unbind(0), dim=0)
+            return out
 
         def step(eng, now):
             before = [(lane, r, len(r.out)) for lane, r in enumerate(eng._lanes) if r]
@@ -4282,9 +4298,10 @@ def run_collectives(device, *, reduced=False, seq=COLL_G3["seq"],
 # Phase 17: tensor-parallel serving (--model-parallel)
 # ---------------------------------------------------------------------------
 
-# gemma3-4b served at 12 of its 34 layers (two whole local/global patterns):
-# phase 18 took the time its full depth took (PERF.md)
-TP = dict(model=4, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN, g3_layers=12,
+# gemma3-4b served at 6 of its 34 layers (one whole local/global pattern):
+# phase 18 took the time its full depth took, phase 21's (data 2, model 2)
+# job the time its second pattern took (PERF.md)
+TP = dict(model=4, batch=LM_BATCH, prompt=LM_PROMPT, gen=LM_GEN, g3_layers=6,
           g3_rules={"ffn_hidden": "blocks", "kv_cache": "gather"},
           sc2_rules={"ffn_hidden": "blocks", "kv_cache": "blocks"})
 # the second, shorter run (8 of 40 layers, 8 tokens): the yardstick is its
@@ -4462,7 +4479,8 @@ def hold_tp_run(label: str, ranks: list, yard: dict, rules: dict, n_layers: int,
             "decode": {"zebra_unpack_kernel": n_leaves}}
     for r in ranks if not tp.get("reduced") else ():   # the CPU's plain versions count nothing
         for phase, counts in want.items():
-            got = {k: v for k, v in r["phases"][phase].items() if not k.startswith("tp_")}
+            got = {k: v for k, v in r["phases"][phase].items()
+                   if not k.startswith(("tp_", "dp_"))}
             if r is r0:
                 check_launches(got, counts, f"{label} rank 0 {phase}")
             else:
@@ -5557,7 +5575,8 @@ def hold_tpl_run(arch: str, run: dict, ranks: list, yard: dict, tpl: dict) -> No
               f"{arch} lane {b}: tokens part at a gap {d and d['gap']} over the logit bound")
     for r in ranks:
         for phase, want in yard["phases"].items():
-            got = {k: v for k, v in r["phases"][phase].items() if not k.startswith("tp_")}
+            got = {k: v for k, v in r["phases"][phase].items()
+                   if not k.startswith(("tp_", "dp_"))}
             check(got == want, f"{arch} rank {r['rank']} {phase}: launches {got}, one "
                                f"process {want}")
     total = {k: sum(r0["phases"][p][k] for p in r0["phases"]) for k in yard["phases"]["prefill"]}
@@ -5961,8 +5980,10 @@ def time_tptl_kernels(arch: str, run: dict, maps: list, launches: dict, device) 
 # Phase 21: continuous serving under tensor parallelism
 # ---------------------------------------------------------------------------
 
-# one world of 4 ranks at (data 1, model 4)
+# one world of 4 ranks at (data 1, model 4); granite's job of SVTP_DATA's
+# tag again at (data 2, model 2), the decode lanes split over ``data``
 SVTP = dict(world=4, model=4)
+SVTP_DATA = dict(tag="granite_d2", model=2)
 # the counters of a continuous run that depend on the requests' lengths
 # alone: every rank's must equal one process's
 SVTP_COUNTERS = ("n_requests", "n_rejected", "n_shed", "deadline_misses", "steps", "evictions",
@@ -5997,61 +6018,76 @@ def engine_yardstick(argv: list, eng, rep: dict, rec, launches: dict) -> dict:
 
 
 class BucketMaps:
-    """On one rank (``on``): a host copy of the ``ffn_hidden`` maps of one
-    prefill at each bucket, as its kernels get them (a rank's columns on
-    block edges, or the gathered whole), with the weight the site consumes
-    (None for a masked map): the first prefill of each row count, ``n``
-    sites of it."""
+    """On one rank (``on``): a host copy of the ``ffn_hidden`` maps its
+    kernels get (a rank's columns on block edges, a rank's experts' rows,
+    or the gathered whole), with the weight the site consumes (None for a
+    masked map), ``n`` sites each: ``maps`` those of the first prefill of
+    each row count, ``decode`` those of the first decode step at each
+    batch bucket."""
 
     def __init__(self, on: bool, n: int):
-        self.on, self.n, self.maps = on, n, {}
+        self.on, self.n, self.maps, self.decode = on, n, {}, {}
 
     def __enter__(self):
         import repro_torch.core.engine as engine
+        import repro_torch.serve.engine as serve_engine
         self._engine, self._inner = engine, engine._site
+        self._serve, self._step = serve_engine.ServeEngine, serve_engine.ServeEngine._step
         if not self.on:
             return self
+        at = {}
+
+        def step(eng, now):
+            at["Bb"] = eng._Bb
+            try:
+                return self._step(eng, now)
+            finally:
+                del at["Bb"]
 
         def site(x, cfg, **kw):
             w = kw.get("w")
             rows = x.shape[-2]
-            got = self.maps.setdefault(rows, [])
+            got = (self.decode.setdefault(at["Bb"], []) if "Bb" in at
+                   else self.maps.setdefault(rows, []))
             if cfg.enabled and kw.get("site") == "ffn_hidden" and rows % cfg.block_seq == 0 \
                     and len(got) < self.n:
                 got.append((x.detach().reshape(-1, x.shape[-1]).cpu(),
                             None if w is None else w.detach().cpu()))
             return self._inner(x, cfg, **kw)
-        engine._site = site
+        engine._site, self._serve._step = site, step
         return self
 
     def __exit__(self, *exc):
         self._engine._site = self._inner
+        self._serve._step = self._step
 
 
 def svtp_rank(rank: int, out_dir: str, jobs: list) -> None:
     """One rank of phase 21 (spawned, in the joined world): each job
-    ``(tag, argv, keep)`` served by ``launch.serve.main`` with
-    ``--requests`` and ``--model-parallel 4``, which inside the world
-    serves as this rank (``serve_rank``) and saves its report to
+    ``(tag, argv, keep, model ranks)`` served by ``launch.serve.main`` with
+    ``--requests`` and ``--model-parallel``, which inside the world serves
+    as this rank (``serve_rank``; at 2 model ranks of 4, data 2) and saves
+    its report to
     ``<out_dir>/<tag>/``; rank 0 also saves the logits rows its tokens
-    were chosen from and, where ``keep``, its ffn_hidden maps of one
-    prefill a bucket, and every rank, where ``keep``, its heads of lane 0
+    were chosen from and, where ``keep`` ("maps" or "lanes"), its
+    ffn_hidden maps of one prefill a row count and one decode step a
+    bucket, and every rank, where ``keep`` is "lanes", its heads of lane 0
     of the hot set at the end (the pages its pool packed)."""
     import os
 
     import torch
     from repro_torch.launch import serve
-    for tag, argv, keep in jobs:
+    for tag, argv, keep, model in jobs:
         d = os.path.join(out_dir, tag)
         os.makedirs(d, exist_ok=True)
         layers = int(argv[argv.index("--layers") + 1])
-        with StepRecorder() as rec, BucketMaps(rank == 0 and keep, layers) as maps:
-            out = serve.main([*argv, "--model-parallel", str(SVTP["model"]), "--save", d])
+        with StepRecorder() as rec, BucketMaps(rank == 0 and bool(keep), layers) as maps:
+            out = serve.main([*argv, "--model-parallel", str(model), "--save", d])
         if rank == 0:
             torch.save({"rows": {rid: [x[0].cpu() for x in rows]
                                  for rid, rows in rec.rows.items()},
-                        "maps": maps.maps}, os.path.join(d, "rows.pt"))
-        if keep:
+                        "maps": maps.maps, "decode": maps.decode}, os.path.join(d, "rows.pt"))
+        if keep == "lanes":
             lane = [x.cpu() for x in _tensors(out["engine"]._take_lane(0))]
             torch.save(lane, os.path.join(d, f"lane{rank}.pt"))
         del out, rec, maps
@@ -6195,11 +6231,40 @@ def time_svtp_kernels(arch: str, rows0: dict, lanes: list, launches: dict, t_obj
     return rows
 
 
+def time_svtp_data_kernels(arch: str, rows0: dict, launches: dict, t_obj: float,
+                           device) -> list[dict]:
+    """The (data 2, model 2) job's kernel rows: kernels 1-3 held bit for bit
+    against their plain versions on rank 0's ffn_hidden maps (its experts'
+    dispatch rows at 2 model ranks) and timed, summed per prefill at the
+    largest row count and per decode step at the largest bucket the lanes
+    split over ``data``."""
+    import torch
+    bb = max(b for b, v in rows0["decode"].items() if v and b % 2 == 0)
+    pb = max(k for k, v in rows0["maps"].items() if v)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.int32, device=device)   # 256 MB
+    rows = []
+    for maps, what in ((rows0["maps"][pb], f"prefill of {pb} dispatch rows"),
+                       (rows0["decode"][bb], f"decode step at {bb} lanes, {bb // 2} a rank")):
+        lm = {"maps": [(x.to(device), None) for x, _ in maps], "t_obj": t_obj,
+              "launches": launches}
+        suffix = SVTP_SUFFIX.format(arch, f" at (data 2, model 2), {what}")
+        print(f"{arch} at (data 2, model 2) kernel times, a rank ({len(maps)} ffn_hidden maps "
+              f"{tuple(maps[0][0].shape)} of a {what}):")
+        rows += time_lm_stream_kernels(lm, flush, {f"{k}{suffix}": (k, "ffn")
+                                                   for k in STREAM_KERNELS})
+        del lm
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
 def svtp_prepare(device, g3_yard: dict, granite=SVTP_GRANITE, **over) -> dict:
     """Phase 21 before its ranks: granite-moe-1b-a400m served in this
     process at phase 15's trace shape (its yardstick) and the jobs the
     ranks serve (:func:`svtp_rank`): gemma3-4b with phase 15's arguments
-    (``g3_yard``, :func:`engine_yardstick`), then granite. ``over``
+    (``g3_yard``, :func:`engine_yardstick`), then granite at (data 1,
+    model 4) and again at (data 2, model 2) (``SVTP_DATA``), both held
+    against the same yardstick. ``over``
     replaces the granite run's prompt, gen, requests, T_obj, pages and
     depth and, with ``reduced=True`` on the CPU, rehearses the flow on the
     reduced configs."""
@@ -6217,7 +6282,9 @@ def svtp_prepare(device, g3_yard: dict, granite=SVTP_GRANITE, **over) -> dict:
           str(over.get("page_tokens", g["page_tokens"])), "--layers",
           str(over.get("layers", g["layers"])), *tail]
     print(f"tensor-parallel continuous serving (phase 21): {SVTP['world']} ranks on the "
-          f"{'card' if device.type == 'cuda' else 'CPU'} at (data 1, model {SVTP['model']})")
+          f"{'card' if device.type == 'cuda' else 'CPU'} at (data 1, model {SVTP['model']}), "
+          f"{g['arch']} again at (data {SVTP['world'] // SVTP_DATA['model']}, model "
+          f"{SVTP_DATA['model']})")
     print(f"  {g['arch']} in one process: python -m repro_torch.launch.serve {' '.join(gv)}")
     with StepRecorder() as rec, yard_sums():
         reset_launch_counts()
@@ -6228,12 +6295,49 @@ def svtp_prepare(device, g3_yard: dict, granite=SVTP_GRANITE, **over) -> dict:
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    jobs = [("gemma3", g3_yard["argv"], device.type == "cuda"), ("granite", gv, False)]
-    for _, argv, _ in jobs:
-        print(f"  python -m repro_torch.launch.serve {' '.join(argv)} --model-parallel "
-              f"{SVTP['model']}")
-    return {"jobs": jobs, "yards": {"gemma3": g3_yard, "granite": g_yard},
+    card = device.type == "cuda"
+    jobs = [("gemma3", g3_yard["argv"], "lanes" if card else "", SVTP["model"]),
+            ("granite", gv, "", SVTP["model"]),
+            (SVTP_DATA["tag"], gv, "maps", SVTP_DATA["model"])]
+    for _, argv, _, model in jobs:
+        print(f"  python -m repro_torch.launch.serve {' '.join(argv)} --model-parallel {model}")
+    return {"jobs": jobs, "yards": {"gemma3": g3_yard, "granite": g_yard,
+                                    SVTP_DATA["tag"]: g_yard},
             "yard_s": time.perf_counter() - t0}
+
+
+def hold_svtp_lanes(label: str, ranks: list) -> list[dict]:
+    """The (data 2, model 2) job's lanes: each rank held ``Bb / 2`` lanes
+    of a hot set of ``Bb`` where 2 divides it and all ``Bb`` elsewhere,
+    and some bucket was split. Prints each rank's lanes by bucket, rank
+    0's launches, its stages' seconds, every rank's peak memory and the
+    traffic over ``data``; returns the lanes by rank."""
+    lanes = [r["hot_lanes"] for r in ranks]
+    for r in ranks:
+        who = f"{label} rank {r['rank']}"
+        want = {b: b // 2 if b % 2 == 0 else b for b in r["hot_lanes"]}
+        check(r["hot_lanes"] == want, f"{who}: lanes {r['hot_lanes']} by bucket, not {want}")
+        check(any(b % 2 == 0 for b in r["hot_lanes"]), f"{who}: no bucket split over data")
+    print(f"  {label}: lanes a rank by batch bucket " + "; ".join(
+        f"rank {r['rank']} (data {r['data_index']}, model {r['model_index']}) "
+        f"{r['hot_lanes']}" for r in ranks))
+    from repro_torch.kernels import launch_counters
+    r0 = ranks[0]
+    steps = max(r0["report"]["steps"], 1)
+    serve = r0["phases"]["serve"]
+    names = set(launch_counters())
+    print(f"    launches a rank (rank 0; the same on each, as in one process): "
+          f"{ {k: v for k, v in serve.items() if k in names and v} }")
+    print(f"    the job's seconds on rank 0: " + " / ".join(
+        f"{k} {v:.1f} s" for k, v in r0["stage_s"].items())
+        + f" ({sum(r0['stage_s'].values()):.1f} s); peak memory a rank "
+        f"{[r['max_memory_allocated'] for r in ranks]} B; over data a rank "
+        f"{serve['dp_calls'] / steps:.2f} collectives, {serve['dp_bytes'] / steps:.0f} B a "
+        f"tick (the port's own: the tokens gathered, the lanes broadcast); broadcasts of "
+        f"lanes from their holder "
+        f"{[r['lane_broadcasts'] for r in ranks]}, host ms each "
+        f"{[round(1e3 * r['seconds_broadcast'] / max(r['lane_broadcasts'], 1), 3) for r in ranks]}")
+    return lanes
 
 
 def svtp_load(out_dir: str, jobs: list) -> dict:
@@ -6242,13 +6346,13 @@ def svtp_load(out_dir: str, jobs: list) -> dict:
 
     import torch
     got = {}
-    for tag, _, keep in jobs:
+    for tag, _, keep, _ in jobs:
         d = os.path.join(out_dir, tag)
         got[tag] = {"ranks": [torch.load(os.path.join(d, f"rank{r}.pt"), weights_only=False)
                               for r in range(SVTP["world"])],
                     "rows0": torch.load(os.path.join(d, "rows.pt"), weights_only=False),
                     "lanes": [torch.load(os.path.join(d, f"lane{r}.pt"))
-                              for r in range(SVTP["world"])] if keep else None}
+                              for r in range(SVTP["world"])] if keep == "lanes" else None}
     return got
 
 
@@ -6259,9 +6363,13 @@ def svtp_finish(device, prep: dict, got: dict, edge_errs: dict) -> list[dict]:
     figs = {}
     for tag, yard in prep["yards"].items():
         arch = yard["argv"][yard["argv"].index("--arch") + 1]
-        figs[tag] = hold_svtp_run(f"{arch} tensor-parallel continuous", got[tag]["ranks"],
+        ranks = got[tag]["ranks"]
+        at = "" if tag != SVTP_DATA["tag"] else " at (data 2, model 2)"
+        figs[tag] = hold_svtp_run(f"{arch} tensor-parallel continuous{at}", ranks,
                                   got[tag]["rows0"]["rows"], yard,
                                   launch_checks=device.type == "cuda")
+        if at:
+            figs[tag]["hot_lanes"] = hold_svtp_lanes(f"{arch}{at}", ranks)
     t1 = time.perf_counter()
     rows = []
     if device.type == "cuda":
@@ -6269,6 +6377,11 @@ def svtp_finish(device, prep: dict, got: dict, edge_errs: dict) -> list[dict]:
         rows = time_svtp_kernels(LM_ARCH, g3["rows0"], g3["lanes"],
                                  g3["ranks"][0]["phases"]["serve"], SV["t_obj"], edge_errs,
                                  device)
+        gd = got[SVTP_DATA["tag"]]
+        yard = prep["yards"][SVTP_DATA["tag"]]["argv"]
+        rows += time_svtp_data_kernels(yard[yard.index("--arch") + 1], gd["rows0"],
+                                       gd["ranks"][0]["phases"]["serve"],
+                                       float(yard[yard.index("--t-obj") + 1]), device)
     print(f"  phase 21 times: granite in one process {prep['yard_s']:.1f} s, checks "
           f"{t1 - t0:.1f} s, kernel timing {time.perf_counter() - t1:.1f} s; the ranks' "
           f"stages (rank 0): " + ", ".join(

@@ -616,7 +616,9 @@ def _tp_site(x: torch.Tensor, cfg: ZebraConfig, tp, *, site: str, tnet, w, split
     logical whole map, the one the reference's partitioned program masks.
 
     The map is (..., S, D). With ``split`` False or True its rows are this
-    rank's share of the batch and, with True, its columns this rank's
+    rank's share of the batch (the whole batch under a layout whose
+    ``data`` axis has one rank: ``distributed.ctx.tensor_parallel`` with a
+    batch replicated over ``data``) and, with True, its columns this rank's
     slice over the model axis. With ``split == "rows"`` (the MoE dispatch
     map: this rank's experts' capacity slots) its rows are this rank's
     slice over the model axis, and every data rank holds the same map
@@ -630,7 +632,7 @@ def _tp_site(x: torch.Tensor, cfg: ZebraConfig, tp, *, site: str, tnet, w, split
 
     The aux is the whole map's: the live blocks every rank owns (its shard
     on ``"blocks"``, the model axis's first rank's map otherwise; split by
-    rows, the first data rank's alone) summed over the mesh, the zero
+    rows, the first data rank's alone) summed over the layout's ``world``, the zero
     fraction rounded as :func:`zero_fraction` rounds it, the stream bytes
     by :func:`stream_bytes` with the global block count (summing per-rank
     bytes would count the index padding once a rank). Every rank reaches

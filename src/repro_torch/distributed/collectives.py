@@ -58,7 +58,8 @@ no reference train path runs them. The tensor-parallel LM's dense collectives (:
 functions, and the sharded train step's data-parallel collectives
 (:func:`dp_all_gather`, :func:`dp_mean`, :func:`all_reduce_small`) move
 parameters, gradients and the step's global reductions, counted in
-:data:`DP_TRAFFIC`.
+:data:`DP_TRAFFIC` with the serving engine's exchanges over ``data``
+(the next tokens gathered, a lane broadcast by :func:`dp_broadcast`).
 """
 from __future__ import annotations
 
@@ -169,6 +170,13 @@ class Wire:
         self.dist.all_reduce(buf, group=self.group)
         return buf.to(t.device)
 
+    def broadcast(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """Rank ``src``'s ``t`` (its index in the group) on every rank, in a
+        new tensor; ``t`` gives the others its shape and dtype."""
+        buf = self._out(t).clone()
+        self.dist.broadcast(buf, self.dist.get_global_rank(self.group, src), group=self.group)
+        return buf.to(t.device)
+
     def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``t``, this rank's chunk of dim 0 (the
         dense counterpart of ``zebra_reduce_scatter``)."""
@@ -239,12 +247,14 @@ def tp_all_gather(t: torch.Tensor, axis: CommAxis, dim: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The sharded train step's data-parallel collectives
+# The data-parallel collectives
 # ---------------------------------------------------------------------------
 
 # calls and the bytes each rank handed in, of the sharded train step's
-# collectives outside the model: the parameters' gather over ``data``, the
-# gradients' reduction and the step's global maxima, norms and metrics
+# collectives outside the model (the parameters' gather over ``data``, the
+# gradients' reduction and the step's global maxima, norms and metrics)
+# and of the serving engine's over ``data`` (tokens gathered, lanes
+# broadcast)
 DP_TRAFFIC = {"calls": 0, "bytes": 0}
 DP_CHUNK = 1 << 24      # elements an all-reduce moves at a time: its host copies' bound
 
@@ -262,6 +272,24 @@ def dp_all_gather(shard: torch.Tensor, axis: CommAxis, dim: int) -> torch.Tensor
     _dp_count(shard)
     g = Wire(axis).all_gather(shard.contiguous())
     return torch.cat(g.unbind(0), dim=dim)
+
+
+def dp_broadcast(tensors: list, axis: CommAxis, src: int) -> list:
+    """Rank ``src``'s ``tensors`` (its index in ``axis``) on every rank of
+    ``axis``, in one broadcast of their bytes; the other ranks' tensors
+    give only the shapes and dtypes (a lane of the serving engine's hot
+    set copied from the data rank that holds it)."""
+    if axis.size == 1:
+        return tensors
+    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in tensors])
+    _dp_count(flat)
+    flat = Wire(axis).broadcast(flat, src)
+    out, at = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        out.append(flat[at:at + n].clone().view(t.dtype).reshape(t.shape))
+        at += n
+    return out
 
 
 def dp_mean(g: torch.Tensor, axis: CommAxis, dim: int | None) -> torch.Tensor:

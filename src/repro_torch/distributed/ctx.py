@@ -62,6 +62,7 @@ _MESH = contextvars.ContextVar("repro_torch_mesh", default=None)
 _DP = contextvars.ContextVar("repro_torch_dp_axes", default=None)
 _TP = contextvars.ContextVar("repro_torch_tp_axis", default="model")
 _COMM = contextvars.ContextVar("repro_torch_comm_axis", default=None)
+_WHOLE = contextvars.ContextVar("repro_torch_whole_batch", default=False)
 
 
 class CommAxis(NamedTuple):
@@ -97,15 +98,19 @@ def axis_of(mesh, axis: str | tuple[str, ...]) -> CommAxis:
 
 
 @contextlib.contextmanager
-def sharding_hints(mesh, dp: tuple | None = None, tp: str | None = "model"):
+def sharding_hints(mesh, dp: tuple | None = None, tp: str | None = "model",
+                   whole_batch: bool = False):
     """Declare the mesh. ``dp``: the axes carrying the batch (default:
     pod and data); ``tp``: the tensor-parallel axis, or None for pure DP.
-    The data-parallel MoE (``models.lm.blocks._moe``) reads the mesh."""
-    toks = (_MESH.set(mesh), _DP.set(dp), _TP.set(tp))
+    ``whole_batch``: the batch of the calls inside runs whole on every
+    data rank, as the reference's ``batch_spec`` drops a data axis that
+    does not divide the batch (:func:`tensor_parallel`). The data-parallel
+    MoE (``models.lm.blocks._moe``) reads the mesh."""
+    toks = (_MESH.set(mesh), _DP.set(dp), _TP.set(tp), _WHOLE.set(whole_batch))
     try:
         yield
     finally:
-        for var, tok in zip((_MESH, _DP, _TP), toks):
+        for var, tok in zip((_MESH, _DP, _TP, _WHOLE), toks):
             var.reset(tok)
 
 
@@ -183,11 +188,19 @@ def tensor_parallel() -> TensorParallel | None:
     ``sharding_hints`` with a tensor-parallel axis that is not among the
     data-parallel ones; None otherwise (no mesh, pure DP, or a stand-in
     mesh). The first call on a mesh makes its groups: every rank reaches it
-    at the same point of the same program."""
+    at the same point of the same program.
+
+    Under ``sharding_hints(..., whole_batch=True)`` on a mesh of more than
+    one data rank the batch is replicated over ``data``: the layout's
+    ``data`` axis has one rank and its ``world`` is the ``model`` axis, so
+    a site counts the rows once and the MoE routes them once."""
     mesh, tp = _MESH.get(), _TP.get()
     if mesh is None or tp is None or tp in dp_axes() or not hasattr(mesh, "get_group"):
         return None
-    return mesh_layout(mesh, tp)
+    lay = mesh_layout(mesh, tp)
+    if _WHOLE.get() and lay.data.size > 1:
+        return lay._replace(data=CommAxis(lay.data.name, 1), world=lay.model)
+    return lay
 
 
 def mesh_layout(mesh, tp: str = "model") -> TensorParallel:

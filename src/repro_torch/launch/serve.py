@@ -56,16 +56,20 @@ it, over ``gloo``); inside a joined world of a multiple of N ranks each
 process serves as its rank.
 
 ``--requests`` under ``--model-parallel N`` runs the continuous engine on
-the sharded model (:func:`serve_continuous` in every rank, data 1): the
-prefills and the slotted decode tensor-parallel, each rank holding its K/V
-heads of the hot set and paging them to its own pool, which meters the
-whole cache's pages as one process's does; every rank takes the same
-decision at every tick (``serve.engine``). The architectures are those
-``ServeEngine`` takes (the decoder-only attention stacks: the dense and
-MoE LMs); every continuous flag works. Rank 0 prints the report; with
-``--save`` every rank saves it with its pool's counters, its launches and
-collectives and its peak memory. A joined world larger than N (data > 1)
-raises before the build (ROADMAP.md, queue 1):
+the sharded model (:func:`serve_continuous` in every rank): the prefills
+and the slotted decode tensor-parallel, each rank holding its K/V heads of
+the hot set and paging them to its own pool, which meters the whole
+cache's pages as one process's does; every rank takes the same decision
+at every tick (``serve.engine``). In a joined world of D·N ranks (data D
+> 1) a hot set whose lanes D divides is split over ``data``, each data
+rank decoding its block of lanes, and any other, like every prefill, runs
+whole on every data rank, as the reference's ``batch_spec`` lays it out.
+The architectures are those ``ServeEngine`` takes (the decoder-only
+attention stacks: the dense and MoE LMs); every continuous flag works.
+Rank 0 prints the report; with ``--save`` every rank saves it with its
+pool's counters, its hot set's lanes by bucket, its launches and
+collectives and its peak memory. From a plain shell it spawns N ranks
+(data 1):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \
         --model-parallel 4 --backend fused --requests 8 --slots 4 \
@@ -202,8 +206,8 @@ def serve_one_shot(model: LM, prompts: torch.Tensor, gen: int, *, backend: str |
 
 class _PhaseMarks:
     """Under tensor parallelism, the kernel launches and the tensor-parallel
-    collectives (calls and the bytes a rank handed in) of each serving
-    phase; empty otherwise."""
+    and data-parallel collectives (calls and the bytes a rank handed in) of
+    each serving phase; empty otherwise."""
 
     def __init__(self, on: bool):
         self.on, self.deltas = on, {}
@@ -211,10 +215,11 @@ class _PhaseMarks:
 
     @staticmethod
     def _read() -> dict:
-        from ..distributed.collectives import TP_TRAFFIC
+        from ..distributed.collectives import DP_TRAFFIC, TP_TRAFFIC
         from ..kernels import launch_counters
         return {**{k: w.launches for k, w in launch_counters().items()},
-                **{f"tp_{k}": v for k, v in TP_TRAFFIC.items()}}
+                **{f"tp_{k}": v for k, v in TP_TRAFFIC.items()},
+                **{f"dp_{k}": v for k, v in DP_TRAFFIC.items()}}
 
     def mark(self, phase: str) -> None:
         if self.on:
@@ -386,9 +391,6 @@ def _print_report(cfg: LMConfig, out: dict, B: int, S: int, gen: int, device,
 # Tensor-parallel one-shot serving (--model-parallel N)
 # ---------------------------------------------------------------------------
 
-TP_QUEUE = "ROADMAP.md, queue 1, item 2"
-
-
 def serve_tensor_parallel(args, cfg: LMConfig, argv=None) -> dict:
     """``--model-parallel N``: one-shot serving on a ``("data", "model")``
     mesh, N ranks a model replica, the batch split over ``data``. Inside a
@@ -434,10 +436,12 @@ def serve_rank(args, cfg: LMConfig) -> dict:
     drawn from seed 0 straight into this rank's shards
     (``sharding.build_sharded``; ``--params`` loaded over it), this data
     rank's rows of the prompts, then :func:`serve_one_shot` with its sites
-    recorded. Rank 0 prints the report; with ``--save`` every rank saves
-    :func:`tp_report` (with ``--record`` the sites' keep flags and, on
-    each data rank's first rank, the logits of every token). The peak
-    memory of the build is reported beside the serving peak."""
+    recorded (with ``--requests``, :func:`serve_continuous` on every rank,
+    its lanes over ``data``: ``serve.engine``). Rank 0 prints the report;
+    with ``--save`` every rank saves :func:`tp_report` (with ``--record``
+    the sites' keep flags and, on each data rank's first rank, the logits
+    of every token). The peak memory of the build is reported beside the
+    serving peak."""
     import torch.distributed as dist
 
     from ..core.engine import record_tp_sites, tp_sites_on_host
@@ -456,10 +460,6 @@ def serve_rank(args, cfg: LMConfig) -> dict:
         torch.cuda.reset_peak_memory_stats(device)
     data = world // N
     B, S = args.batch, args.prompt_len
-    if args.requests and data > 1:
-        raise NotImplementedError(f"--requests in a world of {world} ranks at "
-                                  f"--model-parallel {N}: continuous serving puts no lanes "
-                                  f"over data yet ({TP_QUEUE})")
     if B % data and not args.requests:
         raise ValueError(f"batch {B} does not split over {data} data ranks")
     t_mesh = time.perf_counter()
@@ -532,8 +532,10 @@ def _serve_rank_continuous(args, cfg: LMConfig, mesh, model: LM, device, rank0: 
 def continuous_tp_report(out: dict, mesh) -> dict:
     """A rank's continuous-serving result on the host: the engine's report,
     every request's status, shed reason and tokens, the pool's counters
-    and meter records, the sites, launches and collectives of the run,
-    and its memory."""
+    and meter records, the lanes of the hot set it held at each batch
+    bucket and its lanes broadcast over ``data`` (count, host seconds),
+    the sites, launches and collectives of the run, and its
+    memory."""
     import torch.distributed as dist
 
     from ..distributed.collectives import wire_name
@@ -549,6 +551,8 @@ def continuous_tp_report(out: dict, mesh) -> dict:
                          r.n_blocks) for r in pool.meter.records],
             "decode_shapes": sorted(eng._decode_shapes),
             "prefill_shapes": sorted(eng._prefill_shapes),
+            "hot_lanes": dict(sorted(eng.hot_lanes.items())),
+            "lane_broadcasts": eng.lane_broadcasts, "seconds_broadcast": eng.seconds_broadcast,
             "sites": out["sites"], "phases": out["phases"],
             "build_peak_memory": out["build_peak_memory"],
             "max_memory_allocated": out["max_memory_allocated"], "stage_s": out["stage_s"]}
@@ -618,7 +622,8 @@ def serve_continuous(args, model: LM, log=print) -> dict:
     rep = eng.run(trace, preempt_after=args.preempt_after, ft_cfg=ft_cfg)
     where = ""
     if eng.pool.tp is not None:
-        where = f", {eng.pool.tp.world.size} ranks (data 1, model {eng.pool.tp.model.size})"
+        tp = eng.pool.tp
+        where = f", {tp.world.size} ranks (data {tp.data.size}, model {tp.model.size})"
     log(f"[serve] {cfg.name} continuous: {rep['n_requests']} requests "
         f"({rep['n_rejected']} rejected, {rep['n_shed']} shed, "
         f"{rep['deadline_misses']} deadline misses) in "

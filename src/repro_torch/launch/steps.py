@@ -316,25 +316,30 @@ def _sharded_train_step(model: LM, opt: Optimizer, state: dict, batch: dict, *,
 # Serve steps
 # ---------------------------------------------------------------------------
 
-def model_hints(model: LM):
+def model_hints(model: LM, whole_batch: bool = False):
     """``sharding_hints`` of the mesh a tensor-parallel model was cut for
     (the reference's ``_hint_args``: the batch over the data-parallel axes,
-    the "model" axis tensor-parallel unless the profile is pure DP); a
-    null context for a model in one process."""
+    the "model" axis tensor-parallel unless the profile is pure DP; with
+    ``whole_batch`` the batch runs whole on every data rank); a null
+    context for a model in one process."""
     mesh = getattr(model, "mesh", None)
     if mesh is None:
         return contextlib.nullcontext()
     from ..distributed.ctx import sharding_hints
     from ..distributed.sharding import dp
     pure_dp = model.cfg.sharding_profile == "dp"
-    return sharding_hints(mesh, dp=dp(mesh, model.cfg), tp=None if pure_dp else "model")
+    return sharding_hints(mesh, dp=dp(mesh, model.cfg), tp=None if pure_dp else "model",
+                          whole_batch=whole_batch)
 
 
 @torch.inference_mode()
-def prefill(model: LM, tokens: torch.Tensor, enc_feats: torch.Tensor | None = None):
+def prefill(model: LM, tokens: torch.Tensor, enc_feats: torch.Tensor | None = None, *,
+            whole_batch: bool = False):
     """Prefill a batch of prompts with a cache sized to the prompt (an
-    encoder-decoder encodes its frames ``enc_feats`` first)."""
-    with model_hints(model):
+    encoder-decoder encodes its frames ``enc_feats`` first). On a model cut
+    for a mesh ``tokens`` are this data rank's rows, or with
+    ``whole_batch`` the whole batch on every data rank."""
+    with model_hints(model, whole_batch):
         return model.prefill(tokens, tokens.shape[1], enc_feats)
 
 
@@ -376,12 +381,26 @@ def generate(model: LM, tok0: torch.Tensor, state, pos0: int, steps: int,
 
 @torch.inference_mode()
 def decode_slotted(model: LM, token: torch.Tensor, state, pos: torch.Tensor,
-                   temperature: float = 0.0, generator: torch.Generator | None = None):
+                   temperature: float = 0.0, generator: torch.Generator | None = None,
+                   lanes=None):
     """One continuous-batching decode step across B independent request
     lanes (``serve/engine.py``'s hot path): ``token`` (B, 1), ``pos`` (B,),
     each lane at its own sequence position. Returns (the next token of
     every lane (B, 1), state), the caches updated in place. Greedy at
-    temperature 0.0; a draw from ``generator`` otherwise."""
-    with model_hints(model):
+    temperature 0.0; a draw from ``generator`` otherwise.
+
+    ``lanes``: on a model cut for a mesh, the ``data`` axis the lanes are
+    split over (``token``, ``pos`` and ``state`` are this data rank's
+    contiguous block of them), or None for lanes whole on every data rank.
+    Split, every rank gets the tokens of every lane: greedy ones are
+    gathered over ``data``, and a draw is made from the gathered logits,
+    so every rank draws the whole batch from the same generator."""
+    with model_hints(model, whole_batch=lanes is None):
         logits, state = model.decode_step(token, state, pos)
-    return _next_token(logits, temperature, generator), state
+    if lanes is None:
+        return _next_token(logits, temperature, generator), state
+    from ..distributed.collectives import dp_all_gather
+    if temperature > 0.0:
+        return _next_token(dp_all_gather(logits.float(), lanes, 0), temperature,
+                           generator), state
+    return dp_all_gather(_next_token(logits, temperature), lanes, 0), state

@@ -334,7 +334,9 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: LMConfig, mode: str):
     stacks split over the model axis): the capacity and every pair's slot
     are those of the global batch, as the reference computes them, so the
     rows are gathered over the data axis (:func:`_gather_rows`) and routed
-    whole on every rank. A rank fills only its experts' slots, runs their
+    whole on every rank; a batch replicated over ``data`` (a layout whose
+    data axis has one rank) is the global batch already, gathered from
+    nowhere. A rank fills only its experts' slots, runs their
     GEMMs and the site on its rows of the hidden map
     (``zebra_site(split="rows")``), gathers every expert's output over the
     model axis and combines as one process, keeping its own rows.

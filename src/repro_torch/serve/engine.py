@@ -42,16 +42,28 @@ and a restore rebuilds the hot set from ``init_cache`` and the pool.
 
 Tensor parallelism
 ------------------
-A model cut for a mesh (``sharding.build_sharded``: ``model.mesh``, data
-1) runs its prefill and slotted decode under the mesh's hints, as the
-reference's engine jits them under its sharding hints; each rank holds its
-K/V heads of the hot set (``LM.init_cache``) and pages them to its own
-pool (``PagedKVPool(tp=...)``), which meters the whole cache's pages. Every
-rank takes the same decision at every tick: the tokens come from the
-logits every model rank holds bit for bit, sampling draws from a
-generator seeded by (seed, step), and the scheduler reads ticks and
-lengths alone (the wall clock only stamps the latency report), so the
-ranks admit, evict, retire and restore alike and meet at every
+A model cut for a mesh (``sharding.build_sharded``: ``model.mesh``) runs
+its prefill and slotted decode under the mesh's hints, as the reference's
+engine jits them under its sharding hints; each rank holds its K/V heads
+of the hot set (``LM.init_cache``) and pages them to its own pool
+(``PagedKVPool(tp=...)``), which meters the whole cache's pages. On a
+mesh of D > 1 data ranks the lanes follow the reference's ``batch_spec``:
+a hot set of ``Bb`` lanes with ``Bb % D == 0`` is split over ``data`` in
+contiguous blocks of ``Bb / D`` (each data rank decodes its block, and
+the next tokens are gathered over ``data``), and any other hot set, like
+every prefill (batch 1), runs whole on every data rank
+(``sharding_hints(whole_batch=True)``: the sites count its rows once and
+the MoE routes them once). The bookkeeping and the pool are replicated
+over ``data``: every rank makes every pool call on the same tensors (a
+lane paged out is broadcast over ``data`` from the rank that holds it,
+:meth:`_take_lanes`, one broadcast a holder for a snapshot's or a bucket
+change's lanes; a lane paged in is written by its holder alone,
+:meth:`_set_lane`), so fault plans, breakers and meters see the same
+calls everywhere. Every rank takes the same decision at every tick: the
+tokens come from the logits every model rank holds bit for bit, sampling
+draws from a generator seeded by (seed, step), and the scheduler reads
+ticks and lengths alone (the wall clock only stamps the latency report),
+so the ranks admit, evict, retire and restore alike and meet at every
 collective.
 
 Resilience
@@ -162,6 +174,13 @@ class ServeEngine:
                                 kv_heads=cfg.n_kv_heads)
         self._decode_shapes: set[tuple[int, int]] = set()
         self._prefill_shapes: set[int] = set()
+        # the data axis the lanes split over (None: one data rank), the
+        # lanes this rank held at each batch bucket, and the broadcasts of
+        # lanes from the data rank that holds them (count, host seconds)
+        tp = self.pool.tp
+        self._data = tp.data if tp is not None and tp.data.size > 1 else None
+        self.hot_lanes: dict[int, int] = {}
+        self.lane_broadcasts, self.seconds_broadcast = 0, 0.0
 
         # per-leaf batch axis of the cache tree (leaves are (B, ...) or,
         # in a stacked run, (count, B, ...)): diff two shape-only inits
@@ -197,23 +216,72 @@ class ServeEngine:
                                       "tensor-parallel only")
         return tp
 
-    def _init_hot(self, Bb: int, C: int):
+    def _new_cache(self, B: int, C: int):
         with torch.inference_mode():
-            return self.model.init_cache(Bb, C)
+            return self.model.init_cache(B, C)
+
+    def _init_hot(self, Bb: int, C: int):
+        """This rank's lanes of a hot set of ``Bb`` lanes (:meth:`_block`)."""
+        lo, hi = self._block(Bb)
+        self.hot_lanes[Bb] = hi - lo
+        return self._new_cache(hi - lo, C)
+
+    def _block(self, Bb: int) -> tuple[int, int]:
+        """The lanes ``[lo, hi)`` of a hot set of ``Bb`` this rank holds: its
+        data rank's contiguous block where the data ranks divide ``Bb``,
+        else every lane (the reference's ``batch_spec``)."""
+        if self._data is None or Bb % self._data.size:
+            return 0, Bb
+        n = Bb // self._data.size
+        return self._data.index * n, (self._data.index + 1) * n
 
     # ------------------------------------------------------------------
     # lane surgery (host-side, between steps)
     # ------------------------------------------------------------------
     def _take_lane(self, lane: int):
-        """A copy of one lane of the hot set: the next step writes the hot
-        set again."""
-        return _tree_map(lambda x, a: x.narrow(a, lane, 1).clone(), self._hot,
-                         self._baxes)
+        """A copy of one lane of the hot set on every rank (:meth:`_take_lanes`)."""
+        return self._take_lanes([lane])[0]
+
+    def _take_lanes(self, lanes: list[int]) -> list:
+        """A copy of each of ``lanes`` of the hot set on every rank (the
+        next step writes the hot set again): where the lanes are split over
+        ``data``, the copies of the data rank that holds them, broadcast
+        over ``data`` in one call a holder."""
+        lo, hi = self._block(self._Bb)
+        n = hi - lo
+
+        def take(lane):
+            def one(x, a):
+                if lo <= lane < hi:
+                    return x.narrow(a, lane - lo, 1).clone()
+                return x.new_empty(x.shape[:a] + (1,) + x.shape[a + 1:])
+            return _tree_map(one, self._hot, self._baxes)
+        subs = [take(lane) for lane in lanes]
+        if n == self._Bb:
+            return subs
+        from ..distributed.collectives import dp_broadcast
+        t0 = time.perf_counter()
+        for src in sorted({lane // n for lane in lanes}):
+            held = [i for i, lane in enumerate(lanes) if lane // n == src]
+            leaves = []
+            for i in held:
+                _tree_map(leaves.append, subs[i])
+            got = iter(dp_broadcast(leaves, self._data, src))
+            for i in held:
+                subs[i] = _tree_map(lambda _: next(got), subs[i])
+            self.lane_broadcasts += 1
+        self.seconds_broadcast += time.perf_counter() - t0
+        return subs
 
     def _set_lane(self, hot, lane: int, sub):
-        """Write a per-request tree into lane ``lane`` of ``hot``, in place."""
+        """Write a per-request tree into lane ``lane`` of ``hot`` (a hot set
+        at this engine's bucket), in place, on the rank that holds it."""
+        lo, hi = self._block(self._Bb)
+        if not lo <= lane < hi:
+            return hot
+
         def one(x, a, s):
-            x.narrow(a, lane, 1).copy_(s)
+            x.narrow(a, lane - lo, 1).copy_(s)
             return x
         return _tree_map(one, hot, self._baxes, sub)
 
@@ -306,9 +374,9 @@ class ServeEngine:
             self._prefill_shapes.add(pb)
             prompt = torch.as_tensor(np.asarray(r.prompt[:pb]), dtype=torch.int64,
                                      device=self.device)[None, :]
-            _, (caches, _), _ = prefill(self.model, prompt)
+            _, (caches, _), _ = prefill(self.model, prompt, whole_batch=True)
         else:                                  # short prompt: decode-only
-            caches = self._init_hot(1, self.c_lo)
+            caches = self._new_cache(1, self.c_lo)
         r.fed = min(pb, P - 1)                 # Pb == P replays last token
         r.pos = r.fed
         r.next_tok = int(r.prompt[r.fed])
@@ -357,8 +425,9 @@ class ServeEngine:
         # bucket change: rebuild the hot set at (Bb, C), carrying lanes (the
         # copies are taken before the old hot set is dropped)
         assert Bb in self.batch_ladder and C in self.cache_ladder, (Bb, C)
-        carried = [(r, self._pad_like(self._take_lane(lane), C))
-                   for lane, r in enumerate(self._lanes) if r is not None]
+        held = [(lane, r) for lane, r in enumerate(self._lanes) if r is not None]
+        carried = [(r, self._pad_like(sub, C)) for (_, r), sub in
+                   zip(held, self._take_lanes([lane for lane, _ in held]))]
         self._hot = None
         hot = self._init_hot(Bb, C)
         lanes: list[Request | None] = [None] * Bb
@@ -382,9 +451,11 @@ class ServeEngine:
             if len(self._decode_shapes) > self.decode_shape_bound:
                 raise RuntimeError("decode dispatch shape count exceeded "
                                    f"its bound {self.decode_shape_bound}")
-        tok = torch.tensor([[r.next_tok if r else 0] for r in self._lanes],
+        lo, hi = self._block(self._Bb)
+        mine = self._lanes[lo:hi]
+        tok = torch.tensor([[r.next_tok if r else 0] for r in mine],
                            dtype=torch.int64, device=self.device)
-        pos = torch.tensor([r.pos if r else 0 for r in self._lanes],
+        pos = torch.tensor([r.pos if r else 0 for r in mine],
                            dtype=torch.int64, device=self.device)
         generator = None
         if self.temperature > 0.0:
@@ -395,7 +466,8 @@ class ServeEngine:
                 np.random.SeedSequence((self.seed, self._step_no)).generate_state(1)[0]))
         self._step_no += 1
         nxt, _ = decode_slotted(self.model, tok, (self._hot, None), pos,
-                                self.temperature, generator)
+                                self.temperature, generator,
+                                lanes=self._data if hi - lo < self._Bb else None)
         nxt_host = nxt[:, 0].tolist()          # device sync
         now = time.time()
         for lane, r in enumerate(self._lanes):
@@ -456,9 +528,9 @@ class ServeEngine:
         for rid in self._deferred_free:       # committed: restores from
             self.pool.free(rid)               # now on land at >= this tick
         self._deferred_free.clear()
-        for lane, r in enumerate(self._lanes):
-            if r is not None:
-                self.pool.page_out(r.rid, self._take_lane(lane))
+        held = [(lane, r) for lane, r in enumerate(self._lanes) if r is not None]
+        for (_, r), sub in zip(held, self._take_lanes([lane for lane, _ in held])):
+            self.pool.page_out(r.rid, sub)
         return {"tick": tick, "step_no": self._step_no,
                 "Bb": self._Bb, "C": self._C,
                 "lanes": [r.rid if r is not None else None for r in self._lanes],

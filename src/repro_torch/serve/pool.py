@@ -23,8 +23,8 @@ Leaves without a page-divisible token axis are stored dense and metered
 as dense traffic. Every stored tensor is a copy: the hot set the engine
 pages out from is written again by the next decode step.
 
-Under tensor parallelism (``tp``, the engine's model cut for a mesh with
-data 1) each rank pages its own K/V heads, and the pool meters the pages
+Under tensor parallelism (``tp``, the engine's model cut for a mesh) each
+rank pages its own K/V heads, and the pool meters the pages
 the reference's pool meters, those of the whole cache. A page's block
 geometry comes from the whole page (``Hkv*hd`` of every head: a rank
 taking its own width would fall back to other blocks). Its rule is the
@@ -42,7 +42,9 @@ hold in parts can differ between ranks only under an armed fault plan (a
 ``truncate`` of a part with no live block passes there); the breaker
 must hear the agreed verdict before the next page consults it, so such a
 call agrees each page's verdict before the next page (one all-reduce a
-page, in chaos runs alone). ``page_in`` needs no collective.
+page, in chaos runs alone). ``page_in`` needs no collective. Over
+``data`` the pool is replicated: every data rank makes the same calls on
+the same tensors (``serve.engine``), and nothing here crosses ``data``.
 """
 from __future__ import annotations
 
@@ -85,7 +87,7 @@ class PagedKVPool:
     per-request tree, bitwise equal to what was paged out (pages that
     failed ingest validation were kept dense, so bitwise equal too). The
     device of each page decides the codec's route, as ``compress`` does.
-    ``tp`` (a ``distributed.ctx.TensorParallel`` with data 1) and
+    ``tp`` (a ``distributed.ctx.TensorParallel``) and
     ``kv_heads`` (the whole model's K/V heads) page a rank's head shards
     (module docstring).
     """
@@ -94,8 +96,6 @@ class PagedKVPool:
                  validation: str = "off", breaker=None, tp=None, kv_heads: int = 0):
         if page_tokens & (page_tokens - 1) or page_tokens < 1:
             raise ValueError(f"page_tokens must be a power of two, got {page_tokens}")
-        if tp is not None and tp.data.size != 1:
-            raise NotImplementedError("a tensor-parallel pool pages the heads of data 1")
         self.page_tokens = page_tokens
         self.bs, self.bc = bs, bc
         self.validation = validate_level(validation)

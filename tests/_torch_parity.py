@@ -1,4 +1,6 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py)."""
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +17,23 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_lm_params(cfg, seed: int):
+    import jax
+
+    from repro.models.lm import LM
+    return jax.jit(LM(cfg).init)(jax.random.PRNGKey(seed))
+
+
+def jax_lm_params(cfg, seed: int = 0):
+    """The reference's ``jax.jit(LM(cfg).init)(PRNGKey(seed))``, drawn once
+    a process for every config that differs from another only where no
+    parameter does (the compute dtype, the CE chunk, the site backend, the
+    remat policy): one init compile instead of one a case."""
+    return _jax_lm_params(cfg.replace(compute_dtype="float32", ce_chunk=0,
+                                      zebra_backend="reference", remat="none"), seed)
 
 
 def bits(a) -> np.ndarray:

@@ -1,9 +1,12 @@
 """The runs of ``tests/test_torch_tp_continuous.py`` and the two programs
 that serve them: :func:`reference_main` (the reference's ``ServeEngine``
 at ``make_host_mesh(model=4)`` on 4 forced host devices, data 1, one JAX
-process a run) and :func:`port_rank` (one rank of the port's 4-rank
-``gloo`` world on the CPU, a (data 1, model 4) mesh, that serves every run
-in turn on the same engine arguments).
+process a configuration) and :func:`port_rank` (one rank of the port's
+4-rank ``gloo`` world on the CPU, a (data 1, model 4) mesh, that serves
+every run in turn on the same engine arguments). The runs of
+``DATA_RUNS`` go at (data 2, model 2) on both sides, in the same
+processes (``make_host_mesh(model=2)``), and the port serves each again at
+(data 1, model 4).
 
 The configurations are reduced and in float32, and between them they
 page K/V heads all three ways a rank can hold them at 4 model ranks:
@@ -18,6 +21,16 @@ global cache); granite routes its experts over ``model`` (expert
 parallelism) at decode batches of 1 and 2 lanes. The supervised storm
 runs on gemma3-4b with heads of 128 at T_obj 3.5, where a page's blocks
 die head by head.
+
+At (data 2, model 2) the decode lanes split over ``data`` where 2 divides
+the batch bucket and run whole on both data ranks elsewhere (1 lane, and
+every prefill): the reduced gemma3-4b on 4 slots takes the hot set from 1
+to 2 to 4 lanes, with evictions, preemption and a supervised storm (a
+crash and truncated pages, so snapshots and restores move split lanes);
+granite routes its experts over the global batch gathered over ``data``
+at 2 lanes and over the whole batch at 1. The same granite run drawn at
+temperature 3.0 (``SAMPLED_RUNS``) runs in the port's ranks alone, at
+(data 2, model 2) and at (data 1, model 4).
 
 The reference draws its parameters once a configuration and writes them
 (the port's dotted names, ``models.lm.convert.port_params``) before it
@@ -76,6 +89,26 @@ RUNS = {
                            dict(TRACE, requests=6, seed=0, gen_lo=2, gen_hi=8,
                                 deadline_ticks=96), 0, True),
 }
+# (data, model) of the runs below, each also served by the port at (1, 4)
+DATA_MESH = (2, 2)
+DATA_RUNS = {
+    "gemma3_fused_d2": ("gemma3", "fused", dict(ENGINE, n_slots=4, queue_bound=4),
+                        dict(TRACE, deadline_ticks=96), 4, True),
+    "granite_kv8_stream_d2": ("granite_kv8", "stream", GRANITE, TRACE, 4, False),
+}
+# K/V layout of each configuration's pages at 2 model ranks
+DATA_KV_RULE = {"gemma3": "gather", "granite_kv8": "blocks"}
+ALL_RUNS = {**RUNS, **DATA_RUNS}
+# runs that draw their tokens at a temperature, the port's alone (the
+# reference draws from JAX's generator): at DATA_MESH and again at (data 1,
+# model 4), each lane's draw made from the logits gathered over ``data``
+SAMPLED_RUNS = {
+    "granite_kv8_stream_d2_sampled": ("granite_kv8", "stream",
+                                  dict(GRANITE, temperature=3.0, seed=3), TRACE, 4, False),
+}
+PORT_RUNS = {**ALL_RUNS, **SAMPLED_RUNS}
+# the port's key for a run of DATA_RUNS at (data 1, model 4)
+AT_MODEL4 = "{}@1x4"
 BREAKER = dict(trip_after=3, window=64, probe_after=1, probe_backoff=2.0, probe_cap=8,
                close_after=2)
 CRASH_TICK, TRUNCATED = 6, 6
@@ -103,7 +136,7 @@ def trace(pkg, spec: dict):
 def _serve(pkg, eng, run: str, ft_cfg, inject, Fault):
     """One run on an engine of either package: (report, every request's
     (status, shed reason, tokens), the faults that fired)."""
-    _, _, _, spec, preempt, storm = RUNS[run]
+    _, _, _, spec, preempt, storm = PORT_RUNS[run]
     reqs = trace(pkg, spec)
     if not storm:
         rep = eng.run(reqs, preempt_after=preempt)
@@ -120,8 +153,9 @@ def _serve(pkg, eng, run: str, ft_cfg, inject, Fault):
 
 def reference_main(out_dir: str, tag: str) -> None:
     """Every run of configuration ``tag`` through the reference's engine at
-    ``make_host_mesh(model=4)``: its report, requests, faults, meter
-    records and dispatch shapes."""
+    ``make_host_mesh(model=4)``, and those of ``DATA_RUNS`` at
+    ``DATA_MESH``: its report, requests, faults, meter records and
+    dispatch shapes."""
     import jax
     from jax.sharding import NamedSharding, PartitionSpec
 
@@ -141,15 +175,17 @@ def reference_main(out_dir: str, tag: str) -> None:
                        jax.tree_util.tree_map(np.asarray, params))
     np.savez(f"{out_dir}/params_{tag}.tmp.npz", **flat)
     os.replace(f"{out_dir}/params_{tag}.tmp.npz", f"{out_dir}/params_{tag}.npz")
-    params = jax.device_put(params, jax.tree_util.tree_map(
-        lambda s: NamedSharding(mesh, s), shd.param_specs(params, cfg, mesh),
-        is_leaf=lambda x: isinstance(x, PartitionSpec)))
+    meshes = {MODEL: mesh, DATA_MESH[1]: make_host_mesh(model=DATA_MESH[1])}
+    on = {m: jax.device_put(params, jax.tree_util.tree_map(
+        lambda s, mesh=mesh: NamedSharding(mesh, s), shd.param_specs(params, cfg, mesh),
+        is_leaf=lambda x: isinstance(x, PartitionSpec))) for m, mesh in meshes.items()}
     out = {}
-    for run, (ctag, backend, kw, _, _, storm) in RUNS.items():
+    for run, (ctag, backend, kw, _, _, storm) in ALL_RUNS.items():
         if ctag != tag:
             continue
+        m = DATA_MESH[1] if run in DATA_RUNS else MODEL
         model = LM(config(tag, backend, configs))
-        eng = serve.ServeEngine(model, params, mesh, **kw,
+        eng = serve.ServeEngine(model, on[m], meshes[m], **kw,
                                 breaker=BreakerConfig(**BREAKER) if storm else None)
         rep, outs, fired = _serve(serve, eng, run, FTConfig, inject, Fault)
         out[run] = {"report": rep, "requests": outs, "fired": fired,
@@ -161,8 +197,9 @@ def reference_main(out_dir: str, tag: str) -> None:
 
 def port_rank(rank: int, out_dir: str) -> None:
     """One rank: every run through the port's engine on this rank's shards
-    of the reference's parameters, its sites recorded. Saves
-    ``rank<r>.pt``."""
+    of the reference's parameters, its sites recorded; those of
+    ``DATA_RUNS`` and ``SAMPLED_RUNS`` at ``DATA_MESH`` and again at (data
+    1, model 4) (``AT_MODEL4``). Saves ``rank<r>.pt``."""
     import torch
 
     from repro_torch import configs, serve
@@ -175,10 +212,16 @@ def port_rank(rank: int, out_dir: str) -> None:
 
     torch.set_num_threads(1)            # 4 ranks share the host's cores
     mesh = make_host_mesh(model=MODEL, device="cpu")
+    mesh2 = make_host_mesh(model=DATA_MESH[1], device="cpu")
     res = {"model_index": mesh.get_local_rank("model"), "data_index":
-           mesh.get_local_rank("data")}
+           mesh.get_local_rank("data"), "model_index2": mesh2.get_local_rank("model"),
+           "data_index2": mesh2.get_local_rank("data")}
     flats = {}
-    for run, (tag, backend, kw, _, _, storm) in RUNS.items():
+    jobs = [(run, run, mesh) for run in RUNS]
+    for run in [*DATA_RUNS, *SAMPLED_RUNS]:
+        jobs += [(run, run, mesh2), (run, AT_MODEL4.format(run), mesh)]
+    for run, key, on in jobs:
+        tag, backend, kw, _, _, storm = PORT_RUNS[run]
         if tag not in flats:
             _wait(f"{out_dir}/params_{tag}.npz")
             flats[tag] = dict(np.load(f"{out_dir}/params_{tag}.npz"))
@@ -186,17 +229,19 @@ def port_rank(rank: int, out_dir: str) -> None:
         with torch.no_grad():
             for name, t in model.state_dict().items():
                 t.copy_(torch.from_numpy(flats[tag][name]))
-        shard_model_(model, mesh)
+        shard_model_(model, on)
         eng = serve.ServeEngine(model, **kw, breaker=BreakerConfig(**BREAKER) if storm else None)
         with record_tp_sites() as sites:
             rep, outs, fired = _serve(serve, eng, run, FTConfig, inject, Fault)
-        res[run] = {"report": rep, "requests": outs, "fired": fired,
+        res[key] = {"report": rep, "requests": outs, "fired": fired,
                     "records": _records(eng.pool.meter),
                     "decode_shapes": sorted(eng._decode_shapes),
                     "prefill_shapes": sorted(eng._prefill_shapes),
-                    "sites": [{k: s[k] for k in ("site", "rule", "rows", "width", "split")}
+                    "sites": [{k: s[k] for k in ("site", "rule", "rows", "width", "split",
+                                                 "n_total", "zero_frac", "measured_bytes")}
                               for s in tp_sites_on_host(sites)],
                     "heads": [leaf.shape[-2] for leaf in _leaves(eng._hot)],
+                    "hot_lanes": dict(eng.hot_lanes),
                     "pool": {k: getattr(eng.pool, k) for k in launch.POOL_COUNTERS}}
     torch.save(res, f"{out_dir}/rank{rank}.pt")
 

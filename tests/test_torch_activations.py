@@ -37,7 +37,7 @@ from repro_torch.models.lm import LM
 from repro_torch.models.lm import ffn
 from repro_torch.models.lm.convert import from_jax_params
 
-from _torch_parity import bits, one_thread  # noqa: F401
+from _torch_parity import bits, jax_lm_params, one_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
@@ -118,7 +118,7 @@ def test_bf16_lm_bitmaps_match_reference(backend, monkeypatch):
     jcfg = jconfigs.reduced("gemma3-4b").replace(remat="none", **kw)
     tcfg = configs.reduced("gemma3-4b").replace(**kw)
     jm = JLM(jcfg)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    params = jax_lm_params(jcfg)
     tokens = lm_batch(LMDatasetConfig(vocab=jcfg.vocab), 2, 128, 0)
     store = {}
     inner, site = _capture(jffn, "j", store)

@@ -52,7 +52,7 @@ from repro_torch.models.lm.convert import from_jax_params, port_params
 from repro_torch.models.lm.ffn import ffn_apply
 from repro_torch.optim import compress
 
-from _torch_parity import bits
+from _torch_parity import bits, jax_lm_params
 
 B, S = 2, 128
 T_OBJ = 2.45          # float32 ffn_hidden zero fraction 0.589 on these weights
@@ -177,7 +177,7 @@ def test_lm_loss_matches_reference(case, monkeypatch):
     kw = dict(compute_dtype=dt, zebra_t_obj=T_OBJ, zebra_tnet=False, ce_chunk=chunk)
     jcfg, tcfg = _cfgs(**kw)
     jm = JLM(jcfg)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    params = jax_lm_params(jcfg)
     tokens = _tokens(jcfg.vocab)
     loss_fn = lambda p, t: jm.loss(p, t, "train")  # noqa: E731
     model = from_jax_params(LM(tcfg), _np(params))
@@ -419,7 +419,7 @@ def test_fused_train_resolves_to_reference_not_trainable():
     FFN keeps its dense ``w_down`` product, as in the reference."""
     jcfg, tcfg = _cfgs(compute_dtype="float32", zebra_t_obj=T_OBJ, zebra_tnet=False,
                        zebra_backend="fused")
-    model = from_jax_params(LM(tcfg), _np(jax.jit(JLM(jcfg).init)(jax.random.PRNGKey(0))))
+    model = from_jax_params(LM(tcfg), _np(jax_lm_params(jcfg)))
     p = model.run0[0]["sub0"].ffn
     rng = np.random.default_rng(1)          # one scale per 8-row block: some die
     scale = np.repeat(rng.choice([0.05, 4.0], size=(2, 2, 1)), 8, axis=1)

@@ -27,7 +27,7 @@ from repro_torch.launch import steps
 from repro_torch.models.lm import LM, remat
 from repro_torch.models.lm.convert import from_jax_params, port_params
 
-from _torch_parity import bits, one_thread  # noqa: F401
+from _torch_parity import bits, jax_lm_params, one_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_thread")
 
@@ -113,7 +113,7 @@ def test_remat_matches_reference(mode):
     jcfg = jconfigs.reduced("gemma3-4b").replace(**kw)
     cfg = configs.reduced("gemma3-4b").replace(**kw)
     jm = JLM(jcfg)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(0))
+    params = jax_lm_params(jcfg)
     tokens = _tokens(cfg.vocab)
     (jl, jmet), jg = jax.jit(jax.value_and_grad(lambda p, t: jm.loss(p, t, "train"),
                                                 has_aux=True))(params, jnp.asarray(tokens))

@@ -13,7 +13,13 @@ and ``stream``, with ``validation="structural"``, preemption, deadlines
 and a queue bound, and one supervised storm (a crash tick and six
 truncated pages through a breaker that trips and closes) on the
 configuration whose ranks each validate their own part of a page, at a
-threshold where its heads' blocks die apart.
+threshold where its heads' blocks die apart. The runs of ``DATA_RUNS``
+go at (data 2, model 2) on both sides, in the same processes and the same
+world (the decode lanes split over ``data`` where 2 divides the batch
+bucket, whole on both data ranks elsewhere), and the port serves each
+again at (data 1, model 4). One run of ``SAMPLED_RUNS``, granite drawn at
+temperature 3.0, goes in the port's ranks alone at both layouts (the
+reference draws from JAX's generator, not the port's).
 
 Exact, on every rank and against the reference: every request's status,
 shed reason and tokens; every report field but the wall-clock ones (KV
@@ -21,7 +27,11 @@ bytes measured, predicted and dense, pages, zero fraction, evictions,
 shed, deadline misses, pages recovered, crash recoveries, breaker trips
 and probes, steps, the decode and prefill shape counts); the pool meter's
 records page by page; the decode and prefill shapes; the faults that
-fired.
+fired; for a (data 2, model 2) run the same again against the port's
+(data 1, model 4) run, and every prefill site's whole-map observables
+(rows, blocks, zero fraction, bytes) equal to that run's; for the sampled
+run, every rank's requests, report, meter records, shapes and faults at
+(data 2, model 2) equal to its (data 1, model 4) run's.
 
 Fault readings, each made on a scratch copy of the package and each
 failing this module: the pool's block geometry taken from a rank's own
@@ -32,7 +42,18 @@ live blocks; 8 fail); and a rank-local ingest verdict in the storm (a
 rank whose part of a truncated page holds no live block keeps it
 compressed while the others keep it dense: the breakers part ways and a
 rank's collective meets another's, so the world aborts and every test
-errors). The fixture takes ~50 s.
+errors). At (data 2, model 2): the next tokens not gathered over
+``data`` (``steps.decode_slotted`` returning this rank's lanes' alone: the
+engine reads a lane another rank decodes, a rank raises, the world aborts
+and every test errors); and a prefill run with the batch split over
+``data`` (``ServeEngine._admit_tree`` calling ``prefill`` without
+``whole_batch``: its sites count the one request once a data rank and the
+MoE routes it twice: the reports still equal the reference's, the
+sites' observables do not; 2 tests fail); and each data rank drawing
+its own lanes' tokens from its own logits (``decode_slotted`` at a
+temperature gathering the drawn tokens, not the logits: data rank 1
+draws from the generator's first rows; 1 test fails). The fixture takes
+~50 s.
 """
 import os
 import subprocess
@@ -76,28 +97,36 @@ def runs(tmp_path_factory):
     return ref, [torch.load(d / f"rank{i}.pt", weights_only=False) for i in RANKS]
 
 
-@pytest.mark.parametrize("run", list(C.RUNS))
+def _held(port, run: str) -> list:
+    """The port's results of ``run`` held against the reference's: every
+    rank's and, for a run of ``DATA_RUNS``, every rank's at (data 1, model
+    4) too."""
+    keys = [run] + ([C.AT_MODEL4.format(run)] if run in C.DATA_RUNS else [])
+    return [p[k] for p in port for k in keys]
+
+
+@pytest.mark.parametrize("run", list(C.ALL_RUNS))
 def test_requests_and_report_equal_the_reference_on_every_rank(runs, run):
     ref, port = runs
     r = ref[run]
     assert r["report"]["kv_pages"] > 0 and r["report"]["n_requests"] > 0
-    for p in port:
-        got = p[run]
+    for got in _held(port, run):
+        assert got["fired"] == r["fired"]
         assert got["requests"] == r["requests"]
         assert got["report"] == r["report"]
         assert got["decode_shapes"] == r["decode_shapes"]
         assert got["prefill_shapes"] == r["prefill_shapes"]
 
 
-@pytest.mark.parametrize("run", list(C.RUNS))
+@pytest.mark.parametrize("run", list(C.ALL_RUNS))
 def test_pool_meters_the_whole_pages_of_the_reference(runs, run):
     """The meter's records page by page (payload, index and dense bytes,
     live and total blocks), and some pages with dead blocks, some live."""
     ref, port = runs
     want = [tuple(x) for x in ref[run]["records"]]
     assert any(x[4] < x[5] for x in want) and any(x[4] > 0 for x in want)
-    for p in port:
-        assert [tuple(x) for x in p[run]["records"]] == want
+    for got in _held(port, run):
+        assert [tuple(x) for x in got["records"]] == want
 
 
 def test_runs_exercise_the_engine_paths(runs):
@@ -147,3 +176,56 @@ def test_ranks_page_their_heads_by_the_rule(runs, run):
             assert {s["rule"] for s in got["sites"] if s["site"] == "ffn_hidden"} == {"gather"}
         rows = {s["rows"] for s in got["sites"] if s["site"] == "kv_cache"}
         assert rows and rows <= {8, 16, 32}         # one request's prefill buckets
+
+
+@pytest.mark.parametrize("run", list(C.DATA_RUNS))
+def test_data_ranks_split_the_lanes(runs, run):
+    """At (data 2, model 2) each rank holds ``Bb / 2`` lanes of a hot set
+    of ``Bb`` where 2 divides it and all of them elsewhere, over buckets
+    of 1 and 2 lanes (and 4 on 4 slots); at (data 1, model 4) all of them.
+    Its pages take the K/V rule of 2 model ranks, and every prefill site's
+    whole-map observables equal the (data 1, model 4) run's, one
+    request's prefill bucket of rows each."""
+    ref, port = runs
+    tag, backend, kw = C.DATA_RUNS[run][:3]
+    assert sorted(p["data_index2"] for p in port) == [0, 0, 1, 1]
+    want = {1, 2} | ({4} if kw["n_slots"] == 4 else set())
+    keys = ("site", "rows", "n_total", "zero_frac", "measured_bytes")
+    for p in port:
+        got, one = p[run], p[C.AT_MODEL4.format(run)]
+        assert set(got["hot_lanes"]) >= want
+        assert got["hot_lanes"] == {b: b // 2 if b % 2 == 0 else b for b in got["hot_lanes"]}
+        assert one["hot_lanes"] == {b: b for b in got["hot_lanes"]}
+        assert {s["rule"] for s in got["sites"] if s["site"] == "kv_cache"} == \
+            {C.DATA_KV_RULE[tag]}
+        assert [{k: s[k] for k in keys} for s in got["sites"]] == \
+            [{k: s[k] for k in keys} for s in one["sites"]]
+        rows = {s["rows"] for s in got["sites"] if s["site"] == "kv_cache"}
+        assert rows and rows <= {8, 16, 32}
+    rep = ref[run]["report"]
+    assert rep["evictions"] > 0
+    if C.DATA_RUNS[run][-1]:
+        assert (rep["crash_recoveries"], rep["pages_recovered"]) == (1, C.TRUNCATED)
+
+
+@pytest.mark.parametrize("run", list(C.SAMPLED_RUNS))
+def test_sampled_tokens_equal_the_one_data_rank_run(runs, run):
+    """A run drawn at a temperature at (data 2, model 2), its draws made
+    from the logits of every lane gathered over ``data``, equals on every
+    rank the port's (data 1, model 4) run at the same seed: statuses,
+    shed reasons, tokens, report, meter records and shapes. Its lanes split
+    where 2 divides the bucket, and its tokens are not the greedy run's."""
+    ref, port = runs
+    greedy = ref[run.removesuffix("_sampled")]["requests"]
+    one = port[0][C.AT_MODEL4.format(run)]
+    assert one["report"]["kv_pages"] > 0 and one["report"]["n_requests"] > 0
+    assert {rid: t for rid, (_, _, t) in one["requests"].items()} != \
+        {rid: t for rid, (_, _, t) in greedy.items()}
+    for p in port:
+        for got in (p[run], p[C.AT_MODEL4.format(run)]):
+            for k in ("requests", "report", "fired", "records", "decode_shapes",
+                      "prefill_shapes"):
+                assert got[k] == one[k], k
+        assert 2 in p[run]["hot_lanes"]
+        assert p[run]["hot_lanes"] == {b: b // 2 if b % 2 == 0 else b
+                                       for b in p[run]["hot_lanes"]}

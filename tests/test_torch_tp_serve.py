@@ -282,17 +282,27 @@ def test_cli_params_load_over_the_draws_on_every_rank(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--requests", "2"], "continuous serving")])
+    (["--requests", "2", "--slots", "2", "--prompt-len", "32", "--gen", "4"],
+     "continuous serving")])
 def test_unported_configurations_raise_before_launch(argv, match, tmp_path):
-    """What tensor-parallel serving does not cover raises on every rank,
-    naming its ROADMAP item, before the model is built: continuous serving
-    in a joined world of 4 ranks at ``--model-parallel 2`` (data 2)."""
+    """What tensor-parallel serving refused before the model was built
+    now serves: continuous serving in a joined world of 4 ranks at
+    ``--model-parallel 2`` (data 2) raises nothing on any rank, and every
+    rank, one a (data, model) coordinate, serves the same requests and
+    meters the same pages, its hot set of 2 lanes split one a data rank."""
     from repro_torch.launch.mesh import spawn
     spawn(C.unported_rank, 4, (["--reduced", "--device", "cpu", "--model-parallel", "2",
-                                *argv], str(tmp_path)), device="cpu")
+                                *argv, "--save", str(tmp_path)], str(tmp_path)), device="cpu")
+    reps = []
     for r in range(4):
-        text = (tmp_path / f"raised{r}.txt").read_text()
-        assert match in text and "ROADMAP.md, queue 1" in text
+        assert (tmp_path / f"raised{r}.txt").read_text() == "", match
+        reps.append(torch.load(tmp_path / f"rank{r}.pt", weights_only=False))
+    assert sorted((p["data_index"], p["model_index"]) for p in reps) == \
+        [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert reps[0]["report"]["n_requests"] == 2 and reps[0]["records"]
+    for p in reps:
+        assert p["requests"] == reps[0]["requests"] and p["records"] == reps[0]["records"]
+        assert p["hot_lanes"][2] == 1
 
 
 @pytest.mark.parametrize("arch,backend,n,t_obj", [
